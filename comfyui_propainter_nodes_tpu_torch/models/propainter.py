@@ -1,0 +1,300 @@
+"""ProPainter InpaintGenerator (inference).
+
+Port of the JAX package's `models/propainter.py` (main path): the
+encoder with grouped fusion, image propagation (warp-fill, no weights)
+and feature propagation (first-order deformable alignment on the
+deform-conv kernel) as Python loops over frames, soft split/comp around
+the 8-block sparse transformer (ops/attention.py), and the full-frame
+decoder over local frames.
+
+Window batching pads each window's local and reference frame blocks;
+`l_t_valid` / `ref_valid` give the real counts (None, an int, or a [B]
+tensor per window). Callers zero the masks of padded slots; real-frame
+outputs are exact.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from ..ops.attention import soft_comp, soft_split, transformer_stack
+from ..ops.conv import leaky_relu, pconv2d
+from ..ops.cuda.deform_conv import deform_conv2d
+from ..ops.dilation import binarize
+from ..ops.pool import max_pool2d
+from ..ops.resize import resize_bilinear, resize_nearest
+from ..ops.warp import flow_warp
+
+Params = Mapping[str, torch.Tensor]
+
+CHANNEL = 128
+HIDDEN = 512
+DEFORM_GROUPS = 16
+
+_ENC_GROUPS = {10: 2, 12: 4, 14: 8, 16: 1}
+
+
+def encoder(p: Params, x):
+    """Encoder: x [N, H, W, 5] -> [N, H/4, W/4, 128] with grouped fusion
+    of the layer-7 activation."""
+    out = x
+    x0 = None
+    for i in range(0, 18, 2):
+        if i == 8:
+            x0 = out
+        if i > 8:
+            g = _ENC_GROUPS[i]
+            n, h, w, _ = out.shape
+            xg = x0.reshape(n, h, w, g, -1)
+            og = out.reshape(n, h, w, g, -1)
+            out = torch.cat([xg, og], dim=-1).reshape(n, h, w, -1)
+        stride = (2, 2) if i in (0, 4) else (1, 1)
+        out = pconv2d(
+            p, f"encoder.layers.{i}", out, stride=stride, padding=(1, 1),
+            groups=_ENC_GROUPS.get(i, 1),
+        )
+        out = leaky_relu(out, 0.2)
+    return out
+
+
+def decoder(p: Params, x):
+    """Two 2x (bilinear, align_corners=True) deconvs back to full res, 3ch."""
+
+    def deconv(pre, v):
+        n, h, w, _ = v.shape
+        v = resize_bilinear(v, 2 * h, 2 * w, align_corners=True)
+        return pconv2d(p, pre + ".conv", v, padding=(1, 1))
+
+    x = leaky_relu(deconv("decoder.0", x), 0.2)
+    x = leaky_relu(pconv2d(p, "decoder.2", x, padding=(1, 1)), 0.2)
+    x = leaky_relu(deconv("decoder.4", x), 0.2)
+    return pconv2d(p, "decoder.6", x, padding=(1, 1))
+
+
+def _deformable_alignment(p: Params, pre: str, x, cond, flow):
+    """First-order alignment: offsets are 3*tanh residuals on the flow.
+    x [N,H,W,C]; cond [N,H,W,2C+5]; flow [N,H,W,2] (dx, dy)."""
+    n, h, w, _ = x.shape
+    o = leaky_relu(pconv2d(p, pre + ".conv_offset.0", cond, padding=(1, 1)), 0.1)
+    o = leaky_relu(pconv2d(p, pre + ".conv_offset.2", o, padding=(1, 1)), 0.1)
+    o = leaky_relu(pconv2d(p, pre + ".conv_offset.4", o, padding=(1, 1)), 0.1)
+    o = pconv2d(p, pre + ".conv_offset.6", o, padding=(1, 1))
+    g9 = DEFORM_GROUPS * 9
+    o1, o2, mask = o[..., :g9], o[..., g9 : 2 * g9], o[..., 2 * g9 :]
+    offset = 3.0 * torch.tanh(torch.cat([o1, o2], dim=-1)).reshape(n, h, w, DEFORM_GROUPS, 9, 2)
+    # the reference adds flow.flip(1) to every pair: (dy, dx) += (fy, fx)
+    flow_yx = torch.stack([flow[..., 1], flow[..., 0]], dim=-1)
+    offset = offset + flow_yx[:, :, :, None, None, :]
+    mask = torch.sigmoid(mask).reshape(n, h, w, DEFORM_GROUPS, 9)
+    return deform_conv2d(
+        x.contiguous(), offset.contiguous(), mask.contiguous(),
+        p[pre + ".weight"], p[pre + ".bias"],
+    )
+
+
+def _first_flags(t: int, first_index, device):
+    """[T, 1] or [T, B] bool: True at the step where propagation (re)starts."""
+    ar = torch.arange(t, device=device)
+    if isinstance(first_index, torch.Tensor):
+        return ar[:, None] == first_index.to(device)[None, :]
+    return (ar == first_index)[:, None]
+
+
+def _bflag(flag, like):
+    """[B] or [1] flag -> broadcastable against [B, H, W, C]."""
+    return flag.reshape(-1, 1, 1, 1).expand(like.shape[0], 1, 1, 1)
+
+
+def _align_flows(flows):
+    """[T-1, ...] -> [T, ...]: step i consumes flows[i-1]; slot 0 is a dummy."""
+    return torch.cat([torch.zeros_like(flows[:1]), flows], dim=0)
+
+
+def _prop_direction_image(x_seq, mask_seq, flows_prop, flows_check, interpolation):
+    """Non-learnable direction: warp-fill. x_seq/mask_seq [T, N, H, W, C];
+    flows_* [T-1, N, H, W, 2]. Returns (feats, masks) [T, ...]."""
+    feat_prop, mask_prop = x_seq[0], mask_seq[0]  # the first frame is kept
+    feats, masks = [feat_prop], [mask_prop]
+    for i in range(1, x_seq.shape[0]):
+        feat_current, mask_current = x_seq[i], mask_seq[i]
+        flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
+        if interpolation == "bilinear":
+            warped = flow_warp(torch.cat([flow_check, mask_prop, feat_prop], dim=-1), flow_prop)
+            warped3, feat_warped = warped[..., :3], warped[..., 3:]
+        else:
+            warped3 = flow_warp(torch.cat([flow_check, mask_prop], dim=-1), flow_prop)
+            feat_warped = flow_warp(feat_prop, flow_prop, interpolation)
+        flow_bw_warped = warped3[..., :2]
+        mask_prop_valid = binarize(warped3[..., 2:])
+        diff = flow_prop + flow_bw_warped
+        mag = torch.sum(flow_prop**2, -1, keepdim=True) + torch.sum(flow_bw_warped**2, -1, keepdim=True)
+        valid = (torch.sum(diff**2, -1, keepdim=True) < 0.01 * mag + 0.5).to(flow_prop.dtype)
+        union = binarize(mask_current * valid * (1 - mask_prop_valid))
+        feat_prop = union * feat_warped + (1 - union) * feat_current
+        mask_prop = binarize(mask_current * (1 - valid * (1 - mask_prop_valid)))
+        feats.append(feat_prop)
+        masks.append(mask_prop)
+    return torch.stack(feats), torch.stack(masks)
+
+
+def _prop_direction_feature(p, module, x_seq, mask_seq, flows_prop, flows_check, first_index=0):
+    """Learnable direction: deform-aligned. mask_seq is the 2-channel
+    prop mask (mask_in ++ mask_updated)."""
+    da = f"feat_prop_module.deform_align.{module}"
+    bb = f"feat_prop_module.backbone.{module}"
+    t = x_seq.shape[0]
+    fp_all = _align_flows(flows_prop)
+    fc_all = _align_flows(flows_check)
+    firsts = _first_flags(t, first_index, x_seq.device)
+    feat_prop = torch.zeros_like(x_seq[0])
+    outs = []
+    for i in range(t):
+        feat_current, mask_current = x_seq[i], mask_seq[i]
+        flow_prop, flow_check = fp_all[i], fc_all[i]
+        warped = flow_warp(torch.cat([flow_check, feat_prop], dim=-1), flow_prop)
+        flow_bw_warped, feat_warped = warped[..., :2], warped[..., 2:]
+        diff = flow_prop + flow_bw_warped
+        mag = torch.sum(flow_prop**2, -1, keepdim=True) + torch.sum(flow_bw_warped**2, -1, keepdim=True)
+        valid = (torch.sum(diff**2, -1, keepdim=True) < 0.01 * mag + 0.5).to(feat_prop.dtype)
+        cond = torch.cat([feat_current, feat_warped, flow_prop, valid, mask_current], dim=-1)
+        aligned = _deformable_alignment(p, da, feat_prop, cond, flow_prop)
+        feat_prop = torch.where(_bflag(firsts[i], feat_current), feat_current, aligned)
+        y = leaky_relu(
+            pconv2d(p, bb + ".0", torch.cat([feat_current, feat_prop, mask_current], dim=-1), padding=(1, 1)),
+            0.2,
+        )
+        feat_prop = feat_prop + pconv2d(p, bb + ".2", y, padding=(1, 1))
+        outs.append(feat_prop)
+    return torch.stack(outs)
+
+
+def bidirectional_propagation_image(x, flows_f, flows_b, mask, interpolation="nearest"):
+    """x [B,T,H,W,3]; flows [B,T-1,H,W,2]; mask [B,T,H,W,1] ->
+    (prop_frames, updated_masks) [B,T,H,W,*]."""
+    xs, ms = x.movedim(1, 0), mask.movedim(1, 0)
+    ff, fb = flows_f.movedim(1, 0), flows_b.movedim(1, 0)
+    feats_b, masks_b = _prop_direction_image(
+        xs.flip(0), ms.flip(0), ff.flip(0), fb.flip(0), interpolation
+    )
+    feats_b, masks_b = feats_b.flip(0), masks_b.flip(0)
+    feats_f, masks_f = _prop_direction_image(feats_b, masks_b, fb, ff, interpolation)
+    return feats_f.movedim(0, 1), masks_f.movedim(0, 1)
+
+
+def bidirectional_propagation_feature(p: Params, x, flows_f, flows_b, mask, t_valid=None):
+    """x [B,T,H,W,128]; mask [B,T,H,W,2] -> [B,T,H,W,128]."""
+    b, t, h, w, c = x.shape
+    xs, ms = x.movedim(1, 0), mask.movedim(1, 0)
+    ff, fb = flows_f.movedim(1, 0), flows_b.movedim(1, 0)
+    # padded frames sit at the end, so the backward pass restarts at the
+    # first real frame
+    bwd_first = 0 if t_valid is None else t - t_valid
+    feats_b = _prop_direction_feature(
+        p, "backward_1", xs.flip(0), ms.flip(0), ff.flip(0), fb.flip(0), bwd_first
+    ).flip(0)
+    feats_f = _prop_direction_feature(p, "forward_1", feats_b, ms, fb, ff)
+    fused_in = torch.cat([feats_b, feats_f, ms], dim=-1).reshape(t * b, h, w, 2 * c + 2)
+    y = leaky_relu(pconv2d(p, "feat_prop_module.fuse.0", fused_in, padding=(1, 1)), 0.2)
+    y = pconv2d(p, "feat_prop_module.fuse.2", y, padding=(1, 1)).reshape(t, b, h, w, c)
+    return (y + xs).movedim(0, 1)
+
+
+def img_propagation(masked_frames, flows_f, flows_b, masks, interpolation="nearest"):
+    """InpaintGenerator.img_propagation."""
+    return bidirectional_propagation_image(masked_frames, flows_f, flows_b, masks, interpolation)
+
+
+def encode_features(p: Params, masked_frames, masks_in, masks_updated):
+    """Per-frame encoder features: [N,H,W,3] + 2 masks -> [N,H/4,W/4,128]."""
+    return encoder(p, torch.cat([masked_frames, masks_in, masks_updated], dim=-1))
+
+
+def downsample_flow(flows, h: int, w: int):
+    """[N, T, H, W, 2] -> 1/4-res (bilinear, align_corners=False) / 4."""
+    n_, t_, hh, ww, _ = flows.shape
+    f2 = resize_bilinear(flows.reshape(n_ * t_, hh, ww, 2), h, w, align_corners=False)
+    return f2.reshape(n_, t_, h, w, 2) / 4.0
+
+
+def downsample_mask(m, h: int, w: int):
+    """[N, T, H, W, 1] -> 1/4-res nearest."""
+    n_, t_, hh, ww, _ = m.shape
+    return resize_nearest(m.reshape(n_ * t_, hh, ww, 1), h, w).reshape(n_, t_, h, w, 1)
+
+
+def attention_pool_mask(ds_mask_in_local):
+    """[B, l_t, h, w, 1] -> [B, l_t, mh, mw, 1] (7x7/3 max pool, pad 3)."""
+    b, l_t, h, w, _ = ds_mask_in_local.shape
+    mp = max_pool2d(ds_mask_in_local.reshape(b * l_t, h, w, 1), (7, 7), (3, 3), (3, 3))
+    return mp.reshape(b, l_t, mp.shape[1], mp.shape[2], 1)
+
+
+def _t_valid_mask(b, t, l_t, l_t_valid, ref_valid, device):
+    """[B, T] bool validity of (local ++ reference) frame slots, or None."""
+    if l_t_valid is None and ref_valid is None:
+        return None
+    ltv = torch.as_tensor(l_t if l_t_valid is None else l_t_valid, device=device).reshape(-1)
+    rfv = torch.as_tensor((t - l_t) if ref_valid is None else ref_valid, device=device).reshape(-1)
+    ltv = ltv.expand(b)
+    rfv = rfv.expand(b)
+    ar_l = torch.arange(l_t, device=device)
+    ar_r = torch.arange(t - l_t, device=device)
+    return torch.cat([ar_l[None] < ltv[:, None], ar_r[None] < rfv[:, None]], dim=1)
+
+
+def inpaint_generator_from_features(
+    p: Params, enc_feat, ds_flows_f, ds_flows_b, ds_mask_in_local,
+    ds_mask_updated_local, mask_pool_l, num_local_frames: int, ori_hw,
+    l_t_valid=None, ref_valid=None,
+):
+    """InpaintGenerator.forward after the encoder: feature propagation over
+    local frames, soft split, transformer, soft comp, decoder.
+    enc_feat [B, T, h, w, 128] -> local frames [B, l_t, H, W, 3] in [-1, 1]."""
+    l_t = num_local_frames
+    b, t, h, w, _ = enc_feat.shape
+    ori_h, ori_w = ori_hw
+    local_feat, ref_feat = enc_feat[:, :l_t], enc_feat[:, l_t:]
+    prop_mask_in = torch.cat([ds_mask_in_local, ds_mask_updated_local], dim=-1)
+    local_feat = bidirectional_propagation_feature(
+        p, local_feat, ds_flows_f, ds_flows_b, prop_mask_in, t_valid=l_t_valid
+    )
+    enc_feat = torch.cat([local_feat, ref_feat], dim=1)
+    t_valid_mask = _t_valid_mask(b, t, l_t, l_t_valid, ref_valid, enc_feat.device)
+
+    trans_feat = soft_split(p, "ss", enc_feat.reshape(b * t, h, w, CHANNEL))
+    fh, fw = trans_feat.shape[1], trans_feat.shape[2]
+    trans_feat = transformer_stack(
+        p, "transformers", trans_feat.reshape(b, t, fh, fw, HIDDEN), (h, w),
+        mask_pool_l, t_valid_mask=t_valid_mask,
+    )
+    trans_feat = soft_comp(p, "sc", trans_feat.reshape(b * t, fh, fw, HIDDEN), (h, w))
+    enc_feat = enc_feat + trans_feat.reshape(b, t, h, w, CHANNEL)
+    out = decoder(p, enc_feat[:, :l_t].reshape(b * l_t, h, w, CHANNEL))
+    return torch.tanh(out).reshape(b, l_t, ori_h, ori_w, 3)
+
+
+def inpaint_generator_forward(
+    p: Params, masked_frames, flows_f, flows_b, masks_in, masks_updated,
+    num_local_frames: int, l_t_valid=None, ref_valid=None,
+):
+    """InpaintGenerator.forward (inference). masked_frames [B,T,H,W,3] in
+    [-1, 1]; flows [B,l_t-1,H,W,2]; masks [B,T,H,W,1] -> [B,l_t,H,W,3]."""
+    l_t = num_local_frames
+    b, t, ori_h, ori_w, _ = masked_frames.shape
+    h, w = ori_h // 4, ori_w // 4
+    enc_feat = encode_features(
+        p,
+        masked_frames.reshape(b * t, ori_h, ori_w, 3),
+        masks_in.reshape(b * t, ori_h, ori_w, 1),
+        masks_updated.reshape(b * t, ori_h, ori_w, 1),
+    ).reshape(b, t, h, w, CHANNEL)
+    ds_mask_in_local = downsample_mask(masks_in[:, :l_t], h, w)
+    return inpaint_generator_from_features(
+        p, enc_feat,
+        downsample_flow(flows_f, h, w), downsample_flow(flows_b, h, w),
+        ds_mask_in_local, downsample_mask(masks_updated[:, :l_t], h, w),
+        attention_pool_mask(ds_mask_in_local), l_t, (ori_h, ori_w),
+        l_t_valid=l_t_valid, ref_valid=ref_valid,
+    )

@@ -1,0 +1,205 @@
+"""RAFT optical flow (large configuration, test mode), bidirectional.
+
+Port of the JAX package's `models/raft.py`: NHWC activations, upstream
+weights, the 20-step recurrent update as a Python loop over the
+(net, coords) state. The all-pairs correlation of each adjacent pair is
+computed once (the backward volume is its transpose) as one fp32
+`torch.matmul`, pooled into the pixel-major 4-level pyramid, and looked
+up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py).
+Compute dtype follows the params (bf16 under fp16="enable"); coords,
+convex upsampling and the returned flows stay fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import torch
+
+from ..ops.conv import batch_norm_eval, instance_norm, pconv2d
+from ..ops.cuda.corr_lookup import corr_lookup
+from ..ops.patches import unfold
+from ..ops.warp import coords_grid
+
+Params = Mapping[str, torch.Tensor]
+
+CORR_LEVELS = 4
+HDIM = 128  # hidden-state channels of the context features
+
+
+# ---------------------------------------------------------------- encoders
+
+
+def _residual_block(p: Params, pre: str, x, stride: int, norm: str):
+    """extractor.py:5-57 ResidualBlock (instance or batch norm)."""
+
+    def apply_norm(name, v):
+        if norm == "instance":
+            return instance_norm(v)
+        if norm == "batch":
+            return batch_norm_eval(p, name, v)
+        return v
+
+    y = pconv2d(p, pre + ".conv1", x, stride=(stride, stride), padding=(1, 1))
+    y = torch.relu(apply_norm(pre + ".norm1", y))
+    y = pconv2d(p, pre + ".conv2", y, padding=(1, 1))
+    y = torch.relu(apply_norm(pre + ".norm2", y))
+    if stride != 1:
+        x = pconv2d(p, pre + ".downsample.0", x, stride=(stride, stride))
+        x = apply_norm(pre + ".norm3", x)
+    return torch.relu(x + y)
+
+
+def basic_encoder(p: Params, pre: str, x, norm: str):
+    """extractor.py:121-193 BasicEncoder: 1/8-res features."""
+    x = pconv2d(p, pre + ".conv1", x, stride=(2, 2), padding=(3, 3))
+    if norm == "instance":
+        x = instance_norm(x)
+    elif norm == "batch":
+        x = batch_norm_eval(p, pre + ".norm1", x)
+    x = torch.relu(x)
+    for layer, stride in (("layer1", 1), ("layer2", 2), ("layer3", 2)):
+        x = _residual_block(p, f"{pre}.{layer}.0", x, stride, norm)
+        x = _residual_block(p, f"{pre}.{layer}.1", x, 1, norm)
+    return pconv2d(p, pre + ".conv2", x)
+
+
+# ---------------------------------------------------------- corr pyramid
+
+
+def _all_pairs_corr(fmap1, fmap2):
+    """[N, H, W, C] x2 -> [N, H*W, H*W] correlation / sqrt(C), computed in
+    fp32 and stored in the compute dtype."""
+    n, h, w, c = fmap1.shape
+    f1 = fmap1.reshape(n, h * w, c).float()
+    f2 = fmap2.reshape(n, h * w, c).float()
+    corr = torch.matmul(f1, f2.transpose(1, 2)) / math.sqrt(c)
+    return corr.to(fmap1.dtype)
+
+
+def pool_pyramid(level0):
+    """[M, H, W] maps -> 4 levels of 2x2 average pools (odd tails dropped;
+    a level may be empty at tiny sizes, and then reads as zeros)."""
+    pyramid = [level0]
+    m = level0
+    for _ in range(CORR_LEVELS - 1):
+        h2, w2 = m.shape[1] // 2, m.shape[2] // 2
+        msum = m[:, 0 : 2 * h2 : 2] + m[:, 1 : 2 * h2 : 2]
+        m = msum[:, :, 0 : 2 * w2 : 2] * 0.25 + msum[:, :, 1 : 2 * w2 : 2] * 0.25
+        pyramid.append(m.contiguous())
+    return pyramid
+
+
+def build_corr_pyramids(fmap1, fmap2):
+    """(forward, backward) pixel-major pyramids from ONE all-pairs product:
+    forward maps are corr[n, p, :] over image-2 coords, backward maps are
+    its transpose over image-1 coords."""
+    n, h, w, _ = fmap1.shape
+    corr = _all_pairs_corr(fmap1, fmap2)
+    fwd = pool_pyramid(corr.reshape(n * h * w, h, w))
+    bwd = pool_pyramid(corr.transpose(1, 2).reshape(n * h * w, h, w))
+    return fwd, bwd
+
+
+# ------------------------------------------------------------ update block
+
+
+def _motion_encoder(p: Params, flow, corr):
+    """update.py:94-112 BasicMotionEncoder."""
+    pre = "update_block.encoder"
+    cor = torch.relu(pconv2d(p, pre + ".convc1", corr))
+    cor = torch.relu(pconv2d(p, pre + ".convc2", cor, padding=(1, 1)))
+    flo = torch.relu(pconv2d(p, pre + ".convf1", flow, padding=(3, 3)))
+    flo = torch.relu(pconv2d(p, pre + ".convf2", flo, padding=(1, 1)))
+    out = torch.relu(pconv2d(p, pre + ".conv", torch.cat([cor, flo], -1), padding=(1, 1)))
+    return torch.cat([out, flow], dim=-1)
+
+
+def _sep_conv_gru(p: Params, h, x):
+    """update.py:35-73 SepConvGRU: 1x5 then 5x1 gated updates."""
+    pre = "update_block.gru"
+    for tag, pad in (("1", (0, 2)), ("2", (2, 0))):
+        hx = torch.cat([h, x], dim=-1)
+        z = torch.sigmoid(pconv2d(p, f"{pre}.convz{tag}", hx, padding=pad))
+        r = torch.sigmoid(pconv2d(p, f"{pre}.convr{tag}", hx, padding=pad))
+        q = torch.tanh(pconv2d(p, f"{pre}.convq{tag}", torch.cat([r * h, x], -1), padding=pad))
+        h = (1 - z) * h + z * q
+    return h
+
+
+def _update_block(p: Params, net, inp, corr, flow):
+    """update.py:131-154 BasicUpdateBlock, without the mask head."""
+    motion = _motion_encoder(p, flow, corr)
+    net = _sep_conv_gru(p, net, torch.cat([inp, motion], dim=-1))
+    fh = torch.relu(pconv2d(p, "update_block.flow_head.conv1", net, padding=(1, 1)))
+    delta_flow = pconv2d(p, "update_block.flow_head.conv2", fh, padding=(1, 1))
+    return net, delta_flow
+
+
+def _upsample_mask(p: Params, net):
+    """update.py:139-153 mask head, evaluated once on the final `net`
+    (inference only consumes the last iteration's mask)."""
+    m = torch.relu(pconv2d(p, "update_block.mask.0", net, padding=(1, 1)))
+    return 0.25 * pconv2d(p, "update_block.mask.2", m)
+
+
+def convex_upsample(flow, mask):
+    """raft.py:81-92. flow [N, H, W, 2]; mask [N, H, W, 576] with channel
+    k*64 + di*8 + dj."""
+    n, h, w, _ = flow.shape
+    m = torch.softmax(mask.reshape(n, h, w, 9, 8, 8), dim=3)
+    patches = unfold(8.0 * flow, (3, 3), (1, 1), (1, 1)).reshape(n, h, w, 9, 2)
+    up = torch.einsum("nhwkab,nhwkc->nhwabc", m, patches)  # [N, H, W, 8, 8, 2]
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(n, 8 * h, 8 * w, 2)
+
+
+# ------------------------------------------------------------------ forward
+
+
+def raft_bi_forward(params: Params, frames, iters: int = 20):
+    """Bidirectional flow over a clip (flow_comp_raft.py:39-58).
+
+    frames: [B, T, H, W, 3] in [-1, 1]. Returns (flows_fwd, flows_bwd),
+    each [B, T-1, H, W, 2] fp32. fnet/cnet run once per frame; both
+    directions share one batched update loop."""
+    b, t, h, w, c = frames.shape
+    n = b * (t - 1)
+    cdt = params["fnet.conv1.weight"].dtype
+    flat = frames.reshape(b * t, h, w, c).to(cdt)
+
+    fmaps = basic_encoder(params, "fnet", flat, norm="instance")
+    cnet_all = basic_encoder(params, "cnet", flat, norm="batch")
+    h8, w8 = h // 8, w // 8
+
+    fm = fmaps.reshape(b, t, h8, w8, -1)
+    f1 = fm[:, :-1].reshape(n, h8, w8, -1)
+    f2 = fm[:, 1:].reshape(n, h8, w8, -1)
+    pyr_f, pyr_b = build_corr_pyramids(f1, f2)
+    del fmaps, fm, f1, f2
+
+    # context order matches the lookup batch: [fwd image1 ++ bwd image1]
+    cn = cnet_all.reshape(b, t, h8, w8, -1)
+    cnet = torch.cat([cn[:, :-1], cn[:, 1:]], dim=0).reshape(2 * n, h8, w8, -1)
+    net = torch.tanh(cnet[..., :HDIM])
+    inp = torch.relu(cnet[..., HDIM:])
+
+    coords0 = coords_grid(2 * n, h8, w8, device=frames.device)
+    coords1 = coords0.clone()
+    for _ in range(iters):
+        corr = torch.cat(
+            [
+                corr_lookup(pyr_f, coords1[:n].contiguous()),
+                corr_lookup(pyr_b, coords1[n:].contiguous()),
+            ],
+            dim=0,
+        )
+        flow = coords1 - coords0
+        net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
+        coords1 = coords1 + delta.float()
+
+    flows = convex_upsample(coords1 - coords0, _upsample_mask(params, net).float())
+    return (
+        flows[:n].reshape(b, t - 1, h, w, 2),
+        flows[n:].reshape(b, t - 1, h, w, 2),
+    )

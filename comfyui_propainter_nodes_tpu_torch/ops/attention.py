@@ -1,0 +1,312 @@
+"""Temporal sparse window attention, token (de)composition, transformer.
+
+Port of the JAX package's `ops/attention.py` (segmented path). Window
+geometry: (5, 9) windows over the token grid, 4 rolled K/V copies kept
+at their 148 out-of-window survivors, and a 4x4 depthwise-pooled global
+token grid. Occupied windows attend over [window | rolled | pooled]
+keys, clean windows within each frame: both through the window-attention
+kernel (ops/cuda/window_attention.py), which reads the three key segments
+as they are (pooled keys unbroadcast, per batch row).
+
+SoftSplit is one strided conv; SoftComp and FusionFeedForward run in
+stride-phase space (fold/unfold composed with the linear layers become
+3x3 convs over the token grid), exactly as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .conv import conv2d, layer_norm, linear
+from .cuda.window_attention import window_attention
+from .pool import max_pool2d
+
+Params = Mapping[str, torch.Tensor]
+
+_T2T = {"kernel": (7, 7), "stride": (3, 3), "padding": (3, 3)}
+NEG = -1e9
+
+
+# ------------------------------------------------------- token (de)compose
+
+
+def _phase_kernel(wmat: torch.Tensor, bias: torch.Tensor, c_out: int, flip: bool) -> torch.Tensor:
+    """[in, c_out*49] linear weight -> OIHW [9*c_out, in+1, dh, dw] conv
+    kernel over the token grid; the +1 input channel carries the bias."""
+    (kh, kw), (sh, sw) = _T2T["kernel"], _T2T["stride"]
+    dh, dw = -(-kh // sh), -(-kw // sw)
+    cin = wmat.shape[0]
+    k = wmat.reshape(cin, c_out, kh, kw)
+    k = torch.cat([k, bias.reshape(1, c_out, kh, kw)], dim=0)
+    k = F.pad(k, (0, sw * dw - kw, 0, sh * dh - kh))
+    k = k.reshape(cin + 1, c_out, dh, sh, dw, sw).permute(2, 4, 0, 3, 5, 1)  # [d1,d2,in+1,a,b,c]
+    if flip:  # fold direction: phase[q] += token[q - d]
+        k = k.flip(0, 1)
+    k = k.reshape(dh, dw, cin + 1, sh * sw * c_out)
+    return k.permute(3, 2, 0, 1)
+
+
+def _phase_fold_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Token grid [N, fh, fw, in] -> phase canvases [N, qh, qw, 9*c_out]."""
+    dh, dw = kernel.shape[2], kernel.shape[3]
+    ones = x.new_ones(x.shape[:-1] + (1,))
+    return conv2d(torch.cat([x, ones], dim=-1), kernel, padding=(dh - 1, dw - 1))
+
+
+def _interleave_phases(ph_canvas: torch.Tensor, c_out: int, output_size) -> torch.Tensor:
+    """[N, qh, qw, 9*c_out] -> cropped pixel canvas [N, H, W, c_out]."""
+    (sh, sw), (ph, pw) = _T2T["stride"], _T2T["padding"]
+    h, w = output_size
+    n, qh, qw, _ = ph_canvas.shape
+    out = ph_canvas.reshape(n, qh, qw, sh, sw, c_out).permute(0, 1, 3, 2, 4, 5)
+    out = out.reshape(n, qh * sh, qw * sw, c_out)
+    pad_h = max(0, ph + h - qh * sh)
+    pad_w = max(0, pw + w - qw * sw)
+    if pad_h or pad_w:
+        out = F.pad(out, (0, 0, 0, pad_w, 0, pad_h))
+    return out[:, ph : ph + h, pw : pw + w, :]
+
+
+@functools.lru_cache(maxsize=32)
+def _phase_mult(fh: int, fw: int, h: int, w: int) -> np.ndarray:
+    """Per-phase multiplier [qh, qw, 9]: 1/overlap-count inside the
+    cropped canvas, 0 outside."""
+    (kh, kw), (sh, sw), (ph, pw) = _T2T["kernel"], _T2T["stride"], _T2T["padding"]
+
+    def axis(f, size, k, s, pad):
+        d_n = -(-k // s)
+        q = f - 1 + d_n
+        count = np.zeros((q, s))
+        for a in range(s):
+            for d in range(d_n):
+                if a + s * d >= k:
+                    continue
+                qs = np.arange(q)
+                count[(qs - d >= 0) & (qs - d < f), a] += 1
+        pix = np.arange(q)[:, None] * s + np.arange(s)[None]
+        mask = (pix >= pad) & (pix < pad + size)
+        return mask / np.maximum(count, 1)
+
+    my = axis(fh, h, kh, sh, ph)
+    mx = axis(fw, w, kw, sw, pw)
+    m = my[:, None, :, None] * mx[None, :, None, :]
+    return m.reshape(m.shape[0], m.shape[1], sh * sw).astype(np.float32)
+
+
+def soft_split(p: Params, pre: str, x: torch.Tensor) -> torch.Tensor:
+    """SoftSplit: [N, H, W, C] -> [N, f_h, f_w, hidden] (linear∘unfold as one
+    7x7 stride-3 conv; torch's (C, kh, kw)-major unfold order is OIHW)."""
+    w = p[pre + ".embedding.weight"]  # (hidden, C*49)
+    c = w.shape[1] // 49
+    kernel = w.reshape(w.shape[0], c, 7, 7)
+    return conv2d(x, kernel, p[pre + ".embedding.bias"], stride=_T2T["stride"], padding=_T2T["padding"])
+
+
+def soft_comp(p: Params, pre: str, tokens: torch.Tensor, output_size) -> torch.Tensor:
+    """SoftComp: [N, f_h, f_w, hidden] -> [N, H, W, C] (+ 3x3 bias conv)."""
+    w = p[pre + ".embedding.weight"]  # (C*49, hidden)
+    b = p[pre + ".embedding.bias"]
+    c = b.shape[0] // 49
+    kernel = _phase_kernel(w.t(), b, c, flip=True)
+    out = _interleave_phases(_phase_fold_conv(tokens, kernel), c, output_size)
+    return conv2d(out, p[pre + ".bias_conv.weight"], p[pre + ".bias_conv.bias"], padding=(1, 1))
+
+
+def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size) -> torch.Tensor:
+    """FusionFeedForward in phase space: fold∘fc1 as a 3x3 token-grid conv,
+    the fold normalisation as a static per-phase multiplier, exact GELU,
+    fc2∘unfold as a 3x3 VALID conv. x: [N, f_h, f_w, dim]."""
+    n, fh, fw, _ = x.shape
+    b1 = p[pre + ".fc1.0.bias"]
+    c_mid = b1.shape[0] // 49
+    k1 = _phase_kernel(p[pre + ".fc1.0.weight"].t(), b1, c_mid, flip=True)
+    y = _phase_fold_conv(x, k1)
+    mult = torch.from_numpy(_phase_mult(fh, fw, *output_size)).to(y.device, y.dtype)
+    qh, qw = y.shape[1], y.shape[2]
+    y = y.reshape(n, qh, qw, 9, c_mid) * mult[..., None]
+    y = F.gelu(y.reshape(n, qh, qw, 9 * c_mid))
+
+    (kh, kw), (sh, sw) = _T2T["kernel"], _T2T["stride"]
+    dh, dw = -(-kh // sh), -(-kw // sw)
+    w2 = p[pre + ".fc2.1.weight"]  # (dim, c_mid*49)
+    dim = w2.shape[0]
+    k2 = w2.t().reshape(c_mid, kh, kw, dim)
+    k2 = F.pad(k2, (0, 0, 0, sw * dw - kw, 0, sh * dh - kh))
+    k2 = k2.reshape(c_mid, dh, sh, dw, sw, dim).permute(1, 3, 2, 4, 0, 5)
+    k2 = k2.reshape(dh, dw, sh * sw * c_mid, dim).permute(3, 2, 0, 1)
+    return conv2d(y, k2, p[pre + ".fc2.1.bias"])
+
+
+# ----------------------------------------------------------- window helpers
+
+
+@functools.lru_cache(maxsize=8)
+def _valid_rolled_indices(window_size: tuple[int, int]) -> np.ndarray:
+    """Static survivors of the 4 rolled K/V copies (positions outside the
+    un-rolled window), concatenated over (tl, tr, bl, br)."""
+    wh, ww = window_size
+    eh, ew = (wh + 1) // 2, (ww + 1) // 2
+    masks = []
+    for corner in ("tl", "tr", "bl", "br"):
+        m = np.ones((wh, ww), np.bool_)
+        hs = slice(None, -eh) if corner in ("tl", "tr") else slice(eh, None)
+        ws = slice(None, -ew) if corner in ("tl", "bl") else slice(ew, None)
+        m[hs, ws] = False
+        masks.append(m)
+    return np.nonzero(np.stack(masks, 0).reshape(-1))[0]
+
+
+def _window_partition(x: torch.Tensor, window, n_head: int) -> torch.Tensor:
+    """[B, T, H, W, C] -> [B, nW, head, T, wh*ww, C/head]."""
+    b, t, h, w, c = x.shape
+    wh, ww = window
+    nh, nw = h // wh, w // ww
+    x = x.reshape(b, t, nh, wh, nw, ww, n_head, c // n_head)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(b, nh * nw, n_head, t, wh * ww, c // n_head)
+
+
+def sparse_window_attention(
+    p: Params,
+    pre: str,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    t_ind,
+    n_head: int = 4,
+    window_size: tuple[int, int] = (5, 9),
+    pool_size: tuple[int, int] = (4, 4),
+    t_valid_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """SparseWindowAttention.forward.
+
+    x: [B, T, H, W, C] tokens (post-LN); mask: [B, l_t, H, W, 1] local
+    sparsity mask; t_ind: frame subset for the occupied branch (temporal
+    dilation) or None; t_valid_mask: [T] or [B, T] bool, keys of padded
+    frames are masked out of the occupied branch."""
+    b, t, h, w, c = x.shape
+    dev = x.device
+    wh, ww = window_size
+    ch = c // n_head
+    n_wh, n_ww = -(-h // wh), -(-w // ww)
+    new_h, new_w = n_wh * wh, n_ww * ww
+    if new_h != h or new_w != w:
+        x = F.pad(x, (0, 0, 0, new_w - w, 0, new_h - h))
+        mask = F.pad(mask, (0, 0, 0, new_w - w, 0, new_h - h))
+    n_win = n_wh * n_ww
+
+    q = linear(p, pre + ".query", x)
+    k = linear(p, pre + ".key", x)
+    v = linear(p, pre + ".value", x)
+    win_q = _window_partition(q, window_size, n_head)
+    win_k = _window_partition(k, window_size, n_head)
+    win_v = _window_partition(v, window_size, n_head)
+
+    ti = np.arange(t) if t_ind is None else np.asarray(t_ind)
+    ti_t = torch.as_tensor(ti, device=dev)
+    t_sel = len(ti)
+    eh, ew = (wh + 1) // 2, (ww + 1) // 2
+    shifts = [(-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)]
+    idx = torch.as_tensor(_valid_rolled_indices(window_size), device=dev)
+
+    def build_rolled(a):
+        # partition of each roll == a shifted-origin partition of ONE
+        # circularly padded tensor, built at the t_ind frames only
+        a = a.index_select(1, ti_t)
+        ap = torch.cat([a[:, :, -eh:], a, a[:, :, :eh]], dim=2)
+        ap = torch.cat([ap[:, :, :, -ew:], ap, ap[:, :, :, :ew]], dim=3)
+        parts = []
+        for s_y, s_x in shifts:
+            oy, ox = eh - s_y, ew - s_x
+            parts.append(_window_partition(ap[:, :, oy : oy + new_h, ox : ox + new_w], window_size, n_head))
+        return torch.cat(parts, dim=4).index_select(4, idx)
+
+    rk = build_rolled(k)
+    rv = build_rolled(v)
+    n_rolled = rk.shape[4]
+
+    # pooled global tokens: depthwise 4x4 stride-4 conv, then key/value
+    pool_x = conv2d(
+        x.reshape(b * t, new_h, new_w, c), p[pre + ".pool_layer.weight"],
+        p[pre + ".pool_layer.bias"], stride=pool_size, groups=c,
+    )
+    p_h, p_w = pool_x.shape[1], pool_x.shape[2]
+    pool_x = pool_x.reshape(b, t, p_h, p_w, c)
+
+    def heads_of(a):  # [B, T, ph, pw, C] -> [B, head, T_sel, ph*pw, ch]
+        a = a.reshape(b, t, p_h * p_w, n_head, ch).permute(0, 3, 1, 2, 4)
+        return a.index_select(2, ti_t)
+
+    pk = heads_of(linear(p, pre + ".key", pool_x))
+    pv = heads_of(linear(p, pre + ".value", pool_x))
+
+    # occupancy: a window is occupied if the mask touches it in any local frame
+    l_t = mask.shape[1]
+    occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
+    occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
+
+    if t_valid_mask is None:
+        tv = torch.ones((b, t), dtype=torch.bool, device=dev)
+    else:
+        tv = t_valid_mask.to(dev).reshape(-1, t).expand(b, t)
+    in_tind = torch.zeros(t, dtype=torch.bool, device=dev)
+    in_tind[ti_t] = True
+    zero = torch.zeros((), device=dev)
+    neg = torch.full((), NEG, device=dev)
+    bias_w = torch.where(in_tind[None] & tv, zero, neg).repeat_interleave(wh * ww, dim=1)
+    bias_sel = torch.where(tv.index_select(1, ti_t), zero, neg)
+    bias_r = bias_sel.repeat_interleave(n_rolled, dim=1)
+    bias_p = bias_sel.repeat_interleave(p_h * p_w, dim=1)
+
+    out = window_attention(
+        win_q.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
+        win_k.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
+        win_v.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
+        rk.reshape(b * n_win, n_head, t_sel * n_rolled, ch).contiguous(),
+        rv.reshape(b * n_win, n_head, t_sel * n_rolled, ch).contiguous(),
+        pk.reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous(),
+        pv.reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous(),
+        occ.reshape(b * n_win).contiguous(),
+        bias_w.float().contiguous(),
+        bias_r.float().contiguous(),
+        bias_p.float().contiguous(),
+        n_win_per_b=n_win,
+    )
+    out = out.reshape(b, n_wh, n_ww, n_head, t, wh, ww, ch)
+    out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, t, new_h, new_w, c)
+    return linear(p, pre + ".proj", out[:, :, :h, :w])
+
+
+# -------------------------------------------------------------- FFN + block
+
+
+def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None):
+    """TemporalSparseTransformer. x: [B, T, f_h, f_w, C] tokens."""
+    b, t, fh, fw, c = x.shape
+    att = sparse_window_attention(
+        p, pre + ".attention", layer_norm(p, pre + ".norm1", x), mask, t_ind,
+        t_valid_mask=t_valid_mask,
+    )
+    x = x + att
+    y = layer_norm(p, pre + ".norm2", x)
+    mlp = fusion_feed_forward(p, pre + ".mlp", y.reshape(b * t, fh, fw, c), fold_size)
+    return x + mlp.reshape(b, t, fh, fw, c)
+
+
+def transformer_stack(
+    p: Params, pre: str, x, fold_size, mask, depths: int = 8, t_dilation: int = 2,
+    t_valid_mask=None,
+):
+    """TemporalSparseTransformerBlock: `depths` blocks, block i attends the
+    temporal-dilation frame subset arange(i % t_dilation, T, t_dilation)."""
+    t = x.shape[1]
+    for i in range(depths):
+        x = transformer_block(
+            p, f"{pre}.transformer.{i}", x, fold_size, mask,
+            np.arange(i % t_dilation, t, t_dilation), t_valid_mask,
+        )
+    return x

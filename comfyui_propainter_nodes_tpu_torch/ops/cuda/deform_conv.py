@@ -1,0 +1,115 @@
+"""Modulated deformable conv (DCNv2): CUDA kernel (csrc/deform_conv.cu) + plain version.
+
+Shapes (the JAX package's layout, `ops/deform_conv.py:184-188` there):
+  x      [N, H, W, Cin]
+  offset [N, H, W, G, K, 2]  (dy, dx) per offset group per tap, K = 9
+  mask   [N, H, W, G, K]     modulation scalars (already sigmoided)
+  weight [Cout, Cin, 3, 3]   upstream OIHW; bias [Cout] or None
+Returns [N, H, W, Cout] in x's dtype. Stride 1, dilation 1, padding 1.
+CPU tensors take the plain version; CUDA tensors take the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = 0  # kernel launches since the last reset
+
+
+def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1):
+    """Port of the JAX package's `deform_conv2d_xla`, computed in fp32."""
+    n, h, w, cin = x.shape
+    cout, _, kh, kw = weight.shape
+    k = kh * kw
+    g = offset.shape[3]
+    cg = cin // g
+    dev = x.device
+    xf = x.float()
+    gy, gx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=dev),
+        torch.arange(w, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    ky, kx = torch.meshgrid(
+        torch.arange(kh, dtype=torch.float32, device=dev) - padding,
+        torch.arange(kw, dtype=torch.float32, device=dev) - padding,
+        indexing="ij",
+    )
+    base_y = gy[:, :, None] + ky.reshape(-1)  # [H, W, K]
+    base_x = gx[:, :, None] + kx.reshape(-1)
+    # [N, H, W, K, G]: flattening gives (pixel, K, G) like the weight layout
+    sy = (base_y[None, :, :, None, :] + offset[..., 0].float()).transpose(3, 4)
+    sx = (base_x[None, :, :, None, :] + offset[..., 1].float()).transpose(3, 4)
+    xg = xf.reshape(n, h * w, g, cg)
+
+    def tap(iy, ix, wgt):
+        valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        iyc = iy.clamp(0, h - 1).long()
+        ixc = ix.clamp(0, w - 1).long()
+        idx = (iyc * w + ixc).reshape(n, h * w * k, g)
+        v = torch.gather(xg, 1, idx[..., None].expand(-1, -1, -1, cg))  # [N, HW*K, G, Cg]
+        wv = (wgt * valid.float()).reshape(n, h * w * k, g)
+        return v * wv[..., None]
+
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    wy1, wx1 = sy - y0, sx - x0
+    wy0, wx0 = 1.0 - wy1, 1.0 - wx1
+    samp = (
+        tap(y0, x0, wy0 * wx0)
+        + tap(y0, x0 + 1, wy0 * wx1)
+        + tap(y0 + 1, x0, wy1 * wx0)
+        + tap(y0 + 1, x0 + 1, wy1 * wx1)
+    )
+    samp = samp * mask.float().transpose(3, 4).reshape(n, h * w * k, g)[..., None]
+    samp = samp.reshape(n * h * w, k * cin)
+    wmat = weight.float().permute(2, 3, 1, 0).reshape(k * cin, cout)
+    out = torch.matmul(samp, wmat).reshape(n, h, w, cout)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def _check(x, offset, mask, weight, bias, padding):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"deform_conv2d: x must be fp32 or bf16, got {x.dtype}")
+    n, h, w, cin = x.shape
+    cout = weight.shape[0]
+    if weight.shape != (cout, cin, 3, 3) or padding != 1:
+        raise ValueError(f"deform_conv2d kernel takes 3x3 weights [Cout, {cin}, 3, 3], padding 1; got {tuple(weight.shape)}, {padding}")
+    if offset.dim() != 6 or offset.shape[:3] != (n, h, w) or offset.shape[4:] != (9, 2):
+        raise ValueError(f"offset must be [N, H, W, G, 9, 2], got {tuple(offset.shape)}")
+    g = offset.shape[3]
+    if cin % g or mask.shape != (n, h, w, g, 9):
+        raise ValueError(f"mask must be [N, H, W, {g}, 9] with Cin % G == 0, got {tuple(mask.shape)}")
+    for name, t in (("x", x), ("offset", offset), ("mask", mask)):
+        if t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"deform_conv2d: {name} must be contiguous {x.dtype} on {x.device}")
+    if weight.device != x.device or (bias is not None and (bias.device != x.device or bias.shape != (cout,))):
+        raise ValueError("deform_conv2d: weight/bias must be on x's device, bias [Cout]")
+
+
+def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1):
+    global launches
+    if x.device.type == "cpu":
+        return deform_conv2d_plain(x, offset, mask, weight, bias, padding)
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv2d: unsupported device {x.device}")
+    _check(x, offset, mask, weight, bias, padding)
+    n, h, w, cin = x.shape
+    cout = weight.shape[0]
+    # [Cout, Cin, 3, 3] -> [9*Cin, Cout] fp32, tap outer, channel inner
+    wmat = weight.float().permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+    b = None if bias is None else bias.float().contiguous()
+    out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
+    lib = _build.library()
+    status = lib.propainter_deform_conv(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(),
+        n, h, w, cin, cout, offset.shape[3], int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "deform_conv2d")
+    launches += 1
+    return out

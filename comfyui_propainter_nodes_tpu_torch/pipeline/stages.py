@@ -1,0 +1,322 @@
+"""Pipeline stages: flow -> completion -> image prop -> feature prop.
+
+Port of the JAX package's `pipeline/stages.py` main path, as eager
+PyTorch on one device. Chunk boundaries follow the reference inference script
+(propainter_inference.py): flow-completion subvideo chunks with a
+5-frame halo, image-propagation chunks of <= 100 frames with a 10-frame
+halo, sliding neighbor windows with global reference frames and the
+first-visit / 0.5-blend overlap merge. The chunk loops are plain Python
+loops over unpadded chunks (exactly what the JAX package's padded,
+masked chunks compute for their real frames). RAFT's clip chunking only
+bounds memory, so all pairs run in one call when the correlation
+volumes fit. The feature stage encodes every frame once and gathers
+windows from the per-frame features, in groups of at most 8 windows.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig
+from ..models import flow_completion as fc
+from ..models import propainter as pp
+from ..models import raft
+from ..utils.params import to_device
+
+RAFT_ALLPAIRS_BYTES = 4.5e9  # all-pairs volume budget for one RAFT call
+WINDOW_GROUP = 8  # windows per batched transformer forward
+
+
+def get_ref_index(mid_neighbor_id, neighbor_ids, video_length, ref_stride, ref_num):
+    """Global reference frame selection (propainter_inference.py:36-58)."""
+    ref_index = []
+    if ref_num == -1:
+        for i in range(0, video_length, ref_stride):
+            if i not in neighbor_ids:
+                ref_index.append(i)
+    else:
+        start_idx = max(0, mid_neighbor_id - ref_stride * (ref_num // 2))
+        end_idx = min(video_length, mid_neighbor_id + ref_stride * (ref_num // 2))
+        for i in range(start_idx, end_idx, ref_stride):
+            if i not in neighbor_ids:
+                if len(ref_index) > ref_num:
+                    break
+                ref_index.append(i)
+    return ref_index
+
+
+def flow_chunk_plan(cfg: PipelineConfig, t: int) -> list[tuple[int, int]]:
+    """RAFT clip bounds with 1-frame overlap (propainter_inference.py:75-93)."""
+    clip = cfg.raft_chunk_len()
+    return [(c if c == 0 else c - 1, min(t, c + clip)) for c in range(0, t, clip)]
+
+
+def complete_chunk_plan(cfg: PipelineConfig, flow_length: int):
+    """(start, end, lead_halo, tail_halo) per subvideo chunk
+    (propainter_inference.py:115-144)."""
+    sub = cfg.subvideo_length
+    pad_len = 5
+    bounds = []
+    for f in range(0, flow_length, sub):
+        s_f = max(0, f - pad_len)
+        e_f = min(flow_length, f + sub + pad_len)
+        bounds.append((s_f, e_f, f - s_f, e_f - min(flow_length, f + sub)))
+    return bounds
+
+
+def imgprop_chunk_plan(cfg: PipelineConfig, t: int):
+    """<=100-frame chunks with 10-frame halo (propainter_inference.py:172-212)."""
+    sub = min(100, cfg.subvideo_length)
+    pad_len = 10
+    bounds = []
+    for f in range(0, t, sub):
+        s_f = max(0, f - pad_len)
+        e_f = min(t, f + sub + pad_len)
+        bounds.append((s_f, e_f, f - s_f, e_f - min(t, f + sub)))
+    return bounds
+
+
+def window_plan(cfg: PipelineConfig, t: int):
+    """Sliding windows + global refs (propainter_inference.py:254-261)."""
+    ns = cfg.neighbor_stride
+    ref_num = cfg.subvideo_length // cfg.ref_stride if t > cfg.subvideo_length else -1
+    windows = []
+    for f in range(0, t, ns):
+        neighbor_ids = list(range(max(0, f - ns), min(t, f + ns + 1)))
+        windows.append((neighbor_ids, get_ref_index(f, neighbor_ids, t, cfg.ref_stride, ref_num)))
+    return windows
+
+
+def _window_tables(cfg: PipelineConfig, t: int):
+    """Per-window frame selections (local + refs padded to static
+    buckets), validity, start frames, local/ref counts and the blend
+    slot-validity map."""
+    windows = window_plan(cfg, t)
+    n_windows = len(windows)
+    l_t_max = 2 * cfg.neighbor_stride + 1
+    ref_max = max((len(r) for _, r in windows), default=0)
+    ref_max = max(2, -(-ref_max // 2) * 2)
+    t_sel = l_t_max + ref_max
+    sels = np.zeros((n_windows, t_sel), np.int64)
+    valids = np.zeros((n_windows, t_sel), np.float32)
+    starts = np.zeros((n_windows,), np.int64)
+    lts = np.zeros((n_windows,), np.int64)
+    refs = np.zeros((n_windows,), np.int64)
+    slot_valid = np.zeros((n_windows, l_t_max), np.bool_)
+    for wi, (nids, rids) in enumerate(windows):
+        l_t, n_ref = len(nids), len(rids)
+        sels[wi] = np.asarray(nids + [0] * (l_t_max - l_t) + rids + [0] * (ref_max - n_ref))
+        valids[wi, :l_t] = 1.0
+        valids[wi, l_t_max : l_t_max + n_ref] = 1.0
+        starts[wi] = nids[0]
+        lts[wi] = l_t
+        refs[wi] = n_ref
+        slot_valid[wi, :l_t] = True
+    return sels, valids, starts, lts, refs, slot_valid, l_t_max, ref_max
+
+
+def _blend_windows(imgs, starts, slot_valid, t: int, l_t_max: int):
+    """Overlap blend in the reference's visit order: first visit replaces,
+    a revisit gives floor(0.5*new + 0.5*old). imgs [nW, l_t_max, H, W, 3]
+    float 0..255 -> [T, H, W, 3]."""
+    h, w = imgs.shape[2], imgs.shape[3]
+    canvas = imgs.new_zeros((t + l_t_max, h, w, 3))
+    seen = torch.zeros(t + l_t_max, dtype=torch.bool, device=imgs.device)
+    for wi in range(imgs.shape[0]):
+        s0 = int(starts[wi])
+        sv = torch.as_tensor(slot_valid[wi], device=imgs.device)
+        cur = canvas[s0 : s0 + l_t_max]
+        sn = seen[s0 : s0 + l_t_max]
+        blended = torch.where(sn[:, None, None, None], torch.floor(0.5 * imgs[wi] + 0.5 * cur), imgs[wi])
+        canvas[s0 : s0 + l_t_max] = torch.where(sv[:, None, None, None], blended, cur)
+        seen[s0 : s0 + l_t_max] = sn | sv
+    return canvas[:t]
+
+
+class Pipeline:
+    """End-to-end video inpainting on one device.
+
+    Params are upstream-layout CPU tensors; they are cast (bf16 under
+    fp16="enable", RAFT per `config.raft_half`) and moved once. On the
+    card TF32 is switched off for cuDNN convs and matmuls, so the fp32
+    paths compute in full fp32 (cuDNN convs default to TF32)."""
+
+    def __init__(self, raft_params, flow_params, inpaint_params, config: PipelineConfig, device="cuda"):
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rdt = torch.bfloat16 if config.raft_half else torch.float32
+        self.cdtype = torch.bfloat16 if config.use_bf16 else torch.float32
+        self.raft_params = to_device(raft_params, self.device, rdt)
+        self.flow_params = to_device(flow_params, self.device, self.cdtype)
+        self.inpaint_params = to_device(inpaint_params, self.device, self.cdtype)
+        self.stage_seconds: dict[str, float] = {}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- stage 1
+
+    def compute_flow(self, frames):
+        """Bidirectional RAFT flow. frames [1, T, H, W, 3] fp32 in [-1, 1]
+        -> (flows_f, flows_b) [1, T-1, H, W, 2] fp32."""
+        cfg = self.config
+        t, h, w = frames.shape[1], frames.shape[2], frames.shape[3]
+        bounds = flow_chunk_plan(cfg, t)
+        h8w8 = (h // 8) * (w // 8)
+        vol_bytes = 2 * (t - 1) * h8w8 * h8w8 * (2 if cfg.raft_half else 4) * 1.36
+        if len(bounds) == 1 or vol_bytes <= RAFT_ALLPAIRS_BYTES:
+            return raft.raft_bi_forward(self.raft_params, frames, iters=cfg.raft_iter)
+        ff, fb = [], []
+        for s, e in bounds:
+            f_, b_ = raft.raft_bi_forward(self.raft_params, frames[:, s:e], iters=cfg.raft_iter)
+            ff.append(f_)
+            fb.append(b_)
+        return torch.cat(ff, dim=1), torch.cat(fb, dim=1)
+
+    # ------------------------------------------------------------- stage 2
+
+    def complete_flow(self, flows, flow_masks):
+        """Flow completion over subvideo chunks with a 5-frame halo.
+        flows (f, b) [1, T-1, H, W, 2]; flow_masks [1, T, H, W, 1]."""
+        dt = self.cdtype
+        ff, fb = flows[0].to(dt), flows[1].to(dt)
+        mk = flow_masks.to(dt)
+        prm = self.flow_params
+
+        def one_chunk(f_, b_, m_):
+            pf, pb = fc.forward_bidirect_flow(prm, f_, b_, m_)
+            return fc.combine_flow(f_, b_, pf, pb, m_)
+
+        flow_length = ff.shape[1]
+        if flow_length <= self.config.subvideo_length:
+            return one_chunk(ff, fb, mk)
+        bounds = complete_chunk_plan(self.config, flow_length)
+        out_f, out_b = [], []
+        for s_f, e_f, ps, pe in bounds:
+            of, ob = one_chunk(ff[:, s_f:e_f], fb[:, s_f:e_f], mk[:, s_f : e_f + 1])
+            end = e_f - s_f - pe
+            out_f.append(of[:, ps:end])
+            out_b.append(ob[:, ps:end])
+        return torch.cat(out_f, dim=1), torch.cat(out_b, dim=1)
+
+    # ------------------------------------------------------------- stage 3
+
+    def image_propagation(self, frames, masks_dilated, pred_flows):
+        """Pixel-domain propagation in <=100-frame chunks with a 10-frame
+        halo. Returns (updated_frames, updated_masks) in the compute dtype."""
+        dt = self.cdtype
+        fr, mk = frames.to(dt), masks_dilated.to(dt)
+        ff, fb = pred_flows[0].to(dt), pred_flows[1].to(dt)
+
+        def one_chunk(fr_, mk_, ff_, fb_):
+            masked = fr_ * (1 - mk_)
+            prop, upd_mask = pp.bidirectional_propagation_image(masked, ff_, fb_, mk_, "nearest")
+            return fr_ * (1 - mk_) + prop * mk_, upd_mask
+
+        t = fr.shape[1]
+        if t <= min(100, self.config.subvideo_length):
+            return one_chunk(fr, mk, ff, fb)
+        bounds = imgprop_chunk_plan(self.config, t)
+        out_fr, out_mk = [], []
+        for s_f, e_f, ps, pe in bounds:
+            uf, um = one_chunk(fr[:, s_f:e_f], mk[:, s_f:e_f], ff[:, s_f : e_f - 1], fb[:, s_f : e_f - 1])
+            end = e_f - s_f - pe
+            out_fr.append(uf[:, ps:end])
+            out_mk.append(um[:, ps:end])
+        return torch.cat(out_fr, dim=1), torch.cat(out_mk, dim=1)
+
+    # ------------------------------------------------------------- stage 4
+
+    def feature_propagation(self, updated_frames, updated_masks, masks_dilated, pred_flows, original_frames):
+        """Sliding-window transformer inference, uint8 composite and overlap
+        blend. original_frames [T, H, W, 3] float 0..255. Returns the
+        composed video [T, H, W, 3] float 0..255 (uint8-exact)."""
+        cfg = self.config
+        dt = self.cdtype
+        dev = self.device
+        t, hh, ww = updated_frames.shape[1], updated_frames.shape[2], updated_frames.shape[3]
+        sels, valids, starts, lts, refs, slot_valid, l_t_max, _ = _window_tables(cfg, t)
+        n_windows = sels.shape[0]
+
+        def pad_t(a):  # zero frames after the end: window slices stay in range
+            return torch.cat([a, a.new_zeros((a.shape[0], l_t_max) + a.shape[2:])], dim=1)
+
+        uf_p = pad_t(updated_frames.to(dt))
+        um_p = pad_t(updated_masks.to(dt))
+        md_p = pad_t(masks_dilated.to(dt))
+        ff_p = pad_t(pred_flows[0].to(dt))
+        fb_p = pad_t(pred_flows[1].to(dt))
+        orig_p = pad_t(original_frames.float()[None])[0]
+        h4, w4 = hh // 4, ww // 4
+        prm = self.inpaint_params
+
+        # per-frame work once per unique frame; windows gather from it
+        enc_all = pp.encode_features(prm, uf_p[0, :t], md_p[0, :t], um_p[0, :t])
+        ds_ff_all = pp.downsample_flow(ff_p, h4, w4)[0]
+        ds_fb_all = pp.downsample_flow(fb_p, h4, w4)[0]
+        ds_md_all = pp.downsample_mask(md_p, h4, w4)[0]
+        ds_um_all = pp.downsample_mask(um_p, h4, w4)[0]
+        pool_all = pp.attention_pool_mask(ds_md_all[None])[0]
+
+        imgs = []
+        for g0 in range(0, n_windows, WINDOW_GROUP):
+            grp = list(range(g0, min(n_windows, g0 + WINDOW_GROUP)))
+            gsel = torch.as_tensor(sels[grp], device=dev)
+            gloc = gsel[:, :l_t_max]
+            gvl = torch.as_tensor(valids[grp][:, :l_t_max], device=dev, dtype=dt)[:, :, None, None, None]
+            gst = [int(s) for s in starts[grp]]
+            md_local = md_p[0, gloc] * gvl
+            pred = pp.inpaint_generator_from_features(
+                prm,
+                enc_all[gsel],
+                torch.stack([ds_ff_all[s : s + l_t_max - 1] for s in gst]),
+                torch.stack([ds_fb_all[s : s + l_t_max - 1] for s in gst]),
+                ds_md_all[gloc] * gvl,
+                ds_um_all[gloc] * gvl,
+                pool_all[gloc] * gvl,
+                l_t_max,
+                (hh, ww),
+                l_t_valid=torch.as_tensor(lts[grp], device=dev),
+                ref_valid=torch.as_tensor(refs[grp], device=dev),
+            )
+            # uint8 composite (propainter_inference.py:283-293)
+            pred_byte = torch.floor((pred.float() + 1.0) / 2.0 * 255.0)
+            binary = md_local.float()
+            orig = torch.stack([orig_p[s : s + l_t_max] for s in gst])
+            imgs.append(torch.floor(pred_byte * binary + orig * (1.0 - binary)))
+        return _blend_windows(torch.cat(imgs, dim=0), starts, slot_valid, t, l_t_max)
+
+    # ------------------------------------------------------------ full run
+
+    def process(self, frames_norm, flow_masks, masks_dilated, original_frames):
+        """The four stages. frames_norm [1, T, H, W, 3] fp32 in [-1, 1];
+        masks [1, T, H, W, 1]; original_frames [T, H, W, 3] float 0..255.
+        Returns the composed video [T, H, W, 3] float 0..255. Per-stage
+        wall times (synchronised on the card) land in `stage_seconds`."""
+        stages = {}
+
+        def timed(name, fn, *args):
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._sync()
+            stages[name] = time.perf_counter() - t0
+            return out
+
+        with torch.inference_mode():
+            gt_flows = timed("compute_flow", self.compute_flow, frames_norm)
+            pred_flows = timed("complete_flow", self.complete_flow, gt_flows, flow_masks)
+            uf, um = timed("image_propagation", self.image_propagation, frames_norm, masks_dilated, pred_flows)
+            out = timed(
+                "feature_propagation", self.feature_propagation,
+                uf, um, masks_dilated, pred_flows, original_frames,
+            )
+        self.stage_seconds = stages
+        return out

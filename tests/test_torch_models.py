@@ -1,0 +1,62 @@
+"""PyTorch port vs the JAX package: RAFT and the flow completion network.
+
+Same numpy inputs and the same seeded random weights (`random_params`,
+carried across by `from_jax_params`) on the CPU, in fp32. JAX runs its
+CPU paths (the Pallas kernels' XLA twins). Per-model tolerance: 1e-4 of
+the output's largest magnitude (fp32 reassociation through a few dozen
+layers and recurrent steps)."""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from comfyui_propainter_nodes_tpu.models import flow_completion as jfc
+from comfyui_propainter_nodes_tpu.models import raft as jraft
+from comfyui_propainter_nodes_tpu.utils.weights import random_params
+from comfyui_propainter_nodes_tpu_torch.models import flow_completion as tfc
+from comfyui_propainter_nodes_tpu_torch.models import raft as traft
+from comfyui_propainter_nodes_tpu_torch.utils.params import from_jax_params
+
+torch.set_num_threads(1)
+
+
+def _params(raw):
+    return {k: jnp.asarray(v) for k, v in raw.items()}, from_jax_params(raw)
+
+
+def _close_rel(port, ref, rel=1e-4):
+    ref = np.asarray(ref)
+    port = port.detach().numpy() if hasattr(port, "detach") else np.asarray(port)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    scale = max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(port - ref).max())
+    assert err <= rel * scale, f"max abs err {err} > {rel} * {scale}"
+
+
+def test_raft_bi_forward():
+    """128x160 (smaller maps degenerate the level-3 pyramid), 3 frames,
+    2 iterations."""
+    pj, pt = _params(random_params("raft", seed=1))
+    rng = np.random.default_rng(0)
+    frames = rng.uniform(-1, 1, (1, 3, 128, 160, 3)).astype(np.float32)
+    ref_f, ref_b = jraft.raft_bi_forward(pj, jnp.asarray(frames), iters=2)
+    out_f, out_b = traft.raft_bi_forward(pt, torch.from_numpy(frames), iters=2)
+    _close_rel(out_f, ref_f)
+    _close_rel(out_b, ref_b)
+
+
+def test_forward_bidirect_flow_and_combine():
+    pj, pt = _params(random_params("flow_completion", seed=2))
+    rng = np.random.default_rng(1)
+    ff = (rng.standard_normal((1, 4, 64, 96, 2)) * 3).astype(np.float32)
+    fb = (rng.standard_normal((1, 4, 64, 96, 2)) * 3).astype(np.float32)
+    masks = np.zeros((1, 5, 64, 96, 1), np.float32)
+    masks[:, :, 20:40, 30:60] = 1.0
+    ref = jfc.forward_bidirect_flow(pj, jnp.asarray(ff), jnp.asarray(fb), jnp.asarray(masks))
+    out = tfc.forward_bidirect_flow(pt, torch.from_numpy(ff), torch.from_numpy(fb), torch.from_numpy(masks))
+    for o, r in zip(out, ref):
+        _close_rel(o, r)
+    comb_ref = jfc.combine_flow(jnp.asarray(ff), jnp.asarray(fb), *ref, jnp.asarray(masks))
+    comb = tfc.combine_flow(torch.from_numpy(ff), torch.from_numpy(fb), *out, torch.from_numpy(masks))
+    for o, r in zip(comb, comb_ref):
+        _close_rel(o, r)
