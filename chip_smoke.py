@@ -4,22 +4,33 @@
 
 Phases (any failure raises; the exit code is then nonzero):
   1. build the CUDA kernels (csrc/*.cu, sm_90a) and print the build time;
-  2. hold each kernel against its plain PyTorch version at the main-path
-     shapes of a 24-frame 640x360 node run, in fp32 (TF32 off) and bf16,
-     and time kernel, plain version and, where one exists, the one
-     PyTorch call that computes the same function;
-  3. run ProPainterInpaint(device="cuda") on a synthetic 24-frame 640x360
-     clip at default widgets with seeded random weights (a warm-up run,
-     then a timed run with the launch counters reset just before it), and
-     check the output; then check the card against the host on a small
-     clip;
+  2. hold each kernel against its plain PyTorch version in fp32 (TF32 off)
+     and bf16, and time kernel, plain version and, where one exists, the
+     one PyTorch call that computes the same function:
+       B1-B3 at the main-path shapes of a 24-frame 640x360 node run;
+       B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
+       on the same inputs; B5 (halo attention) at the 640x360 and
+       1280x720 token grids; B6 (four-level padded-map lookup) on the
+       main path's padded pyramid and B7 (one level) on its level 0;
+  3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
+     default widgets with seeded random weights, each a warm-up run, a
+     timed run with the launch counters reset just before it, and a
+     profiled run, and check the output:
+       the main path, 640x360 (B1, B2, B3);
+       path A, 1280x720 (B1, B2, B4);
+       path B, 640x360 with PROPAINTER_TPU_ATTN=halo and
+       PROPAINTER_TPU_CORR_KERNEL=pallas (B2, B5, B6);
+     then check the card against the host on a small clip, with the
+     default kernels and with both switches;
   4. print the card's name and power limit, a `kernels` JSON line, and
      the result JSON as the last line.
-Needs a CUDA card; exits nonzero without one.
+Needs a CUDA card; exits nonzero without one. Details land in
+chiprun_out/ (ptxas log, profiles, chip_smoke.json).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -30,12 +41,15 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 dense, fp32 non-tensor
+SWITCHES = {"PROPAINTER_TPU_ATTN": "halo", "PROPAINTER_TPU_CORR_KERNEL": "pallas"}
 
 
 def log(*a):
@@ -70,7 +84,47 @@ def rel_err(out, ref) -> tuple[float, float]:
     return d, d / max(1e-6, ref.float().abs().max().item())
 
 
+def bound_ms(flops: float, nbytes: float, dt) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@contextlib.contextmanager
+def switches(on: bool):
+    """The JAX package's kernel switches, set for the block (the port
+    reads them at call time)."""
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    if on:
+        os.environ.update(SWITCHES)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 # ------------------------------------------------------------------ phase 2
+
+
+def corr_coords(gen, im, h8, w8):
+    yy, xx = torch.meshgrid(
+        torch.arange(h8, device="cuda", dtype=torch.float32),
+        torch.arange(w8, device="cuda", dtype=torch.float32), indexing="ij",
+    )
+    flow = torch.randn(im, h8, w8, 2, generator=gen, device="cuda") * 6.0
+    return (torch.stack([xx, yy], -1)[None] + flow).contiguous()
+
+
+def grid_sample_taps(maps, xs, ys):
+    """The library call for one level: grid_sample (zeros, align_corners)
+    of [M, Hl, Wl] maps at tap positions xs/ys [M, 9, 9]."""
+    hl, wl = maps.shape[1], maps.shape[2]
+    xs, ys = torch.broadcast_tensors(xs, ys)
+    grid = torch.stack([2.0 * xs / max(wl - 1, 1) - 1.0, 2.0 * ys / max(hl - 1, 1) - 1.0], -1).to(maps.dtype)
+    return lambda: F.grid_sample(maps[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
 def check_corr_lookup(dt, gen):
@@ -81,12 +135,7 @@ def check_corr_lookup(dt, gen):
     f1 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
     f2 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
     pyr, _ = build_corr_pyramids(f1, f2)
-    yy, xx = torch.meshgrid(
-        torch.arange(h8, device="cuda", dtype=torch.float32),
-        torch.arange(w8, device="cuda", dtype=torch.float32), indexing="ij",
-    )
-    flow = torch.randn(im, h8, w8, 2, generator=gen, device="cuda") * 6.0
-    coords = (torch.stack([xx, yy], -1)[None] + flow).contiguous()
+    coords = corr_coords(gen, im, h8, w8)
     out = mod.corr_lookup(pyr, coords)
     torch.cuda.synchronize()
     ref = mod.corr_lookup_plain(pyr, coords)
@@ -96,6 +145,14 @@ def check_corr_lookup(dt, gen):
     require(rel <= tol, "corr_lookup disagrees with its plain version")
     ms = time_ms(lambda: mod.corr_lookup(pyr, coords))
     plain_ms = time_ms(lambda: mod.corr_lookup_plain(pyr, coords), reps=5, warmup=1)
+    # library: RAFT's own bilinear_sampler, one grid_sample per level, taps
+    # in the kernel's (dx, dy) order
+    d = torch.arange(-4, 5, device="cuda", dtype=torch.float32)
+    flat = coords.reshape(-1, 2)
+    calls = [grid_sample_taps(m, flat[:, 0, None, None] / 2**lvl + d[:, None], flat[:, 1, None, None] / 2**lvl + d[None, :])
+             for lvl, m in enumerate(pyr)]
+    lib_err, _ = rel_err(torch.cat([f().reshape(-1, 81) for f in calls], 1).reshape(out.shape), ref)
+    library_ms = time_ms(lambda: [f() for f in calls])
     # bytes this data needs: in-range part of each 10x10 window, coords, output
     esz = pyr[0].element_size()
     need = 0
@@ -107,11 +164,59 @@ def check_corr_lookup(dt, gen):
         rows = ((y0 + 10).clamp(max=m.shape[1]) - y0.clamp(min=0)).clamp(min=0)
         need += float((rows * cols).sum()) * esz
     n_pix = im * h8 * w8
-    nbytes = need + n_pix * 8 + n_pix * 324 * 4
-    flops = n_pix * 324 * 6
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]) * 1e3
-    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} (bytes)  library_ms null")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None)
+    bound, by = bound_ms(n_pix * 324 * 6, need + n_pix * 8 + n_pix * 324 * 4, torch.float32)
+    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
+        f"library_ms {library_ms:.4f} (grid_sample, 4 calls, one per level; err vs plain {lib_err:.3e})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+
+
+def check_corr_window(dt, gen):
+    """B6 on the padded [fwd ++ bwd] pyramid of the main path's RAFT call
+    (M = 2 * 23 * 45 * 80) and B7 on its level 0."""
+    from comfyui_propainter_nodes_tpu_torch.models.raft import build_padded_pyramid_bi, padded_starts
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as mod
+
+    im, h8, w8, c = 23, 45, 80, 256
+    f1 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
+    f2 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
+    pyr = build_padded_pyramid_bi(f1, f2)
+    del f1, f2
+    coords = corr_coords(gen, 2 * im, h8, w8)
+    sy, sx, fy, fx = padded_starts(pyr, coords)
+    m = sy.shape[1]
+    esz = pyr[0].element_size()
+    taps = torch.arange(9, device="cuda", dtype=torch.float32)
+    res = {}
+    for name, levels in (("B6", 4), ("B7", 1)):
+        if levels == 4:
+            run = lambda: mod.corr_window_lookup4(pyr, sy, sx, fy, fx)  # noqa: E731
+            plain = lambda: mod.corr_window_lookup4_plain(pyr, sy, sx, fy, fx)  # noqa: E731
+        else:
+            run = lambda: mod.corr_window_lookup(pyr[0], sy[0], sx[0], fy[0], fx[0])  # noqa: E731
+            plain = lambda: mod.corr_window_lookup_plain(pyr[0], sy[0], sx[0], fy[0], fx[0])  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, rel = rel_err(out, ref)
+        tol = 1e-6  # the same products and sums, each rounded: equal up to nothing
+        log(f"  {name} corr_window ({levels} level{'s' * (levels > 1)}) {str(dt)[6:]}: M {m}, "
+            f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
+        require(rel <= tol, f"{name} disagrees with its plain version")
+        ms = time_ms(run)
+        plain_ms = time_ms(plain, reps=5, warmup=1)
+        calls = [grid_sample_taps(pyr[lvl], sx[lvl, :, None, None] + fx[lvl, :, None, None] + taps[None, :],
+                                  sy[lvl, :, None, None] + fy[lvl, :, None, None] + taps[:, None])
+                 for lvl in range(levels)]
+        lib = torch.stack([f()[:, 0] for f in calls], 1).reshape(out.shape)
+        lib_err, _ = rel_err(lib, ref)
+        library_ms = time_ms(lambda: [f() for f in calls])
+        # each pixel's 10x10 window per level, its starts and fractions, the taps
+        bound, by = bound_ms(m * levels * 81 * 6, m * levels * (100 * esz + 16 + 81 * 4), torch.float32)
+        log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  library_ms {library_ms:.4f} "
+            f"(grid_sample, {levels} call{'s' * (levels > 1)}, one per level; err vs plain {lib_err:.3e})")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+    log(f"    padded level-0 maps {pyr[0].numel() * esz / 2**30:.3f} GiB")
+    return res
 
 
 def check_deform_conv(dt, gen, shape):
@@ -134,94 +239,207 @@ def check_deform_conv(dt, gen, shape):
     ms = time_ms(lambda: mod.deform_conv2d(x, off, mask, wt, bias))
     plain_ms = time_ms(lambda: mod.deform_conv2d_plain(x, off, mask, wt, bias), reps=5, warmup=1)
     m = n * h * w
-    flops = 2.0 * m * 9 * cin * cout
     esz = x.element_size()
     nbytes = (m * cin + m * g * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
-    bound = max(t_ops, t_bytes) * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
+    bound, by = bound_ms(2.0 * m * 9 * cin * cout, nbytes, dt)
     log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  library_ms null")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
 
 
-def check_window_attention(dt, gen, t_sel, occ):
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
+def attention_biases(b, t, t_sel, per_key):
+    """t_ind frames (every other one) and one padded ref frame in batch
+    row 1: bias_w [B, T*45] and one [B, T_sel*n] bias per segment length n."""
+    tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    tv[1, -1] = False
+    in_tind = (torch.arange(t, device="cuda") % 2) == (0 if t_sel == 7 else 1)
+    bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(45, 1).float().contiguous()
+    sel = tv[:, in_tind]
+    return [bias_w] + [torch.where(sel, 0.0, -1e9).repeat_interleave(n, 1).float().contiguous() for n in per_key]
 
-    b, n_win, nh, t, wsz, ch = 5, 36, 4, 13, 45, 128
-    rl, pl_len = t_sel * 148, t_sel * 91
+
+def sdpa_library(qs, k_all, v_all, bias, occ, wsz):
+    """The same function as ONE library call: SDPA over each window's
+    [window | rolled (or halo) | pooled] keys with an additive mask
+    (block-diagonal per frame for clean windows). qs [W, head, QT, ch],
+    k_all/v_all [W, head, L, ch], bias [W, L]."""
+    qt = qs.shape[2]
+    fid = torch.arange(qt, device="cuda") // wsz
+    clean = torch.full((qt, k_all.shape[2]), -1e9, device="cuda")
+    clean[:, :qt] = torch.where(fid[:, None] == fid[None, :], 0.0, -1e9)
+    amask = torch.where(occ[:, None, None], bias[:, None, :], clean[None]).to(qs.dtype)[:, None]
+    return lambda: F.scaled_dot_product_attention(qs, k_all, v_all, attn_mask=amask)
+
+
+def attention_bound(dt, nh, qt, wsz, ch, rl, pl_len, occ, n_win):
+    """Flops of occupied windows over all their keys and of clean windows
+    within frames; bytes of q/k/v/out, occupied windows' rolled (or
+    survivor halo) keys, pooled keys of rows with an occupied window, biases."""
+    nw = occ.numel()
+    n_occ = int(occ.sum())
+    flops = nh * (n_occ * 4.0 * qt * (qt + rl + pl_len) * ch + (nw - n_occ) * 4.0 * qt * wsz * ch)
+    esz = 2 if dt == torch.bfloat16 else 4
+    occ_rows = int(occ.reshape(-1, n_win).any(1).sum())
+    b = nw // n_win
+    nbytes = esz * ch * nh * (nw * qt * 4 + n_occ * rl * 2 + occ_rows * pl_len * 2) + 4 * b * (qt + rl + pl_len)
+    return bound_ms(flops, nbytes, dt)
+
+
+def attention_inputs(dt, gen, n_win, t_sel, pl_per, occ):
+    b, nh, t, wsz, ch = 5, 4, 13, 45, 128
+    rl, pl_len = t_sel * 148, t_sel * pl_per
     nw = b * n_win
 
     def rnd(*s):
         return torch.randn(*s, generator=gen, device="cuda").to(dt)
 
-    q, k, v = rnd(nw, nh, t, wsz, ch), rnd(nw, nh, t, wsz, ch), rnd(nw, nh, t, wsz, ch)
-    rk, rv = rnd(nw, nh, rl, ch), rnd(nw, nh, rl, ch)
-    pk, pv = rnd(b, nh, pl_len, ch), rnd(b, nh, pl_len, ch)
-    # t_ind frames (every other one) and one padded ref frame in batch row 1
-    tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
-    tv[1, -1] = False
-    in_tind = (torch.arange(t, device="cuda") % 2) == (0 if t_sel == 7 else 1)
-    bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(wsz, 1).float().contiguous()
-    sel = tv[:, in_tind]
-    bias_r = torch.where(sel, 0.0, -1e9).repeat_interleave(148, 1).float().contiguous()
-    bias_p = torch.where(sel, 0.0, -1e9).repeat_interleave(91, 1).float().contiguous()
-    args = (q, k, v, rk, rv, pk, pv, occ, bias_w, bias_r, bias_p)
+    arrays = [rnd(nw, nh, t, wsz, ch), rnd(nw, nh, t, wsz, ch), rnd(nw, nh, t, wsz, ch),
+              rnd(nw, nh, rl, ch), rnd(nw, nh, rl, ch), rnd(b, nh, pl_len, ch), rnd(b, nh, pl_len, ch)]
+    return arrays + [occ] + attention_biases(b, t, t_sel, (148, pl_per))
+
+
+def attention_library(args, n_win):
+    q, k, v, rk, rv, pk, pv, occ, bias_w, bias_r, bias_p = args
+    nw, nh, t, wsz, ch = q.shape
+    qt = t * wsz
+    k_all = torch.cat([k.reshape(nw, nh, qt, ch), rk, pk.repeat_interleave(n_win, 0)], 2)
+    v_all = torch.cat([v.reshape(nw, nh, qt, ch), rv, pv.repeat_interleave(n_win, 0)], 2)
+    bias = torch.cat([bias_w, bias_r, bias_p], 1).repeat_interleave(n_win, 0)
+    return sdpa_library(q.reshape(nw, nh, qt, ch), k_all, v_all, bias, occ, wsz)
+
+
+def check_window_attention(dt, gen, t_sel, occ):
+    """B3 at the 640x360 shapes."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
+
+    n_win = 36
+    args = attention_inputs(dt, gen, n_win, t_sel, 91, occ)
     out = mod.window_attention(*args, n_win_per_b=n_win)
     torch.cuda.synchronize()
     ref = mod.window_attention_plain(*args, n_win)
     err, rel = rel_err(out, ref)
     tol = 1e-4 if dt == torch.float32 else 2e-2  # softmax over ~2k keys; bf16 output rounding
-    n_occ = int(occ.sum())
-    log(f"  B3 window_attention {str(dt)[6:]} t_sel={t_sel}: occupied {n_occ}/{nw}; "
+    nw = occ.numel()
+    log(f"  B3 window_attention {str(dt)[6:]} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "window_attention disagrees with its plain version")
     ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
     plain_ms = time_ms(lambda: mod.window_attention_plain(*args, n_win), reps=3, warmup=1)
-
-    # the same function as ONE library call: SDPA over [window|rolled|pooled]
-    # keys with an additive mask (block-diagonal per frame for clean windows)
-    qt = t * wsz
-    k_all = torch.cat([k.reshape(nw, nh, qt, ch), rk, pk.repeat_interleave(n_win, 0)], 2)
-    v_all = torch.cat([v.reshape(nw, nh, qt, ch), rv, pv.repeat_interleave(n_win, 0)], 2)
-    bias = torch.cat([bias_w, bias_r, bias_p], 1).repeat_interleave(n_win, 0)  # [W, L]
-    fid = torch.arange(qt, device="cuda") // wsz
-    clean = torch.full((qt, k_all.shape[2]), -1e9, device="cuda")
-    clean[:, :qt] = torch.where(fid[:, None] == fid[None, :], 0.0, -1e9)
-    amask = torch.where(occ[:, None, None], bias[:, None, :], clean[None]).to(dt)[:, None]
-    qs = q.reshape(nw, nh, qt, ch)
-    lib = torch.nn.functional.scaled_dot_product_attention(qs, k_all, v_all, attn_mask=amask)
-    lib_err, _ = rel_err(lib.reshape(out.shape), ref)
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qs, k_all, v_all, attn_mask=amask),
-        reps=5, warmup=1,
-    )
-    flops = nh * (n_occ * 4.0 * qt * (qt + rl + pl_len) * ch + (nw - n_occ) * 4.0 * qt * wsz * ch)
-    esz = q.element_size()
-    occ_rows = int(occ.reshape(b, n_win).any(1).sum())
-    nbytes = esz * ch * nh * (nw * qt * 4 + n_occ * rl * 2 + occ_rows * pl_len * 2) + 4 * b * (qt + rl + pl_len)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
-    bound = max(t_ops, t_bytes) * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
+    lib = attention_library(args, n_win)
+    lib_err, _ = rel_err(lib().reshape(out.shape), ref)
+    library_ms = time_ms(lib, reps=5, warmup=1)
+    bound, by = attention_bound(dt, 4, 13 * 45, 45, 128, t_sel * 148, t_sel * 91, occ, n_win)
     log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (SDPA, err vs plain {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, occupied_share=n_occ / nw)
+                library_ms=library_ms, occupied_share=int(occ.sum()) / nw)
 
 
-def main_path_occupancy():
-    """Which of the 5 x 36 token windows of the node run below are occupied:
-    the clip's dilated masks at 1/4 res, pooled 7x7/3 to the 30x54 token
-    grid, any touch in a window's local frames (ops/attention.py)."""
+def check_window_attention_tiled(dt, gen, t_sel, occ):
+    """B4 at the 1280x720 shapes (144 windows per batch row, pooled
+    segment t_sel * 405 keys), and B3 on the same inputs."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
+
+    n_win = 144
+    args = attention_inputs(dt, gen, n_win, t_sel, 405, occ)
+    require(mod.uses_tiled(args[0], args[3], args[5]), "the 1280x720 shapes must take the tiled kernel")
+    out = mod.window_attention_tiled(*args, n_win_per_b=n_win)
+    torch.cuda.synchronize()
+    ref = mod.window_attention_tiled_plain(*args, n_win)
+    err, rel = rel_err(out, ref)
+    tol = 1e-4 if dt == torch.float32 else 2e-2  # softmax over ~4.5k keys; bf16 output rounding
+    nw = occ.numel()
+    log(f"  B4 window_attention_tiled {str(dt)[6:]} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
+    require(rel <= tol, "window_attention_tiled disagrees with its plain version")
+    del ref
+    ms = time_ms(lambda: mod.window_attention_tiled(*args, n_win_per_b=n_win))
+    b3_ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
+    plain_ms = time_ms(lambda: mod.window_attention_tiled_plain(*args, n_win), reps=3, warmup=1)
+    lib = attention_library(args, n_win)
+    lib_err, _ = rel_err(lib().reshape(out.shape), out)
+    library_ms = time_ms(lib, reps=5, warmup=1)
+    bound, by = attention_bound(dt, 4, 13 * 45, 45, 128, t_sel * 148, t_sel * 405, occ, n_win)
+    log(f"    ms {ms:.4f}  B3 on the same inputs {b3_ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
+        f"library_ms {library_ms:.4f} (SDPA, err vs kernel {lib_err:.3e})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw)
+
+
+def check_window_attention_halo(dt, gen, grid, occ):
+    """B5 at a window-padded token grid [5, 13, Hp, Wp, 512], t_sel 7."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as mod
+
+    b, t, t_sel, c, nh = 5, 13, 7, 512, 4
+    hp, wp = grid
+    wh, ww = 5, 9
+    nwh, nww = hp // wh, wp // ww
+    pl_per = (hp // 4) * (wp // 4)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rnd(b, t, hp, wp, c), rnd(b, t, hp, wp, c), rnd(b, t, hp, wp, c)
+    ti = torch.arange(0, t, 2, device="cuda")
+
+    def cpad(a):
+        a = a.index_select(1, ti)
+        a = torch.cat([a[:, :, -3:], a, a[:, :, :3]], 2)
+        return torch.cat([a[:, :, :, -5:], a, a[:, :, :, :5]], 3).contiguous()
+
+    pk, pv = rnd(b, nh, t_sel * pl_per, c // nh), rnd(b, nh, t_sel * pl_per, c // nh)
+    bias_w, bias_hv, bias_p = attention_biases(b, t, t_sel, (1, pl_per))
+    occ3 = occ.reshape(b, nwh, nww)
+    args = (q, k, v, cpad(k), cpad(v), pk, pv, occ3, bias_w, bias_hv, bias_p)
+    kw = dict(window_size=(wh, ww), n_head=nh)
+    out = mod.window_attention_halo(*args, **kw)
+    torch.cuda.synchronize()
+    ref = mod.window_attention_halo_plain(*args, **kw)
+    err, rel = rel_err(out, ref)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    log(f"  B5 window_attention_halo {str(dt)[6:]} grid {hp}x{wp}: occupied {int(occ.sum())}/{occ.numel()}; "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
+    require(rel <= tol, "window_attention_halo disagrees with its plain version")
+    del ref
+    ms = time_ms(lambda: mod.window_attention_halo(*args, **kw))
+    plain_ms = time_ms(lambda: mod.window_attention_halo_plain(*args, **kw), reps=3, warmup=1)
+    # library: SDPA over [window | halo | pooled] keys per window
+    qw = mod._windows(q, (wh, ww), nh)
+    nw, _, _, wsz, ch = qw.shape
+    qt = t * wsz
+    kw_, vw_ = mod._windows(k, (wh, ww), nh), mod._windows(v, (wh, ww), nh)
+    k_all = torch.cat([kw_.reshape(nw, nh, qt, ch), mod._halo_windows(args[3], (wh, ww), nh),
+                       pk.repeat_interleave(nwh * nww, 0)], 2)
+    v_all = torch.cat([vw_.reshape(nw, nh, qt, ch), mod._halo_windows(args[4], (wh, ww), nh),
+                       pv.repeat_interleave(nwh * nww, 0)], 2)
+    bias = torch.cat([bias_w, mod._halo_bias(bias_hv, (wh, ww)).reshape(b, -1), bias_p], 1)
+    lib = sdpa_library(qw.reshape(nw, nh, qt, ch), k_all, v_all, bias.repeat_interleave(nwh * nww, 0), occ, wsz)
+    lib_out = lib().reshape(b, nwh, nww, nh, t, wh, ww, ch).permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(out.shape)
+    lib_err, _ = rel_err(lib_out, out)
+    library_ms = time_ms(lib, reps=5, warmup=1)
+    bound, by = attention_bound(dt, nh, qt, wsz, ch, t_sel * 148, t_sel * pl_per, occ, nwh * nww)
+    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
+        f"library_ms {library_ms:.4f} (SDPA over the halo, err vs kernel {lib_err:.3e})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, occupied_share=int(occ.sum()) / occ.numel())
+
+
+def clip_occupancy(h: int, w: int):
+    """Which 5x9 token windows of the node run on the synthetic h x w
+    clip are occupied, for each of its 5 sliding windows: the clip's
+    dilated masks at 1/4 res, pooled 7x7/3 to the token grid, any touch
+    in a window's local frames (ops/attention.py)."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
     from comfyui_propainter_nodes_tpu_torch.models import propainter as pp
     from comfyui_propainter_nodes_tpu_torch.ops.dilation import binary_dilation
     from comfyui_propainter_nodes_tpu_torch.ops.pool import max_pool2d
     from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables
 
-    t, h, w = 24, 360, 640
+    t = 24
     _, masks = synthetic_clip(t, h, w)
     md = binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"])
     pool = pp.attention_pool_mask(pp.downsample_mask(md[None, ..., None], h // 4, w // 4))[0]
+    fh, fw = pool.shape[1], pool.shape[2]
+    pool = F.pad(pool, (0, 0, 0, -fw % 9, 0, -fh % 5))  # the window padding
     sels, valids, _, _, _, _, l_t_max, _ = _window_tables(PipelineConfig(), t)
     occ = []
     for wi in range(sels.shape[0]):
@@ -254,34 +472,57 @@ WIDGETS = dict(
 )
 
 
-def node_run(kernel_mods):
+def counters():
+    """(kernel row, wrapper module, counter attribute) of every kernel."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import (
+        corr_lookup, corr_window, deform_conv, window_attention, window_attention_halo,
+    )
+
+    return [
+        ("corr_lookup", corr_lookup, "launches"),
+        ("deform_conv", deform_conv, "launches"),
+        ("window_attention", window_attention, "launches"),
+        ("window_attention_tiled", window_attention, "launches_tiled"),
+        ("window_attention_halo", window_attention_halo, "launches"),
+        ("corr_window4", corr_window, "launches4"),
+        ("corr_window", corr_window, "launches"),
+    ]
+
+
+def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
+    """Warm-up, timed run (counters reset just before it, read just
+    after), profiled run; output checks. `need` kernels must have
+    launched in the timed run, `forbid` kernels must not."""
     from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
 
-    t, h, w = 24, 360, 640
+    t = 24
     frames, masks = synthetic_clip(t, h, w)
     node = ProPainterInpaint(device="cuda")
 
     def run():
         return node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)
 
-    t0 = time.perf_counter()
-    run()
-    log(f"  warm-up run {time.perf_counter() - t0:.3f} s")
-    torch.cuda.reset_peak_memory_stats()
-    for m in kernel_mods:
-        m.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img, fm, md = run()
-    wall = time.perf_counter() - t0
-    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_mods}
-    stages = node.last_pipeline.stage_seconds
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-    log(f"  max_memory_allocated {peak / 2**30:.3f} GiB; launches {counts}")
+    with switches(switched):
+        t0 = time.perf_counter()
+        run()
+        log(f"  warm-up run {time.perf_counter() - t0:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        for _, mod, attr in counters():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, fm, md = run()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(mod, attr) for name, mod, attr in counters()}
+        stages = node.last_pipeline.stage_seconds
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  [{tag}] timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+        log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; launches {counts}")
+        prof = profile_run(run, wall, profile_name)
 
-    require(all(c > 0 for c in counts.values()), f"a kernel was not launched on the main path: {counts}")
+    require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
+    require(all(counts[k] == 0 for k in forbid), f"{tag}: a kernel off the path was launched: {counts}")
     require(tuple(img.shape) == (t, h, w, 3) and img.dtype == torch.float32, (img.shape, img.dtype))
     require(tuple(fm.shape) == (t, h, w) and tuple(md.shape) == (t, h, w), (fm.shape, md.shape))
     img_np, md_np = img.numpy(), md.numpy()
@@ -290,13 +531,14 @@ def node_run(kernel_mods):
     outside = md_np == 0
     orig = frames.astype(np.float32) / 255.0
     err_out = float(np.abs(img_np - orig)[outside].max())
-    require(err_out < 1e-6, f"output differs from the input outside the dilated mask: {err_out}")
+    require(err_out < 1e-6, f"{tag}: output differs from the input outside the dilated mask: {err_out}")
     require(md_np.sum() > 0 and (np.abs(img_np - orig)[~outside]).max() > 0, "the masked region must be inpainted")
-    return dict(seconds=wall, fps=t / wall, stages=stages, peak_bytes=peak, launches=counts,
-                profile=profile_run(run, wall))
+    summary = dict(size=f"{w}x{h}", frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
+                   peak_bytes=peak, launches=counts, profile=prof)
+    return summary, img_np, md_np
 
 
-def profile_run(run, timed_wall_s):
+def profile_run(run, timed_wall_s, name):
     """One more node run under torch.profiler: device time by kernel, and
     the device's busy share of the (unprofiled) timed run's wall time."""
     from torch.autograd import DeviceType
@@ -304,8 +546,10 @@ def profile_run(run, timed_wall_s):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        own_wall_s = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -320,20 +564,24 @@ def profile_run(run, timed_wall_s):
     if busy == 0:
         log("  profiler: no device time recorded (not measured)")
         return None
-    mine = {k: sum(r[0] for r in rows if k in r[2]) for k in
-            ("corr_lookup_kernel", "deform_conv_kernel", "window_attention_kernel")}
+    mine = {k: sum(r[0] for r in rows if k in r[2]) for k in (
+        "corr_lookup_kernel", "deform_conv_kernel", "window_attention_kernel", "window_attention_split_kernel",
+        "window_attention_combine_kernel", "window_attention_halo_kernel", "corr_window4_kernel", "corr_window_kernel")}
     share = busy / (timed_wall_s * 1e3)
+    own = busy / (own_wall_s * 1e3)
     log(f"  profiled run: device kernels {busy:.1f} ms = {100 * share:.1f}% of the timed run's "
-        f"wall; port kernels (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in mine.items()))
-    with open(os.path.join(HERE, "chiprun_out", "profile.txt"), "w") as f:
+        f"wall, {100 * own:.1f}% of its own {own_wall_s:.3f} s; port kernels (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in mine.items() if v > 0))
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         for dev, cnt, key in rows:
             f.write(f"{dev:12.3f} ms {cnt:7d}  {key}\n")
     for dev, cnt, key in rows[:10]:
         log(f"    {dev:10.3f} ms {cnt:6d}x  {key[:90]}")
-    return dict(device_kernels_ms=busy, busy_share=share, kernels_ms=mine)
+    return dict(device_kernels_ms=busy, busy_share=share, profiled_wall_s=own_wall_s,
+                busy_share_profiled=own, kernels_ms=mine)
 
 
-def card_vs_host():
+def card_vs_host(switched: bool):
     """The same small node run (fp32, 2 RAFT iterations) on the card and on
     the host, whose kernels are the plain versions."""
     from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
@@ -343,11 +591,13 @@ def card_vs_host():
               neighbor_length=4, subvideo_length=80, raft_iter=2, fp16="disable",
               _allow_random_weights=True)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    gpu = ProPainterInpaint(device="cuda").propainter_inpainting(frames, masks, **kw)
-    cpu = ProPainterInpaint(device="cpu").propainter_inpainting(frames, masks, **kw)
+    with switches(switched):
+        gpu = ProPainterInpaint(device="cuda").propainter_inpainting(frames, masks, **kw)
+        cpu = ProPainterInpaint(device="cpu").propainter_inpainting(frames, masks, **kw)
     diff = (gpu[0] - cpu[0]).abs()
     share = float((diff > 1.5 / 255).float().mean())
-    log(f"  card vs host (8x64x96 fp32): IMAGE max diff {float(diff.max()):.5f}, "
+    tag = "with both switches" if switched else "default kernels"
+    log(f"  card vs host (8x64x96 fp32, {tag}): IMAGE max diff {float(diff.max()):.5f}, "
         f"share > 1/255: {share:.6f}; masks equal: {bool(torch.equal(gpu[1], cpu[1]) and torch.equal(gpu[2], cpu[2]))}")
     require(torch.equal(gpu[1], cpu[1]) and torch.equal(gpu[2], cpu[2]), "card and host masks differ")
     # the uint8 floor can flip one level; a flipped image-propagation mask
@@ -360,20 +610,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup, deform_conv, window_attention
 
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    for k in SWITCHES:
+        os.environ.pop(k, None)  # the main path and path A run the default kernels
 
     log("phase 1: build")
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.library()
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s")
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "ptxas.log"), "w") as f:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as f:
         f.write(_build.build_log)
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -381,21 +632,47 @@ def main() -> int:
 
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    occ = main_path_occupancy()
-    log(f"  main-path window occupancy: {int(occ.sum())}/{occ.numel()} windows")
+    occ360, occ720 = clip_occupancy(360, 640), clip_occupancy(720, 1280)
+    log(f"  window occupancy of the node runs: 640x360 {int(occ360.sum())}/{occ360.numel()}, "
+        f"1280x720 {int(occ720.sum())}/{occ720.numel()}")
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt)[6:]
         res[("B1", key)] = check_corr_lookup(dt, gen)
         res[("B2fc", key)] = check_deform_conv(dt, gen, (2, 45, 80, 256))
         res[("B2fp", key)] = check_deform_conv(dt, gen, (5, 90, 160, 128))
-        res[("B3e", key)] = check_window_attention(dt, gen, 7, occ)
-        res[("B3o", key)] = check_window_attention(dt, gen, 6, occ)
+        res[("B3e", key)] = check_window_attention(dt, gen, 7, occ360)
+        res[("B3o", key)] = check_window_attention(dt, gen, 6, occ360)
+        res[("B4e", key)] = check_window_attention_tiled(dt, gen, 7, occ720)
+        res[("B4o", key)] = check_window_attention_tiled(dt, gen, 6, occ720)
+        res[("B5s", key)] = check_window_attention_halo(dt, gen, (30, 54), occ360)
+        res[("B5l", key)] = check_window_attention_halo(dt, gen, (60, 108), occ720)
+        cw = check_corr_window(dt, gen)
+        res[("B6", key)], res[("B7", key)] = cw["B6"], cw["B7"]
+        torch.cuda.empty_cache()
 
-    log("phase 3: ProPainterInpaint 24x640x360, default widgets, random weights")
-    mods = [corr_lookup, deform_conv, window_attention]
-    node = node_run(mods)
-    card_vs_host()
+    log("phase 3: ProPainterInpaint, 24 frames, default widgets, random weights")
+    base = ("corr_lookup", "deform_conv")
+    main_run, main_img, main_md = node_run(
+        "main path 640x360", 360, 640, base + ("window_attention",),
+        ("window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window"), profile_name="profile.txt",
+    )
+    path_a, _, _ = node_run(
+        "path A 1280x720", 720, 1280, base + ("window_attention_tiled",),
+        ("window_attention_halo", "corr_window4", "corr_window"), profile_name="profile_720p.txt",
+    )
+    path_b, b_img, _ = node_run(
+        "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4"),
+        ("corr_lookup", "window_attention", "window_attention_tiled", "corr_window"),
+        switched=True, profile_name="profile_switches.txt",
+    )
+    inside = main_md != 0
+    delta = np.abs(b_img - main_img)[inside]
+    path_b["vs_default_inside_mask"] = dict(mean=float(delta.mean()), max=float(delta.max()))
+    log(f"  path B vs the main path inside the dilated mask: mean |d| {delta.mean():.6f}, max |d| {delta.max():.6f} "
+        "(reported, not gated: B6's fractions are rounded to bf16)")
+    card_vs_host(False)
+    card_vs_host(True)
 
     log("phase 4: report")
     smi = subprocess.run(
@@ -404,28 +681,34 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     pkg = "comfyui_propainter_nodes_tpu_torch"
-    rows = [
-        ("corr_lookup", f"{pkg}/csrc/corr_lookup.cu",
-         "comfyui_propainter_nodes_tpu/ops/pallas/corr_lanes.py:55", "B1", "corr_lookup"),
-        ("deform_conv", f"{pkg}/csrc/deform_conv.cu",
-         "comfyui_propainter_nodes_tpu/ops/pallas/deform_conv.py:52", "B2fp", "deform_conv"),
-        ("window_attention", f"{pkg}/csrc/window_attention.cu",
-         "comfyui_propainter_nodes_tpu/ops/pallas/window_attention.py:52", "B3e", "window_attention"),
+    pallas = "comfyui_propainter_nodes_tpu/ops/pallas"
+    rows = [  # name, source, replaces, result key, path whose run counts its launches
+        ("corr_lookup", "corr_lookup.cu", "corr_lanes.py:55", "B1", main_run),
+        ("deform_conv", "deform_conv.cu", "deform_conv.py:52", "B2fp", main_run),
+        ("window_attention", "window_attention.cu", "window_attention.py:52", "B3e", main_run),
+        ("window_attention_tiled", "window_attention_tiled.cu", "window_attention.py:176", "B4e", path_a),
+        ("window_attention_halo", "window_attention_halo.cu", "window_attention_halo.py:69", "B5s", path_b),
+        ("corr_window4", "corr_window.cu", "corr_lookup.py:91", "B6", path_b),
+        ("corr_window", "corr_window.cu", "corr_lookup.py:42", "B7", main_run),
     ]
     kernels = []
-    for name_k, src, repl, rk, cnt in rows:
+    for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
-        kernels.append({
-            "name": name_k, "route": "cuda", "source": src, "replaces": repl,
-            "launches": node["launches"][cnt], "max_abs_err": r["max_abs_err"],
+        row = {
+            "name": name_k, "route": "cuda", "source": f"{pkg}/csrc/{src}", "replaces": f"{pallas}/{repl}",
+            "launches": run["launches"][name_k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "dtype": "bf16",
             "max_abs_err_fp32": res[(rk, "float32")]["max_abs_err"],
-        })
+        }
+        if "b3_ms" in r:
+            row["b3_ms_same_inputs"] = r["b3_ms"]
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}
-    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "node": node}, f, indent=1)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"device": name, "nvidia_smi": smi, "kernels": detail,
+                   "node": {"main": main_run, "path_a": path_a, "path_b": path_b}}, f, indent=1)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

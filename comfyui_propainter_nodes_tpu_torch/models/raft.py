@@ -6,6 +6,10 @@ weights, the 20-step recurrent update as a Python loop over the
 computed once (the backward volume is its transpose) as one fp32
 `torch.matmul`, pooled into the pixel-major 4-level pyramid, and looked
 up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py).
+With PROPAINTER_TPU_CORR_KERNEL=pallas (read at call time, as the JAX
+package reads it) both directions share one zero-padded pyramid and the
+lookup takes the padded-map window kernel (ops/cuda/corr_window.py),
+the JAX package's padded `lookup_corr` branch.
 Compute dtype follows the params (bf16 under fp16="enable"); coords,
 convex upsampling and the returned flows stay fp32.
 """
@@ -13,19 +17,27 @@ convex upsampling and the returned flows stay fp32.
 from __future__ import annotations
 
 import math
+import os
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.conv import batch_norm_eval, instance_norm, pconv2d
 from ..ops.cuda.corr_lookup import corr_lookup
+from ..ops.cuda.corr_window import corr_window_lookup4
 from ..ops.patches import unfold
 from ..ops.warp import coords_grid
 
 Params = Mapping[str, torch.Tensor]
 
 CORR_LEVELS = 4
+CORR_RADIUS = 4
 HDIM = 128  # hidden-state channels of the context features
+# zero border of the padded pyramid: >= the 10-wide window, so a window
+# whose start clamps to the edge lies wholly in zeros
+PAD = 2 * CORR_RADIUS + 2
+WIN = 2 * CORR_RADIUS + 2
 
 
 # ---------------------------------------------------------------- encoders
@@ -102,6 +114,52 @@ def build_corr_pyramids(fmap1, fmap2):
     return fwd, bwd
 
 
+def build_padded_pyramid_bi(fmap1, fmap2):
+    """ONE zero-padded 4-level pyramid whose batch is [fwd pixels ++ bwd
+    pixels] (the JAX package's `build_corr_pyramid_bi(pad=True)`): pool
+    first, then pad each level by PAD. Level 0 is written straight into
+    its padded buffer, the backward half from the transposed product."""
+    n, h, w, _ = fmap1.shape
+    hw = h * w
+    corr = _all_pairs_corr(fmap1, fmap2)
+    level0 = corr.new_zeros((2, n, hw, h + 2 * PAD, w + 2 * PAD))
+    level0[0, :, :, PAD : PAD + h, PAD : PAD + w] = corr.view(n, hw, h, w)
+    level0[1, :, :, PAD : PAD + h, PAD : PAD + w] = corr.transpose(1, 2).view(n, hw, h, w)
+    del corr
+    level0 = level0.view(2 * n * hw, h + 2 * PAD, w + 2 * PAD)
+    coarse = pool_pyramid(level0[:, PAD : PAD + h, PAD : PAD + w])[1:]
+    return [level0] + [F.pad(m, (PAD, PAD, PAD, PAD)) for m in coarse]
+
+
+def padded_starts(pyramid, coords):
+    """Window starts and fractions of the JAX package's padded
+    `lookup_corr` branch (models/raft.py there): per level, starts in
+    padded coordinates clamped to [0, Hp-10] x [0, Wp-10], fractions cast
+    to the map's dtype. coords [M', H8, W8, 2] fp32 (x, y) -> sy, sx
+    [4, M] int32 and fy, fx [4, M] fp32, M = M'*H8*W8."""
+    flat = coords.reshape(-1, 2)
+    sy, sx, fy, fx = [], [], [], []
+    for lvl, cmap in enumerate(pyramid):
+        c = flat / (2**lvl)
+        x0 = torch.floor(c[:, 0])
+        y0 = torch.floor(c[:, 1])
+        fx.append((c[:, 0] - x0).to(cmap.dtype).float())
+        fy.append((c[:, 1] - y0).to(cmap.dtype).float())
+        # far-away centroids clamp anyway; bound them before the int cast
+        sy.append((y0.clamp(-1e6, 1e6).int() - CORR_RADIUS + PAD).clamp(0, cmap.shape[1] - WIN))
+        sx.append((x0.clamp(-1e6, 1e6).int() - CORR_RADIUS + PAD).clamp(0, cmap.shape[2] - WIN))
+    return torch.stack(sy), torch.stack(sx), torch.stack(fy), torch.stack(fx)
+
+
+def lookup_padded(pyramid, coords):
+    """The padded branch's lookup: the four-level window kernel, its
+    (dy, dx) taps transposed to the reference's (dx, dy) channels.
+    coords [M', H8, W8, 2] -> [M', H8, W8, 324] fp32."""
+    nb, h8, w8, _ = coords.shape
+    taps = corr_window_lookup4(pyramid, *padded_starts(pyramid, coords))
+    return taps.transpose(2, 3).reshape(nb, h8, w8, CORR_LEVELS * 81)
+
+
 # ------------------------------------------------------------ update block
 
 
@@ -175,7 +233,18 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
     fm = fmaps.reshape(b, t, h8, w8, -1)
     f1 = fm[:, :-1].reshape(n, h8, w8, -1)
     f2 = fm[:, 1:].reshape(n, h8, w8, -1)
-    pyr_f, pyr_b = build_corr_pyramids(f1, f2)
+    if os.environ.get("PROPAINTER_TPU_CORR_KERNEL", "") == "pallas":
+        pyr = build_padded_pyramid_bi(f1, f2)
+
+        def lookup(c):
+            return lookup_padded(pyr, c)
+
+    else:
+        pyr_f, pyr_b = build_corr_pyramids(f1, f2)
+
+        def lookup(c):
+            return torch.cat([corr_lookup(pyr_f, c[:n].contiguous()), corr_lookup(pyr_b, c[n:].contiguous())])
+
     del fmaps, fm, f1, f2
 
     # context order matches the lookup batch: [fwd image1 ++ bwd image1]
@@ -187,13 +256,7 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
     coords0 = coords_grid(2 * n, h8, w8, device=frames.device)
     coords1 = coords0.clone()
     for _ in range(iters):
-        corr = torch.cat(
-            [
-                corr_lookup(pyr_f, coords1[:n].contiguous()),
-                corr_lookup(pyr_b, coords1[n:].contiguous()),
-            ],
-            dim=0,
-        )
+        corr = lookup(coords1)
         flow = coords1 - coords0
         net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
         coords1 = coords1 + delta.float()

@@ -5,8 +5,13 @@ geometry: (5, 9) windows over the token grid, 4 rolled K/V copies kept
 at their 148 out-of-window survivors, and a 4x4 depthwise-pooled global
 token grid. Occupied windows attend over [window | rolled | pooled]
 keys, clean windows within each frame: both through the window-attention
-kernel (ops/cuda/window_attention.py), which reads the three key segments
-as they are (pooled keys unbroadcast, per batch row).
+kernels (ops/cuda/window_attention.py, single-pass or segment-tiled by
+the JAX package's size estimate), which read the three key segments as
+they are (pooled keys unbroadcast, per batch row). With
+PROPAINTER_TPU_ATTN=halo (read at call time) the layer takes the halo
+kernel instead (ops/cuda/window_attention_halo.py): it reads windows from
+the token grids and a halo of the circularly padded K/V in place of the
+rolled copies.
 
 SoftSplit is one strided conv; SoftComp and FusionFeedForward run in
 stride-phase space (fold/unfold composed with the linear layers become
@@ -16,6 +21,7 @@ stride-phase space (fold/unfold composed with the linear layers become
 from __future__ import annotations
 
 import functools
+import os
 from typing import Mapping
 
 import numpy as np
@@ -23,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from .conv import conv2d, layer_norm, linear
-from .cuda.window_attention import window_attention
+from .cuda.window_attention import window_attention_dispatch
+from .cuda.window_attention_halo import window_attention_halo
 from .pool import max_pool2d
 
 Params = Mapping[str, torch.Tensor]
@@ -202,14 +209,63 @@ def sparse_window_attention(
     q = linear(p, pre + ".query", x)
     k = linear(p, pre + ".key", x)
     v = linear(p, pre + ".value", x)
-    win_q = _window_partition(q, window_size, n_head)
-    win_k = _window_partition(k, window_size, n_head)
-    win_v = _window_partition(v, window_size, n_head)
 
     ti = np.arange(t) if t_ind is None else np.asarray(t_ind)
     ti_t = torch.as_tensor(ti, device=dev)
     t_sel = len(ti)
     eh, ew = (wh + 1) // 2, (ww + 1) // 2
+
+    # pooled global tokens: depthwise 4x4 stride-4 conv, then key/value
+    pool_x = conv2d(
+        x.reshape(b * t, new_h, new_w, c), p[pre + ".pool_layer.weight"],
+        p[pre + ".pool_layer.bias"], stride=pool_size, groups=c,
+    )
+    p_h, p_w = pool_x.shape[1], pool_x.shape[2]
+    pool_x = pool_x.reshape(b, t, p_h, p_w, c)
+
+    def heads_of(a):  # [B, T, ph, pw, C] -> [B, head, T_sel*ph*pw, ch]
+        a = a.reshape(b, t, p_h * p_w, n_head, ch).permute(0, 3, 1, 2, 4)
+        return a.index_select(2, ti_t).reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous()
+
+    pk = heads_of(linear(p, pre + ".key", pool_x))
+    pv = heads_of(linear(p, pre + ".value", pool_x))
+
+    # occupancy: a window is occupied if the mask touches it in any local frame
+    l_t = mask.shape[1]
+    occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
+    occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
+
+    if t_valid_mask is None:
+        tv = torch.ones((b, t), dtype=torch.bool, device=dev)
+    else:
+        tv = t_valid_mask.to(dev).reshape(-1, t).expand(b, t)
+    in_tind = torch.zeros(t, dtype=torch.bool, device=dev)
+    in_tind[ti_t] = True
+    zero = torch.zeros((), device=dev)
+    neg = torch.full((), NEG, device=dev)
+    bias_w = torch.where(in_tind[None] & tv, zero, neg).repeat_interleave(wh * ww, dim=1).float().contiguous()
+    bias_sel = torch.where(tv.index_select(1, ti_t), zero, neg).float()
+    bias_p = bias_sel.repeat_interleave(p_h * p_w, dim=1).contiguous()
+
+    # read at call time, as the JAX package does; like it, the halo form
+    # takes every size (its blocks do not grow with the token grid)
+    if os.environ.get("PROPAINTER_TPU_ATTN", "segmented") == "halo":
+
+        def cpad(a):  # circular pad of the window-padded grid at the t_ind frames
+            a = a.index_select(1, ti_t)
+            a = torch.cat([a[:, :, -eh:], a, a[:, :, :eh]], dim=2)
+            return torch.cat([a[:, :, :, -ew:], a, a[:, :, :, :ew]], dim=3).contiguous()
+
+        out = window_attention_halo(
+            q.contiguous(), k.contiguous(), v.contiguous(), cpad(k), cpad(v), pk, pv,
+            occ.reshape(b, n_wh, n_ww).contiguous(), bias_w, bias_sel.contiguous(), bias_p,
+            window_size=window_size, n_head=n_head,
+        )
+        return linear(p, pre + ".proj", out[:, :, :h, :w])
+
+    win_q = _window_partition(q, window_size, n_head)
+    win_k = _window_partition(k, window_size, n_head)
+    win_v = _window_partition(v, window_size, n_head)
     shifts = [(-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)]
     idx = torch.as_tensor(_valid_rolled_indices(window_size), device=dev)
 
@@ -228,52 +284,15 @@ def sparse_window_attention(
     rk = build_rolled(k)
     rv = build_rolled(v)
     n_rolled = rk.shape[4]
+    bias_r = bias_sel.repeat_interleave(n_rolled, dim=1).contiguous()
 
-    # pooled global tokens: depthwise 4x4 stride-4 conv, then key/value
-    pool_x = conv2d(
-        x.reshape(b * t, new_h, new_w, c), p[pre + ".pool_layer.weight"],
-        p[pre + ".pool_layer.bias"], stride=pool_size, groups=c,
-    )
-    p_h, p_w = pool_x.shape[1], pool_x.shape[2]
-    pool_x = pool_x.reshape(b, t, p_h, p_w, c)
-
-    def heads_of(a):  # [B, T, ph, pw, C] -> [B, head, T_sel, ph*pw, ch]
-        a = a.reshape(b, t, p_h * p_w, n_head, ch).permute(0, 3, 1, 2, 4)
-        return a.index_select(2, ti_t)
-
-    pk = heads_of(linear(p, pre + ".key", pool_x))
-    pv = heads_of(linear(p, pre + ".value", pool_x))
-
-    # occupancy: a window is occupied if the mask touches it in any local frame
-    l_t = mask.shape[1]
-    occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
-    occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
-
-    if t_valid_mask is None:
-        tv = torch.ones((b, t), dtype=torch.bool, device=dev)
-    else:
-        tv = t_valid_mask.to(dev).reshape(-1, t).expand(b, t)
-    in_tind = torch.zeros(t, dtype=torch.bool, device=dev)
-    in_tind[ti_t] = True
-    zero = torch.zeros((), device=dev)
-    neg = torch.full((), NEG, device=dev)
-    bias_w = torch.where(in_tind[None] & tv, zero, neg).repeat_interleave(wh * ww, dim=1)
-    bias_sel = torch.where(tv.index_select(1, ti_t), zero, neg)
-    bias_r = bias_sel.repeat_interleave(n_rolled, dim=1)
-    bias_p = bias_sel.repeat_interleave(p_h * p_w, dim=1)
-
-    out = window_attention(
+    out = window_attention_dispatch(
         win_q.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
         win_k.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
         win_v.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
         rk.reshape(b * n_win, n_head, t_sel * n_rolled, ch).contiguous(),
         rv.reshape(b * n_win, n_head, t_sel * n_rolled, ch).contiguous(),
-        pk.reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous(),
-        pv.reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous(),
-        occ.reshape(b * n_win).contiguous(),
-        bias_w.float().contiguous(),
-        bias_r.float().contiguous(),
-        bias_p.float().contiguous(),
+        pk, pv, occ.reshape(b * n_win).contiguous(), bias_w, bias_r, bias_p,
         n_win_per_b=n_win,
     )
     out = out.reshape(b, n_wh, n_ww, n_head, t, wh, ww, ch)

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-Each source compiles with its own `nvcc` process, all started together,
-for `sm_90a`; the objects link into one shared library under
-`<repo>/build/kernels/`, named by a hash of the sources, so a changed
-source rebuilds and an unchanged one loads the existing library. The
+Each source (`*.cu`) compiles with its own `nvcc` process, all started
+together, for `sm_90a`; the objects link into one shared library under
+`<repo>/build/kernels/`, named by a hash of the sources and the `*.cuh`
+headers they include, so a changed source rebuilds and an unchanged one loads the existing library. The
 library has a plain C interface and loads with `ctypes`. A missing
 `nvcc` or a failed build raises: nothing falls back.
 """
@@ -31,6 +31,10 @@ _SIGNATURES = {
     "propainter_corr_lookup": [_P] * 4 + [_I] * 8 + [_P, _P, ctypes.c_longlong, _I, _P],
     "propainter_deform_conv": [_P] * 6 + [_I] * 7 + [_P],
     "propainter_window_attention": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    "propainter_window_attention_tiled": [_P] * 16 + [_I] * 13 + [ctypes.c_float, _I, _P],
+    "propainter_window_attention_halo": [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P],
+    "propainter_corr_window": [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P],
+    "propainter_corr_window4": [_P] * 4 + [_I] * 8 + [_P] * 5 + [ctypes.c_longlong, _I, _P],
 }
 
 
@@ -46,8 +50,9 @@ def _sources() -> list[str]:
 
 
 def _digest(sources: list[str]) -> str:
+    """Hash of the sources and the headers they include."""
     h = hashlib.sha256()
-    for s in sources:
+    for s in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())

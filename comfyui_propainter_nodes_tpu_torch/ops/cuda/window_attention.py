@@ -1,4 +1,16 @@
-"""Occupancy-sparse window attention: CUDA kernel (csrc/window_attention.cu) + plain version.
+"""Occupancy-sparse window attention: CUDA kernels + plain versions.
+
+Two kernels compute the same function, as in the JAX package:
+  * `window_attention` (csrc/window_attention.cu), the single-pass kernel;
+  * `window_attention_tiled` (csrc/window_attention_tiled.cu), the
+    segment-tiled kernel: rolled and pooled segments padded to SEG_TILE
+    multiples with zero keys of bias -1e9, each occupied window's key
+    sequence split across blocks and merged by a combine pass;
+and `window_attention_dispatch` picks one by the JAX dispatcher's size
+estimate (single pass below 12e6: 640x360; tiled from there: 1280x720).
+On the H100 both are bound by operations in occupied windows and by
+bytes in clean ones; the tiled kernel splits an occupied window's keys
+across blocks so no block walks all of them (csrc/ has the designs).
 
 Signature (the JAX package's `window_attention_pallas`):
   win_q, win_k, win_v  [W, head, T, wsz, ch]   W = B * n_win_per_b
@@ -17,10 +29,17 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset
+NEG = -1e9
+SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
+SPLIT_TILES = 2  # segment tiles of keys per block of the tiled kernel
+TILED_ESTIMATE = 12e6  # the JAX dispatcher's threshold
+MAX_GRID_Z = 65535
+launches = 0  # single-pass kernel launches since the last reset
+launches_tiled = 0  # segment-tiled kernel launches since the last reset
 
 
 def window_attention_plain(
@@ -28,28 +47,37 @@ def window_attention_plain(
     bias_w, bias_r, bias_p, n_win_per_b: int,
 ):
     """Both branches for every window, selected by occupancy (the JAX
-    package's XLA form), in fp32."""
+    package's XLA form), in fp32. Windows go in chunks whose scores take
+    about 1 GiB, so the 1280x720 shapes fit."""
     nw, nh, t, wsz, ch = win_q.shape
-    b = nw // n_win_per_b
+    n_keys = t * wsz + rolled_k.shape[2] + pool_k.shape[2]
+    step = max(1, int(2**30 // (nh * t * wsz * n_keys * 4 * 2)))
+    args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
+    outs = [_plain_windows(*args, n_win_per_b, w0, min(nw, w0 + step)) for w0 in range(0, nw, step)]
+    return torch.cat(outs).to(win_q.dtype)
+
+
+def _plain_windows(
+    win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+    bias_w, bias_r, bias_p, n_win_per_b: int, w0: int, w1: int,
+):
+    """window_attention_plain for windows [w0, w1), fp32."""
+    _, nh, t, wsz, ch = win_q.shape
+    nw = w1 - w0
+    rows = torch.arange(w0, w1, device=win_q.device) // n_win_per_b  # batch row per window
     scale = 1.0 / math.sqrt(ch)
-    q = win_q.float()
-    k = win_k.float()
-    v = win_v.float()
-
-    def per_window(a):  # [B, head, L, ch] -> [W, head, L, ch]
-        return a.float()[:, None].expand(b, n_win_per_b, *a.shape[1:]).reshape(nw, *a.shape[1:])
-
+    q = win_q[w0:w1].float()
+    k = win_k[w0:w1].float()
+    v = win_v[w0:w1].float()
     qa = q.reshape(nw, nh, t * wsz, ch)
-    k_all = torch.cat([k.reshape(nw, nh, t * wsz, ch), rolled_k.float(), per_window(pool_k)], dim=2)
-    v_all = torch.cat([v.reshape(nw, nh, t * wsz, ch), rolled_v.float(), per_window(pool_v)], dim=2)
-    bias = torch.cat([bias_w, bias_r, bias_p], dim=1).float()
-    bias = bias.repeat_interleave(n_win_per_b, dim=0)[:, None, None, :]
+    k_all = torch.cat([k.reshape(nw, nh, t * wsz, ch), rolled_k[w0:w1].float(), pool_k[rows].float()], dim=2)
+    v_all = torch.cat([v.reshape(nw, nh, t * wsz, ch), rolled_v[w0:w1].float(), pool_v[rows].float()], dim=2)
+    bias = torch.cat([bias_w, bias_r, bias_p], dim=1).float()[rows][:, None, None, :]
     att_a = torch.matmul(qa, k_all.transpose(-1, -2)) * scale + bias
     out_a = torch.matmul(torch.softmax(att_a, dim=-1), v_all).reshape(nw, nh, t, wsz, ch)
     att_b = torch.matmul(q, k.transpose(-1, -2)) * scale
     out_b = torch.matmul(torch.softmax(att_b, dim=-1), v)
-    out = torch.where(occ.reshape(nw, 1, 1, 1, 1).bool(), out_a, out_b)
-    return out.to(win_q.dtype)
+    return torch.where(occ[w0:w1].reshape(nw, 1, 1, 1, 1).bool(), out_a, out_b)
 
 
 def _check(args, n_win_per_b):
@@ -107,3 +135,98 @@ def window_attention(
     _build.check(status, "window_attention")
     launches += 1
     return out
+
+
+# ------------------------------------------------------------ segment-tiled
+
+
+def uses_tiled(win_q, rolled_k, pool_k) -> bool:
+    """The JAX dispatcher's choice (`window_attention_pallas`): its
+    estimate of the single-pass kernel's q/k/v, rolled and pooled blocks
+    and fp32 output in bytes, with the element size of the compute dtype,
+    against 12e6."""
+    _, nh, t, wsz, ch = win_q.shape
+    qt = t * wsz
+    esz = 2 if win_q.dtype == torch.bfloat16 else 4
+    est = (
+        (3 * qt + 2 * rolled_k.shape[2]) * nh * ch * esz * 2
+        + 2 * pool_k.shape[2] * nh * ch * esz
+        + qt * nh * ch * 4
+    )
+    return est >= TILED_ESTIMATE
+
+
+def _padded(length: int) -> int:
+    return max(1, -(-length // SEG_TILE)) * SEG_TILE
+
+
+def window_attention_tiled_plain(
+    win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+    bias_w, bias_r, bias_p, n_win_per_b: int,
+):
+    """The TPU tiled kernel's tiling, then the plain version: rolled and
+    pooled segments padded to SEG_TILE multiples with zero keys whose bias
+    is -1e9 (`_window_attention_tiled`'s `pad_seg`)."""
+
+    def pad(k, v, bias):
+        extra = _padded(k.shape[2]) - k.shape[2]
+        return F.pad(k, (0, 0, 0, extra)), F.pad(v, (0, 0, 0, extra)), F.pad(bias.float(), (0, extra), value=NEG)
+
+    rolled_k, rolled_v, bias_r = pad(rolled_k, rolled_v, bias_r)
+    pool_k, pool_v, bias_p = pad(pool_k, pool_v, bias_p)
+    return window_attention_plain(
+        win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p, n_win_per_b
+    )
+
+
+def window_attention_tiled(
+    win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+    bias_w, bias_r, bias_p, *, n_win_per_b: int,
+):
+    global launches_tiled
+    args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
+    if win_q.device.type == "cpu":
+        return window_attention_tiled_plain(*args, n_win_per_b)
+    if win_q.device.type != "cuda":
+        raise ValueError(f"window_attention_tiled: unsupported device {win_q.device}")
+    _check(args, n_win_per_b)
+    nw, nh, t, wsz, ch = win_q.shape
+    qt, rl, pl_len = t * wsz, rolled_k.shape[2], pool_k.shape[2]
+    rlp, plp = _padded(rl), _padded(pl_len)
+    split_keys = SPLIT_TILES * SEG_TILE
+    n_split = -(-(qt + rlp + plp) // split_keys)
+    occ_i = occ.to(torch.int32).contiguous()
+    # the grid has a block range per occupied window: this count syncs
+    occ_list = torch.nonzero(occ_i).flatten().to(torch.int32)
+    n_occ = occ_list.numel()
+    if nw + n_occ * n_split > MAX_GRID_Z:
+        raise ValueError(f"window_attention_tiled: {nw} windows + {n_occ} x {n_split} splits exceed the grid")
+    dev = win_q.device
+    out = torch.empty_like(win_q)
+    part_m = torch.empty((n_occ, nh, n_split, qt), device=dev, dtype=torch.float32)
+    part_l = torch.empty_like(part_m)
+    part_o = torch.empty((n_occ, nh, n_split, qt, ch), device=dev, dtype=torch.float32)
+    status = _build.library().propainter_window_attention_tiled(
+        *[a.data_ptr() for a in (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v)],
+        occ_i.data_ptr(), occ_list.data_ptr(), bias_w.data_ptr(), bias_r.data_ptr(), bias_p.data_ptr(),
+        out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+        nw, n_occ, nh, qt, rl, rlp, pl_len, plp, ch, n_win_per_b, wsz, n_split, split_keys,
+        1.0 / math.sqrt(ch), int(win_q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "window_attention_tiled")
+    launches_tiled += 1
+    return out
+
+
+def window_attention_dispatch(
+    win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+    bias_w, bias_r, bias_p, *, n_win_per_b: int,
+):
+    """The JAX package's choice (`window_attention_pallas`): the
+    single-pass kernel below the size estimate 12e6, the tiled one from it."""
+    fn = window_attention_tiled if uses_tiled(win_q, rolled_k, pool_k) else window_attention
+    return fn(
+        win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+        bias_w, bias_r, bias_p, n_win_per_b=n_win_per_b,
+    )

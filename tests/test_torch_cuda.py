@@ -16,8 +16,10 @@ import torch
 
 from comfyui_propainter_nodes_tpu_torch.models.raft import build_corr_pyramids
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
+from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as b67
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as b3
+from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
 
 pytestmark = pytest.mark.cuda
 
@@ -65,29 +67,115 @@ def test_deform_conv_matches_plain(gen, dt, tol, cin, g):
     )
 
 
-@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_window_attention_matches_plain(gen, dt, tol):
-    """Mixed occupancy, per-batch-row biases, ragged segment lengths."""
-    b, nwb, nh, t, wsz, ch = 2, 3, 2, 4, 45, 64
+def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ):
+    """Per-batch-row biases: t_ind = every other frame, the last frame of
+    row 1 padded."""
     nw = b * nwb
-    rl, pl_len = 2 * 148, 2 * 91
+    in_tind = torch.arange(t, device="cuda") % 2 == 0
+    t_sel = int(in_tind.sum())
 
     def r(*s):
         return torch.randn(*s, generator=gen, device="cuda").to(dt)
 
     args = [r(nw, nh, t, wsz, ch), r(nw, nh, t, wsz, ch), r(nw, nh, t, wsz, ch),
-            r(nw, nh, rl, ch), r(nw, nh, rl, ch), r(b, nh, pl_len, ch), r(b, nh, pl_len, ch)]
-    occ = torch.tensor([True, False, True, False, False, True], device="cuda")
-    tv = torch.tensor([[True, True, True, True], [True, True, True, False]], device="cuda")
-    in_tind = torch.tensor([True, False, True, False], device="cuda")
+            r(nw, nh, t_sel * rl_per, ch), r(nw, nh, t_sel * rl_per, ch),
+            r(b, nh, t_sel * pl_per, ch), r(b, nh, t_sel * pl_per, ch)]
+    tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    tv[1:, -1] = False
     bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(wsz, 1).float()
     sel = tv[:, in_tind]
-    bias_r = torch.where(sel, 0.0, -1e9).repeat_interleave(148, 1).float()
-    bias_p = torch.where(sel, 0.0, -1e9).repeat_interleave(91, 1).float()
-    full = args + [occ, bias_w, bias_r, bias_p]
+    bias_r = torch.where(sel, 0.0, -1e9).repeat_interleave(rl_per, 1).float()
+    bias_p = torch.where(sel, 0.0, -1e9).repeat_interleave(pl_per, 1).float()
+    return args + [torch.tensor(occ, device="cuda"), bias_w, bias_r, bias_p]
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_window_attention_matches_plain(gen, dt, tol):
+    """Mixed occupancy, per-batch-row biases, ragged segment lengths."""
+    full = _attention_args(gen, dt, 2, 3, 2, 4, 45, 64, 148, 91, [True, False, True, False, False, True])
     torch.testing.assert_close(
-        b3.window_attention(*full, n_win_per_b=nwb), b3.window_attention_plain(*full, nwb), atol=tol, rtol=tol
+        b3.window_attention(*full, n_win_per_b=3), b3.window_attention_plain(*full, 3), atol=tol, rtol=tol
     )
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("occ", [[True, False, True, False, False, True], [False] * 6, [True] * 6])
+def test_window_attention_tiled_matches_plain(gen, dt, tol, occ):
+    """B4: segments of several SEG_TILEs with padded tails (splits that
+    straddle segment ends), mixed / no / all occupied windows, and the
+    single-pass kernel on the same inputs."""
+    full = _attention_args(gen, dt, 2, 3, 2, 5, 45, 128, 148, 405, occ)
+    before = b3.launches_tiled
+    out = b3.window_attention_tiled(*full, n_win_per_b=3)
+    assert b3.launches_tiled == before + 1
+    torch.testing.assert_close(out, b3.window_attention_tiled_plain(*full, 3), atol=tol, rtol=tol)
+    torch.testing.assert_close(out, b3.window_attention(*full, n_win_per_b=3), atol=tol, rtol=tol)
+
+
+def test_window_attention_dispatch(gen):
+    """The size estimate routes the 720p-sized pooled segment to B4 and a
+    small one to B3."""
+    small = _attention_args(gen, torch.bfloat16, 1, 2, 4, 13, 45, 128, 148, 91, [True, False])
+    large = _attention_args(gen, torch.bfloat16, 1, 2, 4, 13, 45, 128, 148, 405, [True, False])
+    single, tiled = b3.launches, b3.launches_tiled
+    b3.window_attention_dispatch(*small, n_win_per_b=2)
+    assert (b3.launches, b3.launches_tiled) == (single + 1, tiled)
+    b3.window_attention_dispatch(*large, n_win_per_b=2)
+    assert (b3.launches, b3.launches_tiled) == (single + 1, tiled + 1)
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_window_attention_halo_matches_plain(gen, dt, tol):
+    """B5 on a window-padded 10x27 grid, 2 batch rows, mixed occupancy,
+    t_ind = every other frame, a padded frame."""
+    b, t, hp, wp, c, nh = 2, 4, 10, 27, 256, 2
+    wh, ww = 5, 9
+    ts = 2
+
+    def r(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(dt)
+
+    q, k, v = r(b, t, hp, wp, c), r(b, t, hp, wp, c), r(b, t, hp, wp, c)
+    idx = torch.tensor([0, 2], device="cuda")
+
+    def cpad(a):
+        a = a.index_select(1, idx)
+        a = torch.cat([a[:, :, -3:], a, a[:, :, :3]], 2)
+        return torch.cat([a[:, :, :, -5:], a, a[:, :, :, :5]], 3).contiguous()
+
+    pk, pv = r(b, nh, ts * 17, c // nh), r(b, nh, ts * 17, c // nh)
+    occ = torch.tensor([[[True, False, True], [False, False, True]], [[False, True, False], [True, False, False]]], device="cuda")
+    tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    tv[1, -2] = False
+    in_tind = torch.arange(t, device="cuda") % 2 == 0
+    bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(wh * ww, 1).float()
+    bias_hv = torch.where(tv[:, in_tind], 0.0, -1e9).float()
+    bias_p = bias_hv.repeat_interleave(17, 1)
+    args = (q, k, v, cpad(k), cpad(v), pk, pv, occ, bias_w, bias_hv, bias_p)
+    before = b5.launches
+    out = b5.window_attention_halo(*args, window_size=(wh, ww), n_head=nh)
+    assert b5.launches == before + 1
+    ref = b5.window_attention_halo_plain(*args, window_size=(wh, ww), n_head=nh)
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_corr_window_lookups_match_plain(gen, dt):
+    """B7 and B6 on padded maps, starts at and past both edges; fp32 is
+    bit-exact (same products and sums, each rounded)."""
+    m = 700
+    shapes = [(40, 50), (28, 34), (22, 26), (20, 22)]
+    maps = [torch.randn(m, hp, wp, generator=gen, device="cuda").to(dt) for hp, wp in shapes]
+    sy = torch.stack([torch.randint(-3, hp - 7, (m,), generator=gen, device="cuda") for hp, _ in shapes]).int()
+    sx = torch.stack([torch.randint(-3, wp - 7, (m,), generator=gen, device="cuda") for _, wp in shapes]).int()
+    fy = torch.rand(4, m, generator=gen, device="cuda").to(dt).float()
+    fx = torch.rand(4, m, generator=gen, device="cuda").to(dt).float()
+    tol = 0.0 if dt == torch.float32 else 1e-6
+    one = b67.corr_window_lookup(maps[0], sy[0], sx[0], fy[0], fx[0])
+    torch.testing.assert_close(one, b67.corr_window_lookup_plain(maps[0], sy[0], sx[0], fy[0], fx[0]), atol=tol, rtol=tol)
+    four = b67.corr_window_lookup4(maps, sy, sx, fy, fx)
+    torch.testing.assert_close(four, b67.corr_window_lookup4_plain(maps, sy, sx, fy, fx), atol=tol, rtol=tol)
+    torch.testing.assert_close(four[:, 0], one, atol=0, rtol=0)
 
 
 def test_wrappers_check_their_inputs(gen):
