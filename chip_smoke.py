@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Phases (any failure raises; the exit code is then nonzero):
-  1. build the CUDA kernels (csrc/*.cu, sm_90a) and print the build time;
+  1. build the CUDA kernels (csrc/*.cu, sm_90a); print the build time and,
+     for each kernel, its registers, spills and static shared memory
+     (ptxas) and its count of tensor-core HMMA instructions (cuobjdump
+     -sass); the bf16 attention loops must have some;
   2. hold each kernel against its plain PyTorch version in fp32 (TF32 off)
      and bf16, and time kernel, plain version and, where one exists, the
-     one PyTorch call that computes the same function:
+     one PyTorch call that computes the same function (B3 and B5 also
+     with every window clean, the share of their time clean windows set):
        B1-B3 at the main-path shapes of a 24-frame 640x360 node run;
        B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
        on the same inputs; B5 (halo attention) at the 640x360 and
@@ -34,6 +38,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -104,6 +110,57 @@ def switches(on: bool):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def kernel_name(mangled: str) -> str:
+    """`window_attention_kernel<bf16>` from a mangled entry name: the
+    length-prefixed identifier ending in `_kernel`, and its template
+    argument where it has one."""
+    found = []
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):  # a hash's digits may run into the length
+            ident = mangled[m.end() : m.end() + int(m.group()[i:])]
+            if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                found.append((len(ident), ident, mangled[m.end() + len(ident) :]))
+    if not found:
+        return mangled
+    _, ident, rest = min(found)
+    return ident + ("<bf16>" if rest.startswith("I13__nv_bfloat16") else "<fp32>" if rest.startswith("If") else "")
+
+
+def kernel_resources(ptxas_log: str, lib_path: str) -> dict:
+    """Per kernel: registers, spill bytes and static shared memory from
+    ptxas's output, and the count of tensor-core (HMMA) instructions in
+    the library's SASS (`cuobjdump -sass`)."""
+    res, cur = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = res.setdefault(kernel_name(m.group(1)), dict(registers=0, spill_stores=0, spill_loads=0, smem=0, hmma=0))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = res.setdefault(kernel_name(m.group(1)), dict(registers=0, spill_stores=0, spill_loads=0, smem=0, hmma=0))
+        elif cur is not None and "HMMA" in line:
+            cur["hmma"] += 1
+    return res
 
 
 # ------------------------------------------------------------------ phase 2
@@ -323,15 +380,17 @@ def check_window_attention(dt, gen, t_sel, occ):
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "window_attention disagrees with its plain version")
     ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
+    clean = args[:7] + [torch.zeros_like(occ)] + args[8:]
+    clean_ms = time_ms(lambda: mod.window_attention(*clean, n_win_per_b=n_win))
     plain_ms = time_ms(lambda: mod.window_attention_plain(*args, n_win), reps=3, warmup=1)
     lib = attention_library(args, n_win)
     lib_err, _ = rel_err(lib().reshape(out.shape), ref)
     library_ms = time_ms(lib, reps=5, warmup=1)
     bound, by = attention_bound(dt, 4, 13 * 45, 45, 128, t_sel * 148, t_sel * 91, occ, n_win)
     log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
-        f"library_ms {library_ms:.4f} (SDPA, err vs plain {lib_err:.3e})")
+        f"library_ms {library_ms:.4f} (SDPA, err vs plain {lib_err:.3e}); every window clean {clean_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, occupied_share=int(occ.sum()) / nw)
+                library_ms=library_ms, occupied_share=int(occ.sum()) / nw, all_clean_ms=clean_ms)
 
 
 def check_window_attention_tiled(dt, gen, t_sel, occ):
@@ -401,6 +460,8 @@ def check_window_attention_halo(dt, gen, grid, occ):
     require(rel <= tol, "window_attention_halo disagrees with its plain version")
     del ref
     ms = time_ms(lambda: mod.window_attention_halo(*args, **kw))
+    clean = args[:7] + (torch.zeros_like(occ3),) + args[8:]
+    clean_ms = time_ms(lambda: mod.window_attention_halo(*clean, **kw))
     plain_ms = time_ms(lambda: mod.window_attention_halo_plain(*args, **kw), reps=3, warmup=1)
     # library: SDPA over [window | halo | pooled] keys per window
     qw = mod._windows(q, (wh, ww), nh)
@@ -418,9 +479,9 @@ def check_window_attention_halo(dt, gen, grid, occ):
     library_ms = time_ms(lib, reps=5, warmup=1)
     bound, by = attention_bound(dt, nh, qt, wsz, ch, t_sel * 148, t_sel * pl_per, occ, nwh * nww)
     log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
-        f"library_ms {library_ms:.4f} (SDPA over the halo, err vs kernel {lib_err:.3e})")
+        f"library_ms {library_ms:.4f} (SDPA over the halo, err vs kernel {lib_err:.3e}); every window clean {clean_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, occupied_share=int(occ.sum()) / occ.numel())
+                library_ms=library_ms, occupied_share=int(occ.sum()) / occ.numel(), all_clean_ms=clean_ms)
 
 
 def clip_occupancy(h: int, w: int):
@@ -565,8 +626,9 @@ def profile_run(run, timed_wall_s, name):
         log("  profiler: no device time recorded (not measured)")
         return None
     mine = {k: sum(r[0] for r in rows if k in r[2]) for k in (
-        "corr_lookup_kernel", "deform_conv_kernel", "window_attention_kernel", "window_attention_split_kernel",
-        "window_attention_combine_kernel", "window_attention_halo_kernel", "corr_window4_kernel", "corr_window_kernel")}
+        "corr_lookup_kernel", "deform_conv_kernel", "window_attention_mma_kernel", "window_attention_kernel",
+        "window_attention_split_kernel", "window_attention_combine_kernel", "window_attention_halo_mma_kernel",
+        "window_attention_halo_kernel", "corr_window4_kernel", "corr_window_kernel")}
     share = busy / (timed_wall_s * 1e3)
     own = busy / (own_wall_s * 1e3)
     log(f"  profiled run: device kernels {busy:.1f} ms = {100 * share:.1f}% of the timed run's "
@@ -620,15 +682,18 @@ def main() -> int:
 
     log("phase 1: build")
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    lib_path = _build.build()
     _build.library()
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as f:
         f.write(_build.build_log)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    resources = kernel_resources(_build.build_log, lib_path)
+    for kname, r in resources.items():
+        log(f"  {kname}: {r['registers']} registers, spill stores {r['spill_stores']} B, loads "
+            f"{r['spill_loads']} B, smem {r['smem']} B static, HMMA {r['hmma']}")
+    for kname in ("window_attention_mma_kernel", "window_attention_halo_mma_kernel"):
+        require(resources[kname]["hmma"] > 0, f"{kname} has no tensor-core instruction in its SASS")
 
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -699,7 +764,7 @@ def main() -> int:
             "launches": run["launches"][name_k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "dtype": "bf16",
-            "max_abs_err_fp32": res[(rk, "float32")]["max_abs_err"],
+            "max_abs_err_fp32": res[(rk, "float32")]["max_abs_err"], "ms_fp32": res[(rk, "float32")]["ms"],
         }
         if "b3_ms" in r:
             row["b3_ms_same_inputs"] = r["b3_ms"]
@@ -707,7 +772,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"device": name, "nvidia_smi": smi, "kernels": detail,
+        json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "resources": resources,
                    "node": {"main": main_run, "path_a": path_a, "path_b": path_b}}, f, indent=1)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

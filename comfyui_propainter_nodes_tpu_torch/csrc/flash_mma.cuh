@@ -1,0 +1,307 @@
+// The bf16 flash-attention tile loop on the tensor cores, shared by the
+// single-pass (window_attention.cu) and the halo (window_attention_halo.cu)
+// window attention kernels. fp32 inputs, and the segment-tiled kernel, run
+// the CUDA-core loop of flash_tile.cuh; both loops take the same key
+// decoders.
+//
+// A block of NT = 128 threads (four warps) owns BQ = 64 query rows of one
+// (window, head), 16 rows to a warp. Keys arrive in tiles of BK = 64:
+//   * 64 threads decode the tile's keys through the caller's decoder (a K
+//     and a V row pointer, an additive bias, the key's frame) two tiles
+//     ahead: the decoder's loads are issued before a tile's math and their
+//     results stored to shared memory after it, so their latency hides
+//     under the math. Every thread issues 16-byte `cp.async` copies of the
+//     K and V rows (zero-fill for absent or padding keys). K/V tiles are
+//     double-buffered: tile i+1's copies are in flight while tile i
+//     computes. Key metadata has three slots; one barrier a tile keeps a
+//     slot or a buffer from being rewritten while a warp still reads it.
+//   * S = Q·Kᵀ with `mma.sync.m16n8k16` bf16 tiles, fp32 accumulation; the
+//     Q fragments are loaded once (`ldmatrix`), K fragments come from the
+//     staged tile (`ldmatrix`).
+//   * online softmax in registers: each row's scores sit in one quad of
+//     threads and reduce with two shuffles; exp2 with log2(e) folded into
+//     the scale and the bias; the running max starts at -1e30, so a row
+//     whose keys so far are all masked holds p = 0 and no NaN.
+//   * O += P·V: P rounded to bf16 in registers is the A operand (the TPU
+//     kernel rounds P to the value dtype too), V fragments come from the
+//     [key][ch] tile with `ldmatrix.trans`. O (16 x ch fp32 per warp) stays
+//     in registers and is divided by l at the end.
+// Shared rows are padded by 8 elements: a row stride of an odd number of
+// 16-byte units puts the 8 rows of each `ldmatrix` phase on distinct banks.
+//
+// Conventions of a decoded key (as flash_tile.cuh):
+//   * bias == -INFINITY: the key is absent (ragged tile tail), p = 0;
+//   * k == nullptr: a padding key with a zero row (score = bias);
+//   * frame >= 0 with frame_wsz > 0: the key counts only for rows of the
+//     same frame (row frame = (q0 + row) / frame_wsz, the clean-window
+//     branch); -1 otherwise.
+// Biases are added as given (0 or -1e9, not -inf), as in the reference.
+//
+// Head width: ch a multiple of 16, at most CHM. Shared memory: 87 KB at
+// ch 128 (dynamic; the launcher raises the limit), so two blocks share an
+// SM; MIN_BLOCKS = 2 leaves the compiler up to 255 registers a thread,
+// which the 64 O, 32 S and 32 Q fragment registers need without spills.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace fmma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;    // query rows per block
+constexpr int BK = 64;    // keys per staged tile
+constexpr int CHM = 128;  // largest head width
+constexpr int NT = 128;   // four warps
+constexpr int MIN_BLOCKS = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct KeyMeta {
+  const bf16* k;
+  const bf16* v;
+  float bias;
+  int frame;
+};
+
+// dynamic shared memory of one block: key metadata [3][BK], Q [BQ][ch+8],
+// K [2][BK][ch+8], V [2][BK][ch+8]
+inline size_t smem_bytes(int ch) {
+  return 3 * BK * sizeof(KeyMeta) + (size_t)(BQ + 4 * BK) * (ch + 8) * sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a·b, a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 fp32
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Attention of query rows [0, nq) of a tile over keys [k0, k1) of `dec`,
+// written through out_row. q_row(rr) / out_row(rr): first element of row
+// rr (< nq). Every pointer a decoder or a row function returns is 16-byte
+// aligned (the wrappers check the tensors).
+template <typename Dec, typename QRow, typename ORow>
+__device__ __forceinline__ void attend(unsigned char* smem, int nq, int ch, float scale, int k0, int k1,
+                                       const Dec& dec, const QRow& q_row, const ORow& out_row, int q0,
+                                       int frame_wsz) {
+  KeyMeta* meta = reinterpret_cast<KeyMeta*>(smem);
+  bf16* sq = reinterpret_cast<bf16*>(smem + 3 * BK * sizeof(KeyMeta));
+  const int ld = ch + 8;
+  bf16* sk = sq + BQ * ld;
+  bf16* sv = sk + 2 * BK * ld;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // row within the warp's 8-row half
+  const int tig = lane & 3;  // thread within the row's quad
+  const int nch = ch >> 3;   // 16-byte chunks per row
+  const int nks = ch >> 4;   // 16-wide steps over the channels
+  const int n_tiles = (k1 - k0 + BK - 1) / BK;
+  const bf16* dummy = q_row(0);
+
+  // key j's metadata: decoded into registers a tile ahead of its store
+  auto decode = [&](int t) {
+    KeyMeta m{nullptr, nullptr, -INFINITY, -1};
+    const int j = k0 + t * BK + tid;
+    if (tid < BK && j < k1) dec(j, m.k, m.v, m.bias, m.frame);
+    return m;
+  };
+  auto issue = [&](int t) {
+    const KeyMeta* mt = meta + (t % 3) * BK;
+    bf16* dk = sk + (t & 1) * BK * ld;
+    bf16* dv = sv + (t & 1) * BK * ld;
+    for (int idx = tid; idx < BK * nch; idx += NT) {
+      const int kk = idx / nch;
+      const int c = (idx - kk * nch) * 8;
+      const bf16* kp = mt[kk].k;
+      const bf16* vp = mt[kk].v;
+      cp_async16(smem_u32(dk + kk * ld + c), kp != nullptr ? kp + c : dummy, kp != nullptr ? 16 : 0);
+      cp_async16(smem_u32(dv + kk * ld + c), vp != nullptr ? vp + c : dummy, vp != nullptr ? 16 : 0);
+    }
+  };
+
+  if (tid < BK) {
+    meta[tid] = decode(0);
+    meta[BK + tid] = decode(1);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BQ * nch; idx += NT) {
+    const int rr = idx / nch;
+    const int c = (idx - rr * nch) * 8;
+    const bool ok = rr < nq;
+    cp_async16(smem_u32(sq + rr * ld + c), ok ? q_row(rr) + c : dummy, ok ? 16 : 0);
+  }
+  issue(0);
+  cp_commit();
+
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int rf0 = frame_wsz > 0 ? (q0 + r0) / frame_wsz : -1;
+  const int rf1 = frame_wsz > 0 ? (q0 + r0 + 8) / frame_wsz : -1;
+  const float sl2 = scale * LOG2E;
+  float m0 = -1.0e30f, m1 = -1.0e30f, l0 = 0.0f, l1 = 0.0f;
+  float o[CHM / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < CHM / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.0f;
+  uint32_t qf[CHM / 16][4];
+
+  // One barrier a tile. At the top of tile t: this thread's copies of
+  // tile t have landed, and after the barrier everyone's have, the
+  // metadata of tile t+1 (stored during tile t-1) is visible, and no warp
+  // still reads the K/V buffer or the metadata slot that tile t+1 and
+  // tile t+2 reuse (both last read by tile t-1).
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles) issue(t + 1);
+    cp_commit();
+    const KeyMeta next = decode(t + 2);  // its loads complete under this tile's math
+    if (t == 0) {
+#pragma unroll
+      for (int ks = 0; ks < CHM / 16; ++ks)
+        if (ks < nks) ldsm_x4(qf[ks], smem_u32(sq + (warp * 16 + (lane & 15)) * ld + ks * 16 + (lane >> 4) * 8));
+    }
+    const bf16* tk = sk + (t & 1) * BK * ld;
+    const bf16* tv = sv + (t & 1) * BK * ld;
+    const KeyMeta* mt = meta + (t % 3) * BK;
+
+    // S = Q·Kᵀ: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < CHM / 16; ++ks) {
+      if (ks < nks) {
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, smem_u32(tk + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + ks * 16 +
+                              ((lane >> 3) & 1) * 8));
+          mma(s[2 * np], qf[ks], b[0], b[1]);
+          mma(s[2 * np + 1], qf[ks], b[2], b[3]);
+        }
+      }
+    }
+
+    // bias, frame mask, online softmax (base 2)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const KeyMeta& km = mt[nt * 8 + tig * 2 + e];
+        const bool present = km.bias != -INFINITY;
+        const float b2 = km.bias * LOG2E;
+        const bool v0 = present && (rf0 < 0 || km.frame == rf0);
+        const bool v1 = present && (rf1 < 0 || km.frame == rf1);
+        s[nt][e] = v0 ? s[nt][e] * sl2 + b2 : -INFINITY;
+        s[nt][2 + e] = v1 ? s[nt][2 + e] * sl2 + b2 : -INFINITY;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      s[nt][0] = exp2f(s[nt][0] - mn0);
+      s[nt][1] = exp2f(s[nt][1] - mn0);
+      s[nt][2] = exp2f(s[nt][2] - mn1);
+      s[nt][3] = exp2f(s[nt][3] - mn1);
+      ps0 += s[nt][0] + s[nt][1];
+      ps1 += s[nt][2] + s[nt][3];
+    }
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int nt = 0; nt < CHM / 8; ++nt) {
+      o[nt][0] *= a0;
+      o[nt][1] *= a0;
+      o[nt][2] *= a1;
+      o[nt][3] *= a1;
+    }
+
+    // O += P·V: 16-key steps, P's accumulator layout is the A fragment's
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < CHM / 16; ++np) {
+        if (np < nks) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, smem_u32(tv + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + np * 16 +
+                                    (lane >> 4) * 8));
+          mma(o[2 * np], pa, b[0], b[1]);
+          mma(o[2 * np + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    if (tid < BK) meta[((t + 2) % 3) * BK + tid] = next;
+  }
+  cp_wait<0>();
+
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+#pragma unroll
+  for (int nt = 0; nt < CHM / 8; ++nt) {
+    if (nt < 2 * nks) {
+      const int c = nt * 8 + tig * 2;
+      if (r0 < nq) *reinterpret_cast<uint32_t*>(out_row(r0) + c) = pack_bf16(o[nt][0] * inv0, o[nt][1] * inv0);
+      if (r0 + 8 < nq)
+        *reinterpret_cast<uint32_t*>(out_row(r0 + 8) + c) = pack_bf16(o[nt][2] * inv1, o[nt][3] * inv1);
+    }
+  }
+}
+
+}  // namespace fmma

@@ -1,6 +1,7 @@
-// The flash-attention tile loop shared by the segment-tiled
-// (window_attention_tiled.cu) and the halo (window_attention_halo.cu)
-// window attention kernels.
+// The flash-attention tile loop on the CUDA cores: every input type of the
+// segment-tiled kernel (window_attention_tiled.cu), and the fp32 inputs of
+// the single-pass (window_attention.cu) and halo (window_attention_halo.cu)
+// kernels, whose bf16 inputs run the tensor-core loop of flash_mma.cuh.
 //
 // A block of NT = 128 threads owns BQ = 32 query rows of one (window,
 // head), four threads to a row. The query tile sits in shared memory in
@@ -157,6 +158,29 @@ __device__ __forceinline__ void attend(Smem<T>& sm, Row& st, int k0, int k1, con
     }
   }
 }
+
+// window key j of a clean window: its frame restricts it to that frame's rows
+template <typename T>
+struct FrameKeys {
+  const T* wk;
+  const T* wv;
+  int ch, wsz;
+  __device__ __forceinline__ void operator()(int j, const T*& kp, const T*& vp, float& bias,
+                                             int& fr) const {
+    kp = wk + (long long)j * ch;
+    vp = wv + (long long)j * ch;
+    bias = 0.0f;
+    fr = j / wsz;
+  }
+};
+
+// row rr of a query tile starting at row q0 of a [rows, ch] block
+template <typename P>
+struct WindowRows {
+  P base;
+  int q0, ch;
+  __device__ __forceinline__ P operator()(int rr) const { return base + (long long)(q0 + rr) * ch; }
+};
 
 // write a finished row (o / l) of a query tile in the output type
 template <typename T>

@@ -19,177 +19,138 @@
 // What bounds it on the H100: operations for occupied windows (4*QT*
 // (QT+RL+PL)*ch flops per (window, head): ~680 MFLOP at the 640x360
 // shape, against ~1.2 MB of bf16 K/V), bytes for clean ones (4*QT*wsz*ch
-// flops against the window's Q/K/V). The occupied share depends on the
-// mask, and with it which bound the whole call meets.
+// flops against the window's Q/K/V). At the node's occupancy the occupied
+// windows' products are most of the work.
 //
-// Design: one block per (32-query tile, head, window), flash style. The
-// query tile stays in shared memory; 16-key K/V tiles of each segment are
-// staged in shared memory in turn, and each query row keeps an online
-// softmax (running max m, sum l, 32 output columns per thread) so no
-// score matrix reaches device memory. Segment lengths need not be tile
-// multiples: the ragged tail tile masks its missing keys. Clean windows
-// run the same loop over only the key frames their query tile touches,
-// with keys of other frames masked. Biases are added as given (-1e9, not
-// -inf), exactly like the reference. CUDA-core FMAs for now; wgmma is
-// the follow-up.
+// Design: the three segments are one key sequence for a segment decoder
+// (a tile may straddle segment ends; the ragged tail is masked per key),
+// so one flash loop runs per block. bf16 inputs take the tensor-core loop
+// (flash_mma.cuh): one block per (64-query tile, head, window), Q·Kᵀ and
+// P·V as bf16 `mma.sync` tiles with fp32 accumulation and 64-key K/V tiles
+// double-buffered by `cp.async`, which puts the occupied windows' products
+// on the tensor cores and overlaps each tile's loads with the previous
+// tile's math. fp32 inputs (`fp16: disable`) take the CUDA-core loop
+// (flash_tile.cuh) with the same decoder, one block per 32-query tile:
+// TF32 tensor cores would not hold fp32's tolerance. Clean windows decode
+// only the frames their query tile touches (at most 3 at wsz 45 and 64
+// queries), each key's frame masking the rows of other frames. Biases are
+// added as given (-1e9, not -inf), exactly like the reference.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_mma.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 32;    // queries per block
-constexpr int BK = 16;    // keys per staged tile
-constexpr int CHM = 128;  // largest head width supported
-constexpr int NT = 128;   // threads per block: 4 per query row
+// key j of an occupied window: [window | rolled | pooled]
+template <typename T>
+struct SegmentKeys {
+  const T* wk;
+  const T* wv;
+  const T* rk;
+  const T* rv;
+  const T* pk;
+  const T* pv;
+  const float* bw;
+  const float* br;
+  const float* bp;
+  int QT, RL, ch;
+  __device__ __forceinline__ void operator()(int j, const T*& kp, const T*& vp, float& bias,
+                                             int& fr) const {
+    if (j < QT) {
+      kp = wk + (long long)j * ch;
+      vp = wv + (long long)j * ch;
+      bias = bw[j];
+    } else if (j - QT < RL) {
+      j -= QT;
+      kp = rk + (long long)j * ch;
+      vp = rv + (long long)j * ch;
+      bias = br[j];
+    } else {
+      j -= QT + RL;
+      kp = pk + (long long)j * ch;
+      vp = pv + (long long)j * ch;
+      bias = bp[j];
+    }
+  }
+};
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+struct Args {
+  const void *q, *wk, *wv, *rk, *rv, *pk, *pv;
+  const int* occ;
+  const float *bw, *br, *bp;
+  void* out;
+  int n_head, QT, RL, PL, ch, n_win_per_b, wsz;
+  float scale;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(NT)
-window_attention_kernel(const T* __restrict__ q, const T* __restrict__ wk,
-                        const T* __restrict__ wv, const T* __restrict__ rk,
-                        const T* __restrict__ rv, const T* __restrict__ pk,
-                        const T* __restrict__ pv, const int* __restrict__ occ,
-                        const float* __restrict__ bw, const float* __restrict__ br,
-                        const float* __restrict__ bp, T* __restrict__ out,
-                        int n_head, int QT, int RL, int PL, int ch,
-                        int n_win_per_b, int wsz, float scale) {
-  __shared__ float sq[BQ][CHM + 1];
-  __shared__ float sk[BK][CHM + 1];
-  __shared__ float sv[BK][CHM];
-  __shared__ float sp[BQ][BK + 1];
+__device__ __forceinline__ SegmentKeys<T> segment_keys(const Args& a, long long wh, int b, int h) {
+  const long long bh = (long long)b * a.n_head + h;
+  const long long wo = wh * a.QT * a.ch, ro = wh * a.RL * a.ch, po = bh * a.PL * a.ch;
+  return SegmentKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo,
+                        static_cast<const T*>(a.rk) + ro, static_cast<const T*>(a.rv) + ro,
+                        static_cast<const T*>(a.pk) + po, static_cast<const T*>(a.pv) + po,
+                        a.bw + (long long)b * a.QT, a.br + (long long)b * a.RL,
+                        a.bp + (long long)b * a.PL, a.QT, a.RL, a.ch};
+}
 
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // query row within the tile
-  const int l4 = tid & 3;  // lane within the row's 4 threads
-  const int q0 = blockIdx.x * BQ;
+// the key range of a clean window's query tile: the frames it touches
+__device__ __forceinline__ void clean_range(int q0, int nq, int QT, int wsz, int& klo, int& khi) {
+  klo = (q0 / wsz) * wsz;
+  khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
+}
+
+// bf16: the tensor-core loop, one block per (64 queries, head, window)
+__global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_mma_kernel(Args a) {
+  using T = fmma::bf16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.x * fmma::BQ;
   const int h = blockIdx.y;
   const int w = blockIdx.z;
-  const int b = w / n_win_per_b;
-  const int nq = min(BQ, QT - q0);
-  const bool occupied = occ[w] != 0;
-  const long long wh = (long long)w * n_head + h;
-
-  for (int idx = tid; idx < BQ * ch; idx += NT) {
-    const int rr = idx / ch;
-    const int c = idx - rr * ch;
-    sq[rr][c] = rr < nq ? to_f(q[(wh * QT + q0 + rr) * ch + c]) : 0.0f;
+  const int nq = min(fmma::BQ, a.QT - q0);
+  const long long wh = (long long)w * a.n_head + h;
+  const long long wo = wh * a.QT * a.ch;
+  const flash::WindowRows<const T*> rows{static_cast<const T*>(a.q) + wo, q0, a.ch};
+  const flash::WindowRows<T*> out{static_cast<T*>(a.out) + wo, q0, a.ch};
+  if (a.occ[w] != 0) {
+    fmma::attend(smem, nq, a.ch, a.scale, 0, a.QT + a.RL + a.PL,
+                 segment_keys<T>(a, wh, w / a.n_win_per_b, h), rows, out, q0, 0);
+  } else {
+    int klo, khi;
+    clean_range(q0, nq, a.QT, a.wsz, klo, khi);
+    const T* wk = static_cast<const T*>(a.wk) + wo;
+    const T* wv = static_cast<const T*>(a.wv) + wo;
+    fmma::attend(smem, nq, a.ch, a.scale, klo, khi, flash::FrameKeys<T>{wk, wv, a.ch, a.wsz}, rows,
+                 out, q0, a.wsz);
   }
+}
 
-  float m_i = -1.0e30f;
-  float l_i = 0.0f;
-  float o[CHM / 4];
-#pragma unroll
-  for (int j = 0; j < CHM / 4; ++j) o[j] = 0.0f;
-
-  const int n_seg = occupied ? 3 : 1;
-  for (int seg = 0; seg < n_seg; ++seg) {
-    const T* kb;
-    const T* vb;
-    const float* bb = nullptr;
-    int klo = 0, khi;
-    if (seg == 0) {
-      kb = wk + wh * QT * ch;
-      vb = wv + wh * QT * ch;
-      if (occupied) {
-        bb = bw + (long long)b * QT;
-        khi = QT;
-      } else {  // only the frames this query tile touches
-        klo = (q0 / wsz) * wsz;
-        khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
-      }
-    } else if (seg == 1) {
-      kb = rk + wh * RL * ch;
-      vb = rv + wh * RL * ch;
-      bb = br + (long long)b * RL;
-      khi = RL;
-    } else {
-      const long long bh = (long long)b * n_head + h;
-      kb = pk + bh * PL * ch;
-      vb = pv + bh * PL * ch;
-      bb = bp + (long long)b * PL;
-      khi = PL;
-    }
-
-    for (int k0 = klo; k0 < khi; k0 += BK) {
-      const int nk = min(BK, khi - k0);
-      __syncthreads();  // earlier readers of sk / sv / sp are done
-      for (int idx = tid; idx < BK * ch; idx += NT) {
-        const int kk = idx / ch;
-        const int c = idx - kk * ch;
-        float kv = 0.0f, vv = 0.0f;
-        if (kk < nk) {
-          const long long g = (long long)(k0 + kk) * ch + c;
-          kv = to_f(kb[g]);
-          vv = to_f(vb[g]);
-        }
-        sk[kk][c] = kv;
-        sv[kk][c] = vv;
-      }
-      __syncthreads();
-
-      // scores for keys l4, l4+4, l4+8, l4+12 of this tile
-      float s[BK / 4];
-#pragma unroll
-      for (int mm = 0; mm < BK / 4; ++mm) s[mm] = 0.0f;
-      for (int c = 0; c < ch; ++c) {
-        const float qv = sq[r][c];
-#pragma unroll
-        for (int mm = 0; mm < BK / 4; ++mm) s[mm] += qv * sk[l4 + 4 * mm][c];
-      }
-      float mx = -INFINITY;
-#pragma unroll
-      for (int mm = 0; mm < BK / 4; ++mm) {
-        const int kk = l4 + 4 * mm;
-        const int kg = k0 + kk;
-        bool valid = kk < nk;
-        if (!occupied) valid = valid && ((q0 + r) / wsz == kg / wsz);
-        s[mm] = valid ? s[mm] * scale + (bb != nullptr ? bb[kg] : 0.0f) : -INFINITY;
-        mx = fmaxf(mx, s[mm]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_i, mx);
-      const float alpha = expf(m_i - m_new);
-      float ps = 0.0f;
-#pragma unroll
-      for (int mm = 0; mm < BK / 4; ++mm) {
-        const float pval = expf(s[mm] - m_new);
-        sp[r][l4 + 4 * mm] = pval;
-        ps += pval;
-      }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      l_i = l_i * alpha + ps;
-      m_i = m_new;
-#pragma unroll
-      for (int j = 0; j < CHM / 4; ++j) o[j] *= alpha;
-      __syncthreads();  // sp complete for every row
-      for (int kk = 0; kk < nk; ++kk) {
-        const float pval = sp[r][kk];
-#pragma unroll
-        for (int j = 0; j < CHM / 4; ++j) {
-          const int c = l4 + 4 * j;
-          if (c < ch) o[j] += pval * sv[kk][c];
-        }
-      }
-    }
+// fp32: the CUDA-core loop, one block per (32 queries, head, window)
+__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_kernel(Args a) {
+  using T = float;
+  __shared__ flash::Smem<T> sm;
+  const int q0 = blockIdx.x * flash::BQ;
+  const int h = blockIdx.y;
+  const int w = blockIdx.z;
+  const int nq = min(flash::BQ, a.QT - q0);
+  const int r = threadIdx.x >> 2;
+  const long long wh = (long long)w * a.n_head + h;
+  const long long wo = wh * a.QT * a.ch;
+  flash::load_q(sm, nq, a.ch, flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch});
+  flash::Row st;
+  flash::init(st);
+  if (a.occ[w] != 0) {
+    flash::attend(sm, st, 0, a.QT + a.RL + a.PL, segment_keys<T>(a, wh, w / a.n_win_per_b, h), a.ch,
+                  a.scale, -1);
+  } else {
+    int klo, khi;
+    clean_range(q0, nq, a.QT, a.wsz, klo, khi);
+    const T* wk = static_cast<const T*>(a.wk) + wo;
+    const T* wv = static_cast<const T*>(a.wv) + wo;
+    flash::attend(sm, st, klo, khi, flash::FrameKeys<T>{wk, wv, a.ch, a.wsz}, a.ch, a.scale,
+                  (q0 + r) / a.wsz);
   }
-
-  if (r < nq) {
-    const float inv = 1.0f / l_i;
-    T* dst = out + (wh * QT + q0 + r) * ch;
-#pragma unroll
-    for (int j = 0; j < CHM / 4; ++j) {
-      const int c = l4 + 4 * j;
-      if (c < ch) store(dst + c, o[j] * inv);
-    }
-  }
+  if (r < nq) flash::store_row(st, static_cast<T*>(a.out) + wo + (long long)(q0 + r) * a.ch, a.ch);
 }
 
 }  // namespace
@@ -200,31 +161,22 @@ extern "C" int propainter_window_attention(
     const void* bw, const void* br, const void* bp, void* out, int n_win,
     int n_head, int QT, int RL, int PL, int ch, int n_win_per_b, int wsz,
     float scale, int is_bf16, void* stream) {
-  if (ch > CHM || ch <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((QT + BQ - 1) / BQ), (unsigned)n_head, (unsigned)n_win);
+  if (ch <= 0 || ch > flash::CHM || (is_bf16 && ch % 16 != 0)) return (int)cudaErrorInvalidValue;
+  if (n_win <= 0 || QT <= 0) return (int)cudaGetLastError();
+  const Args a{q, wk, wv, rk, rv, pk, pv, static_cast<const int*>(occ),
+               static_cast<const float*>(bw), static_cast<const float*>(br),
+               static_cast<const float*>(bp), out, n_head, QT, RL, PL, ch, n_win_per_b, wsz, scale};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (n_win > 0 && QT > 0) {
-    if (is_bf16) {
-      using T = __nv_bfloat16;
-      window_attention_kernel<T><<<grid, NT, 0, s>>>(
-          reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(wk),
-          reinterpret_cast<const T*>(wv), reinterpret_cast<const T*>(rk),
-          reinterpret_cast<const T*>(rv), reinterpret_cast<const T*>(pk),
-          reinterpret_cast<const T*>(pv), reinterpret_cast<const int*>(occ),
-          reinterpret_cast<const float*>(bw), reinterpret_cast<const float*>(br),
-          reinterpret_cast<const float*>(bp), reinterpret_cast<T*>(out),
-          n_head, QT, RL, PL, ch, n_win_per_b, wsz, scale);
-    } else {
-      using T = float;
-      window_attention_kernel<T><<<grid, NT, 0, s>>>(
-          reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(wk),
-          reinterpret_cast<const T*>(wv), reinterpret_cast<const T*>(rk),
-          reinterpret_cast<const T*>(rv), reinterpret_cast<const T*>(pk),
-          reinterpret_cast<const T*>(pv), reinterpret_cast<const int*>(occ),
-          reinterpret_cast<const float*>(bw), reinterpret_cast<const float*>(br),
-          reinterpret_cast<const float*>(bp), reinterpret_cast<T*>(out),
-          n_head, QT, RL, PL, ch, n_win_per_b, wsz, scale);
-    }
+  if (is_bf16) {
+    const size_t smem = fmma::smem_bytes(ch);
+    const cudaError_t e = cudaFuncSetAttribute(window_attention_mma_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((QT + fmma::BQ - 1) / fmma::BQ), (unsigned)n_head, (unsigned)n_win);
+    window_attention_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
+  } else {
+    const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, (unsigned)n_win);
+    window_attention_kernel<<<grid, flash::NT, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

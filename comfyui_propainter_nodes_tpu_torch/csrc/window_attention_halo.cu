@@ -21,17 +21,28 @@
 // pooled K/V [B, head, PL, ch]; fp32 or bf16 with fp32 statistics.
 //
 // What bounds it on the H100: operations for occupied windows (4 * QT *
-// (QT + T_sel*209 + PL) * ch flops per window and head) against the
+// (QT + T_sel*148 + PL) * ch flops per window and head) against the
 // window's q/k/v, its halo rows and the pooled keys; bytes for clean ones.
 //
-// Design: one block per (32 queries, head, window), as the single-pass
-// kernel, running the shared flash tile loop (flash_tile.cuh). Window
-// q/k/v/out rows are addressed in the token grid with strides, so there is
-// no partition or un-partition pass and no rolled copy: the halo rows are
-// read from the padded grid, and only by occupied windows. Pooled keys
-// stream through the same 16-key staged tiles (the TPU's 1024-key DMA
-// chunks and their -1e9 padding exist only to bound its VMEM blocks).
+// Design: window q/k/v/out rows are addressed in the token grid with
+// strides, so there is no partition or un-partition pass and no rolled
+// copy: the halo rows are read from the padded grid, and only by occupied
+// windows. The halo segment enumerates only the survivor positions of each
+// t_ind frame (148 of 209 for a (5, 9) window, from a table the wrapper
+// builds from halo_bias_static), so an occupied window walks as many keys
+// as the single-pass kernel's rolled segment. Skipping the others changes
+// nothing in fp32: their static bias is -1e9, and every row also holds a
+// key whose bias is 1e9 larger (the survivors of the same frame), so their
+// weight exp(-1e9 - m) is an exact 0. The window, halo and pooled segments
+// are one key sequence for one flash loop. bf16 inputs take the
+// tensor-core loop (flash_mma.cuh: 64-query blocks, `mma.sync` bf16 tiles
+// for Q·Kᵀ and P·V, 64-key K/V tiles double-buffered by `cp.async`), which
+// puts the occupied windows' products on the tensor cores; fp32 inputs
+// take the CUDA-core loop (flash_tile.cuh, 32-query blocks). The pooled
+// keys stream through the same tiles (the TPU's 1024-key DMA chunks and
+// their -1e9 padding exist only to bound its VMEM blocks).
 
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -61,23 +72,25 @@ struct GridKeys {
   }
 };
 
-// halo key j: t_ind frame j / (hh*hw), position (py, px) in the halo
+// halo key j: t_ind frame j / n_surv, survivor surv[j % n_surv], a
+// position (py, px) of the frame's hh x hw halo
 template <typename T>
 struct HaloKeys {
   const T* k;
   const T* v;
-  const float* bias;
+  const float* bias;  // [T_sel, hh*hw]
+  const int* surv;    // [n_surv] halo positions
   long long frame_stride;
-  int row_stride, C, hw, hhw;
+  int row_stride, C, hw, hhw, n_surv;
   __device__ __forceinline__ void operator()(int j, const T*& kp, const T*& vp, float& b,
                                              int& fr) const {
-    const int ts = j / hhw;
-    const int pos = j - ts * hhw;
+    const int ts = j / n_surv;
+    const int pos = __ldg(surv + (j - ts * n_surv));
     const int py = pos / hw;
     const long long off = ts * frame_stride + (long long)py * row_stride + (long long)(pos - py * hw) * C;
     kp = k + off;
     vp = v + off;
-    b = bias[j];
+    b = bias[ts * hhw + pos];
   }
 };
 
@@ -96,8 +109,8 @@ struct PooledKeys {
 };
 
 // the keys of an occupied window as one sequence: [window | halo | pooled]
-// (one flash loop instance keeps the kernel at the register count of the
-// tiled kernel, where three instances needed twice as many)
+// (one flash loop instance keeps the register count down: three
+// instances in a row needed twice as many)
 template <typename T>
 struct OccupiedKeys {
   GridKeys<T> win;
@@ -116,115 +129,148 @@ struct OccupiedKeys {
   }
 };
 
-// offset of query qi of a window from the window's first token
-__device__ __forceinline__ long long grid_offset(int qi, long long frame_stride, int row_stride,
-                                                 int C, int ww, int wsz) {
-  const int t = qi / wsz;
-  const int p = qi - t * wsz;
-  const int y = p / ww;
-  return t * frame_stride + (long long)y * row_stride + (long long)(p - y * ww) * C;
-}
-
-template <typename T>
+// query row rr of a tile starting at query q0 of a window, in the grid
+template <typename P>
 struct GridRows {
-  const T* base;
+  P base;  // the window's first token, head h
   long long frame_stride;
   int row_stride, C, ww, wsz, q0;
-  __device__ __forceinline__ const T* operator()(int rr) const {
-    return base + grid_offset(q0 + rr, frame_stride, row_stride, C, ww, wsz);
+  __device__ __forceinline__ P operator()(int rr) const {
+    const int qi = q0 + rr;
+    const int t = qi / wsz;
+    const int p = qi - t * wsz;
+    const int y = p / ww;
+    return base + (t * frame_stride + (long long)y * row_stride + (long long)(p - y * ww) * C);
   }
 };
 
+struct Args {
+  const void *q, *k, *v, *kh, *vh, *pk, *pv;
+  const int* occ;
+  const float *bw, *bh, *bp;
+  const int* surv;
+  void* out;
+  int T_, T_sel, Hp, Wp, C, n_head, wh, ww, eh, ew, PL, nwh, nww, n_surv;
+  float scale;
+};
+
+// one (window, head): where its rows live and which keys it attends
 template <typename T>
-__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS)
-window_attention_halo_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const T* __restrict__ kh,
-                             const T* __restrict__ vh, const T* __restrict__ pk,
-                             const T* __restrict__ pv, const int* __restrict__ occ,
-                             const float* __restrict__ bw, const float* __restrict__ bh,
-                             const float* __restrict__ bp, T* __restrict__ out, int T_,
-                             int T_sel, int Hp, int Wp, int C, int n_head, int wh, int ww, int eh,
-                             int ew, int PL, int nwh, int nww, float scale) {
-  __shared__ flash::Smem<T> sm;
-  const int ch = C / n_head;
-  const int wsz = wh * ww;
-  const int QT = T_ * wsz;
-  const int q0 = blockIdx.x * flash::BQ;
+struct Window {
+  GridRows<const T*> rows;
+  GridRows<T*> out;
+  OccupiedKeys<T> keys;  // valid if occupied
+  GridKeys<T> clean;
+  bool occupied;
+  int QT, wsz;
+};
+
+template <typename T>
+__device__ __forceinline__ Window<T> window(const Args& a, int q0) {
+  const int ch = a.C / a.n_head;
+  const int wsz = a.wh * a.ww;
+  const int QT = a.T_ * wsz;
   const int h = blockIdx.y;
   const int z = blockIdx.z;  // (b, wy, wx), the layout of occ
-  const int b = z / (nwh * nww);
-  const int wi = z - b * nwh * nww;
-  const int wy = wi / nww;
-  const int wx = wi - wy * nww;
-  const int nq = min(flash::BQ, QT - q0);
-  const int r = threadIdx.x >> 2;
-
+  const int b = z / (a.nwh * a.nww);
+  const int wi = z - b * a.nwh * a.nww;
+  const int wy = wi / a.nww;
+  const int wx = wi - wy * a.nww;
   // the window's first token (frame 0, row wy*wh, col wx*ww), head h
-  const long long fs = (long long)Hp * Wp * C;
-  const long long win0 = (long long)b * T_ * fs + ((long long)wy * wh * Wp + (long long)wx * ww) * C + h * ch;
-  const GridRows<T> rows{q + win0, fs, Wp * C, C, ww, wsz, q0};
-  flash::load_q(sm, nq, ch, rows);
+  const long long fs = (long long)a.Hp * a.Wp * a.C;
+  const long long win0 = (long long)b * a.T_ * fs + ((long long)wy * a.wh * a.Wp + (long long)wx * a.ww) * a.C + h * ch;
+  const int rs = a.Wp * a.C;
+  const T* k = static_cast<const T*>(a.k) + win0;
+  const T* v = static_cast<const T*>(a.v) + win0;
+  const int hh = a.wh + 2 * a.eh, hw = a.ww + 2 * a.ew;
+  const int Wpp = a.Wp + 2 * a.ew;
+  const long long hfs = (long long)(a.Hp + 2 * a.eh) * Wpp * a.C;
+  const long long halo0 = (long long)b * a.T_sel * hfs + ((long long)wy * a.wh * Wpp + (long long)wx * a.ww) * a.C + h * ch;
+  const long long bhd = ((long long)b * a.n_head + h) * a.PL * ch;
+  const int HL = a.T_sel * a.n_surv;
+  return Window<T>{
+      GridRows<const T*>{static_cast<const T*>(a.q) + win0, fs, rs, a.C, a.ww, wsz, q0},
+      GridRows<T*>{static_cast<T*>(a.out) + win0, fs, rs, a.C, a.ww, wsz, q0},
+      OccupiedKeys<T>{
+          GridKeys<T>{k, v, a.bw + (long long)b * QT, fs, rs, a.C, a.ww, wsz},
+          HaloKeys<T>{static_cast<const T*>(a.kh) + halo0, static_cast<const T*>(a.vh) + halo0,
+                      a.bh + (long long)b * a.T_sel * hh * hw, a.surv, hfs, Wpp * a.C, a.C, hw,
+                      hh * hw, a.n_surv},
+          PooledKeys<T>{static_cast<const T*>(a.pk) + bhd, static_cast<const T*>(a.pv) + bhd,
+                        a.bp + (long long)b * a.PL, ch},
+          QT, HL},
+      GridKeys<T>{k, v, nullptr, fs, rs, a.C, a.ww, wsz},
+      a.occ[z] != 0, QT, wsz};
+}
+
+// bf16: the tensor-core loop, one block per (64 queries, head, window)
+__global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_halo_mma_kernel(Args a) {
+  using T = fmma::bf16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.x * fmma::BQ;
+  const Window<T> w = window<T>(a, q0);
+  const int nq = min(fmma::BQ, w.QT - q0);
+  const int ch = a.C / a.n_head;
+  if (w.occupied) {
+    fmma::attend(smem, nq, ch, a.scale, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, w.rows, w.out, q0, 0);
+  } else {  // clean: only the frames this query tile touches
+    const int klo = (q0 / w.wsz) * w.wsz;
+    const int khi = min(w.QT, ((q0 + nq - 1) / w.wsz + 1) * w.wsz);
+    fmma::attend(smem, nq, ch, a.scale, klo, khi, w.clean, w.rows, w.out, q0, w.wsz);
+  }
+}
+
+// fp32: the CUDA-core loop, one block per (32 queries, head, window)
+__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_halo_kernel(Args a) {
+  using T = float;
+  __shared__ flash::Smem<T> sm;
+  const int q0 = blockIdx.x * flash::BQ;
+  const Window<T> w = window<T>(a, q0);
+  const int nq = min(flash::BQ, w.QT - q0);
+  const int ch = a.C / a.n_head;
+  const int r = threadIdx.x >> 2;
+  flash::load_q(sm, nq, ch, w.rows);
   flash::Row st;
   flash::init(st);
-
-  if (occ[z] != 0) {
-    const int hh = wh + 2 * eh, hw = ww + 2 * ew;
-    const int HL = T_sel * hh * hw;
-    const int Wpp = Wp + 2 * ew;
-    const long long hfs = (long long)(Hp + 2 * eh) * Wpp * C;
-    const long long halo0 = (long long)b * T_sel * hfs + ((long long)wy * wh * Wpp + (long long)wx * ww) * C + h * ch;
-    const long long bhd = ((long long)b * n_head + h) * PL * ch;
-    const OccupiedKeys<T> keys{
-        GridKeys<T>{k + win0, v + win0, bw + (long long)b * QT, fs, Wp * C, C, ww, wsz},
-        HaloKeys<T>{kh + halo0, vh + halo0, bh + (long long)b * HL, hfs, Wpp * C, C, hw, hh * hw},
-        PooledKeys<T>{pk + bhd, pv + bhd, bp + (long long)b * PL, ch}, QT, HL};
-    flash::attend(sm, st, 0, QT + HL + PL, keys, ch, scale, -1);
+  if (w.occupied) {
+    flash::attend(sm, st, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, ch, a.scale, -1);
   } else {  // clean: only the frames this query tile touches
-    const int klo = (q0 / wsz) * wsz;
-    const int khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
-    flash::attend(sm, st, klo, khi, GridKeys<T>{k + win0, v + win0, nullptr, fs, Wp * C, C, ww, wsz},
-                  ch, scale, (q0 + r) / wsz);
+    const int klo = (q0 / w.wsz) * w.wsz;
+    const int khi = min(w.QT, ((q0 + nq - 1) / w.wsz + 1) * w.wsz);
+    flash::attend(sm, st, klo, khi, w.clean, ch, a.scale, (q0 + r) / w.wsz);
   }
-  if (r < nq) {
-    flash::store_row(st, out + win0 + grid_offset(q0 + r, fs, Wp * C, C, ww, wsz), ch);
-  }
+  if (r < nq) flash::store_row(st, w.out(r), ch);
 }
 
 }  // namespace
 
 extern "C" int propainter_window_attention_halo(
     const void* q, const void* k, const void* v, const void* kh, const void* vh, const void* pk,
-    const void* pv, const void* occ, const void* bw, const void* bh, const void* bp, void* out,
-    int B, int T_, int T_sel, int Hp, int Wp, int C, int n_head, int wh, int ww, int PL,
-    float scale, int is_bf16, void* stream) {
+    const void* pv, const void* occ, const void* bw, const void* bh, const void* bp,
+    const void* surv, void* out, int B, int T_, int T_sel, int Hp, int Wp, int C, int n_head,
+    int wh, int ww, int PL, int n_surv, float scale, int is_bf16, void* stream) {
   const int eh = (wh + 1) / 2, ew = (ww + 1) / 2;
-  if (n_head <= 0 || C % n_head != 0 || C / n_head > flash::CHM || Hp % wh != 0 || Wp % ww != 0)
+  if (n_head <= 0 || C % n_head != 0 || C / n_head > flash::CHM || Hp % wh != 0 || Wp % ww != 0 ||
+      (is_bf16 && (C / n_head) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const int nwh = Hp / wh, nww = Wp / ww;
   const int QT = T_ * wh * ww;
   if (B <= 0 || QT <= 0 || nwh == 0 || nww == 0) return (int)cudaGetLastError();
-  const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head,
-                  (unsigned)(B * nwh * nww));
+  const Args a{q, k, v, kh, vh, pk, pv, static_cast<const int*>(occ), static_cast<const float*>(bw),
+               static_cast<const float*>(bh), static_cast<const float*>(bp),
+               static_cast<const int*>(surv), out, T_, T_sel, Hp, Wp, C, n_head, wh, ww, eh, ew, PL,
+               nwh, nww, n_surv, scale};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int* oc = reinterpret_cast<const int*>(occ);
-  const float* fbw = reinterpret_cast<const float*>(bw);
-  const float* fbh = reinterpret_cast<const float*>(bh);
-  const float* fbp = reinterpret_cast<const float*>(bp);
-  const float sc = scale;
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    window_attention_halo_kernel<T><<<grid, flash::NT, 0, s>>>(
-        reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k), reinterpret_cast<const T*>(v),
-        reinterpret_cast<const T*>(kh), reinterpret_cast<const T*>(vh),
-        reinterpret_cast<const T*>(pk), reinterpret_cast<const T*>(pv), oc, fbw, fbh, fbp,
-        reinterpret_cast<T*>(out), T_, T_sel, Hp, Wp, C, n_head, wh, ww, eh, ew, PL, nwh, nww, sc);
+    const size_t smem = fmma::smem_bytes(C / n_head);
+    const cudaError_t e = cudaFuncSetAttribute(window_attention_halo_mma_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((QT + fmma::BQ - 1) / fmma::BQ), (unsigned)n_head, (unsigned)(B * nwh * nww));
+    window_attention_halo_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
   } else {
-    using T = float;
-    window_attention_halo_kernel<T><<<grid, flash::NT, 0, s>>>(
-        reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k), reinterpret_cast<const T*>(v),
-        reinterpret_cast<const T*>(kh), reinterpret_cast<const T*>(vh),
-        reinterpret_cast<const T*>(pk), reinterpret_cast<const T*>(pv), oc, fbw, fbh, fbp,
-        reinterpret_cast<T*>(out), T_, T_sel, Hp, Wp, C, n_head, wh, ww, eh, ew, PL, nwh, nww, sc);
+    const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, (unsigned)(B * nwh * nww));
+    window_attention_halo_kernel<<<grid, flash::NT, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

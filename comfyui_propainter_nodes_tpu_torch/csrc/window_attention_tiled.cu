@@ -85,30 +85,6 @@ struct TiledKeys {
   }
 };
 
-// window key j of a clean window: its frame restricts it to that frame's rows
-template <typename T>
-struct FrameKeys {
-  const T* wk;
-  const T* wv;
-  int ch, wsz;
-  __device__ __forceinline__ void operator()(int j, const T*& kp, const T*& vp, float& bias,
-                                             int& fr) const {
-    kp = wk + (long long)j * ch;
-    vp = wv + (long long)j * ch;
-    bias = 0.0f;
-    fr = j / wsz;
-  }
-};
-
-template <typename T>
-struct WindowRows {
-  const T* q;
-  int q0, ch;
-  __device__ __forceinline__ const T* operator()(int rr) const {
-    return q + (long long)(q0 + rr) * ch;
-  }
-};
-
 // blockIdx.z < n_win: window z (clean: the whole attention; occupied: exit);
 // blockIdx.z >= n_win: (occupied slot, split) of the listed occupied windows
 template <typename T>
@@ -141,14 +117,14 @@ window_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ wk,
   }
   const int b = w / n_win_per_b;
   const long long wh = (long long)w * n_head + h;
-  flash::load_q(sm, nq, ch, WindowRows<T>{q + wh * QT * ch, q0, ch});
+  flash::load_q(sm, nq, ch, flash::WindowRows<const T*>{q + wh * QT * ch, q0, ch});
   flash::Row st;
   flash::init(st);
 
   if (slot < 0) {  // clean: only the frames this query tile touches
     const int klo = (q0 / wsz) * wsz;
     const int khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
-    flash::attend(sm, st, klo, khi, FrameKeys<T>{wk + wh * QT * ch, wv + wh * QT * ch, ch, wsz},
+    flash::attend(sm, st, klo, khi, flash::FrameKeys<T>{wk + wh * QT * ch, wv + wh * QT * ch, ch, wsz},
                   ch, scale, (q0 + r) / wsz);
     if (r < nq) flash::store_row(st, out + (wh * QT + q0 + r) * ch, ch);
     return;

@@ -5,7 +5,9 @@ together, for `sm_90a`; the objects link into one shared library under
 `<repo>/build/kernels/`, named by a hash of the sources and the `*.cuh`
 headers they include, so a changed source rebuilds and an unchanged one loads the existing library. The
 library has a plain C interface and loads with `ctypes`. A missing
-`nvcc` or a failed build raises: nothing falls back.
+`nvcc` or a failed build raises: nothing falls back. The compiler's
+output (`-Xptxas -v`: registers, spills, shared memory per kernel) is
+kept beside the library as `<library>.log` and read back with it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ _SIGNATURES = {
     "propainter_deform_conv": [_P] * 6 + [_I] * 7 + [_P],
     "propainter_window_attention": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "propainter_window_attention_tiled": [_P] * 16 + [_I] * 13 + [ctypes.c_float, _I, _P],
-    "propainter_window_attention_halo": [_P] * 12 + [_I] * 10 + [ctypes.c_float, _I, _P],
+    "propainter_window_attention_halo": [_P] * 13 + [_I] * 11 + [ctypes.c_float, _I, _P],
     "propainter_corr_window": [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P],
     "propainter_corr_window4": [_P] * 4 + [_I] * 8 + [_P] * 5 + [ctypes.c_longlong, _I, _P],
 }
@@ -59,19 +61,20 @@ def _digest(sources: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into the shared library; returns its path."""
+def build() -> str:
+    """Compile csrc/*.cu into the shared library; returns its path and
+    sets `build_log` to the compiler's output of that build."""
     global build_log
     sources = _sources()
     lib_path = os.path.join(BUILD_DIR, f"libpropainter_kernels_{_digest(sources)}.so")
-    if os.path.exists(lib_path):
+    if os.path.exists(lib_path) and os.path.exists(lib_path + ".log"):
+        with open(lib_path + ".log") as f:
+            build_log = f.read()
         return lib_path
     nvcc = _nvcc()
     obj_dir = os.path.join(BUILD_DIR, f"obj-{os.getpid()}")  # private to this process
     os.makedirs(obj_dir, exist_ok=True)
-    flags = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-    if verbose:
-        flags += ["-Xptxas", "-v"]
+    flags = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     procs = []
     for src in sources:
         obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
@@ -93,6 +96,9 @@ def build(verbose: bool = False) -> str:
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    with open(tmp + ".log", "w") as f:
+        f.write(build_log)
+    os.replace(tmp + ".log", lib_path + ".log")  # the log first: a library always has one
     os.replace(tmp, lib_path)
     shutil.rmtree(obj_dir, ignore_errors=True)
     return lib_path

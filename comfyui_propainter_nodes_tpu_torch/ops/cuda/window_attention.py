@@ -9,8 +9,11 @@ Two kernels compute the same function, as in the JAX package:
 and `window_attention_dispatch` picks one by the JAX dispatcher's size
 estimate (single pass below 12e6: 640x360; tiled from there: 1280x720).
 On the H100 both are bound by operations in occupied windows and by
-bytes in clean ones; the tiled kernel splits an occupied window's keys
-across blocks so no block walks all of them (csrc/ has the designs).
+bytes in clean ones. The single-pass kernel runs bf16 inputs on the
+tensor cores (csrc/flash_mma.cuh; head width a multiple of 16, else
+ValueError) and fp32 inputs on the CUDA cores (csrc/flash_tile.cuh); the
+tiled kernel splits an occupied window's keys across blocks so no block
+walks all of them, on the CUDA cores (csrc/ has the designs).
 
 Signature (the JAX package's `window_attention_pallas`):
   win_q, win_k, win_v  [W, head, T, wsz, ch]   W = B * n_win_per_b
@@ -110,6 +113,16 @@ def _check(args, n_win_per_b):
             raise ValueError("window_attention: every input must be contiguous on one device")
 
 
+def check_mma(name: str, ch: int, tensors) -> None:
+    """What the tensor-core loop (csrc/flash_mma.cuh) takes from bf16
+    inputs: a head width that is a multiple of 16, and rows that its
+    16-byte `cp.async` copies can read (16-byte aligned tensors)."""
+    if ch % 16:
+        raise ValueError(f"{name}: bf16 inputs need a head width that is a multiple of 16, got {ch}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 inputs must start on 16-byte boundaries")
+
+
 def window_attention(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, *, n_win_per_b: int,
@@ -121,6 +134,8 @@ def window_attention(
     if win_q.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {win_q.device}")
     _check(args, n_win_per_b)
+    if win_q.dtype == torch.bfloat16:
+        check_mma("window_attention", win_q.shape[-1], args[:7])
     nw, nh, t, wsz, ch = win_q.shape
     occ_i = occ.to(torch.int32).contiguous()
     out = torch.empty_like(win_q)

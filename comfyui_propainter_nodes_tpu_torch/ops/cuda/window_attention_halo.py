@@ -17,8 +17,12 @@ four rolled K/V copies bring into the window and masks the rest, so the
 halo stands for the rolled keys. Clean windows attend within each frame.
 On the H100 the kernel is bound by operations in occupied windows and by
 bytes in clean ones; it addresses windows in the grids with strides (no
-partition pass, no rolled copies) and reads halo rows only for occupied
-windows. CPU tensors take the plain version; CUDA tensors take the kernel.
+partition pass, no rolled copies), reads halo rows only for occupied
+windows and walks only the survivor positions (`halo_survivors`). bf16
+inputs run on the tensor cores (csrc/flash_mma.cuh; head width a
+multiple of 16, else ValueError), fp32 inputs on the CUDA cores
+(csrc/flash_tile.cuh). CPU tensors take the plain version; CUDA tensors
+take the kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .window_attention import window_attention_plain
+from .window_attention import check_mma, window_attention_plain
 
 NEG = -1e9
 launches = 0  # kernel launches since the last reset
@@ -57,6 +61,19 @@ def halo_bias_static(window_size: tuple[int, int]) -> np.ndarray:
     with np.errstate(divide="ignore"):
         bias = np.where(count > 0, np.log(count.astype(np.float64)), NEG)
     return bias.reshape(-1).astype(np.float32)
+
+
+def halo_survivors(window_size: tuple[int, int]) -> np.ndarray:
+    """[n_surv] int32: the halo positions whose static bias is not -1e9,
+    the only ones the kernel walks (148 of 209 for a (5, 9) window). A
+    skipped position's weight exp(-1e9 + validity - m) is an exact 0 in
+    fp32: the survivors of the same frame carry a bias 1e9 larger."""
+    return np.flatnonzero(halo_bias_static(tuple(window_size)) > NEG / 2).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _survivors_on(window_size: tuple[int, int], device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(halo_survivors(window_size)).to(device)
 
 
 def _windows(a, window_size, n_head):
@@ -141,16 +158,19 @@ def window_attention_halo(
     if q.device.type != "cuda":
         raise ValueError(f"window_attention_halo: unsupported device {q.device}")
     _check(*args, window_size, n_head)
+    if q.dtype == torch.bfloat16:
+        check_mma("window_attention_halo", q.shape[-1] // n_head, args[:7])
     b, t, hp, wp, c = q.shape
     wh, ww = window_size
     occ_i = occ.to(torch.int32).contiguous()
     bias_w, bias_p = bias_w.float().contiguous(), bias_p.float().contiguous()
     bias_h = _halo_bias(bias_hv, window_size).contiguous()
+    surv = _survivors_on(tuple(window_size), q.device)
     out = torch.empty_like(q)
     status = _build.library().propainter_window_attention_halo(
         *[a.data_ptr() for a in (q, k, v, khalo, vhalo, pool_k, pool_v)],
-        occ_i.data_ptr(), bias_w.data_ptr(), bias_h.data_ptr(), bias_p.data_ptr(), out.data_ptr(),
-        b, t, khalo.shape[1], hp, wp, c, n_head, wh, ww, pool_k.shape[2],
+        occ_i.data_ptr(), bias_w.data_ptr(), bias_h.data_ptr(), bias_p.data_ptr(), surv.data_ptr(),
+        out.data_ptr(), b, t, khalo.shape[1], hp, wp, c, n_head, wh, ww, pool_k.shape[2], surv.numel(),
         1.0 / math.sqrt(c // n_head), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -67,9 +67,9 @@ def test_deform_conv_matches_plain(gen, dt, tol, cin, g):
     )
 
 
-def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ):
+def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ, pad_first=False):
     """Per-batch-row biases: t_ind = every other frame, the last frame of
-    row 1 padded."""
+    row 1 padded (with pad_first, its first frame, a t_ind frame, too)."""
     nw = b * nwb
     in_tind = torch.arange(t, device="cuda") % 2 == 0
     t_sel = int(in_tind.sum())
@@ -82,6 +82,8 @@ def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ):
             r(b, nh, t_sel * pl_per, ch), r(b, nh, t_sel * pl_per, ch)]
     tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
     tv[1:, -1] = False
+    if pad_first:
+        tv[1:, 0] = False
     bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(wsz, 1).float()
     sel = tv[:, in_tind]
     bias_r = torch.where(sel, 0.0, -1e9).repeat_interleave(rl_per, 1).float()
@@ -89,13 +91,42 @@ def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ):
     return args + [torch.tensor(occ, device="cuda"), bias_w, bias_r, bias_p]
 
 
+_OCC = {"mixed": [True, False, True, False, False, True], "clean": [False] * 6, "occupied": [True] * 6}
+
+
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_window_attention_matches_plain(gen, dt, tol):
-    """Mixed occupancy, per-batch-row biases, ragged segment lengths."""
-    full = _attention_args(gen, dt, 2, 3, 2, 4, 45, 64, 148, 91, [True, False, True, False, False, True])
-    torch.testing.assert_close(
-        b3.window_attention(*full, n_win_per_b=3), b3.window_attention_plain(*full, 3), atol=tol, rtol=tol
-    )
+@pytest.mark.parametrize("ch", [64, 128])
+@pytest.mark.parametrize("occ", list(_OCC))
+def test_window_attention_matches_plain(gen, dt, tol, ch, occ):
+    """B3 on both loops (bf16: tensor cores, fp32: CUDA cores), mixed / no
+    / all occupied windows, per-batch-row biases: QT = 5 * 45 = 225, not a
+    multiple of the 64-query tile, so clean tiles span three frames;
+    ragged segments of 148 and 91 keys a frame, so 64-key tiles straddle
+    segment ends; batch row 1's first t_ind frame padded."""
+    full = _attention_args(gen, dt, 2, 3, 2, 5, 45, ch, 148, 91, _OCC[occ], pad_first=True)
+    before = b3.launches
+    out = b3.window_attention(*full, n_win_per_b=3)
+    assert b3.launches == before + 1
+    torch.testing.assert_close(out, b3.window_attention_plain(*full, 3), atol=tol, rtol=tol)
+
+
+def test_attention_bf16_needs_head_width_multiple_of_16(gen):
+    """The tensor-core loop takes ch = 16k only; other widths raise for bf16
+    (fp32 takes them, on the CUDA cores)."""
+    full = _attention_args(gen, torch.bfloat16, 1, 2, 2, 2, 45, 40, 148, 91, [True, False])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        b3.window_attention(*full, n_win_per_b=2)
+    g = torch.zeros((1, 2, 5, 9, 80), device="cuda", dtype=torch.bfloat16)
+    h = torch.zeros((1, 1, 11, 19, 80), device="cuda", dtype=torch.bfloat16)
+    p = torch.zeros((1, 2, 3, 40), device="cuda", dtype=torch.bfloat16)
+    occ = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        b5.window_attention_halo(g, g, g, h, h, p, p, occ, torch.zeros(1, 90, device="cuda"),
+                                 torch.zeros(1, 1, device="cuda"), torch.zeros(1, 3, device="cuda"),
+                                 window_size=(5, 9), n_head=2)
+    full32 = _attention_args(gen, torch.float32, 1, 2, 2, 2, 45, 40, 148, 91, [True, False])
+    torch.testing.assert_close(b3.window_attention(*full32, n_win_per_b=2), b3.window_attention_plain(*full32, 2),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -124,38 +155,51 @@ def test_window_attention_dispatch(gen):
     assert (b3.launches, b3.launches_tiled) == (single + 1, tiled + 1)
 
 
-@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_window_attention_halo_matches_plain(gen, dt, tol):
-    """B5 on a window-padded 10x27 grid, 2 batch rows, mixed occupancy,
-    t_ind = every other frame, a padded frame."""
-    b, t, hp, wp, c, nh = 2, 4, 10, 27, 256, 2
-    wh, ww = 5, 9
-    ts = 2
+def _halo_args(gen, dt, ch, occ, pad_first):
+    """A window-padded 10x27 grid of 2 batch rows, 5 frames (QT = 225),
+    t_ind = frames 0, 2, 4, 2 heads of width ch; occ [2, 2, 3]."""
+    b, t, hp, wp, nh = 2, 5, 10, 27, 2
+    c = nh * ch
+    idx = torch.tensor([0, 2, 4], device="cuda")
 
     def r(*s):
         return torch.randn(*s, generator=gen, device="cuda").to(dt)
-
-    q, k, v = r(b, t, hp, wp, c), r(b, t, hp, wp, c), r(b, t, hp, wp, c)
-    idx = torch.tensor([0, 2], device="cuda")
 
     def cpad(a):
         a = a.index_select(1, idx)
         a = torch.cat([a[:, :, -3:], a, a[:, :, :3]], 2)
         return torch.cat([a[:, :, :, -5:], a, a[:, :, :, :5]], 3).contiguous()
 
-    pk, pv = r(b, nh, ts * 17, c // nh), r(b, nh, ts * 17, c // nh)
-    occ = torch.tensor([[[True, False, True], [False, False, True]], [[False, True, False], [True, False, False]]], device="cuda")
+    q, k, v = r(b, t, hp, wp, c), r(b, t, hp, wp, c), r(b, t, hp, wp, c)
+    pk, pv = r(b, nh, 3 * 17, ch), r(b, nh, 3 * 17, ch)
     tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
-    tv[1, -2] = False
-    in_tind = torch.arange(t, device="cuda") % 2 == 0
-    bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(wh * ww, 1).float()
+    tv[1, -1] = False
+    if pad_first:
+        tv[1, 0] = False
+    in_tind = torch.zeros(t, dtype=torch.bool, device="cuda")
+    in_tind[idx] = True
+    bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(45, 1).float()
     bias_hv = torch.where(tv[:, in_tind], 0.0, -1e9).float()
     bias_p = bias_hv.repeat_interleave(17, 1)
-    args = (q, k, v, cpad(k), cpad(v), pk, pv, occ, bias_w, bias_hv, bias_p)
+    occ = torch.tensor(occ, device="cuda").reshape(2, 2, 3)
+    return (q, k, v, cpad(k), cpad(v), pk, pv, occ, bias_w, bias_hv, bias_p), nh
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ch", [64, 128])
+@pytest.mark.parametrize("occ", list(_OCC) + ["mixed_b"])
+def test_window_attention_halo_matches_plain(gen, dt, tol, ch, occ):
+    """B5 on both loops on a window-padded 10x27 grid, 2 batch rows, head
+    widths 64 and 128, mixed / no / all occupied windows, t_ind = every
+    other frame, batch row 1's first and last t_ind frames padded; the
+    kernel walks only the 148 survivor halo positions, the plain version
+    all 209."""
+    pattern = _OCC[occ] * 2 if occ in _OCC else [False, True, False, True, True, False] * 2
+    args, nh = _halo_args(gen, dt, ch, pattern, pad_first=True)
     before = b5.launches
-    out = b5.window_attention_halo(*args, window_size=(wh, ww), n_head=nh)
+    out = b5.window_attention_halo(*args, window_size=(5, 9), n_head=nh)
     assert b5.launches == before + 1
-    ref = b5.window_attention_halo_plain(*args, window_size=(wh, ww), n_head=nh)
+    ref = b5.window_attention_halo_plain(*args, window_size=(5, 9), n_head=nh)
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
 
