@@ -6,20 +6,22 @@ Phases (any failure raises; the exit code is then nonzero):
   1. build the CUDA kernels (csrc/*.cu, sm_90a); print the build time and,
      for each kernel, its registers, spills and static shared memory
      (ptxas) and its count of tensor-core HMMA instructions (cuobjdump
-     -sass); the bf16 attention loops must have some;
+     -sass); the three bf16 attention kernels must have some;
   2. hold each kernel against its plain PyTorch version in fp32 (TF32 off)
      and bf16, and time kernel, plain version and, where one exists, the
      one PyTorch call that computes the same function (B3 and B5 also
      with every window clean, the share of their time clean windows set):
        B1-B3 at the main-path shapes of a 24-frame 640x360 node run;
        B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
-       on the same inputs; B5 (halo attention) at the 640x360 and
+       on the same inputs and bf16 B4 at several split sizes (512, 1024,
+       2048 keys, one split a window); B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
        main path's padded pyramid and B7 (one level) on its level 0;
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
-     profiled run, and check the output:
+     profiled run (each kernel of the path must show device time), and
+     check the output:
        the main path, 640x360 (B1, B2, B3);
        path A, 1280x720 (B1, B2, B4);
        path B, 640x360 with PROPAINTER_TPU_ATTN=halo and
@@ -30,6 +32,15 @@ Phases (any failure raises; the exit code is then nonzero):
      the result JSON as the last line.
 Needs a CUDA card; exits nonzero without one. Details land in
 chiprun_out/ (ptxas log, profiles, chip_smoke.json).
+
+    python3 chip_smoke.py --tree DIR
+
+times only the bf16 attention kernels B3 and B5 at their phase-2 shapes
+and inputs, and the path-A node (1280x720; a warm-up, then three timed
+runs on the host clock), with the port package of another checkout DIR
+(the same seed, so the same inputs in every run), and prints them as
+one JSON line: two trees are compared in one call by running them in
+turns, parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -410,6 +421,19 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     log(f"  B4 window_attention_tiled {str(dt)[6:]} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "window_attention_tiled disagrees with its plain version")
+    splits = {}
+    if dt == torch.bfloat16:  # the split size, by measurement: each held to the same tolerance
+        chosen = mod.SPLIT_KEYS[dt]
+        try:
+            for keys in (512, 1024, 2048, None):
+                mod.SPLIT_KEYS[dt] = keys
+                _, s_rel = rel_err(mod.window_attention_tiled(*args, n_win_per_b=n_win), ref)
+                require(s_rel <= tol, f"window_attention_tiled with {keys} keys a split disagrees: rel {s_rel}")
+                splits[str(keys or "one")] = time_ms(lambda: mod.window_attention_tiled(*args, n_win_per_b=n_win))
+        finally:
+            mod.SPLIT_KEYS[dt] = chosen
+        log("    split A/B (ms; keys a split, 'one' = one split a window): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in splits.items()) + f"; chosen: {chosen or 'one'}")
     del ref
     ms = time_ms(lambda: mod.window_attention_tiled(*args, n_win_per_b=n_win))
     b3_ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
@@ -421,7 +445,7 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     log(f"    ms {ms:.4f}  B3 on the same inputs {b3_ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (SDPA, err vs kernel {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw)
+                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw, split_ms=splits)
 
 
 def check_window_attention_halo(dt, gen, grid, occ):
@@ -550,6 +574,15 @@ def counters():
     ]
 
 
+# each counter's kernel as the profiler names it on the node's bf16 paths
+PROFILED = {
+    "corr_lookup": "corr_lookup_kernel", "deform_conv": "deform_conv_kernel",
+    "window_attention": "window_attention_mma_kernel", "window_attention_tiled": "window_attention_split_mma_kernel",
+    "window_attention_halo": "window_attention_halo_mma_kernel", "corr_window4": "corr_window4_kernel",
+    "corr_window": "corr_window_kernel",
+}
+
+
 def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
     """Warm-up, timed run (counters reset just before it, read just
     after), profiled run; output checks. `need` kernels must have
@@ -584,6 +617,9 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
 
     require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
     require(all(counts[k] == 0 for k in forbid), f"{tag}: a kernel off the path was launched: {counts}")
+    if prof is not None:
+        require(all(prof["kernels_ms"][PROFILED[k]] > 0 for k in need),
+                f"{tag}: a kernel of the path has no device time in the profile: {prof['kernels_ms']}")
     require(tuple(img.shape) == (t, h, w, 3) and img.dtype == torch.float32, (img.shape, img.dtype))
     require(tuple(fm.shape) == (t, h, w) and tuple(md.shape) == (t, h, w), (fm.shape, md.shape))
     img_np, md_np = img.numpy(), md.numpy()
@@ -627,8 +663,9 @@ def profile_run(run, timed_wall_s, name):
         return None
     mine = {k: sum(r[0] for r in rows if k in r[2]) for k in (
         "corr_lookup_kernel", "deform_conv_kernel", "window_attention_mma_kernel", "window_attention_kernel",
-        "window_attention_split_kernel", "window_attention_combine_kernel", "window_attention_halo_mma_kernel",
-        "window_attention_halo_kernel", "corr_window4_kernel", "corr_window_kernel")}
+        "window_attention_split_mma_kernel", "window_attention_split_kernel", "window_attention_combine_kernel",
+        "window_attention_halo_mma_kernel", "window_attention_halo_kernel", "corr_window4_kernel",
+        "corr_window_kernel")}
     share = busy / (timed_wall_s * 1e3)
     own = busy / (own_wall_s * 1e3)
     log(f"  profiled run: device kernels {busy:.1f} ms = {100 * share:.1f}% of the timed run's "
@@ -667,18 +704,51 @@ def card_vs_host(switched: bool):
     require(share < 1e-3 and float(diff.mean()) < 1e-3, f"card and host IMAGE differ: share {share}, mean {float(diff.mean())}")
 
 
+def tree_times(tree: str) -> int:
+    """`--tree DIR`: B3 and B5 bf16 times and path-A node wall times of
+    the port package in DIR."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import comfyui_propainter_nodes_tpu_torch as pkg
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+
+    require(os.path.dirname(os.path.abspath(pkg.__file__)).startswith(os.path.abspath(tree)), pkg.__file__)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    occ360, occ720 = clip_occupancy(360, 640), clip_occupancy(720, 1280)
+    dt = torch.bfloat16
+    times = {
+        "B3_t_sel7": check_window_attention(dt, gen, 7, occ360)["ms"],
+        "B3_t_sel6": check_window_attention(dt, gen, 6, occ360)["ms"],
+        "B5_30x54": check_window_attention_halo(dt, gen, (30, 54), occ360)["ms"],
+        "B5_60x108": check_window_attention_halo(dt, gen, (60, 108), occ720)["ms"],
+    }
+    frames, masks = synthetic_clip(24, 720, 1280)
+    node = ProPainterInpaint(device="cuda")
+    walls = []
+    for _ in range(4):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        node.propainter_inpainting(frames, masks, width=1280, height=720, **WIDGETS)
+        walls.append(time.perf_counter() - t0)
+    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, "path_a_s": walls[1:]}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    for k in SWITCHES:
+        os.environ.pop(k, None)  # the main path and path A run the default kernels
+    if len(sys.argv) == 3 and sys.argv[1] == "--tree":
+        return tree_times(sys.argv[2])
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
 
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for k in SWITCHES:
-        os.environ.pop(k, None)  # the main path and path A run the default kernels
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -692,7 +762,7 @@ def main() -> int:
     for kname, r in resources.items():
         log(f"  {kname}: {r['registers']} registers, spill stores {r['spill_stores']} B, loads "
             f"{r['spill_loads']} B, smem {r['smem']} B static, HMMA {r['hmma']}")
-    for kname in ("window_attention_mma_kernel", "window_attention_halo_mma_kernel"):
+    for kname in ("window_attention_mma_kernel", "window_attention_split_mma_kernel", "window_attention_halo_mma_kernel"):
         require(resources[kname]["hmma"] > 0, f"{kname} has no tensor-core instruction in its SASS")
 
     log("phase 2: kernels vs plain versions")
@@ -768,6 +838,7 @@ def main() -> int:
         }
         if "b3_ms" in r:
             row["b3_ms_same_inputs"] = r["b3_ms"]
+            row["split_ms"] = r["split_ms"]
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}

@@ -20,15 +20,31 @@
 // six flops; the least traffic is each pixel's 10x10 window read once per
 // level plus the [M, 81] fp32 result per level written once.
 //
-// Design: one thread per output tap, in output order, so the 81 (or 324)
-// outputs of a pixel are written by consecutive threads (coalesced stores,
-// the larger share of the bytes) and the four corner loads of neighbouring
-// taps hit the same window rows in L1. The TPU kernels' DMA rings, lane
-// rotations and row-concatenated map blocks exist only to feed the TPU's
-// vector lanes and have no counterpart here. The products and sums are
-// rounded one by one (no FMA contraction), so the fp32 result equals the
-// plain PyTorch version bit for bit. Starts are clamped to [0, Hp-10] and
-// [0, Wp-10] in the kernel, so no start can read outside its map.
+// Design of the one-level lookup (B7): one thread per output tap, in
+// output order, so the 81 outputs of a pixel are written by consecutive
+// threads and the four corner loads of neighbouring taps hit the same
+// window rows in L1.
+//
+// Design of the four-level lookup (B6): a block of 256 threads owns 24
+// pixels. (1) 96 threads load each (pixel, level)'s start, clamped, and
+// fractions once into shared memory. (2) The block stages the 24 x 4
+// windows of 10 x 10 map elements into shared memory in the map's type,
+// each element loaded once (read-only loads, all forty of a thread in
+// flight before the first is stored); neighbouring threads read
+// neighbouring elements of a window row.
+// (3) Each thread computes four consecutive outputs of a pixel's 324 from
+// the staged windows and writes them as one 16-byte store: a pixel's
+// output is 1296 bytes, a multiple of 16, so the block's stores cover one
+// contiguous, aligned range. Index math is 32-bit inside a block; only the
+// map's pixel base (pix * Hp * Wp, past 2^31 elements at 1280x720) and the
+// block's output base are 64-bit.
+//
+// Both: the TPU kernels' DMA rings, lane rotations and row-concatenated
+// map blocks exist only to feed the TPU's vector lanes and have no
+// counterpart here. The products and sums are rounded one by one (no FMA
+// contraction), so the fp32 result equals the plain PyTorch version bit
+// for bit. Starts are clamped to [0, Hp-10] and [0, Wp-10] in the kernels,
+// so no start can read outside its map.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,19 +57,23 @@ constexpr int TAPS = 81;
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// one tap: rows first (vy), then columns, each product and sum rounded
+// the bilinear combine of four corners: rows first (vy), then columns,
+// each product and sum rounded
+__device__ __forceinline__ float combine(float v00, float v01, float v10, float v11, float fy, float fx) {
+  const float gy = 1.0f - fy, gx = 1.0f - fx;
+  const float vy0 = __fadd_rn(__fmul_rn(v00, gy), __fmul_rn(v10, fy));
+  const float vy1 = __fadd_rn(__fmul_rn(v01, gy), __fmul_rn(v11, fy));
+  return __fadd_rn(__fmul_rn(vy0, gx), __fmul_rn(vy1, fx));
+}
+
+// one tap of one window
 template <typename T>
 __device__ __forceinline__ float tap(const T* __restrict__ map, int hp, int wp,
                                      int sy, int sx, float fy, float fx, int dy, int dx) {
   sy = min(max(sy, 0), hp - WIN);
   sx = min(max(sx, 0), wp - WIN);
   const T* p = map + (long long)(sy + dy) * wp + sx + dx;
-  const float v00 = to_f(p[0]), v01 = to_f(p[1]);
-  const float v10 = to_f(p[wp]), v11 = to_f(p[wp + 1]);
-  const float gy = 1.0f - fy, gx = 1.0f - fx;
-  const float vy0 = __fadd_rn(__fmul_rn(v00, gy), __fmul_rn(v10, fy));
-  const float vy1 = __fadd_rn(__fmul_rn(v01, gy), __fmul_rn(v11, fy));
-  return __fadd_rn(__fmul_rn(vy0, gx), __fmul_rn(vy1, fx));
+  return combine(to_f(p[0]), to_f(p[1]), to_f(p[wp]), to_f(p[wp + 1]), fy, fx);
 }
 
 template <typename T>
@@ -77,25 +97,105 @@ struct Levels {
   int wp[4];
 };
 
+constexpr int LEVELS = 4;
+constexpr int OUT4 = LEVELS * TAPS;  // fp32 outputs of a pixel: [4, 9, 9]
+constexpr int GROUPS = OUT4 / 4;     // 16-byte groups of a pixel's outputs
+constexpr int WELEM = WIN * WIN;     // elements of a window
+constexpr int PIX = 24;              // pixels per block
+constexpr int NT4 = 256;             // threads per block
+
+// level l's (Hp, Wp) with l known only at run time: selects, not an
+// indexed copy of the parameter arrays
+__device__ __forceinline__ void level_dims(const Levels& lv, int l, int& hp, int& wp) {
+  hp = l == 0 ? lv.hp[0] : l == 1 ? lv.hp[1] : l == 2 ? lv.hp[2] : lv.hp[3];
+  wp = l == 0 ? lv.wp[0] : l == 1 ? lv.wp[1] : l == 2 ? lv.wp[2] : lv.wp[3];
+}
+
 // sy/sx/fy/fx are [4, M]; out is [M, 4, 9, 9]
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(NT4, 3)
 corr_window4_kernel(Levels lv, const int* __restrict__ sy, const int* __restrict__ sx,
                     const float* __restrict__ fy, const float* __restrict__ fx,
                     float* __restrict__ out, long long m) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= m * 4 * TAPS) return;
-  const long long pix = o / (4 * TAPS);
-  const int r = (int)(o - pix * (4 * TAPS));
-  const int lvl = r / TAPS;
-  const int t = r - lvl * TAPS;
-  const int dy = t / 9;
-  const int dx = t - dy * 9;
-  const int hp = lv.hp[lvl];
-  const int wp = lv.wp[lvl];
-  const T* map = reinterpret_cast<const T*>(lv.map[lvl]) + pix * hp * wp;
-  const long long i = lvl * m + pix;
-  out[o] = tap(map, hp, wp, sy[i], sx[i], fy[i], fx[i], dy, dx);
+  __shared__ __align__(16) unsigned char win_bytes[PIX * LEVELS * WELEM * sizeof(T)];
+  T* win = reinterpret_cast<T*>(win_bytes);  // [pixel][level][10][10]
+  __shared__ int s_y[LEVELS][PIX], s_x[LEVELS][PIX];
+  __shared__ float s_fy[LEVELS][PIX], s_fx[LEVELS][PIX];
+  const int tid = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * PIX;
+  const int np = (int)min((long long)PIX, m - p0);
+
+  // (1) starts and fractions, once per (pixel, level)
+  if (tid < LEVELS * PIX) {
+    const int l = tid / PIX;
+    const int pix = tid - l * PIX;
+    if (pix < np) {
+      int hp, wp;
+      level_dims(lv, l, hp, wp);
+      const long long i = l * m + p0 + pix;
+      s_y[l][pix] = min(max(sy[i], 0), hp - WIN);
+      s_x[l][pix] = min(max(sx[i], 0), wp - WIN);
+      s_fy[l][pix] = fy[i];
+      s_fx[l][pix] = fx[i];
+    }
+  }
+  __syncthreads();
+
+  // (2) the windows, each element loaded once: every load of the four
+  // levels is issued before the first is stored
+  constexpr int LOADS = (PIX * WELEM + NT4 - 1) / NT4;
+  T v[LEVELS][LOADS];
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+    const T* map = static_cast<const T*>(lv.map[l]) + p0 * lv.hp[l] * lv.wp[l];
+    const int plane = lv.hp[l] * lv.wp[l];  // Hp * Wp < 2^31 for one pixel
+    const int wp = lv.wp[l];
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = tid + i * NT4;
+      if (e < np * WELEM) {
+        const int pix = e / WELEM;
+        const int r = e - pix * WELEM;
+        const int rr = r / WIN;
+        v[l][i] = __ldg(map + (long long)pix * plane + (s_y[l][pix] + rr) * wp + s_x[l][pix] + (r - rr * WIN));
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = tid + i * NT4;
+      if (e < np * WELEM) {
+        const int pix = e / WELEM;
+        win[(pix * LEVELS + l) * WELEM + (e - pix * WELEM)] = v[l][i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // (3) four consecutive outputs a thread, one 16-byte store
+  float* o = out + p0 * OUT4;
+  constexpr int STEPS = (PIX * GROUPS + NT4 - 1) / NT4;
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const int g = tid + i * NT4;
+    if (g < np * GROUPS) {
+      const int pix = g / GROUPS;
+      const int j0 = (g - pix * GROUPS) * 4;  // first output, in [0, 324)
+      float res[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = j0 + k;
+        const int l = j / TAPS;
+        const int t = j - l * TAPS;
+        const int dy = t / 9;
+        const T* w = win + (pix * LEVELS + l) * WELEM + dy * WIN + (t - dy * 9);
+        res[k] = combine(to_f(w[0]), to_f(w[1]), to_f(w[WIN]), to_f(w[WIN + 1]), s_fy[l][pix], s_fx[l][pix]);
+      }
+      *reinterpret_cast<float4*>(o + pix * OUT4 + j0) = make_float4(res[0], res[1], res[2], res[3]);
+    }
+  }
 }
 
 }  // namespace
@@ -136,7 +236,7 @@ extern "C" int propainter_corr_window4(const void* m0, const void* m1, const voi
   lv.wp[0] = wp0; lv.wp[1] = wp1; lv.wp[2] = wp2; lv.wp[3] = wp3;
   for (int l = 0; l < 4; ++l)
     if (lv.hp[l] < WIN || lv.wp[l] < WIN) return (int)cudaErrorInvalidValue;
-  const long long blocks = (m * 4 * TAPS + 255) / 256;
+  const long long blocks = (m + PIX - 1) / PIX;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (blocks > 0) {
     const int* y = reinterpret_cast<const int*>(sy);
@@ -145,9 +245,9 @@ extern "C" int propainter_corr_window4(const void* m0, const void* m1, const voi
     const float* b = reinterpret_cast<const float*>(fx);
     float* o = reinterpret_cast<float*>(out);
     if (is_bf16) {
-      corr_window4_kernel<__nv_bfloat16><<<(unsigned)blocks, 256, 0, s>>>(lv, y, x, a, b, o, m);
+      corr_window4_kernel<__nv_bfloat16><<<(unsigned)blocks, NT4, 0, s>>>(lv, y, x, a, b, o, m);
     } else {
-      corr_window4_kernel<float><<<(unsigned)blocks, 256, 0, s>>>(lv, y, x, a, b, o, m);
+      corr_window4_kernel<float><<<(unsigned)blocks, NT4, 0, s>>>(lv, y, x, a, b, o, m);
     }
   }
   return (int)cudaGetLastError();

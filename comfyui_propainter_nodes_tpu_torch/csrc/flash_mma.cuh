@@ -1,8 +1,8 @@
 // The bf16 flash-attention tile loop on the tensor cores, shared by the
-// single-pass (window_attention.cu) and the halo (window_attention_halo.cu)
-// window attention kernels. fp32 inputs, and the segment-tiled kernel, run
-// the CUDA-core loop of flash_tile.cuh; both loops take the same key
-// decoders.
+// single-pass (window_attention.cu), segment-tiled
+// (window_attention_tiled.cu) and halo (window_attention_halo.cu) window
+// attention kernels. fp32 inputs run the CUDA-core loop of flash_tile.cuh;
+// both loops take the same key decoders.
 //
 // A block of NT = 128 threads (four warps) owns BQ = 64 query rows of one
 // (window, head), 16 rows to a warp. Keys arrive in tiles of BK = 64:
@@ -25,7 +25,9 @@
 //   * O += P·V: P rounded to bf16 in registers is the A operand (the TPU
 //     kernel rounds P to the value dtype too), V fragments come from the
 //     [key][ch] tile with `ldmatrix.trans`. O (16 x ch fp32 per warp) stays
-//     in registers and is divided by l at the end.
+//     in registers; at the end the caller's epilogue gets it with each
+//     row's m and l (StoreRows divides by l and stores bf16; the
+//     segment-tiled kernel stores a split's partial m, l and O).
 // Shared rows are padded by 8 elements: a row stride of an odd number of
 // 16-byte units puts the 8 rows of each `ldmatrix` phase on distinct banks.
 //
@@ -116,13 +118,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The usual epilogue: normalise each row of the tile by its sum and store
+// it in bf16 through out_row(rr), the first element of row rr (< nq).
+// An epilogue gets the tile's row count nq, this thread's rows r0 and
+// r0 + 8, its column pair within each 8-column group (tig), the head width
+// in 16-column steps (nks), each row's running max (base 2) and sum, and
+// the unnormalised fp32 accumulator fragments: o[nt][0..1] are row r0,
+// columns nt * 8 + 2 * tig + {0, 1}; o[nt][2..3] the same columns of row
+// r0 + 8.
+template <typename ORow>
+struct StoreRows {
+  const ORow& out_row;
+  __device__ __forceinline__ void operator()(int nq, int r0, int tig, int nks, float m0, float m1, float l0,
+                                             float l1, const float (&o)[CHM / 8][4]) const {
+    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+#pragma unroll
+    for (int nt = 0; nt < CHM / 8; ++nt) {
+      if (nt < 2 * nks) {
+        const int c = nt * 8 + tig * 2;
+        if (r0 < nq) *reinterpret_cast<uint32_t*>(out_row(r0) + c) = pack_bf16(o[nt][0] * inv0, o[nt][1] * inv0);
+        if (r0 + 8 < nq)
+          *reinterpret_cast<uint32_t*>(out_row(r0 + 8) + c) = pack_bf16(o[nt][2] * inv1, o[nt][3] * inv1);
+      }
+    }
+  }
+};
+
 // Attention of query rows [0, nq) of a tile over keys [k0, k1) of `dec`,
-// written through out_row. q_row(rr) / out_row(rr): first element of row
-// rr (< nq). Every pointer a decoder or a row function returns is 16-byte
-// aligned (the wrappers check the tensors).
-template <typename Dec, typename QRow, typename ORow>
+// finished by the caller's epilogue `epi` (StoreRows, or a partial store
+// for split keys). q_row(rr): first element of query row rr (< nq). Every
+// pointer a decoder or a row function returns is 16-byte aligned (the
+// wrappers check the tensors).
+template <typename Dec, typename QRow, typename Epi>
 __device__ __forceinline__ void attend(unsigned char* smem, int nq, int ch, float scale, int k0, int k1,
-                                       const Dec& dec, const QRow& q_row, const ORow& out_row, int q0,
+                                       const Dec& dec, const QRow& q_row, const Epi& epi, int q0,
                                        int frame_wsz) {
   KeyMeta* meta = reinterpret_cast<KeyMeta*>(smem);
   bf16* sq = reinterpret_cast<bf16*>(smem + 3 * BK * sizeof(KeyMeta));
@@ -291,17 +320,7 @@ __device__ __forceinline__ void attend(unsigned char* smem, int nq, int ch, floa
     if (tid < BK) meta[((t + 2) % 3) * BK + tid] = next;
   }
   cp_wait<0>();
-
-  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-#pragma unroll
-  for (int nt = 0; nt < CHM / 8; ++nt) {
-    if (nt < 2 * nks) {
-      const int c = nt * 8 + tig * 2;
-      if (r0 < nq) *reinterpret_cast<uint32_t*>(out_row(r0) + c) = pack_bf16(o[nt][0] * inv0, o[nt][1] * inv0);
-      if (r0 + 8 < nq)
-        *reinterpret_cast<uint32_t*>(out_row(r0 + 8) + c) = pack_bf16(o[nt][2] * inv1, o[nt][3] * inv1);
-    }
-  }
+  epi(nq, r0, tig, nks, m0, m1, l0, l1, o);
 }
 
 }  // namespace fmma

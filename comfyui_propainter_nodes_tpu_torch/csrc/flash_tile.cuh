@@ -1,6 +1,6 @@
-// The flash-attention tile loop on the CUDA cores: every input type of the
-// segment-tiled kernel (window_attention_tiled.cu), and the fp32 inputs of
-// the single-pass (window_attention.cu) and halo (window_attention_halo.cu)
+// The flash-attention tile loop on the CUDA cores: the fp32 inputs of the
+// single-pass (window_attention.cu), segment-tiled
+// (window_attention_tiled.cu) and halo (window_attention_halo.cu)
 // kernels, whose bf16 inputs run the tensor-core loop of flash_mma.cuh.
 //
 // A block of NT = 128 threads owns BQ = 32 query rows of one (window,

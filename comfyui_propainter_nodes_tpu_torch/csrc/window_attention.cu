@@ -111,7 +111,8 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_m
   const long long wh = (long long)w * a.n_head + h;
   const long long wo = wh * a.QT * a.ch;
   const flash::WindowRows<const T*> rows{static_cast<const T*>(a.q) + wo, q0, a.ch};
-  const flash::WindowRows<T*> out{static_cast<T*>(a.out) + wo, q0, a.ch};
+  const flash::WindowRows<T*> out_rows{static_cast<T*>(a.out) + wo, q0, a.ch};
+  const fmma::StoreRows<flash::WindowRows<T*>> out{out_rows};
   if (a.occ[w] != 0) {
     fmma::attend(smem, nq, a.ch, a.scale, 0, a.QT + a.RL + a.PL,
                  segment_keys<T>(a, wh, w / a.n_win_per_b, h), rows, out, q0, 0);

@@ -211,12 +211,13 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_h
   const Window<T> w = window<T>(a, q0);
   const int nq = min(fmma::BQ, w.QT - q0);
   const int ch = a.C / a.n_head;
+  const fmma::StoreRows<GridRows<T*>> out{w.out};
   if (w.occupied) {
-    fmma::attend(smem, nq, ch, a.scale, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, w.rows, w.out, q0, 0);
+    fmma::attend(smem, nq, ch, a.scale, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, w.rows, out, q0, 0);
   } else {  // clean: only the frames this query tile touches
     const int klo = (q0 / w.wsz) * w.wsz;
     const int khi = min(w.QT, ((q0 + nq - 1) / w.wsz + 1) * w.wsz);
-    fmma::attend(smem, nq, ch, a.scale, klo, khi, w.clean, w.rows, w.out, q0, w.wsz);
+    fmma::attend(smem, nq, ch, a.scale, klo, khi, w.clean, w.rows, out, q0, w.wsz);
   }
 }
 

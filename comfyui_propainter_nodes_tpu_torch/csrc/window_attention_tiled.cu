@@ -16,26 +16,31 @@
 // fp32 scores and statistics, output in the input type.
 //
 // What bounds it on the H100: operations for the occupied windows
-// (4 * QT * keys * ch flops per window and head, about 1.4 GFLOP at the
+// (4 * QT * keys * ch flops per window and head, about 1.5 GFLOP at the
 // 1280x720 shape) against about 2.5 MB of bf16 K/V per window; bytes for
 // the clean ones.
 //
 // Design. The TPU walks a window's segment tiles in order on one core,
-// carrying the flash statistics in scratch. Here the tiles become
-// independent blocks: each occupied window's padded key sequence is cut
-// into splits of SPLIT segment tiles, and one block per (32 queries, head,
-// occupied window, split) runs the shared flash tile loop
-// (flash_tile.cuh) over its split and writes its partial (m, l, o) to a
-// workspace. A combine pass weights each split by exp(m_split - m) and
-// normalises. A split whose keys all carry -1e9 (padding, invalid frames)
-// has m near -1e9 and p near 1, and that weight makes it vanish, exactly
-// as the running max makes such a tile vanish on the TPU. Only occupied
-// windows get workspace slots (the wrapper lists them); clean windows run
-// their frame-local attention in the same launch and write the output
-// directly. A block of an occupied window walks at most SPLIT * SEG_TILE
-// keys instead of all of them (about 4.9k at 1280x720), so the last
-// occupied blocks no longer set the kernel's end.
+// carrying the flash statistics in scratch. Here each occupied window's
+// padded key sequence is cut into splits of split_keys keys (the wrapper
+// picks the size), and one block per (query tile, head, occupied window,
+// split) runs a flash loop over its split. bf16 inputs take the
+// tensor-core loop (flash_mma.cuh, 64-query tiles, 64-key tiles): with one
+// split a block finishes its rows itself; with several, its epilogue
+// writes each row's partial (m, l, O) to a workspace. fp32 inputs take the
+// CUDA-core loop (flash_tile.cuh, 32-query tiles) and always write
+// partials: TF32 would not hold fp32's tolerance. A combine pass weights
+// each split by exp(m_split - m), in the base its loop keeps m in (2 for
+// bf16, e for fp32), and normalises. A split whose keys all carry -1e9
+// (padding, invalid frames) has m near -1e9 and p near 1, and that weight
+// makes it vanish, exactly as the running max makes such a tile vanish on
+// the TPU. Only occupied windows get workspace slots (the wrapper lists
+// them); clean windows run their frame-local attention in the same launch
+// and write the output directly. The long blocks of occupied windows are
+// first in the grid, so the clean windows' short blocks fill the card
+// while the last long ones finish.
 
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -85,126 +90,204 @@ struct TiledKeys {
   }
 };
 
-// blockIdx.z < n_win: window z (clean: the whole attention; occupied: exit);
-// blockIdx.z >= n_win: (occupied slot, split) of the listed occupied windows
+struct Args {
+  const void *q, *wk, *wv, *rk, *rv, *pk, *pv;
+  const int* occ;
+  const int* occ_list;
+  const float *bw, *br, *bp;
+  void* out;
+  float *part_m, *part_l, *part_o;
+  int n_win, n_occ, n_head, QT, RL, RLp, PL, PLp, ch, n_win_per_b, wsz, n_split, split_keys;
+  float scale;
+};
+
+// What block z does. The long blocks come first, so the short clean ones
+// fill the card while the last long ones finish: z < n_occ * n_split is
+// (occupied slot, split) of the listed occupied windows; after them comes
+// window z - n_occ * n_split, all of it if it is clean, nothing if it is
+// occupied (its splits ran above). Returns false for nothing.
+struct Role {
+  int w, slot, sp;
+};
+
+__device__ __forceinline__ bool role(const Args& a, Role& r) {
+  const int z = blockIdx.z;
+  const int n_long = a.n_occ * a.n_split;
+  if (z < n_long) {
+    r.slot = z / a.n_split;
+    r.sp = z - r.slot * a.n_split;
+    r.w = a.occ_list[r.slot];
+    return true;
+  }
+  r.w = z - n_long;
+  r.slot = -1;
+  r.sp = 0;
+  return a.occ[r.w] == 0;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS)
-window_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ wk,
-                              const T* __restrict__ wv, const T* __restrict__ rk,
-                              const T* __restrict__ rv, const T* __restrict__ pk,
-                              const T* __restrict__ pv, const int* __restrict__ occ,
-                              const int* __restrict__ occ_list, const float* __restrict__ bw,
-                              const float* __restrict__ br, const float* __restrict__ bp,
-                              T* __restrict__ out, float* __restrict__ part_m,
-                              float* __restrict__ part_l, float* __restrict__ part_o,
-                              int n_win, int n_head, int QT, int RL, int RLp, int PL, int PLp,
-                              int ch, int n_win_per_b, int wsz, int n_split, int split_keys,
-                              float scale) {
+__device__ __forceinline__ TiledKeys<T> tiled_keys(const Args& a, long long wh, int b, int h) {
+  const long long bh = (long long)b * a.n_head + h;
+  const long long wo = wh * a.QT * a.ch, ro = wh * a.RL * a.ch, po = bh * a.PL * a.ch;
+  return TiledKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo,
+                      static_cast<const T*>(a.rk) + ro, static_cast<const T*>(a.rv) + ro,
+                      static_cast<const T*>(a.pk) + po, static_cast<const T*>(a.pv) + po,
+                      a.bw + (long long)b * a.QT, a.br + (long long)b * a.RL, a.bp + (long long)b * a.PL,
+                      a.QT, a.RL, a.RLp, a.PL, a.ch};
+}
+
+// workspace row of (occupied slot, head, split, query): [n_occ, head, n_split, QT]
+__device__ __forceinline__ long long part_row(const Args& a, const Role& r, int h, int qi) {
+  return (((long long)r.slot * a.n_head + h) * a.n_split + r.sp) * a.QT + qi;
+}
+
+// The epilogue of a split on the tensor-core loop: with one split the row
+// is finished (StoreRows); with several, each row's base-2 max m, sum l
+// and unnormalised fp32 O go to the workspace for the combine pass.
+struct SplitStore {
+  fmma::StoreRows<flash::WindowRows<fmma::bf16*>> finished;
+  float* pm;  // the tile's first row of each workspace array
+  float* pl;
+  float* po;
+  int ch;
+  bool partial;
+  __device__ __forceinline__ void operator()(int nq, int r0, int tig, int nks, float m0, float m1, float l0,
+                                             float l1, const float (&o)[fmma::CHM / 8][4]) const {
+    if (!partial) {
+      finished(nq, r0, tig, nks, m0, m1, l0, l1, o);
+      return;
+    }
+    if (tig == 0 && r0 < nq) {
+      pm[r0] = m0;
+      pl[r0] = l0;
+    }
+    if (tig == 0 && r0 + 8 < nq) {
+      pm[r0 + 8] = m1;
+      pl[r0 + 8] = l1;
+    }
+#pragma unroll
+    for (int nt = 0; nt < fmma::CHM / 8; ++nt) {
+      if (nt < 2 * nks) {
+        const int c = nt * 8 + tig * 2;
+        if (r0 < nq) *reinterpret_cast<float2*>(po + (long long)r0 * ch + c) = make_float2(o[nt][0], o[nt][1]);
+        if (r0 + 8 < nq)
+          *reinterpret_cast<float2*>(po + (long long)(r0 + 8) * ch + c) = make_float2(o[nt][2], o[nt][3]);
+      }
+    }
+  }
+};
+
+// bf16: the tensor-core loop, one block per (64 queries, head, role)
+__global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_split_mma_kernel(Args a) {
+  using T = fmma::bf16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Role r;
+  if (!role(a, r)) return;
+  const int q0 = blockIdx.x * fmma::BQ;
+  const int h = blockIdx.y;
+  const int nq = min(fmma::BQ, a.QT - q0);
+  const long long wh = (long long)r.w * a.n_head + h;
+  const long long wo = wh * a.QT * a.ch;
+  const flash::WindowRows<const T*> rows{static_cast<const T*>(a.q) + wo, q0, a.ch};
+  const flash::WindowRows<T*> out_rows{static_cast<T*>(a.out) + wo, q0, a.ch};
+  const fmma::StoreRows<flash::WindowRows<T*>> out{out_rows};
+  if (r.slot < 0) {  // clean: only the frames this query tile touches
+    const int klo = (q0 / a.wsz) * a.wsz;
+    const int khi = min(a.QT, ((q0 + nq - 1) / a.wsz + 1) * a.wsz);
+    fmma::attend(smem, nq, a.ch, a.scale, klo, khi,
+                 flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                 rows, out, q0, a.wsz);
+    return;
+  }
+  const bool partial = a.n_split > 1;
+  const long long row = partial ? part_row(a, r, h, q0) : 0;
+  const SplitStore epi{out, partial ? a.part_m + row : nullptr, partial ? a.part_l + row : nullptr,
+                       partial ? a.part_o + row * a.ch : nullptr, a.ch, partial};
+  const int k0 = r.sp * a.split_keys;
+  fmma::attend(smem, nq, a.ch, a.scale, k0, min(a.QT + a.RLp + a.PLp, k0 + a.split_keys),
+               tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h), rows, epi, q0, 0);
+}
+
+// fp32: the CUDA-core loop, one block per (32 queries, head, role); every
+// split, one or several, goes through the workspace
+__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_split_kernel(Args a) {
+  using T = float;
   __shared__ flash::Smem<T> sm;
+  Role r;
+  if (!role(a, r)) return;
   const int q0 = blockIdx.x * flash::BQ;
   const int h = blockIdx.y;
-  const int z = blockIdx.z;
-  const int nq = min(flash::BQ, QT - q0);
-  const int r = threadIdx.x >> 2;
-  int w, slot = -1, sp = 0;
-  if (z < n_win) {
-    w = z;
-    if (occ[w] != 0) return;  // whole block: occupied windows run as splits
-  } else {
-    slot = (z - n_win) / n_split;
-    sp = (z - n_win) - slot * n_split;
-    w = occ_list[slot];
-  }
-  const int b = w / n_win_per_b;
-  const long long wh = (long long)w * n_head + h;
-  flash::load_q(sm, nq, ch, flash::WindowRows<const T*>{q + wh * QT * ch, q0, ch});
+  const int nq = min(flash::BQ, a.QT - q0);
+  const int rr = threadIdx.x >> 2;
+  const long long wh = (long long)r.w * a.n_head + h;
+  const long long wo = wh * a.QT * a.ch;
+  flash::load_q(sm, nq, a.ch, flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch});
   flash::Row st;
   flash::init(st);
 
-  if (slot < 0) {  // clean: only the frames this query tile touches
-    const int klo = (q0 / wsz) * wsz;
-    const int khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
-    flash::attend(sm, st, klo, khi, flash::FrameKeys<T>{wk + wh * QT * ch, wv + wh * QT * ch, ch, wsz},
-                  ch, scale, (q0 + r) / wsz);
-    if (r < nq) flash::store_row(st, out + (wh * QT + q0 + r) * ch, ch);
+  if (r.slot < 0) {  // clean: only the frames this query tile touches
+    const int klo = (q0 / a.wsz) * a.wsz;
+    const int khi = min(a.QT, ((q0 + nq - 1) / a.wsz + 1) * a.wsz);
+    flash::attend(sm, st, klo, khi,
+                  flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                  a.ch, a.scale, (q0 + rr) / a.wsz);
+    if (rr < nq) flash::store_row(st, static_cast<T*>(a.out) + wo + (long long)(q0 + rr) * a.ch, a.ch);
     return;
   }
 
-  const long long bh = (long long)b * n_head + h;
-  const TiledKeys<T> keys{wk + wh * QT * ch, wv + wh * QT * ch, rk + wh * RL * ch,
-                          rv + wh * RL * ch, pk + bh * PL * ch, pv + bh * PL * ch,
-                          bw + (long long)b * QT, br + (long long)b * RL, bp + (long long)b * PL,
-                          QT, RL, RLp, PL, ch};
-  const int total = QT + RLp + PLp;
-  const int k0 = sp * split_keys;
-  flash::attend(sm, st, k0, min(total, k0 + split_keys), keys, ch, scale, -1);
-  if (r < nq) {
-    const long long row = (((long long)slot * n_head + h) * n_split + sp) * QT + q0 + r;
+  const int k0 = r.sp * a.split_keys;
+  flash::attend(sm, st, k0, min(a.QT + a.RLp + a.PLp, k0 + a.split_keys),
+                tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h), a.ch, a.scale, -1);
+  if (rr < nq) {
+    const long long row = part_row(a, r, h, q0 + rr);
     if ((threadIdx.x & 3) == 0) {
-      part_m[row] = st.m;
-      part_l[row] = st.l;
+      a.part_m[row] = st.m;
+      a.part_l[row] = st.l;
     }
     const int l4 = threadIdx.x & 3;
 #pragma unroll
     for (int j = 0; j < flash::CHM / 4; ++j) {
       const int c = l4 + 4 * j;
-      if (c < ch) part_o[row * ch + c] = st.o[j];
+      if (c < a.ch) a.part_o[row * a.ch + c] = st.o[j];
     }
   }
 }
 
+// a split's weight exp(m_split - m): each workspace keeps its loop's base,
+// natural for fp32 (flash_tile.cuh), 2 for bf16 (flash_mma.cuh)
+__device__ __forceinline__ float split_weight(float d, float) { return expf(d); }
+__device__ __forceinline__ float split_weight(float d, fmma::bf16) { return exp2f(d); }
+
 // one thread per (occupied slot, head, query, channel): merge the splits
 template <typename T>
-__global__ void __launch_bounds__(256)
-window_attention_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                                const float* __restrict__ part_o, const int* __restrict__ occ_list,
-                                T* __restrict__ out, long long total, int n_head, int QT, int ch,
-                                int n_split) {
+__global__ void __launch_bounds__(256) window_attention_combine_kernel(Args a, long long total) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int c = (int)(idx % ch);
-  const long long row = idx / ch;  // (slot * n_head + h) * QT + qi
-  const int qi = (int)(row % QT);
-  const long long sh = row / QT;  // slot * n_head + h
-  const int h = (int)(sh % n_head);
-  const long long slot = sh / n_head;
-  const long long first = sh * n_split * QT + qi;
+  const int c = (int)(idx % a.ch);
+  const long long row = idx / a.ch;  // (slot * n_head + h) * QT + qi
+  const int qi = (int)(row % a.QT);
+  const long long sh = row / a.QT;  // slot * n_head + h
+  const int h = (int)(sh % a.n_head);
+  const long long slot = sh / a.n_head;
+  const long long first = sh * a.n_split * a.QT + qi;
   float mx = -INFINITY;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_m[first + (long long)s * QT]);
+  for (int s = 0; s < a.n_split; ++s) mx = fmaxf(mx, a.part_m[first + (long long)s * a.QT]);
   float l = 0.0f, o = 0.0f;
-  for (int s = 0; s < n_split; ++s) {
-    const long long rs = first + (long long)s * QT;
-    const float wgt = expf(part_m[rs] - mx);
-    l += part_l[rs] * wgt;
-    o += part_o[rs * ch + c] * wgt;
+  for (int s = 0; s < a.n_split; ++s) {
+    const long long rs = first + (long long)s * a.QT;
+    const float wgt = split_weight(a.part_m[rs] - mx, T());
+    l += a.part_l[rs] * wgt;
+    o += a.part_o[rs * a.ch + c] * wgt;
   }
-  const long long w = occ_list[slot];
-  flash::store(out + ((w * n_head + h) * QT + qi) * ch + c, o / l);
+  const long long w = a.occ_list[slot];
+  flash::store(static_cast<T*>(a.out) + ((w * a.n_head + h) * a.QT + qi) * a.ch + c, o / l);
 }
 
 template <typename T>
-int launch(const void* q, const void* wk, const void* wv, const void* rk, const void* rv,
-           const void* pk, const void* pv, const int* occ, const int* occ_list,
-           const float* bw, const float* br, const float* bp, void* out, float* part_m,
-           float* part_l, float* part_o, int n_win, int n_occ, int n_head, int QT, int RL,
-           int RLp, int PL, int PLp, int ch, int n_win_per_b, int wsz, int n_split,
-           int split_keys, float scale, cudaStream_t s) {
-  const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head,
-                  (unsigned)(n_win + n_occ * n_split));
-  window_attention_split_kernel<T><<<grid, flash::NT, 0, s>>>(
-      reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(wk),
-      reinterpret_cast<const T*>(wv), reinterpret_cast<const T*>(rk),
-      reinterpret_cast<const T*>(rv), reinterpret_cast<const T*>(pk),
-      reinterpret_cast<const T*>(pv), occ, occ_list, bw, br, bp, reinterpret_cast<T*>(out),
-      part_m, part_l, part_o, n_win, n_head, QT, RL, RLp, PL, PLp, ch, n_win_per_b, wsz,
-      n_split, split_keys, scale);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_occ == 0) return (int)e;
-  const long long total = (long long)n_occ * n_head * QT * ch;
-  window_attention_combine_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      part_m, part_l, part_o, occ_list, reinterpret_cast<T*>(out), total, n_head, QT, ch,
-      n_split);
-  return (int)cudaGetLastError();
+cudaError_t combine(const Args& a, cudaStream_t s) {
+  const long long total = (long long)a.n_occ * a.n_head * a.QT * a.ch;
+  window_attention_combine_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(a, total);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -216,22 +299,29 @@ extern "C" int propainter_window_attention_tiled(
     int n_win, int n_occ, int n_head, int QT, int RL, int RLp, int PL, int PLp, int ch,
     int n_win_per_b, int wsz, int n_split, int split_keys, float scale, int is_bf16,
     void* stream) {
-  if (ch > flash::CHM || ch <= 0 || split_keys <= 0) return (int)cudaErrorInvalidValue;
+  if (ch > flash::CHM || ch <= 0 || split_keys <= 0 || n_split <= 0 || (is_bf16 && ch % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   if (n_win <= 0 || QT <= 0) return (int)cudaGetLastError();
+  const Args a{q, wk, wv, rk, rv, pk, pv, static_cast<const int*>(occ), static_cast<const int*>(occ_list),
+               static_cast<const float*>(bw), static_cast<const float*>(br), static_cast<const float*>(bp),
+               out, static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_o),
+               n_win, n_occ, n_head, QT, RL, RLp, PL, PLp, ch, n_win_per_b, wsz, n_split, split_keys, scale};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int* oc = reinterpret_cast<const int*>(occ);
-  const int* ol = reinterpret_cast<const int*>(occ_list);
-  const float* fbw = reinterpret_cast<const float*>(bw);
-  const float* fbr = reinterpret_cast<const float*>(br);
-  const float* fbp = reinterpret_cast<const float*>(bp);
-  float* pm = reinterpret_cast<float*>(part_m);
-  float* pl = reinterpret_cast<float*>(part_l);
-  float* po = reinterpret_cast<float*>(part_o);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, wk, wv, rk, rv, pk, pv, oc, ol, fbw, fbr, fbp, out, pm, pl,
-                                 po, n_win, n_occ, n_head, QT, RL, RLp, PL, PLp, ch,
-                                 n_win_per_b, wsz, n_split, split_keys, scale, s);
-  return launch<float>(q, wk, wv, rk, rv, pk, pv, oc, ol, fbw, fbr, fbp, out, pm, pl, po, n_win,
-                       n_occ, n_head, QT, RL, RLp, PL, PLp, ch, n_win_per_b, wsz, n_split,
-                       split_keys, scale, s);
+  const unsigned nz = (unsigned)(n_win + n_occ * n_split);
+  if (is_bf16) {
+    const size_t smem = fmma::smem_bytes(ch);
+    const cudaError_t e = cudaFuncSetAttribute(window_attention_split_mma_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((QT + fmma::BQ - 1) / fmma::BQ), (unsigned)n_head, nz);
+    window_attention_split_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
+    const cudaError_t e2 = cudaGetLastError();
+    if (e2 != cudaSuccess || n_occ == 0 || n_split == 1) return (int)e2;
+    return (int)combine<fmma::bf16>(a, s);
+  }
+  const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, nz);
+  window_attention_split_kernel<<<grid, flash::NT, 0, s>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_occ == 0) return (int)e;
+  return (int)combine<float>(a, s);
 }

@@ -5,15 +5,15 @@ Two kernels compute the same function, as in the JAX package:
   * `window_attention_tiled` (csrc/window_attention_tiled.cu), the
     segment-tiled kernel: rolled and pooled segments padded to SEG_TILE
     multiples with zero keys of bias -1e9, each occupied window's key
-    sequence split across blocks and merged by a combine pass;
+    sequence cut into splits of SPLIT_KEYS keys, one block per split, and
+    the splits merged by a combine pass where there are several;
 and `window_attention_dispatch` picks one by the JAX dispatcher's size
 estimate (single pass below 12e6: 640x360; tiled from there: 1280x720).
 On the H100 both are bound by operations in occupied windows and by
-bytes in clean ones. The single-pass kernel runs bf16 inputs on the
-tensor cores (csrc/flash_mma.cuh; head width a multiple of 16, else
-ValueError) and fp32 inputs on the CUDA cores (csrc/flash_tile.cuh); the
-tiled kernel splits an occupied window's keys across blocks so no block
-walks all of them, on the CUDA cores (csrc/ has the designs).
+bytes in clean ones. Both run bf16 inputs on the tensor cores
+(csrc/flash_mma.cuh; head width a multiple of 16 and 16-byte aligned
+tensors, else ValueError) and fp32 inputs on the CUDA cores
+(csrc/flash_tile.cuh); csrc/ has the designs.
 
 Signature (the JAX package's `window_attention_pallas`):
   win_q, win_k, win_v  [W, head, T, wsz, ch]   W = B * n_win_per_b
@@ -38,7 +38,11 @@ from . import _build
 
 NEG = -1e9
 SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
-SPLIT_TILES = 2  # segment tiles of keys per block of the tiled kernel
+# keys per split of an occupied window in the tiled kernel, by input type;
+# None: one split a window, which needs no workspace and no combine on the
+# tensor cores and ran fastest on the H100 against 512, 1024 and 2048
+# keys (chip_smoke.py phase 2; PERF.md)
+SPLIT_KEYS = {torch.bfloat16: None, torch.float32: 2 * SEG_TILE}
 TILED_ESTIMATE = 12e6  # the JAX dispatcher's threshold
 MAX_GRID_Z = 65535
 launches = 0  # single-pass kernel launches since the last reset
@@ -175,6 +179,13 @@ def _padded(length: int) -> int:
     return max(1, -(-length // SEG_TILE)) * SEG_TILE
 
 
+def split_plan(n_keys: int, dtype) -> tuple[int, int]:
+    """(splits per occupied window, keys per split) of the tiled kernel
+    for a padded key sequence of n_keys, from SPLIT_KEYS."""
+    keys = SPLIT_KEYS[dtype] or n_keys
+    return -(-n_keys // keys), keys
+
+
 def window_attention_tiled_plain(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, n_win_per_b: int,
@@ -205,11 +216,13 @@ def window_attention_tiled(
     if win_q.device.type != "cuda":
         raise ValueError(f"window_attention_tiled: unsupported device {win_q.device}")
     _check(args, n_win_per_b)
+    bf16 = win_q.dtype == torch.bfloat16
+    if bf16:
+        check_mma("window_attention_tiled", win_q.shape[-1], args[:7])
     nw, nh, t, wsz, ch = win_q.shape
     qt, rl, pl_len = t * wsz, rolled_k.shape[2], pool_k.shape[2]
     rlp, plp = _padded(rl), _padded(pl_len)
-    split_keys = SPLIT_TILES * SEG_TILE
-    n_split = -(-(qt + rlp + plp) // split_keys)
+    n_split, split_keys = split_plan(qt + rlp + plp, win_q.dtype)
     occ_i = occ.to(torch.int32).contiguous()
     # the grid has a block range per occupied window: this count syncs
     occ_list = torch.nonzero(occ_i).flatten().to(torch.int32)
@@ -218,16 +231,17 @@ def window_attention_tiled(
         raise ValueError(f"window_attention_tiled: {nw} windows + {n_occ} x {n_split} splits exceed the grid")
     dev = win_q.device
     out = torch.empty_like(win_q)
-    part_m = torch.empty((n_occ, nh, n_split, qt), device=dev, dtype=torch.float32)
+    # partial (m, l, o) of each split; bf16 with one split finishes in place
+    n_part = 0 if bf16 and n_split == 1 else n_occ
+    part_m = torch.empty((n_part, nh, n_split, qt), device=dev, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
-    part_o = torch.empty((n_occ, nh, n_split, qt, ch), device=dev, dtype=torch.float32)
+    part_o = torch.empty((n_part, nh, n_split, qt, ch), device=dev, dtype=torch.float32)
     status = _build.library().propainter_window_attention_tiled(
         *[a.data_ptr() for a in (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v)],
         occ_i.data_ptr(), occ_list.data_ptr(), bias_w.data_ptr(), bias_r.data_ptr(), bias_p.data_ptr(),
         out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
         nw, n_occ, nh, qt, rl, rlp, pl_len, plp, ch, n_win_per_b, wsz, n_split, split_keys,
-        1.0 / math.sqrt(ch), int(win_q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        1.0 / math.sqrt(ch), int(bf16), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "window_attention_tiled")
     launches_tiled += 1

@@ -130,17 +130,44 @@ def test_attention_bf16_needs_head_width_multiple_of_16(gen):
 
 
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("occ", [[True, False, True, False, False, True], [False] * 6, [True] * 6])
-def test_window_attention_tiled_matches_plain(gen, dt, tol, occ):
-    """B4: segments of several SEG_TILEs with padded tails (splits that
-    straddle segment ends), mixed / no / all occupied windows, and the
-    single-pass kernel on the same inputs."""
-    full = _attention_args(gen, dt, 2, 3, 2, 5, 45, 128, 148, 405, occ)
+@pytest.mark.parametrize("ch", [64, 128])
+@pytest.mark.parametrize("occ", list(_OCC))
+@pytest.mark.parametrize("split", [64, None])
+def test_window_attention_tiled_matches_plain(gen, monkeypatch, dt, tol, ch, occ, split):
+    """B4 on both loops (bf16: tensor cores, fp32: CUDA cores), mixed / no
+    / all occupied windows, head widths 64 and 128, and the single-pass
+    kernel on the same inputs. Splits of 64 keys: the rolled segment (111
+    keys padded to 256) leaves splits of padding keys only, and batch row
+    1's first split is all -1e9 (its frame 0 padded, frame 1 outside
+    t_ind); or one split a window (bf16: no workspace, no combine). QT =
+    225 is not a multiple of either query tile."""
+    monkeypatch.setitem(b3.SPLIT_KEYS, dt, split)
+    full = _attention_args(gen, dt, 2, 3, 2, 5, 45, ch, 37, 405, _OCC[occ], pad_first=True)
+    n_keys = 225 + 256 + 3 * 405 + 65
+    assert b3.split_plan(n_keys, dt)[0] == (-(-n_keys // 64) if split else 1)
     before = b3.launches_tiled
     out = b3.window_attention_tiled(*full, n_win_per_b=3)
     assert b3.launches_tiled == before + 1
     torch.testing.assert_close(out, b3.window_attention_tiled_plain(*full, 3), atol=tol, rtol=tol)
     torch.testing.assert_close(out, b3.window_attention(*full, n_win_per_b=3), atol=tol, rtol=tol)
+
+
+def test_attention_tiled_bf16_checks(gen):
+    """B4's bf16 inputs go to the tensor-core loop: a head width that is
+    not a multiple of 16, or a tensor off a 16-byte boundary, raises; fp32
+    takes both."""
+    full = _attention_args(gen, torch.bfloat16, 1, 2, 2, 2, 45, 40, 148, 405, [True, False])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        b3.window_attention_tiled(*full, n_win_per_b=2)
+    full = _attention_args(gen, torch.bfloat16, 1, 2, 2, 2, 45, 64, 148, 405, [True, False])
+    q = full[0]
+    shifted = torch.empty(q.numel() + 1, device="cuda", dtype=q.dtype)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        b3.window_attention_tiled(shifted, *full[1:], n_win_per_b=2)
+    full32 = _attention_args(gen, torch.float32, 1, 2, 2, 2, 45, 40, 148, 405, [True, False])
+    torch.testing.assert_close(b3.window_attention_tiled(*full32, n_win_per_b=2),
+                               b3.window_attention_tiled_plain(*full32, 2), atol=1e-4, rtol=1e-4)
 
 
 def test_window_attention_dispatch(gen):
@@ -220,6 +247,26 @@ def test_corr_window_lookups_match_plain(gen, dt):
     four = b67.corr_window_lookup4(maps, sy, sx, fy, fx)
     torch.testing.assert_close(four, b67.corr_window_lookup4_plain(maps, sy, sx, fy, fx), atol=tol, rtol=tol)
     torch.testing.assert_close(four[:, 0], one, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 23, 700])
+def test_corr_window4_is_bit_equal(gen, dt, m):
+    """B6 (24 pixels a block): M below, at an odd remainder of and well
+    past one block; levels of unequal sizes; starts clamped at both ends
+    (some below 0, some past Hp-10 / Wp-10). Equal bit for bit in both
+    map types."""
+    shapes = [(40, 50), (28, 34), (22, 26), (20, 22)]
+    maps = [torch.randn(m, hp, wp, generator=gen, device="cuda").to(dt) for hp, wp in shapes]
+    sy = torch.stack([torch.randint(-5, hp - 5, (m,), generator=gen, device="cuda") for hp, _ in shapes]).int()
+    sx = torch.stack([torch.randint(-5, wp - 5, (m,), generator=gen, device="cuda") for _, wp in shapes]).int()
+    sy[:, 0], sx[:, -1] = -7, 99
+    fy = torch.rand(4, m, generator=gen, device="cuda").to(dt).float()
+    fx = torch.rand(4, m, generator=gen, device="cuda").to(dt).float()
+    before = b67.launches4
+    out = b67.corr_window_lookup4(maps, sy, sx, fy, fx)
+    assert b67.launches4 == before + 1
+    assert torch.equal(out, b67.corr_window_lookup4_plain(maps, sy, sx, fy, fx))
 
 
 def test_wrappers_check_their_inputs(gen):
