@@ -13,8 +13,7 @@ Phases (any failure raises; the exit code is then nonzero):
      with every window clean, the share of their time clean windows set):
        B1-B3 at the main-path shapes of a 24-frame 640x360 node run;
        B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
-       on the same inputs and bf16 B4 at several split sizes (512, 1024,
-       2048 keys, one split a window); B5 (halo attention) at the 640x360 and
+       on the same inputs; B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
        main path's padded pyramid and B7 (one level) on its level 0;
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
@@ -36,11 +35,11 @@ chiprun_out/ (ptxas log, profiles, chip_smoke.json).
     python3 chip_smoke.py --tree DIR
 
 times only the bf16 attention kernels B3 and B5 at their phase-2 shapes
-and inputs, and the path-A node (1280x720; a warm-up, then three timed
-runs on the host clock), with the port package of another checkout DIR
-(the same seed, so the same inputs in every run), and prints them as
-one JSON line: two trees are compared in one call by running them in
-turns, parent, change, change, parent.
+and inputs, and the node on each of the three paths (a warm-up, then
+five timed runs on the host clock), with the port package of another
+checkout DIR (the same seed, so the same inputs in every run), and
+prints them as one JSON line: two trees are compared in one call by
+running them in turns, parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -421,19 +420,6 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     log(f"  B4 window_attention_tiled {str(dt)[6:]} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "window_attention_tiled disagrees with its plain version")
-    splits = {}
-    if dt == torch.bfloat16:  # the split size, by measurement: each held to the same tolerance
-        chosen = mod.SPLIT_KEYS[dt]
-        try:
-            for keys in (512, 1024, 2048, None):
-                mod.SPLIT_KEYS[dt] = keys
-                _, s_rel = rel_err(mod.window_attention_tiled(*args, n_win_per_b=n_win), ref)
-                require(s_rel <= tol, f"window_attention_tiled with {keys} keys a split disagrees: rel {s_rel}")
-                splits[str(keys or "one")] = time_ms(lambda: mod.window_attention_tiled(*args, n_win_per_b=n_win))
-        finally:
-            mod.SPLIT_KEYS[dt] = chosen
-        log("    split A/B (ms; keys a split, 'one' = one split a window): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in splits.items()) + f"; chosen: {chosen or 'one'}")
     del ref
     ms = time_ms(lambda: mod.window_attention_tiled(*args, n_win_per_b=n_win))
     b3_ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
@@ -445,7 +431,7 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     log(f"    ms {ms:.4f}  B3 on the same inputs {b3_ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (SDPA, err vs kernel {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw, split_ms=splits)
+                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw)
 
 
 def check_window_attention_halo(dt, gen, grid, occ):
@@ -705,8 +691,8 @@ def card_vs_host(switched: bool):
 
 
 def tree_times(tree: str) -> int:
-    """`--tree DIR`: B3 and B5 bf16 times and path-A node wall times of
-    the port package in DIR."""
+    """`--tree DIR`: B3 and B5 bf16 times and node wall times on each
+    path of the port package in DIR."""
     sys.path.insert(0, os.path.abspath(tree))
     import comfyui_propainter_nodes_tpu_torch as pkg
     from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
@@ -723,15 +709,20 @@ def tree_times(tree: str) -> int:
         "B5_30x54": check_window_attention_halo(dt, gen, (30, 54), occ360)["ms"],
         "B5_60x108": check_window_attention_halo(dt, gen, (60, 108), occ720)["ms"],
     }
-    frames, masks = synthetic_clip(24, 720, 1280)
-    node = ProPainterInpaint(device="cuda")
-    walls = []
-    for _ in range(4):  # the first is the warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        node.propainter_inpainting(frames, masks, width=1280, height=720, **WIDGETS)
-        walls.append(time.perf_counter() - t0)
-    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, "path_a_s": walls[1:]}))
+    walls = {}
+    for path, h, w, switched in (("main_s", 360, 640, False), ("path_a_s", 720, 1280, False),
+                                 ("path_b_s", 360, 640, True)):
+        frames, masks = synthetic_clip(24, h, w)
+        node = ProPainterInpaint(device="cuda")
+        runs = []
+        with switches(switched):
+            for _ in range(6):  # the first is the warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)
+                runs.append(time.perf_counter() - t0)
+        walls[path] = runs[1:]
+    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, **walls}))
     return 0
 
 
@@ -838,7 +829,6 @@ def main() -> int:
         }
         if "b3_ms" in r:
             row["b3_ms_same_inputs"] = r["b3_ms"]
-            row["split_ms"] = r["split_ms"]
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}

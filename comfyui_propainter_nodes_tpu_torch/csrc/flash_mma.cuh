@@ -26,8 +26,8 @@
 //     kernel rounds P to the value dtype too), V fragments come from the
 //     [key][ch] tile with `ldmatrix.trans`. O (16 x ch fp32 per warp) stays
 //     in registers; at the end the caller's epilogue gets it with each
-//     row's m and l (StoreRows divides by l and stores bf16; the
-//     segment-tiled kernel stores a split's partial m, l and O).
+//     row's m and l (StoreRows, the epilogue of all three kernels, divides
+//     by l and stores bf16).
 // Shared rows are padded by 8 elements: a row stride of an odd number of
 // 16-byte units puts the 8 rows of each `ldmatrix` phase on distinct banks.
 //
@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tile.cuh"  // FrameKeys, WindowRows, clean_range
 
 namespace fmma {
 
@@ -145,8 +147,8 @@ struct StoreRows {
 };
 
 // Attention of query rows [0, nq) of a tile over keys [k0, k1) of `dec`,
-// finished by the caller's epilogue `epi` (StoreRows, or a partial store
-// for split keys). q_row(rr): first element of query row rr (< nq). Every
+// finished by the caller's epilogue `epi`. q_row(rr): first element of
+// query row rr (< nq). Every
 // pointer a decoder or a row function returns is 16-byte aligned (the
 // wrappers check the tensors).
 template <typename Dec, typename QRow, typename Epi>
@@ -321,6 +323,26 @@ __device__ __forceinline__ void attend(unsigned char* smem, int nq, int ch, floa
   }
   cp_wait<0>();
   epi(nq, r0, tig, nks, m0, m1, l0, l1, o);
+}
+
+// One block of a window attention kernel: query rows [q0, q0 + BQ) of a
+// window of QT queries in frames of wsz. An occupied window's rows attend
+// over keys [0, n_keys) of `occ_keys`; a clean window's over the frames the
+// tile touches, each key of `clean_keys` counting for its own frame's rows.
+// StoreRows finishes the rows through out_row.
+template <typename Occ, typename Clean, typename QRow, typename ORow>
+__device__ __forceinline__ void attend_window(unsigned char* smem, int q0, int QT, int wsz, int ch, float scale,
+                                              bool occupied, int n_keys, const Occ& occ_keys,
+                                              const Clean& clean_keys, const QRow& q_row, const ORow& out_row) {
+  const int nq = min(BQ, QT - q0);
+  const StoreRows<ORow> out{out_row};
+  if (occupied) {
+    attend(smem, nq, ch, scale, 0, n_keys, occ_keys, q_row, out, q0, 0);
+  } else {
+    int klo, khi;
+    flash::clean_range(q0, nq, QT, wsz, klo, khi);
+    attend(smem, nq, ch, scale, klo, khi, clean_keys, q_row, out, q0, wsz);
+  }
 }
 
 }  // namespace fmma

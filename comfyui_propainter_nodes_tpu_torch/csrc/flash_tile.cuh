@@ -174,6 +174,13 @@ struct FrameKeys {
   }
 };
 
+// the window keys [klo, khi) a clean window's query tile (rows [q0, q0 +
+// nq) of QT) attends over: the frames the tile touches
+__device__ __forceinline__ void clean_range(int q0, int nq, int QT, int wsz, int& klo, int& khi) {
+  klo = (q0 / wsz) * wsz;
+  khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
+}
+
 // row rr of a query tile starting at row q0 of a [rows, ch] block
 template <typename P>
 struct WindowRows {

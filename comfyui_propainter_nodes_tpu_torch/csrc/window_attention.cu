@@ -94,12 +94,6 @@ __device__ __forceinline__ SegmentKeys<T> segment_keys(const Args& a, long long 
                         a.bp + (long long)b * a.PL, a.QT, a.RL, a.ch};
 }
 
-// the key range of a clean window's query tile: the frames it touches
-__device__ __forceinline__ void clean_range(int q0, int nq, int QT, int wsz, int& klo, int& khi) {
-  klo = (q0 / wsz) * wsz;
-  khi = min(QT, ((q0 + nq - 1) / wsz + 1) * wsz);
-}
-
 // bf16: the tensor-core loop, one block per (64 queries, head, window)
 __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_mma_kernel(Args a) {
   using T = fmma::bf16;
@@ -107,23 +101,13 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_m
   const int q0 = blockIdx.x * fmma::BQ;
   const int h = blockIdx.y;
   const int w = blockIdx.z;
-  const int nq = min(fmma::BQ, a.QT - q0);
   const long long wh = (long long)w * a.n_head + h;
   const long long wo = wh * a.QT * a.ch;
-  const flash::WindowRows<const T*> rows{static_cast<const T*>(a.q) + wo, q0, a.ch};
-  const flash::WindowRows<T*> out_rows{static_cast<T*>(a.out) + wo, q0, a.ch};
-  const fmma::StoreRows<flash::WindowRows<T*>> out{out_rows};
-  if (a.occ[w] != 0) {
-    fmma::attend(smem, nq, a.ch, a.scale, 0, a.QT + a.RL + a.PL,
-                 segment_keys<T>(a, wh, w / a.n_win_per_b, h), rows, out, q0, 0);
-  } else {
-    int klo, khi;
-    clean_range(q0, nq, a.QT, a.wsz, klo, khi);
-    const T* wk = static_cast<const T*>(a.wk) + wo;
-    const T* wv = static_cast<const T*>(a.wv) + wo;
-    fmma::attend(smem, nq, a.ch, a.scale, klo, khi, flash::FrameKeys<T>{wk, wv, a.ch, a.wsz}, rows,
-                 out, q0, a.wsz);
-  }
+  fmma::attend_window(smem, q0, a.QT, a.wsz, a.ch, a.scale, a.occ[w] != 0, a.QT + a.RL + a.PL,
+                      segment_keys<T>(a, wh, w / a.n_win_per_b, h),
+                      flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                      flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
+                      flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
 // fp32: the CUDA-core loop, one block per (32 queries, head, window)
@@ -145,7 +129,7 @@ __global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention
                   a.scale, -1);
   } else {
     int klo, khi;
-    clean_range(q0, nq, a.QT, a.wsz, klo, khi);
+    flash::clean_range(q0, nq, a.QT, a.wsz, klo, khi);
     const T* wk = static_cast<const T*>(a.wk) + wo;
     const T* wv = static_cast<const T*>(a.wv) + wo;
     flash::attend(sm, st, klo, khi, flash::FrameKeys<T>{wk, wv, a.ch, a.wsz}, a.ch, a.scale,

@@ -209,16 +209,8 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_h
   extern __shared__ __align__(16) unsigned char smem[];
   const int q0 = blockIdx.x * fmma::BQ;
   const Window<T> w = window<T>(a, q0);
-  const int nq = min(fmma::BQ, w.QT - q0);
-  const int ch = a.C / a.n_head;
-  const fmma::StoreRows<GridRows<T*>> out{w.out};
-  if (w.occupied) {
-    fmma::attend(smem, nq, ch, a.scale, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, w.rows, out, q0, 0);
-  } else {  // clean: only the frames this query tile touches
-    const int klo = (q0 / w.wsz) * w.wsz;
-    const int khi = min(w.QT, ((q0 + nq - 1) / w.wsz + 1) * w.wsz);
-    fmma::attend(smem, nq, ch, a.scale, klo, khi, w.clean, w.rows, out, q0, w.wsz);
-  }
+  fmma::attend_window(smem, q0, w.QT, w.wsz, a.C / a.n_head, a.scale, w.occupied, w.keys.QT + w.keys.HL + a.PL,
+                      w.keys, w.clean, w.rows, w.out);
 }
 
 // fp32: the CUDA-core loop, one block per (32 queries, head, window)
@@ -236,8 +228,8 @@ __global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention
   if (w.occupied) {
     flash::attend(sm, st, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, ch, a.scale, -1);
   } else {  // clean: only the frames this query tile touches
-    const int klo = (q0 / w.wsz) * w.wsz;
-    const int khi = min(w.QT, ((q0 + nq - 1) / w.wsz + 1) * w.wsz);
+    int klo, khi;
+    flash::clean_range(q0, nq, w.QT, w.wsz, klo, khi);
     flash::attend(sm, st, klo, khi, w.clean, ch, a.scale, (q0 + r) / w.wsz);
   }
   if (r < nq) flash::store_row(st, w.out(r), ch);

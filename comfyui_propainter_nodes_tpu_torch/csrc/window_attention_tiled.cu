@@ -21,17 +21,17 @@
 // the clean ones.
 //
 // Design. The TPU walks a window's segment tiles in order on one core,
-// carrying the flash statistics in scratch. Here each occupied window's
-// padded key sequence is cut into splits of split_keys keys (the wrapper
-// picks the size), and one block per (query tile, head, occupied window,
-// split) runs a flash loop over its split. bf16 inputs take the
-// tensor-core loop (flash_mma.cuh, 64-query tiles, 64-key tiles): with one
-// split a block finishes its rows itself; with several, its epilogue
-// writes each row's partial (m, l, O) to a workspace. fp32 inputs take the
-// CUDA-core loop (flash_tile.cuh, 32-query tiles) and always write
-// partials: TF32 would not hold fp32's tolerance. A combine pass weights
-// each split by exp(m_split - m), in the base its loop keeps m in (2 for
-// bf16, e for fp32), and normalises. A split whose keys all carry -1e9
+// carrying the flash statistics in scratch. Here one block per (query
+// tile, head, occupied window, split) runs a flash loop over its split of
+// the window's padded key sequence. bf16 inputs take the tensor-core loop
+// (flash_mma.cuh, 64-query tiles, 64-key tiles) with one split a window, so
+// each block finishes its rows itself: on the H100 one split ran faster
+// than splits of 512, 1024 or 2048 keys, whose fp32 partials and combine
+// cost more than the shorter blocks saved. fp32 inputs take the CUDA-core
+// loop (flash_tile.cuh, 32-query tiles; TF32 would not hold fp32's
+// tolerance) in splits of split_keys keys, each writing its rows' partial
+// (m, l, O) to a workspace, and a combine pass weights each split by
+// exp(m_split - m) and normalises. A split whose keys all carry -1e9
 // (padding, invalid frames) has m near -1e9 and p near 1, and that weight
 // makes it vanish, exactly as the running max makes such a tile vanish on
 // the TPU. Only occupied windows get workspace slots (the wrapper lists
@@ -141,43 +141,8 @@ __device__ __forceinline__ long long part_row(const Args& a, const Role& r, int 
   return (((long long)r.slot * a.n_head + h) * a.n_split + r.sp) * a.QT + qi;
 }
 
-// The epilogue of a split on the tensor-core loop: with one split the row
-// is finished (StoreRows); with several, each row's base-2 max m, sum l
-// and unnormalised fp32 O go to the workspace for the combine pass.
-struct SplitStore {
-  fmma::StoreRows<flash::WindowRows<fmma::bf16*>> finished;
-  float* pm;  // the tile's first row of each workspace array
-  float* pl;
-  float* po;
-  int ch;
-  bool partial;
-  __device__ __forceinline__ void operator()(int nq, int r0, int tig, int nks, float m0, float m1, float l0,
-                                             float l1, const float (&o)[fmma::CHM / 8][4]) const {
-    if (!partial) {
-      finished(nq, r0, tig, nks, m0, m1, l0, l1, o);
-      return;
-    }
-    if (tig == 0 && r0 < nq) {
-      pm[r0] = m0;
-      pl[r0] = l0;
-    }
-    if (tig == 0 && r0 + 8 < nq) {
-      pm[r0 + 8] = m1;
-      pl[r0 + 8] = l1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < fmma::CHM / 8; ++nt) {
-      if (nt < 2 * nks) {
-        const int c = nt * 8 + tig * 2;
-        if (r0 < nq) *reinterpret_cast<float2*>(po + (long long)r0 * ch + c) = make_float2(o[nt][0], o[nt][1]);
-        if (r0 + 8 < nq)
-          *reinterpret_cast<float2*>(po + (long long)(r0 + 8) * ch + c) = make_float2(o[nt][2], o[nt][3]);
-      }
-    }
-  }
-};
-
-// bf16: the tensor-core loop, one block per (64 queries, head, role)
+// bf16: the tensor-core loop, one block per (64 queries, head, role), one
+// split an occupied window
 __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_split_mma_kernel(Args a) {
   using T = fmma::bf16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -185,31 +150,17 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_s
   if (!role(a, r)) return;
   const int q0 = blockIdx.x * fmma::BQ;
   const int h = blockIdx.y;
-  const int nq = min(fmma::BQ, a.QT - q0);
   const long long wh = (long long)r.w * a.n_head + h;
   const long long wo = wh * a.QT * a.ch;
-  const flash::WindowRows<const T*> rows{static_cast<const T*>(a.q) + wo, q0, a.ch};
-  const flash::WindowRows<T*> out_rows{static_cast<T*>(a.out) + wo, q0, a.ch};
-  const fmma::StoreRows<flash::WindowRows<T*>> out{out_rows};
-  if (r.slot < 0) {  // clean: only the frames this query tile touches
-    const int klo = (q0 / a.wsz) * a.wsz;
-    const int khi = min(a.QT, ((q0 + nq - 1) / a.wsz + 1) * a.wsz);
-    fmma::attend(smem, nq, a.ch, a.scale, klo, khi,
-                 flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
-                 rows, out, q0, a.wsz);
-    return;
-  }
-  const bool partial = a.n_split > 1;
-  const long long row = partial ? part_row(a, r, h, q0) : 0;
-  const SplitStore epi{out, partial ? a.part_m + row : nullptr, partial ? a.part_l + row : nullptr,
-                       partial ? a.part_o + row * a.ch : nullptr, a.ch, partial};
-  const int k0 = r.sp * a.split_keys;
-  fmma::attend(smem, nq, a.ch, a.scale, k0, min(a.QT + a.RLp + a.PLp, k0 + a.split_keys),
-               tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h), rows, epi, q0, 0);
+  fmma::attend_window(smem, q0, a.QT, a.wsz, a.ch, a.scale, r.slot >= 0, a.QT + a.RLp + a.PLp,
+                      tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h),
+                      flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                      flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
+                      flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
 // fp32: the CUDA-core loop, one block per (32 queries, head, role); every
-// split, one or several, goes through the workspace
+// split goes through the workspace
 __global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_split_kernel(Args a) {
   using T = float;
   __shared__ flash::Smem<T> sm;
@@ -226,8 +177,8 @@ __global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention
   flash::init(st);
 
   if (r.slot < 0) {  // clean: only the frames this query tile touches
-    const int klo = (q0 / a.wsz) * a.wsz;
-    const int khi = min(a.QT, ((q0 + nq - 1) / a.wsz + 1) * a.wsz);
+    int klo, khi;
+    flash::clean_range(q0, nq, a.QT, a.wsz, klo, khi);
     flash::attend(sm, st, klo, khi,
                   flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
                   a.ch, a.scale, (q0 + rr) / a.wsz);
@@ -253,13 +204,7 @@ __global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention
   }
 }
 
-// a split's weight exp(m_split - m): each workspace keeps its loop's base,
-// natural for fp32 (flash_tile.cuh), 2 for bf16 (flash_mma.cuh)
-__device__ __forceinline__ float split_weight(float d, float) { return expf(d); }
-__device__ __forceinline__ float split_weight(float d, fmma::bf16) { return exp2f(d); }
-
 // one thread per (occupied slot, head, query, channel): merge the splits
-template <typename T>
 __global__ void __launch_bounds__(256) window_attention_combine_kernel(Args a, long long total) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -275,19 +220,12 @@ __global__ void __launch_bounds__(256) window_attention_combine_kernel(Args a, l
   float l = 0.0f, o = 0.0f;
   for (int s = 0; s < a.n_split; ++s) {
     const long long rs = first + (long long)s * a.QT;
-    const float wgt = split_weight(a.part_m[rs] - mx, T());
+    const float wgt = expf(a.part_m[rs] - mx);  // m in base e, as flash_tile.cuh keeps it
     l += a.part_l[rs] * wgt;
     o += a.part_o[rs * a.ch + c] * wgt;
   }
   const long long w = a.occ_list[slot];
-  flash::store(static_cast<T*>(a.out) + ((w * a.n_head + h) * a.QT + qi) * a.ch + c, o / l);
-}
-
-template <typename T>
-cudaError_t combine(const Args& a, cudaStream_t s) {
-  const long long total = (long long)a.n_occ * a.n_head * a.QT * a.ch;
-  window_attention_combine_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(a, total);
-  return cudaGetLastError();
+  static_cast<float*>(a.out)[((w * a.n_head + h) * a.QT + qi) * a.ch + c] = o / l;
 }
 
 }  // namespace
@@ -299,7 +237,8 @@ extern "C" int propainter_window_attention_tiled(
     int n_win, int n_occ, int n_head, int QT, int RL, int RLp, int PL, int PLp, int ch,
     int n_win_per_b, int wsz, int n_split, int split_keys, float scale, int is_bf16,
     void* stream) {
-  if (ch > flash::CHM || ch <= 0 || split_keys <= 0 || n_split <= 0 || (is_bf16 && ch % 16 != 0))
+  if (ch > flash::CHM || ch <= 0 || split_keys <= 0 || n_split <= 0 ||
+      (is_bf16 && (ch % 16 != 0 || n_split != 1)))
     return (int)cudaErrorInvalidValue;
   if (n_win <= 0 || QT <= 0) return (int)cudaGetLastError();
   const Args a{q, wk, wv, rk, rv, pk, pv, static_cast<const int*>(occ), static_cast<const int*>(occ_list),
@@ -315,13 +254,13 @@ extern "C" int propainter_window_attention_tiled(
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((unsigned)((QT + fmma::BQ - 1) / fmma::BQ), (unsigned)n_head, nz);
     window_attention_split_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
-    const cudaError_t e2 = cudaGetLastError();
-    if (e2 != cudaSuccess || n_occ == 0 || n_split == 1) return (int)e2;
-    return (int)combine<fmma::bf16>(a, s);
+    return (int)cudaGetLastError();
   }
   const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, nz);
   window_attention_split_kernel<<<grid, flash::NT, 0, s>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_occ == 0) return (int)e;
-  return (int)combine<float>(a, s);
+  const long long total = (long long)n_occ * n_head * QT * ch;
+  window_attention_combine_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(a, total);
+  return (int)cudaGetLastError();
 }

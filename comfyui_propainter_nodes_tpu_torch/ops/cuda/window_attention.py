@@ -4,9 +4,9 @@ Two kernels compute the same function, as in the JAX package:
   * `window_attention` (csrc/window_attention.cu), the single-pass kernel;
   * `window_attention_tiled` (csrc/window_attention_tiled.cu), the
     segment-tiled kernel: rolled and pooled segments padded to SEG_TILE
-    multiples with zero keys of bias -1e9, each occupied window's key
-    sequence cut into splits of SPLIT_KEYS keys, one block per split, and
-    the splits merged by a combine pass where there are several;
+    multiples with zero keys of bias -1e9; bf16 runs each occupied
+    window's keys in one block, fp32 cuts them into splits of SPLIT_KEYS
+    keys, one block per split, merged by a combine pass;
 and `window_attention_dispatch` picks one by the JAX dispatcher's size
 estimate (single pass below 12e6: 640x360; tiled from there: 1280x720).
 On the H100 both are bound by operations in occupied windows and by
@@ -38,11 +38,11 @@ from . import _build
 
 NEG = -1e9
 SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
-# keys per split of an occupied window in the tiled kernel, by input type;
-# None: one split a window, which needs no workspace and no combine on the
-# tensor cores and ran fastest on the H100 against 512, 1024 and 2048
-# keys (chip_smoke.py phase 2; PERF.md)
-SPLIT_KEYS = {torch.bfloat16: None, torch.float32: 2 * SEG_TILE}
+# keys per split of an occupied window in the tiled kernel's fp32 loop;
+# bf16 runs one split a window, which needs no workspace and no combine
+# and ran faster on the H100 than splits of 512, 1024 or 2048 keys
+# (PERF.md)
+SPLIT_KEYS = 2 * SEG_TILE
 TILED_ESTIMATE = 12e6  # the JAX dispatcher's threshold
 MAX_GRID_Z = 65535
 launches = 0  # single-pass kernel launches since the last reset
@@ -181,8 +181,9 @@ def _padded(length: int) -> int:
 
 def split_plan(n_keys: int, dtype) -> tuple[int, int]:
     """(splits per occupied window, keys per split) of the tiled kernel
-    for a padded key sequence of n_keys, from SPLIT_KEYS."""
-    keys = SPLIT_KEYS[dtype] or n_keys
+    for a padded key sequence of n_keys: one split for bf16, SPLIT_KEYS
+    keys a split for fp32."""
+    keys = n_keys if dtype == torch.bfloat16 else SPLIT_KEYS
     return -(-n_keys // keys), keys
 
 
@@ -231,8 +232,8 @@ def window_attention_tiled(
         raise ValueError(f"window_attention_tiled: {nw} windows + {n_occ} x {n_split} splits exceed the grid")
     dev = win_q.device
     out = torch.empty_like(win_q)
-    # partial (m, l, o) of each split; bf16 with one split finishes in place
-    n_part = 0 if bf16 and n_split == 1 else n_occ
+    # partial (m, l, o) of each fp32 split; bf16 finishes its rows in place
+    n_part = 0 if bf16 else n_occ
     part_m = torch.empty((n_part, nh, n_split, qt), device=dev, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     part_o = torch.empty((n_part, nh, n_split, qt, ch), device=dev, dtype=torch.float32)

@@ -129,22 +129,26 @@ def test_attention_bf16_needs_head_width_multiple_of_16(gen):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("dt,tol,split", [(torch.float32, 1e-4, 64), (torch.float32, 1e-4, "default"),
+                                          (torch.bfloat16, 3e-2, "one")])
 @pytest.mark.parametrize("ch", [64, 128])
 @pytest.mark.parametrize("occ", list(_OCC))
-@pytest.mark.parametrize("split", [64, None])
-def test_window_attention_tiled_matches_plain(gen, monkeypatch, dt, tol, ch, occ, split):
-    """B4 on both loops (bf16: tensor cores, fp32: CUDA cores), mixed / no
-    / all occupied windows, head widths 64 and 128, and the single-pass
-    kernel on the same inputs. Splits of 64 keys: the rolled segment (111
-    keys padded to 256) leaves splits of padding keys only, and batch row
-    1's first split is all -1e9 (its frame 0 padded, frame 1 outside
-    t_ind); or one split a window (bf16: no workspace, no combine). QT =
-    225 is not a multiple of either query tile."""
-    monkeypatch.setitem(b3.SPLIT_KEYS, dt, split)
-    full = _attention_args(gen, dt, 2, 3, 2, 5, 45, ch, 37, 405, _OCC[occ], pad_first=True)
-    n_keys = 225 + 256 + 3 * 405 + 65
-    assert b3.split_plan(n_keys, dt)[0] == (-(-n_keys // 64) if split else 1)
+@pytest.mark.parametrize("rl_per", [37, 148])
+def test_window_attention_tiled_matches_plain(gen, monkeypatch, dt, tol, split, ch, occ, rl_per):
+    """B4 on both loops (bf16: tensor cores, one split a window; fp32: CUDA
+    cores, splits of 64 keys or the module's own SPLIT_KEYS), mixed / no /
+    all occupied windows, head widths 64 and 128, and the single-pass
+    kernel on the same inputs. rl_per 37: the rolled segment (111 keys)
+    pads to one SEG_TILE, so 64-key splits of padding keys only occur, and
+    batch row 1's first 64-key split is all -1e9 (its frame 0 padded,
+    frame 1 outside t_ind); rl_per 148: it spans two SEG_TILEs (444 keys
+    padded to 512). QT = 225 is not a multiple of either query tile."""
+    if split == 64:
+        monkeypatch.setattr(b3, "SPLIT_KEYS", 64)
+    full = _attention_args(gen, dt, 2, 3, 2, 5, 45, ch, rl_per, 405, _OCC[occ], pad_first=True)
+    n_keys = 225 + b3._padded(3 * rl_per) + 3 * 405 + 65
+    keys = {64: 64, "default": b3.SPLIT_KEYS, "one": n_keys}[split]
+    assert b3.split_plan(n_keys, dt) == (-(-n_keys // keys), keys)
     before = b3.launches_tiled
     out = b3.window_attention_tiled(*full, n_win_per_b=3)
     assert b3.launches_tiled == before + 1
