@@ -6,12 +6,17 @@ Phases (any failure raises; the exit code is then nonzero):
   1. build the CUDA kernels (csrc/*.cu, sm_90a); print the build time and,
      for each kernel, its registers, spills and static shared memory
      (ptxas) and its count of tensor-core HMMA instructions (cuobjdump
-     -sass); the three bf16 attention kernels must have some;
+     -sass); the three bf16 attention kernels and the four instances of
+     the bf16 deformable conv kernel must have some;
   2. hold each kernel against its plain PyTorch version in fp32 (TF32 off)
      and bf16, and time kernel, plain version and, where one exists, the
      one PyTorch call that computes the same function (B3 and B5 also
      with every window clean, the share of their time clean windows set):
-       B1-B3 at the main-path shapes of a 24-frame 640x360 node run;
+       B1 (both RAFT directions in one launch, output in the maps' type,
+       bit-equal) and B3 at the main-path shapes of a 24-frame 640x360
+       node run; B2 at the node's two shapes at 640x360 and, in bf16, at
+       1280x720 too, bf16 also with each pixel tile (64 and 32 pixels a
+       block);
        B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
        on the same inputs; B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
@@ -19,8 +24,8 @@ Phases (any failure raises; the exit code is then nonzero):
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
-     profiled run (each kernel of the path must show device time), and
-     check the output:
+     profiled run (each kernel of the path must show device time; B2's
+     launches are also counted by shape), and check the output:
        the main path, 640x360 (B1, B2, B3);
        path A, 1280x720 (B1, B2, B4);
        path B, 640x360 with PROPAINTER_TPU_ATTN=halo and
@@ -34,8 +39,9 @@ chiprun_out/ (ptxas log, profiles, chip_smoke.json).
 
     python3 chip_smoke.py --tree DIR
 
-times only the bf16 attention kernels B3 and B5 at their phase-2 shapes
-and inputs, and the node on each of the three paths (a warm-up, then
+times only B1 as RAFT calls it, B2 at its four shapes and the attention
+kernels B3 and B5 at their phase-2 shapes and inputs, all bf16, and the
+node on each of the three paths (a warm-up, then
 five timed runs on the host clock), with the port package of another
 checkout DIR (the same seed, so the same inputs in every run), and
 prints them as one JSON line: two trees are compared in one call by
@@ -126,9 +132,10 @@ def switches(on: bool):
 
 
 def kernel_name(mangled: str) -> str:
-    """`window_attention_kernel<bf16>` from a mangled entry name: the
-    length-prefixed identifier ending in `_kernel`, and its template
-    argument where it has one."""
+    """`window_attention_kernel<bf16>` or `deform_conv_mma_kernel<64,1>`
+    from a mangled entry name: the length-prefixed identifier ending in
+    `_kernel`, and its template arguments where it has them (a type, or
+    integer and bool constants)."""
     found = []
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):  # a hash's digits may run into the length
@@ -138,6 +145,9 @@ def kernel_name(mangled: str) -> str:
     if not found:
         return mangled
     _, ident, rest = min(found)
+    consts = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if consts:
+        return ident + "<" + ",".join(re.findall(r"L[ib](\d+)E", consts.group(1))) + ">"
     return ident + ("<bf16>" if rest.startswith("I13__nv_bfloat16") else "<fp32>" if rest.startswith("If") else "")
 
 
@@ -194,46 +204,60 @@ def grid_sample_taps(maps, xs, ys):
     return lambda: F.grid_sample(maps[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
-def check_corr_lookup(dt, gen):
+def corr_lookup_inputs(dt, gen, im=23):
+    """Both directions of the main path's RAFT call: 23 frame pairs of
+    45x80 1/8-res features, coords [46, 45, 80, 2] (M = 165600)."""
     from comfyui_propainter_nodes_tpu_torch.models.raft import build_corr_pyramids
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as mod
 
-    im, h8, w8, c = 23, 45, 80, 256
+    h8, w8, c = 45, 80, 256
     f1 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
     f2 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
-    pyr, _ = build_corr_pyramids(f1, f2)
-    coords = corr_coords(gen, im, h8, w8)
-    out = mod.corr_lookup(pyr, coords)
+    fwd, bwd = build_corr_pyramids(f1, f2)
+    return fwd, bwd, corr_coords(gen, 2 * im, h8, w8)
+
+
+def check_corr_lookup(dt, gen):
+    """B1 on both directions in one launch, output in the maps' type."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as mod
+
+    fwd, bwd, coords = corr_lookup_inputs(dt, gen)
+    out = mod.corr_lookup(fwd, coords, bwd)
     torch.cuda.synchronize()
-    ref = mod.corr_lookup_plain(pyr, coords)
+    ref = mod.corr_lookup_plain(fwd, coords, bwd)
     err, rel = rel_err(out, ref)
-    tol = 1e-5 if dt == torch.float32 else 1e-3  # same fp32 taps; bf16 maps
-    log(f"  B1 corr_lookup {str(dt)[6:]}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
-    require(rel <= tol, "corr_lookup disagrees with its plain version")
-    ms = time_ms(lambda: mod.corr_lookup(pyr, coords))
-    plain_ms = time_ms(lambda: mod.corr_lookup_plain(pyr, coords), reps=5, warmup=1)
-    # library: RAFT's own bilinear_sampler, one grid_sample per level, taps
-    # in the kernel's (dx, dy) order
+    # the same products and sums, each rounded, then one rounding to the
+    # maps' type in both: equal bit for bit
+    log(f"  B1 corr_lookup {str(dt)[6:]} (both directions, M {coords.numel() // 2}): out {str(out.dtype)[6:]}, "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (must be bit-equal)")
+    require(out.dtype == dt and torch.equal(out, ref), "corr_lookup disagrees with its plain version")
+    ms = time_ms(lambda: mod.corr_lookup(fwd, coords, bwd))
+    plain_ms = time_ms(lambda: mod.corr_lookup_plain(fwd, coords, bwd), reps=5, warmup=1)
+    # library: RAFT's own bilinear_sampler in the maps' type, one
+    # grid_sample per level and direction, taps in the kernel's (dx, dy) order
+    n = fwd[0].shape[0]
     d = torch.arange(-4, 5, device="cuda", dtype=torch.float32)
-    flat = coords.reshape(-1, 2)
-    calls = [grid_sample_taps(m, flat[:, 0, None, None] / 2**lvl + d[:, None], flat[:, 1, None, None] / 2**lvl + d[None, :])
-             for lvl, m in enumerate(pyr)]
-    lib_err, _ = rel_err(torch.cat([f().reshape(-1, 81) for f in calls], 1).reshape(out.shape), ref)
+    calls = []
+    for pyr, flat in ((fwd, coords[: coords.shape[0] // 2].reshape(-1, 2)), (bwd, coords[coords.shape[0] // 2 :].reshape(-1, 2))):
+        calls += [grid_sample_taps(m, flat[:, 0, None, None] / 2**lvl + d[:, None], flat[:, 1, None, None] / 2**lvl + d[None, :])
+                  for lvl, m in enumerate(pyr)]
+    lib = torch.cat([torch.cat([f().reshape(n, 81) for f in calls[i : i + 4]], 1) for i in (0, 4)]).reshape(out.shape)
+    lib_err, _ = rel_err(lib, ref)
     library_ms = time_ms(lambda: [f() for f in calls])
     # bytes this data needs: in-range part of each 10x10 window, coords, output
-    esz = pyr[0].element_size()
+    esz = fwd[0].element_size()
     need = 0
-    for lvl, m in enumerate(pyr):
+    for lvl, m in enumerate(fwd):
         cl = coords / 2**lvl
         x0 = torch.floor(cl[..., 0]) - 4
         y0 = torch.floor(cl[..., 1]) - 4
         cols = ((x0 + 10).clamp(max=m.shape[2]) - x0.clamp(min=0)).clamp(min=0)
         rows = ((y0 + 10).clamp(max=m.shape[1]) - y0.clamp(min=0)).clamp(min=0)
         need += float((rows * cols).sum()) * esz
-    n_pix = im * h8 * w8
-    bound, by = bound_ms(n_pix * 324 * 6, need + n_pix * 8 + n_pix * 324 * 4, torch.float32)
+    n_pix = coords.numel() // 2
+    bound, by = bound_ms(n_pix * 324 * 6, need + n_pix * 8 + n_pix * 324 * out.element_size(), torch.float32)
     log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
-        f"library_ms {library_ms:.4f} (grid_sample, 4 calls, one per level; err vs plain {lib_err:.3e})")
+        f"library_ms {library_ms:.4f} (grid_sample in {str(dt)[6:]}, 8 calls, one per level and direction; "
+        f"err vs plain {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
 
 
@@ -286,9 +310,12 @@ def check_corr_window(dt, gen):
     return res
 
 
-def check_deform_conv(dt, gen, shape):
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as mod
+# B2's shapes: the node's feature propagation (x [5, H/4, W/4, 128], cg 8)
+# and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360 and 1280x720
+B2_SHAPES = {"fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256)}
 
+
+def deform_inputs(dt, gen, shape):
     n, h, w, cin = shape
     g, cout = 16, 128
     x = torch.randn(n, h, w, cin, generator=gen, device="cuda").to(dt)
@@ -296,21 +323,47 @@ def check_deform_conv(dt, gen, shape):
     mask = torch.rand(n, h, w, g, 9, generator=gen, device="cuda").to(dt)
     wt = (torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") / math.sqrt(9 * cin)).to(dt)
     bias = (torch.randn(cout, generator=gen, device="cuda") * 0.05).to(dt)
-    out = mod.deform_conv2d(x, off, mask, wt, bias)
+    return x, off, mask, wt, bias
+
+
+def check_deform_conv(dt, gen, shape):
+    """B2 against its plain version; bf16 is also timed with each pixel
+    tile of the tensor-core kernel (64 and 32 pixels a block)."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as mod
+
+    args = deform_inputs(dt, gen, shape)
+    x, cout = args[0], args[3].shape[0]
+    out = mod.deform_conv2d(*args)
     torch.cuda.synchronize()
-    ref = mod.deform_conv2d_plain(x, off, mask, wt, bias)
+    ref = mod.deform_conv2d_plain(*args)
     err, rel = rel_err(out, ref)
-    tol = 1e-4 if dt == torch.float32 else 1e-2  # 9*Cin-term fp32 sums; bf16 output rounding
+    tol = 1e-4 if dt == torch.float32 else 1e-2  # 9*Cin-term fp32 sums; bf16 samples and output rounding
     log(f"  B2 deform_conv {str(dt)[6:]} x{list(shape)}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "deform_conv2d disagrees with its plain version")
-    ms = time_ms(lambda: mod.deform_conv2d(x, off, mask, wt, bias))
-    plain_ms = time_ms(lambda: mod.deform_conv2d_plain(x, off, mask, wt, bias), reps=5, warmup=1)
+    del ref
+    tiles = {}
+    if dt == torch.bfloat16:
+        chosen = mod.block_rows(x.shape[0] * x.shape[1] * x.shape[2], cout, x.device)
+        pick = mod.block_rows
+        try:
+            for rows in (64, 32):
+                mod.block_rows = lambda m, c, d, rows=rows: rows  # noqa: E731
+                tiles[rows] = time_ms(lambda: mod.deform_conv2d(*args))
+        finally:
+            mod.block_rows = pick
+    ms = time_ms(lambda: mod.deform_conv2d(*args))
+    plain_ms = time_ms(lambda: mod.deform_conv2d_plain(*args), reps=5, warmup=1)
+    n, h, w, cin = shape
     m = n * h * w
     esz = x.element_size()
-    nbytes = (m * cin + m * g * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
+    nbytes = (m * cin + m * 16 * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
     bound, by = bound_ms(2.0 * m * 9 * cin * cout, nbytes, dt)
-    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  library_ms null")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  library_ms null"
+        + (f"; by pixel tile: 64 {tiles[64]:.4f}, 32 {tiles[32]:.4f} (the wrapper picks {chosen})" if tiles else ""))
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    if tiles:
+        res.update(ms_tile64=tiles[64], ms_tile32=tiles[32], tile=chosen)
+    return res
 
 
 def attention_biases(b, t, t_sel, per_key):
@@ -562,7 +615,7 @@ def counters():
 
 # each counter's kernel as the profiler names it on the node's bf16 paths
 PROFILED = {
-    "corr_lookup": "corr_lookup_kernel", "deform_conv": "deform_conv_kernel",
+    "corr_lookup": "corr_lookup_kernel", "deform_conv": "deform_conv_mma_kernel",
     "window_attention": "window_attention_mma_kernel", "window_attention_tiled": "window_attention_split_mma_kernel",
     "window_attention_halo": "window_attention_halo_mma_kernel", "corr_window4": "corr_window4_kernel",
     "corr_window": "corr_window_kernel",
@@ -574,6 +627,7 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
     after), profiled run; output checks. `need` kernels must have
     launched in the timed run, `forbid` kernels must not."""
     from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
 
     t = 24
     frames, masks = synthetic_clip(t, h, w)
@@ -589,16 +643,18 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
         torch.cuda.reset_peak_memory_stats()
         for _, mod, attr in counters():
             setattr(mod, attr, 0)
+        deform_conv.launch_shapes.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img, fm, md = run()
         wall = time.perf_counter() - t0
         counts = {name: getattr(mod, attr) for name, mod, attr in counters()}
+        b2_shapes = {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()}
         stages = node.last_pipeline.stage_seconds
         peak = torch.cuda.max_memory_allocated()
         log(f"  [{tag}] timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
             + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-        log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; launches {counts}")
+        log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; launches {counts}; B2 launches by x shape {b2_shapes}")
         prof = profile_run(run, wall, profile_name)
 
     require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
@@ -617,7 +673,7 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
     require(err_out < 1e-6, f"{tag}: output differs from the input outside the dilated mask: {err_out}")
     require(md_np.sum() > 0 and (np.abs(img_np - orig)[~outside]).max() > 0, "the masked region must be inpainted")
     summary = dict(size=f"{w}x{h}", frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
-                   peak_bytes=peak, launches=counts, profile=prof)
+                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, profile=prof)
     return summary, img_np, md_np
 
 
@@ -648,7 +704,8 @@ def profile_run(run, timed_wall_s, name):
         log("  profiler: no device time recorded (not measured)")
         return None
     mine = {k: sum(r[0] for r in rows if k in r[2]) for k in (
-        "corr_lookup_kernel", "deform_conv_kernel", "window_attention_mma_kernel", "window_attention_kernel",
+        "corr_lookup_kernel", "deform_conv_mma_kernel", "deform_conv_kernel", "window_attention_mma_kernel",
+        "window_attention_kernel",
         "window_attention_split_mma_kernel", "window_attention_split_kernel", "window_attention_combine_kernel",
         "window_attention_halo_mma_kernel", "window_attention_halo_kernel", "corr_window4_kernel",
         "corr_window_kernel")}
@@ -690,9 +747,35 @@ def card_vs_host(switched: bool):
     require(share < 1e-3 and float(diff.mean()) < 1e-3, f"card and host IMAGE differ: share {share}, mean {float(diff.mean())}")
 
 
+def site_times(gen) -> dict:
+    """bf16 times for `--tree`: B1 as RAFT's default branch calls it (both
+    directions, output in the compute dtype; a package whose lookup takes
+    one pyramid is timed as its RAFT called it, two launches, a cat and a
+    cast) and B2 at its four node shapes."""
+    import inspect
+
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
+
+    dt = torch.bfloat16
+    fwd, bwd, coords = corr_lookup_inputs(dt, gen)
+    n = coords.shape[0] // 2
+    if "pyramid_b" in inspect.signature(b1.corr_lookup).parameters:
+        site = lambda: b1.corr_lookup(fwd, coords, bwd).to(dt)  # noqa: E731
+    else:
+        site = lambda: torch.cat([b1.corr_lookup(fwd, coords[:n].contiguous()),  # noqa: E731
+                                  b1.corr_lookup(bwd, coords[n:].contiguous())]).to(dt)
+    times = {"B1_raft_site": time_ms(site)}
+    del fwd, bwd
+    for tag, shape in B2_SHAPES.items():
+        args = deform_inputs(dt, gen, shape)
+        times[f"B2_{tag}"] = time_ms(lambda: b2.deform_conv2d(*args))
+    return times
+
+
 def tree_times(tree: str) -> int:
-    """`--tree DIR`: B3 and B5 bf16 times and node wall times on each
-    path of the port package in DIR."""
+    """`--tree DIR`: B1, B2, B3 and B5 bf16 times and node wall times on
+    each path of the port package in DIR."""
     sys.path.insert(0, os.path.abspath(tree))
     import comfyui_propainter_nodes_tpu_torch as pkg
     from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
@@ -704,6 +787,7 @@ def tree_times(tree: str) -> int:
     occ360, occ720 = clip_occupancy(360, 640), clip_occupancy(720, 1280)
     dt = torch.bfloat16
     times = {
+        **site_times(gen),
         "B3_t_sel7": check_window_attention(dt, gen, 7, occ360)["ms"],
         "B3_t_sel6": check_window_attention(dt, gen, 6, occ360)["ms"],
         "B5_30x54": check_window_attention_halo(dt, gen, (30, 54), occ360)["ms"],
@@ -753,7 +837,9 @@ def main() -> int:
     for kname, r in resources.items():
         log(f"  {kname}: {r['registers']} registers, spill stores {r['spill_stores']} B, loads "
             f"{r['spill_loads']} B, smem {r['smem']} B static, HMMA {r['hmma']}")
-    for kname in ("window_attention_mma_kernel", "window_attention_split_mma_kernel", "window_attention_halo_mma_kernel"):
+    mma_kernels = ["window_attention_mma_kernel", "window_attention_split_mma_kernel", "window_attention_halo_mma_kernel"]
+    mma_kernels += [f"deform_conv_mma_kernel<{rows},{vec}>" for rows in (64, 32) for vec in (1, 0)]
+    for kname in mma_kernels:
         require(resources[kname]["hmma"] > 0, f"{kname} has no tensor-core instruction in its SASS")
 
     log("phase 2: kernels vs plain versions")
@@ -765,8 +851,10 @@ def main() -> int:
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt)[6:]
         res[("B1", key)] = check_corr_lookup(dt, gen)
-        res[("B2fc", key)] = check_deform_conv(dt, gen, (2, 45, 80, 256))
-        res[("B2fp", key)] = check_deform_conv(dt, gen, (5, 90, 160, 128))
+        torch.cuda.empty_cache()
+        for tag, shape in B2_SHAPES.items():
+            if dt == torch.bfloat16 or tag in ("fp", "fc"):  # fp32 at the 640x360 shapes only
+                res[("B2" + tag, key)] = check_deform_conv(dt, gen, shape)
         res[("B3e", key)] = check_window_attention(dt, gen, 7, occ360)
         res[("B3o", key)] = check_window_attention(dt, gen, 6, occ360)
         res[("B4e", key)] = check_window_attention_tiled(dt, gen, 7, occ720)
@@ -829,6 +917,9 @@ def main() -> int:
         }
         if "b3_ms" in r:
             row["b3_ms_same_inputs"] = r["b3_ms"]
+        if rk == "B2fp":
+            row["ms_by_shape"] = {tag: res[("B2" + tag, "bfloat16")]["ms"] for tag in B2_SHAPES}
+            row["launches_by_shape"] = run["b2_launches_by_shape"]
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}

@@ -1,115 +1,233 @@
-// RAFT correlation window lookup (4 pyramid levels, radius 4), sm_90a.
+// RAFT correlation window lookup (4 pyramid levels, radius 4), both flow
+// directions in one launch, sm_90a.
 //
 // Replaces the TPU kernel comfyui_propainter_nodes_tpu/ops/pallas/corr_lanes.py
 // (`_kernel`, launched by `_level_lookup`, driven by `corr_lookup_lanes`).
 //
-// What it computes: for every query pixel of every image and every level l,
-// the 9x9 bilinear samples of that pixel's correlation map around
-// coords / 2^l, with zero for taps outside the map (grid_sample zeros
-// padding, align_corners=True), accumulated in fp32. Output channel order
-// is (level, dx, dy): the reference stacks meshgrid(dy, dx) onto (x, y)
-// coords (RAFT corr.py:37-43), so channel i*9 + j samples offset
-// (dx = i - 4, dy = j - 4); the update block's weights depend on it.
+// What it computes: for every query pixel and every level l, the 9x9
+// bilinear samples of that pixel's correlation map around coords / 2^l,
+// with zero for taps outside the map (grid_sample zeros padding,
+// align_corners=True), in fp32, rounded once to the maps' type on store.
+// Output channel order is (level, dx, dy): the reference stacks
+// meshgrid(dy, dx) onto (x, y) coords (RAFT corr.py:37-43), so channel
+// i*9 + j samples offset (dx = i - 4, dy = j - 4); the update block's
+// weights depend on it. Each sample combines rows first, then columns,
+// each product and sum rounded (no FMA contraction), so the fp32 result
+// equals the plain PyTorch version bit for bit and the bf16 result equals
+// it rounded.
 //
-// Layout: the natural GPU (pixel-major) pyramid, level l is
-// [n_pix, H_l, W_l] in fp32 or bf16; coords [n_pix, 2] fp32 as (x, y);
-// out [n_pix, 4 * 81] fp32. The TPU kernel's pixel-minor volume and
-// scalar-prefetched y-blocks exist only to put pixels on the TPU's lanes.
+// Layout: two natural GPU (pixel-major) pyramids, forward and backward:
+// level l of each is [n_dir, H_l, W_l] in fp32 or bf16 (one pyramid: both
+// pointers the same). coords [n_pix, 2] fp32 as (x, y): pixels below
+// n_fwd read the forward pyramid, the rest the backward one at pixel -
+// n_fwd. out [n_pix, 324] in the maps' type. The maps are not padded:
+// level sizes such as 45 -> 22 -> 11 -> 5 are taken as they are. The TPU
+// kernel's pixel-minor volume and scalar-prefetched y-blocks exist only to
+// put pixels on the TPU's lanes.
 //
-// What bounds it on the H100: bytes. Each output costs 4 loads and a few
-// flops, so the work is far below the card's ~295 flop/byte ridge; the
-// least traffic is each pixel's 10x10 window per level read once plus the
-// [n_pix, 324] fp32 result written once.
+// What bounds it on the H100: bytes. Each output costs four loads and six
+// flops; the least traffic is the in-map part of each pixel's 10x10 window
+// per level read once, plus the coords and the [n_pix, 324] result.
 //
-// Design: one thread per output element, in output order, so the 324
-// outputs of a pixel are written by consecutive threads (fully coalesced
-// stores, which are the larger share of the bytes). The 4 corner loads of
-// neighbouring taps hit the same 10x10 window and are served from L1.
-// Each corner is checked on its own, so windows partly or wholly outside
-// the map read exact zeros, and odd level sizes (45 -> 22 -> 11 -> 5) need
-// no padding.
+// Design (as the padded-map lookup corr_window4_kernel): a block of 256
+// threads owns 24 pixels. (1) 96 threads compute each (pixel, level)'s
+// map plane, window start and fractions once into shared memory. (2) The
+// block stages the 24 x 4 windows of 10 x 10 elements in the maps' type,
+// each element loaded once, map elements outside the map stored as exact
+// zeros; every load of a thread is issued before its first shared store.
+// (3) Each thread computes 16 bytes of consecutive outputs of the block's
+// contiguous output range (4 in fp32, 8 in bf16; a bf16 group may span
+// two pixels) and writes them as one 16-byte store. Index math is 32-bit
+// inside a block; only the map planes' and the block's output base are
+// 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int R = 4;                 // window radius
+constexpr int WIN = 2 * R + 2;       // staged window side: the 9 taps and their +1 corner
+constexpr int TAPS = 81;
+constexpr int LEVELS = 4;
+constexpr int OUT = LEVELS * TAPS;   // outputs of a pixel
+constexpr int WELEM = WIN * WIN;
+constexpr int PIX = 24;              // pixels a block (even: the block's output is 16-byte aligned)
+constexpr int NT = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-struct Levels {
-  const void* map[4];
-  int h[4];
-  int w[4];
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.0f); }
+
+// the bilinear combine of four corners: rows first, then columns, each
+// product and sum rounded
+__device__ __forceinline__ float combine(float v00, float v01, float v10, float v11, float fy, float fx) {
+  const float gy = 1.0f - fy, gx = 1.0f - fx;
+  const float vy0 = __fadd_rn(__fmul_rn(v00, gy), __fmul_rn(v10, fy));
+  const float vy1 = __fadd_rn(__fmul_rn(v01, gy), __fmul_rn(v11, fy));
+  return __fadd_rn(__fmul_rn(vy0, gx), __fmul_rn(vy1, fx));
+}
+
+// 16 bytes of outputs
+__device__ __forceinline__ void store16(float* o, const float (&r)[4]) {
+  *reinterpret_cast<float4*>(o) = make_float4(r[0], r[1], r[2], r[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* o, const float (&r)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(r[2 * j], r[2 * j + 1]);
+    w[j] = *reinterpret_cast<uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store1(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float v) { *o = __float2bfloat16(v); }
+
+struct Pyramids {
+  const void* fwd[LEVELS];
+  const void* bwd[LEVELS];
+  int h[LEVELS];
+  int w[LEVELS];
 };
 
+// level l's fields with l known only at run time: selects, not an indexed
+// copy of the parameter arrays
+template <typename V>
+__device__ __forceinline__ V pick(const V (&a)[LEVELS], int l) {
+  return l == 0 ? a[0] : l == 1 ? a[1] : l == 2 ? a[2] : a[3];
+}
+
 template <typename T>
-__global__ void __launch_bounds__(256)
-corr_lookup_kernel(Levels lv, const float* __restrict__ coords,
-                   float* __restrict__ out, long long total) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const int r = (int)(o % 324);
-  const long long pix = o / 324;
-  const int lvl = r / 81;
-  const int rem = r - lvl * 81;
-  const int i = rem / 9;      // dx tap
-  const int j = rem - i * 9;  // dy tap
-  const int hl = lv.h[lvl];
-  const int wl = lv.w[lvl];
-  const T* m = reinterpret_cast<const T*>(lv.map[lvl]) + pix * (long long)hl * wl;
+__global__ void __launch_bounds__(NT, 3)
+corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict__ out,
+                   long long n_fwd, long long n_pix) {
+  __shared__ __align__(16) unsigned char win_bytes[PIX * LEVELS * WELEM * sizeof(T)];
+  T* win = reinterpret_cast<T*>(win_bytes);  // [pixel][level][10][10]
+  __shared__ const T* s_map[LEVELS][PIX];
+  __shared__ int s_y[LEVELS][PIX], s_x[LEVELS][PIX];
+  __shared__ float s_fy[LEVELS][PIX], s_fx[LEVELS][PIX];
+  const int tid = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * PIX;
+  const int np = (int)min((long long)PIX, n_pix - p0);
 
-  const float inv = 1.0f / (float)(1 << lvl);
-  const float cx = coords[2 * pix] * inv;
-  const float cy = coords[2 * pix + 1] * inv;
-  // clamp before the int conversion: far-away centroids read zeros anyway
-  const float x0f = fminf(fmaxf(floorf(cx), -1.0e6f), 1.0e6f);
-  const float y0f = fminf(fmaxf(floorf(cy), -1.0e6f), 1.0e6f);
-  const float fx = cx - floorf(cx);
-  const float fy = cy - floorf(cy);
-  const int x = (int)x0f - 4 + i;
-  const int y = (int)y0f - 4 + j;
+  // (1) map plane, window start and fractions, once per (pixel, level)
+  if (tid < LEVELS * PIX) {
+    const int l = tid / PIX;
+    const int pix = tid - l * PIX;
+    if (pix < np) {
+      const long long p = p0 + pix;
+      const bool fwd = p < n_fwd;
+      const T* base = static_cast<const T*>(fwd ? pick(py.fwd, l) : pick(py.bwd, l));
+      s_map[l][pix] = base + (fwd ? p : p - n_fwd) * pick(py.h, l) * pick(py.w, l);
+      const float inv = 1.0f / (float)(1 << l);
+      const float cx = coords[2 * p] * inv;
+      const float cy = coords[2 * p + 1] * inv;
+      const float x0 = floorf(cx), y0 = floorf(cy);
+      // clamp before the int conversion: far-away centroids read zeros anyway
+      s_x[l][pix] = (int)fminf(fmaxf(x0, -1.0e6f), 1.0e6f) - R;
+      s_y[l][pix] = (int)fminf(fmaxf(y0, -1.0e6f), 1.0e6f) - R;
+      s_fx[l][pix] = cx - x0;
+      s_fy[l][pix] = cy - y0;
+    }
+  }
+  __syncthreads();
 
-  const bool x0ok = x >= 0 && x < wl;
-  const bool x1ok = x + 1 >= 0 && x + 1 < wl;
-  const bool y0ok = y >= 0 && y < hl;
-  const bool y1ok = y + 1 >= 0 && y + 1 < hl;
-  const long long r0 = (long long)y * wl;
-  const long long r1 = r0 + wl;
-  const float v00 = (y0ok && x0ok) ? to_f(m[r0 + x]) : 0.0f;
-  const float v01 = (y0ok && x1ok) ? to_f(m[r0 + x + 1]) : 0.0f;
-  const float v10 = (y1ok && x0ok) ? to_f(m[r1 + x]) : 0.0f;
-  const float v11 = (y1ok && x1ok) ? to_f(m[r1 + x + 1]) : 0.0f;
-  // rows first, then columns (the order of the JAX slice-window path)
-  const float va = v00 * (1.0f - fy) + v10 * fy;
-  const float vb = v01 * (1.0f - fy) + v11 * fy;
-  out[o] = va * (1.0f - fx) + vb * fx;
+  // (2) the windows, each element loaded once, zeros outside the map:
+  // every load of the four levels is issued before the first is stored
+  constexpr int LOADS = (PIX * WELEM + NT - 1) / NT;
+  T v[LEVELS][LOADS];
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+    const int hl = py.h[l], wl = py.w[l];
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = tid + i * NT;
+      v[l][i] = zero<T>();
+      if (e < np * WELEM) {
+        const int pix = e / WELEM;
+        const int r = e - pix * WELEM;
+        const int rr = r / WIN;
+        const int y = s_y[l][pix] + rr;
+        const int x = s_x[l][pix] + (r - rr * WIN);
+        if ((unsigned)y < (unsigned)hl && (unsigned)x < (unsigned)wl) v[l][i] = __ldg(s_map[l][pix] + y * wl + x);
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = tid + i * NT;
+      if (e < np * WELEM) {
+        const int pix = e / WELEM;
+        win[(pix * LEVELS + l) * WELEM + (e - pix * WELEM)] = v[l][i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // (3) V consecutive outputs of the block's range a thread, one 16-byte store
+  constexpr int V = 16 / sizeof(T);
+  constexpr int STEPS = (PIX * OUT / V + NT - 1) / NT;
+  const int n_out = np * OUT;
+  T* o = out + p0 * OUT;
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const int j0 = (tid + i * NT) * V;
+    if (j0 < n_out) {
+      float res[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int j = min(j0 + k, n_out - 1);
+        const int pix = j / OUT;
+        const int r = j - pix * OUT;
+        const int l = r / TAPS;
+        const int t = r - l * TAPS;
+        const int dx = t / 9;
+        const T* w = win + (pix * LEVELS + l) * WELEM + (t - dx * 9) * WIN + dx;
+        res[k] = combine(to_f(w[0]), to_f(w[1]), to_f(w[WIN]), to_f(w[WIN + 1]), s_fy[l][pix], s_fx[l][pix]);
+      }
+      if (j0 + V <= n_out) {
+        store16(o + j0, res);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (j0 + k < n_out) store1(o + j0 + k, res[k]);
+      }
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int propainter_corr_lookup(
-    const void* m0, const void* m1, const void* m2, const void* m3,
+    const void* f0, const void* f1, const void* f2, const void* f3,
+    const void* b0, const void* b1, const void* b2, const void* b3,
     int h0, int w0, int h1, int w1, int h2, int w2, int h3, int w3,
-    const void* coords, void* out, long long n_pix, int is_bf16,
+    const void* coords, void* out, long long n_fwd, long long n_pix, int is_bf16,
     void* stream) {
-  Levels lv;
-  lv.map[0] = m0; lv.map[1] = m1; lv.map[2] = m2; lv.map[3] = m3;
-  lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
-  lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
-  const long long total = n_pix * 324;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
+  Pyramids py;
+  py.fwd[0] = f0; py.fwd[1] = f1; py.fwd[2] = f2; py.fwd[3] = f3;
+  py.bwd[0] = b0; py.bwd[1] = b1; py.bwd[2] = b2; py.bwd[3] = b3;
+  py.h[0] = h0; py.h[1] = h1; py.h[2] = h2; py.h[3] = h3;
+  py.w[0] = w0; py.w[1] = w1; py.w[2] = w2; py.w[3] = w3;
+  const long long blocks = (n_pix + PIX - 1) / PIX;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (blocks > 0) {
+    const float* c = reinterpret_cast<const float*>(coords);
     if (is_bf16) {
-      corr_lookup_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(
-          lv, reinterpret_cast<const float*>(coords),
-          reinterpret_cast<float*>(out), total);
+      corr_lookup_kernel<__nv_bfloat16><<<(unsigned)blocks, NT, 0, s>>>(
+          py, c, reinterpret_cast<__nv_bfloat16*>(out), n_fwd, n_pix);
     } else {
-      corr_lookup_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-          lv, reinterpret_cast<const float*>(coords),
-          reinterpret_cast<float*>(out), total);
+      corr_lookup_kernel<float><<<(unsigned)blocks, NT, 0, s>>>(py, c, reinterpret_cast<float*>(out), n_fwd, n_pix);
     }
   }
   return (int)cudaGetLastError();

@@ -10,48 +10,70 @@
 // each of the 4 bilinear corners zero when it falls outside the image.
 //
 // Layout: x [N, H, W, Cin] (NHWC, channels contiguous), offset
-// [N, H, W, G, 9, 2], mask [N, H, W, G, 9], all fp32 or bf16; weight
-// re-laid out once by the wrapper to [9 * Cin, Cout] fp32 (tap outer,
-// channel inner); bias fp32; out [N, H, W, Cout] in the input type.
+// [N, H, W, G, 9, 2], mask [N, H, W, G, 9], out [N, H, W, Cout], all in
+// the input type. The wrapper lays the weights out once per weight tensor:
+// fp32 [9 * Cin, Cout] (tap outer, channel inner) for the CUDA-core kernel,
+// bf16 [Np, 9, Kp] (Cout padded to Np = a multiple of 128, Cin to Kp = a
+// multiple of 64, zeros in the padding; K contiguous per output channel)
+// for the tensor-core kernel.
 //
 // What bounds it on the H100: at the feature-propagation shape (x [5, 90,
 // 160, 128], Cout 128) one call is 2*72000*1152*128 = 21.2 GFLOP against
 // ~99 MB of x, offsets (16 groups x 27 values per pixel, the largest
 // input), mask and output in bf16: ~214 flop/byte, below the bf16
 // tensor-core ridge (~295), so bytes; the flow-completion shape (x [2,
-// 45, 80, 256]) is 4.2 GFLOP against ~12 MB, ~360 flop/byte, so
-// operations. On the CUDA cores (fp32 FMAs, as here) both are bound by
-// operations.
+// 45, 80, 256]) is 4.2 GFLOP against ~12 MB, so operations. In practice
+// the gather is the cost: every (pixel, group, tap) reads four corners of
+// its cg channels, about 0.66 GB through L2 and L1 a call at the
+// feature-propagation shape, though x itself is 18 MB.
 //
-// Design: implicit GEMM. A block owns a tile of 64 output pixels x 128
-// output channels and walks the K = 9 * Cin reduction in chunks of one
-// tap x 32 channels: it gathers the chunk's bilinear, masked samples into
-// shared memory (threads on consecutive channels, so the NHWC reads are
-// coalesced), stages the matching [32, 128] weight slice beside them, and
-// each thread accumulates a 4 x 8 register tile with fp32 FMAs. No
-// sample matrix ever reaches device memory. This first version uses the
-// CUDA cores; wgmma on the tensor cores is the follow-up.
+// Both kernels are implicit GEMMs, out[M, Cout] = S[M, 9 * Cin] · W + bias,
+// where S (the masked bilinear samples) is built tile by tile in shared
+// memory and never reaches device memory.
+//
+// fp32 (`deform_conv_kernel`, the exact reference path): a block owns 64
+// pixels x 128 output channels and walks K in chunks of one tap x 32
+// channels, one channel a thread-iteration, each thread accumulating a
+// 4 x 8 register tile with fp32 FMAs on the CUDA cores.
+//
+// bf16 (`deform_conv_mma_kernel`, on the tensor cores): a block of 8
+// warps owns BM pixels (64, or 32 where 64 would leave SMs idle) x 128
+// output channels; K is walked in chunks of one tap x 64 channels,
+// double-buffered in shared memory. One gather unit is (pixel, tap,
+// 8-channel slice): it reads its group's (dy, dx) and mask once, computes
+// the floor, the weights and the validity once, loads the four corners as
+// 16-byte NHWC vectors (cg a multiple of 8, x 16-byte aligned; otherwise
+// channel by channel), blends in fp32, multiplies by the mask and rounds
+// once to bf16 (the JAX package's XLA path also rounds the samples to the
+// input type before the product), then stores one 16-byte piece of the A
+// tile. Chunk c+1's loads are issued into registers before chunk c's
+// products and stored after them; its weight slice arrives by `cp.async`.
+// Products are `mma.sync.m16n8k16` bf16 with fp32 accumulation (fragments
+// by `ldmatrix`, rows padded by 8 elements so each `ldmatrix` phase hits
+// distinct banks). The epilogue adds the bias in fp32, rounds once to bf16
+// and writes through shared memory as 16-byte rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_prims.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------ fp32, CUDA cores
 
 constexpr int BM = 64;    // output pixels per block
 constexpr int BN = 128;   // output channels per block
 constexpr int KC = 32;    // input channels per K chunk (one tap)
 constexpr int NT = 256;   // threads per block
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T>
 __global__ void __launch_bounds__(NT)
-deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ off,
-                   const T* __restrict__ msk, const float* __restrict__ wt,
-                   const float* __restrict__ bias, T* __restrict__ out,
+deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ off,
+                   const float* __restrict__ msk, const float* __restrict__ wt,
+                   const float* __restrict__ bias, float* __restrict__ out,
                    int N, int H, int W, int Cin, int Cout, int G) {
   __shared__ float s_a[KC][BM + 1];
   __shared__ __align__(16) float s_b[KC][BN];
@@ -91,9 +113,9 @@ deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ off,
           const int pxx = rem - py * W;
           const int g = ci / cg;
           const long long pg = p * G + g;
-          const float dy = to_f(off[pg * 18 + 2 * k]);
-          const float dx = to_f(off[pg * 18 + 2 * k + 1]);
-          const float mk = to_f(msk[pg * 9 + k]);
+          const float dy = off[pg * 18 + 2 * k];
+          const float dx = off[pg * 18 + 2 * k + 1];
+          const float mk = msk[pg * 9 + k];
           const float sy = (float)(py + ki - 1) + dy;
           const float sx = (float)(pxx + kj - 1) + dx;
           const float y0 = floorf(sy);
@@ -102,16 +124,16 @@ deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ off,
           const float wy0 = 1.0f - wy1, wx0 = 1.0f - wx1;
           const int iy = (int)fminf(fmaxf(y0, -4.0f), (float)H + 4.0f);
           const int ix = (int)fminf(fmaxf(x0, -4.0f), (float)W + 4.0f);
-          const T* xb = x + (long long)n * HW * Cin + ci;
+          const float* xb = x + (long long)n * HW * Cin + ci;
           const bool y0ok = iy >= 0 && iy < H;
           const bool y1ok = iy + 1 >= 0 && iy + 1 < H;
           const bool x0ok = ix >= 0 && ix < W;
           const bool x1ok = ix + 1 >= 0 && ix + 1 < W;
           float v = 0.0f;
-          if (y0ok && x0ok) v += to_f(xb[((long long)iy * W + ix) * Cin]) * (wy0 * wx0);
-          if (y0ok && x1ok) v += to_f(xb[((long long)iy * W + ix + 1) * Cin]) * (wy0 * wx1);
-          if (y1ok && x0ok) v += to_f(xb[((long long)(iy + 1) * W + ix) * Cin]) * (wy1 * wx0);
-          if (y1ok && x1ok) v += to_f(xb[((long long)(iy + 1) * W + ix + 1) * Cin]) * (wy1 * wx1);
+          if (y0ok && x0ok) v += xb[((long long)iy * W + ix) * Cin] * (wy0 * wx0);
+          if (y0ok && x1ok) v += xb[((long long)iy * W + ix + 1) * Cin] * (wy0 * wx1);
+          if (y1ok && x0ok) v += xb[((long long)(iy + 1) * W + ix) * Cin] * (wy1 * wx0);
+          if (y1ok && x1ok) v += xb[((long long)(iy + 1) * W + ix + 1) * Cin] * (wy1 * wx1);
           val = v * mk;
         }
         s_a[c][px] = val;
@@ -152,39 +174,353 @@ deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ off,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int co = n0 + tx * 8 + j;
-      if (co < Cout) {
-        const float bv = bias != nullptr ? bias[co] : 0.0f;
-        store(out + p * Cout + co, acc[i][j] + bv);
-      }
+      if (co < Cout) out[p * Cout + co] = acc[i][j] + (bias != nullptr ? bias[co] : 0.0f);
     }
   }
 }
+
+// ------------------------------------------------ bf16, tensor cores
+
+namespace tc {
+
+constexpr int KC = 64;          // channels of one K chunk (one tap)
+constexpr int LDS = KC + 8;     // shared row stride of the A and B tiles (144 B)
+constexpr int BN = 128;         // output channels per block
+constexpr int NT = 256;         // 8 warps: 2 along the pixels x 4 along the channels
+constexpr int SLICES = KC / 8;  // 8-channel slices of a chunk row
+constexpr int LDO = BN + 8;     // shared row stride of the output tile
+
+inline size_t smem_bytes(int bm) { return (size_t)2 * (bm + BN) * LDS * sizeof(bf16); }
+
+struct Args {
+  const bf16* x;
+  const bf16* off;
+  const bf16* msk;
+  const bf16* wt;    // [Np, 9, Kp]
+  const bf16* bias;  // [Cout] or nullptr
+  bf16* out;
+  long long M;
+  int H, W, Cin, Cout, G, Kp;
+};
+
+// a gather unit's registers between its loads and its store: the four
+// corners' 8 channels (vector path) or the 8 finished samples (per channel)
+template <bool VEC>
+struct Unit;
+template <>
+struct Unit<true> {
+  uint4 v[4];
+  float wy, wx, mk;
+};
+template <>
+struct Unit<false> {
+  float val[8];
+};
+
+// the bilinear sample position of output pixel (py, px), tap (ki, kj),
+// offset (dy, dx): the top-left corner (clamped to a few pixels outside,
+// where every corner reads zero) and the fractions
+struct Pos {
+  int iy, ix;
+  float wy, wx;
+};
+
+__device__ __forceinline__ Pos position(int py, int px, int ki, int kj, float dy, float dx, int H, int W) {
+  const float sy = (float)(py + ki - 1) + dy;
+  const float sx = (float)(px + kj - 1) + dx;
+  const float y0 = floorf(sy), x0 = floorf(sx);
+  Pos p;
+  p.wy = sy - y0;
+  p.wx = sx - x0;
+  p.iy = (int)fminf(fmaxf(y0, -4.0f), (float)H + 4.0f);
+  p.ix = (int)fminf(fmaxf(x0, -4.0f), (float)W + 4.0f);
+  return p;
+}
+
+__device__ __forceinline__ bool inside(int iy, int ix, int H, int W) {
+  return (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W;
+}
+
+// eight bf16 of a 16-byte vector as fp32 (exact: a bf16 is the top half
+// of its fp32)
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// corners summed in the plain version's order, then the mask
+__device__ __forceinline__ float blend(float v00, float v01, float v10, float v11, float wy, float wx, float mk) {
+  const float gy = 1.0f - wy, gx = 1.0f - wx;
+  return (v00 * (gy * gx) + v01 * (gy * wx) + v10 * (wy * gx) + v11 * (wy * wx)) * mk;
+}
+
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(NT, 2) deform_conv_mma_kernel(Args a) {
+  constexpr int UNITS = BM * SLICES / NT;  // gather units a thread: 2 (BM 64) or 1 (BM 32)
+  constexpr int MT = BM / 32;              // 16-row tiles a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sa = reinterpret_cast<bf16*>(smem);  // [2][BM][LDS]
+  bf16* sb = sa + 2 * BM * LDS;              // [2][BN][LDS]
+  __shared__ const bf16* s_img[BM];          // the pixel's image in x
+  __shared__ int s_py[BM], s_px[BM];         // s_py -1: past M
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int H = a.H, W = a.W, Cin = a.Cin, G = a.G;
+  const int HW = H * W;
+  const int cg = Cin / G;
+  const int cchunks = a.Kp / KC;  // chunks a tap
+  const int n_chunks = 9 * cchunks;
+
+  for (int r = tid; r < BM; r += NT) {
+    const long long p = m0 + r;
+    if (p < a.M) {
+      const int n = (int)(p / HW);
+      const int rem = (int)(p - (long long)n * HW);
+      s_img[r] = a.x + (long long)n * HW * Cin;
+      s_py[r] = rem / W;
+      s_px[r] = rem - (rem / W) * W;
+    } else {
+      s_img[r] = a.x;
+      s_py[r] = -1;
+      s_px[r] = 0;
+    }
+  }
+  __syncthreads();
+
+  // chunk c's gather loads into registers
+  auto load = [&](int c, Unit<VEC> (&u)[UNITS]) {
+    const int k = c / cchunks;
+    const int c0 = (c - k * cchunks) * KC;
+    const int ki = k / 3, kj = k - (k / 3) * 3;
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int unit = tid + i * NT;
+      const int row = unit / SLICES;
+      const int ci0 = c0 + (unit - row * SLICES) * 8;
+      const int py = s_py[row], px = s_px[row];
+      const bool live = py >= 0;
+      if constexpr (VEC) {
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        u[i].v[0] = u[i].v[1] = u[i].v[2] = u[i].v[3] = zero;
+        u[i].wy = u[i].wx = u[i].mk = 0.0f;
+        if (live && ci0 < Cin) {
+          const long long pg = (m0 + row) * G + ci0 / cg;
+          const bf16* o = a.off + (pg * 9 + k) * 2;
+          const Pos s = position(py, px, ki, kj, __bfloat162float(o[0]), __bfloat162float(o[1]), H, W);
+          u[i].wy = s.wy;
+          u[i].wx = s.wx;
+          u[i].mk = __bfloat162float(a.msk[pg * 9 + k]);
+          const bf16* xb = s_img[row] + ci0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int iy = s.iy + (q >> 1), ix = s.ix + (q & 1);
+            if (inside(iy, ix, H, W)) u[i].v[q] = __ldg(reinterpret_cast<const uint4*>(xb + (iy * W + ix) * Cin));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ci = ci0 + e;
+          float val = 0.0f;
+          if (live && ci < Cin) {
+            const long long pg = (m0 + row) * G + ci / cg;
+            const bf16* o = a.off + (pg * 9 + k) * 2;
+            const Pos s = position(py, px, ki, kj, __bfloat162float(o[0]), __bfloat162float(o[1]), H, W);
+            const bf16* xb = s_img[row] + ci;
+            float v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int iy = s.iy + (q >> 1), ix = s.ix + (q & 1);
+              v[q] = inside(iy, ix, H, W) ? __bfloat162float(xb[(iy * W + ix) * Cin]) : 0.0f;
+            }
+            val = blend(v[0], v[1], v[2], v[3], s.wy, s.wx, __bfloat162float(a.msk[pg * 9 + k]));
+          }
+          u[i].val[e] = val;
+        }
+      }
+    }
+  };
+
+  // the units' samples, rounded once to bf16, into A buffer `buf`
+  auto store = [&](int buf, const Unit<VEC> (&u)[UNITS]) {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int unit = tid + i * NT;
+      const int row = unit / SLICES;
+      float val[8];
+      if constexpr (VEC) {
+        float c[4][8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) unpack8(u[i].v[q], c[q]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) val[e] = blend(c[0][e], c[1][e], c[2][e], c[3][e], u[i].wy, u[i].wx, u[i].mk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) val[e] = u[i].val[e];
+      }
+      const uint4 packed = make_uint4(fmma::pack_bf16(val[0], val[1]), fmma::pack_bf16(val[2], val[3]),
+                                      fmma::pack_bf16(val[4], val[5]), fmma::pack_bf16(val[6], val[7]));
+      *reinterpret_cast<uint4*>(sa + (buf * BM + row) * LDS + (unit - row * SLICES) * 8) = packed;
+    }
+  };
+
+  // chunk c's weight slice [BN][KC] into B buffer `buf`
+  auto stage_b = [&](int c, int buf) {
+    const int k = c / cchunks;
+    const int c0 = (c - k * cchunks) * KC;
+#pragma unroll
+    for (int i = 0; i < BN * SLICES / NT; ++i) {
+      const int idx = tid + i * NT;
+      const int row = idx / SLICES;
+      const int piece = idx - row * SLICES;
+      const bf16* src = a.wt + ((long long)(n0 + row) * 9 + k) * a.Kp + c0 + piece * 8;
+      fmma::cp_async16(fmma::smem_u32(sb + (buf * BN + row) * LDS + piece * 8), src, 16);
+    }
+    fmma::cp_commit();
+  };
+
+  const int wm = warp >> 2, wn = warp & 3;
+  const int rbase = wm * (BM / 2);  // this warp's rows and columns of the tile
+  const int cbase = wn * 32;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+
+  Unit<VEC> u[UNITS];
+  load(0, u);
+  stage_b(0, 0);
+  store(0, u);
+
+  // One barrier a chunk. At the top of chunk c: this thread's weight
+  // copies of chunk c have landed, and after the barrier everyone's
+  // samples and copies have, and no warp still reads the buffers that
+  // chunk c+1 reuses (last read by chunk c-1).
+  for (int c = 0; c < n_chunks; ++c) {
+    fmma::cp_wait<0>();
+    __syncthreads();
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) {
+      stage_b(c + 1, buf ^ 1);
+      load(c + 1, u);  // in flight under this chunk's products
+    }
+    const bf16* ta = sa + buf * BM * LDS;
+    const bf16* tb = sb + buf * BN * LDS;
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        fmma::ldsm_x4(af[mt], fmma::smem_u32(ta + (rbase + mt * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        fmma::ldsm_x4(b, fmma::smem_u32(tb + (cbase + np * 16 + (lane >> 4) * 8 + (lane & 7)) * LDS + ks * 16 +
+                                        ((lane >> 3) & 1) * 8));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          fmma::mma(acc[mt][2 * np], af[mt], b[0], b[1]);
+          fmma::mma(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+        }
+      }
+    }
+    if (c + 1 < n_chunks) store(buf ^ 1, u);
+  }
+
+  // epilogue: bias in fp32, one rounding, rows staged in shared memory
+  __syncthreads();  // every warp is done with the tiles
+  bf16* so = reinterpret_cast<bf16*>(smem);  // [BM][LDO]
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = cbase + nt * 8 + tig * 2;
+    float b0 = 0.0f, b1 = 0.0f;
+    if (a.bias != nullptr) {
+      if (n0 + col < a.Cout) b0 = __bfloat162float(a.bias[n0 + col]);
+      if (n0 + col + 1 < a.Cout) b1 = __bfloat162float(a.bias[n0 + col + 1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = rbase + mt * 16 + g;
+      *reinterpret_cast<uint32_t*>(so + r * LDO + col) = fmma::pack_bf16(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
+      *reinterpret_cast<uint32_t*>(so + (r + 8) * LDO + col) =
+          fmma::pack_bf16(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
+    }
+  }
+  __syncthreads();
+  const int ncols = min(BN, a.Cout - n0);
+  const int nrows = (int)min((long long)BM, a.M - m0);
+  bf16* ob = a.out + m0 * a.Cout + n0;
+  if ((a.Cout & 7) == 0) {  // 16-byte rows pieces
+    for (int idx = tid; idx < BM * (BN / 8); idx += NT) {
+      const int r = idx / (BN / 8);
+      const int q = (idx - r * (BN / 8)) * 8;
+      if (r < nrows && q < ncols)
+        *reinterpret_cast<uint4*>(ob + (long long)r * a.Cout + q) = *reinterpret_cast<const uint4*>(so + r * LDO + q);
+    }
+  } else {
+    for (int idx = tid; idx < BM * BN; idx += NT) {
+      const int r = idx / BN;
+      const int q = idx - r * BN;
+      if (r < nrows && q < ncols) ob[(long long)r * a.Cout + q] = so[r * LDO + q];
+    }
+  }
+}
+
+template <int BM, bool VEC>
+int launch(const Args& a, cudaStream_t s) {
+  const size_t smem = smem_bytes(BM);
+  const cudaError_t e =
+      cudaFuncSetAttribute(deform_conv_mma_kernel<BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((a.M + BM - 1) / BM), (unsigned)((a.Cout + BN - 1) / BN));
+  deform_conv_mma_kernel<BM, VEC><<<grid, NT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" int propainter_deform_conv(
     const void* x, const void* off, const void* msk, const void* wt,
     const void* bias, void* out, int N, int H, int W, int Cin, int Cout,
-    int G, int is_bf16, void* stream) {
+    int G, void* stream) {
   const long long M = (long long)N * H * W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (M > 0 && Cout > 0) {
-    if (is_bf16) {
-      deform_conv_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-          reinterpret_cast<const __nv_bfloat16*>(x),
-          reinterpret_cast<const __nv_bfloat16*>(off),
-          reinterpret_cast<const __nv_bfloat16*>(msk),
-          reinterpret_cast<const float*>(wt),
-          reinterpret_cast<const float*>(bias),
-          reinterpret_cast<__nv_bfloat16*>(out), N, H, W, Cin, Cout, G);
-    } else {
-      deform_conv_kernel<float><<<grid, NT, 0, s>>>(
-          reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(off),
-          reinterpret_cast<const float*>(msk), reinterpret_cast<const float*>(wt),
-          reinterpret_cast<const float*>(bias), reinterpret_cast<float*>(out),
-          N, H, W, Cin, Cout, G);
-    }
+    deform_conv_kernel<<<grid, NT, 0, s>>>(
+        reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(off),
+        reinterpret_cast<const float*>(msk), reinterpret_cast<const float*>(wt),
+        reinterpret_cast<const float*>(bias), reinterpret_cast<float*>(out),
+        N, H, W, Cin, Cout, G);
   }
   return (int)cudaGetLastError();
+}
+
+// bf16 on the tensor cores. wt: [Np, 9, Kp] bf16 (Np, Kp multiples of 128,
+// 64); bm: 64 or 32 pixels a block; vec: 1 if cg % 8 == 0 and x is 16-byte
+// aligned (corners as 16-byte vectors), else 0 (channel by channel).
+extern "C" int propainter_deform_conv_mma(
+    const void* x, const void* off, const void* msk, const void* wt,
+    const void* bias, void* out, int N, int H, int W, int Cin, int Cout,
+    int G, int Kp, int bm, int vec, void* stream) {
+  if ((bm != 32 && bm != 64) || Kp % tc::KC != 0 || Kp < Cin) return (int)cudaErrorInvalidValue;
+  tc::Args a{reinterpret_cast<const bf16*>(x), reinterpret_cast<const bf16*>(off),
+             reinterpret_cast<const bf16*>(msk), reinterpret_cast<const bf16*>(wt),
+             reinterpret_cast<const bf16*>(bias), reinterpret_cast<bf16*>(out),
+             (long long)N * H * W, H, W, Cin, Cout, G, Kp};
+  if (a.M == 0 || Cout == 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (bm == 64) return vec ? tc::launch<64, true>(a, s) : tc::launch<64, false>(a, s);
+  return vec ? tc::launch<32, true>(a, s) : tc::launch<32, false>(a, s);
 }

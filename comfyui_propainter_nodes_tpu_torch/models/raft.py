@@ -4,8 +4,9 @@ Port of the JAX package's `models/raft.py`: NHWC activations, upstream
 weights, the 20-step recurrent update as a Python loop over the
 (net, coords) state. The all-pairs correlation of each adjacent pair is
 computed once (the backward volume is its transpose) as one fp32
-`torch.matmul`, pooled into the pixel-major 4-level pyramid, and looked
-up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py).
+`torch.matmul`, pooled into the pixel-major 4-level pyramids, and looked
+up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py),
+both directions in one launch that writes the compute dtype.
 With PROPAINTER_TPU_CORR_KERNEL=pallas (read at call time, as the JAX
 package reads it) both directions share one zero-padded pyramid and the
 lookup takes the padded-map window kernel (ops/cuda/corr_window.py),
@@ -110,7 +111,8 @@ def build_corr_pyramids(fmap1, fmap2):
     n, h, w, _ = fmap1.shape
     corr = _all_pairs_corr(fmap1, fmap2)
     fwd = pool_pyramid(corr.reshape(n * h * w, h, w))
-    bwd = pool_pyramid(corr.transpose(1, 2).reshape(n * h * w, h, w))
+    # at n = 1 the reshape of the transpose is a strided view, not a copy
+    bwd = pool_pyramid(corr.transpose(1, 2).reshape(n * h * w, h, w).contiguous())
     return fwd, bwd
 
 
@@ -242,8 +244,8 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
     else:
         pyr_f, pyr_b = build_corr_pyramids(f1, f2)
 
-        def lookup(c):
-            return torch.cat([corr_lookup(pyr_f, c[:n].contiguous()), corr_lookup(pyr_b, c[n:].contiguous())])
+        def lookup(c):  # both directions in one launch, in the maps' dtype
+            return corr_lookup(pyr_f, c, pyr_b)
 
     del fmaps, fm, f1, f2
 

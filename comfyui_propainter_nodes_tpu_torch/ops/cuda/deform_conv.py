@@ -1,4 +1,4 @@
-"""Modulated deformable conv (DCNv2): CUDA kernel (csrc/deform_conv.cu) + plain version.
+"""Modulated deformable conv (DCNv2): CUDA kernels (csrc/deform_conv.cu) + plain version.
 
 Shapes (the JAX package's layout, `ops/deform_conv.py:184-188` there):
   x      [N, H, W, Cin]
@@ -6,16 +6,29 @@ Shapes (the JAX package's layout, `ops/deform_conv.py:184-188` there):
   mask   [N, H, W, G, K]     modulation scalars (already sigmoided)
   weight [Cout, Cin, 3, 3]   upstream OIHW; bias [Cout] or None
 Returns [N, H, W, Cout] in x's dtype. Stride 1, dilation 1, padding 1.
-CPU tensors take the plain version; CUDA tensors take the kernel.
+CPU tensors take the plain version. CUDA tensors take a kernel by dtype:
+bf16 the tensor-core kernel (samples rounded to bf16 before the product,
+as the JAX package's XLA path rounds them, fp32 accumulation), fp32 the
+CUDA-core kernel (exact); any other dtype raises.
 """
 
 from __future__ import annotations
+
+import collections
+import weakref
 
 import torch
 
 from . import _build
 
+KC = 64  # channels of the tensor-core kernel's K chunk (csrc/deform_conv.cu, tc::KC)
+BN = 128  # output channels of its block (tc::BN)
 launches = 0  # kernel launches since the last reset
+launch_shapes: collections.Counter = collections.Counter()  # launches by x's shape, reset with `launches`
+
+# the weights laid out for the kernels, once per weight tensor:
+# (id, dtype) -> (weakref to the weight, its version, the laid-out copy)
+_LAYOUTS: dict = {}
 
 
 def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1):
@@ -71,6 +84,39 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1):
     return out.to(x.dtype)
 
 
+def weight_layout(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[Cout, Cin, 3, 3] -> the kernel's layout: fp32 [9*Cin, Cout] (tap
+    outer, channel inner); bf16 [Np, 9, Kp], K contiguous per output
+    channel, Cout padded to a multiple of BN and Cin to one of KC with
+    zeros."""
+    cout, cin = weight.shape[:2]
+    if dtype == torch.float32:
+        return weight.float().permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+    np_, kp = -(-cout // BN) * BN, -(-cin // KC) * KC
+    out = weight.new_zeros((np_, 9, kp), dtype=torch.bfloat16)
+    out[:cout, :, :cin] = weight.permute(0, 2, 3, 1).reshape(cout, 9, cin)
+    return out
+
+
+def _cached_layout(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """weight_layout, computed once per weight tensor (and again only if
+    the tensor is written in place)."""
+    key = (id(weight), dtype)
+    hit = _LAYOUTS.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
+        return hit[2]
+    laid = weight_layout(weight, dtype)
+    _LAYOUTS[key] = (weakref.ref(weight, lambda _, key=key: _LAYOUTS.pop(key, None)), weight._version, laid)
+    return laid
+
+
+def block_rows(m: int, cout: int, device) -> int:
+    """Pixels a block of the tensor-core kernel: 64, unless 64-pixel
+    blocks would not give every SM two blocks; then 32."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 64 if -(-m // 64) * -(-cout // BN) >= 2 * sms else 32
+
+
 def _check(x, offset, mask, weight, bias, padding):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"deform_conv2d: x must be fp32 or bf16, got {x.dtype}")
@@ -88,6 +134,8 @@ def _check(x, offset, mask, weight, bias, padding):
             raise ValueError(f"deform_conv2d: {name} must be contiguous {x.dtype} on {x.device}")
     if weight.device != x.device or (bias is not None and (bias.device != x.device or bias.shape != (cout,))):
         raise ValueError("deform_conv2d: weight/bias must be on x's device, bias [Cout]")
+    if h * w * cin >= 2**31:
+        raise ValueError(f"deform_conv2d: one image of x must hold < 2^31 elements, got {h * w * cin}")
 
 
 def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1):
@@ -99,17 +147,27 @@ def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1):
     _check(x, offset, mask, weight, bias, padding)
     n, h, w, cin = x.shape
     cout = weight.shape[0]
-    # [Cout, Cin, 3, 3] -> [9*Cin, Cout] fp32, tap outer, channel inner
-    wmat = weight.float().permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
-    b = None if bias is None else bias.float().contiguous()
+    g = offset.shape[3]
+    wmat = _cached_layout(weight, x.dtype)
     out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
     lib = _build.library()
-    status = lib.propainter_deform_conv(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cout, offset.shape[3], int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        b = None if bias is None else bias.to(torch.bfloat16).contiguous()  # the JAX path adds bias.astype(dt)
+        vec = (cin // g) % 8 == 0 and x.data_ptr() % 16 == 0
+        status = lib.propainter_deform_conv_mma(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(),
+            n, h, w, cin, cout, g, wmat.shape[2], block_rows(n * h * w, cout, x.device), int(vec), stream,
+        )
+    else:
+        b = None if bias is None else bias.float().contiguous()
+        status = lib.propainter_deform_conv(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(),
+            n, h, w, cin, cout, g, stream,
+        )
     _build.check(status, "deform_conv2d")
     launches += 1
+    launch_shapes[tuple(x.shape)] += 1
     return out

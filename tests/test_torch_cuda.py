@@ -5,10 +5,11 @@ jax nor the JAX package, so it also runs where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: fp32 (TF32 off) 1e-5 for the corr lookup (the same taps in
-the same order), 1e-4 for sums over hundreds of terms; bf16 3e-2 (the
-plain versions compute in fp32 and round once; the kernels round the
-output too, so one bf16 ulp of the result can separate them)."""
+Tolerances: the corr lookups are bit-equal (the same products and sums,
+each rounded, then one rounding to the maps' type); fp32 (TF32 off) 1e-4
+for sums over hundreds of terms; bf16 3e-2 (the plain versions compute
+in fp32 and round once; the kernels round the output too, and B2 its
+samples, so a bf16 ulp or two of the result can separate them)."""
 
 import numpy as np
 import pytest
@@ -48,23 +49,82 @@ def test_corr_lookup_matches_plain(gen, dt):
     before = b1.launches
     out = b1.corr_lookup(pyr, coords)
     assert b1.launches == before + 1
-    torch.testing.assert_close(out, b1.corr_lookup_plain(pyr, coords), atol=1e-5, rtol=1e-5)
+    assert out.dtype == dt
+    assert torch.equal(out, b1.corr_lookup_plain(pyr, coords))  # fp32 bit for bit; bf16 = the fp32 result rounded
     assert torch.count_nonzero(out[0, :4]) == 0
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
+def test_corr_lookup_two_directions(gen, dt, n):
+    """Both RAFT directions in one launch, as models/raft.py calls it: odd
+    17x23 maps (levels 17x23, 8x11, 4x5, 2x2; 391 pixels an image, so the
+    direction boundary falls inside a 24-pixel block and the last block
+    is ragged), coords partly and wholly outside in both directions.
+    Equal to the plain version bit for bit in fp32 and to its fp32 result
+    rounded in bf16; one launch a call."""
+    f1 = torch.randn(n, 17, 23, 32, generator=gen, device="cuda").to(dt)
+    f2 = torch.randn(n, 17, 23, 32, generator=gen, device="cuda").to(dt)
+    fwd, bwd = build_corr_pyramids(f1, f2)
+    yy, xx = torch.meshgrid(
+        torch.arange(17.0, device="cuda"), torch.arange(23.0, device="cuda"), indexing="ij"
+    )
+    coords = torch.stack([xx, yy], -1)[None] + 8.0 * torch.randn(2 * n, 17, 23, 2, generator=gen, device="cuda")
+    coords[0, :3] = -50.0
+    coords[n, 5:7] = 90.0
+    coords = coords.contiguous()
+    before = b1.launches
+    out = b1.corr_lookup(fwd, coords, bwd)
+    assert b1.launches == before + 1
+    assert out.dtype == dt and out.shape == (2 * n, 17, 23, 324)
+    ref = torch.cat([b1.corr_lookup_plain(fwd, coords[:n].contiguous()), b1.corr_lookup_plain(bwd, coords[n:].contiguous())])
+    assert torch.equal(out, ref)
+    assert torch.equal(out, b1.corr_lookup_plain(fwd, coords, bwd))
+    assert torch.count_nonzero(out[0, :3]) == 0 and torch.count_nonzero(out[n, 5:7]) == 0
+    if dt == torch.bfloat16:
+        f32 = b1.corr_lookup_plain([m.float() for m in fwd], coords, [m.float() for m in bwd])
+        assert torch.equal(out, f32.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("cin,g", [(64, 16), (48, 4)])
+@pytest.mark.parametrize("cin,g", [(64, 16), (48, 4), (128, 16), (256, 16)])
 def test_deform_conv_matches_plain(gen, dt, tol, cin, g):
-    """Cin not a multiple of the 32-channel chunk, Cout not of the
-    128-channel tile, H*W not of the 64-pixel tile."""
+    """cg 4 and 12 (ragged: bf16 gathers channel by channel) and the call
+    sites' cg 8 and 16 (bf16: 16-byte corner vectors); Cin not a multiple
+    of the 32- or 64-channel chunk, Cout 40 not of the 128-channel tile,
+    M = 2 * 13 * 21 = 546 not of any pixel tile, N = 2."""
     x = torch.randn(2, 13, 21, cin, generator=gen, device="cuda").to(dt)
     off = (torch.randn(2, 13, 21, g, 9, 2, generator=gen, device="cuda") * 4).to(dt)
     mask = torch.rand(2, 13, 21, g, 9, generator=gen, device="cuda").to(dt)
     w = (torch.randn(40, cin, 3, 3, generator=gen, device="cuda") * 0.05).to(dt)
     bias = torch.randn(40, generator=gen, device="cuda").to(dt)
-    torch.testing.assert_close(
-        b2.deform_conv2d(x, off, mask, w, bias), b2.deform_conv2d_plain(x, off, mask, w, bias), atol=tol, rtol=tol
-    )
+    before = b2.launches
+    out = b2.deform_conv2d(x, off, mask, w, bias)
+    assert b2.launches == before + 1
+    torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w, bias), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("rows", [32, 64])
+@pytest.mark.parametrize("cin,g,cout", [(128, 16, 128), (256, 16, 136), (48, 4, 40)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_deform_conv_bf16_tiles(gen, monkeypatch, rows, cin, g, cout, aligned):
+    """The tensor-core kernel at both pixel tiles, Cout over two 128-channel
+    blocks (136), x off a 16-byte boundary (corners then gathered channel
+    by channel), no bias; within 3e-2 of the plain version, and the weight
+    layout made once per weight tensor."""
+    monkeypatch.setattr(b2, "block_rows", lambda m, c, d: rows)
+    dt = torch.bfloat16
+    x = torch.randn(3, 11, 17, cin, generator=gen, device="cuda").to(dt)
+    if not aligned:
+        x = torch.empty(x.numel() + 1, device="cuda", dtype=dt)[1:].view(x.shape).copy_(x)
+    off = (torch.randn(3, 11, 17, g, 9, 2, generator=gen, device="cuda") * 6).to(dt)
+    mask = torch.rand(3, 11, 17, g, 9, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") * 0.05).to(dt)
+    out = b2.deform_conv2d(x, off, mask, w)
+    layout = b2._cached_layout(w, dt)
+    torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(b2.deform_conv2d(x, off, mask, w), out, atol=0, rtol=0)
+    assert b2._cached_layout(w, dt) is layout
 
 
 def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ, pad_first=False):

@@ -30,10 +30,9 @@ def _coords(rng, im, h8, w8, scale):
 
 
 def _port_lookup(f1, f2, coords):
-    n = f1.shape[0]
+    """Both directions in one call, as RAFT makes it."""
     fwd, bwd = build_corr_pyramids(torch.from_numpy(f1), torch.from_numpy(f2))
-    c = torch.from_numpy(coords)
-    return torch.cat([b1.corr_lookup(fwd, c[:n].contiguous()), b1.corr_lookup(bwd, c[n:].contiguous())])
+    return b1.corr_lookup(fwd, torch.from_numpy(coords), bwd)
 
 
 def test_corr_lookup_plain_matches_pallas_lanes():
