@@ -14,7 +14,10 @@ Phases (any failure raises; the exit code is then nonzero):
      with every window clean, the share of their time clean windows set):
        B1 (both RAFT directions in one launch, output in the maps' type,
        bit-equal) and B3 at the main-path shapes of a 24-frame 640x360
-       node run; B2 at the node's two shapes at 640x360 and, in bf16, at
+       node run; in bf16 B1 also with the map-dtype blend
+       (`corr_lookup_map_kernel`, path A's), both blends at the main
+       path's M = 165600 and at path A's per-call shape (3 pairs of
+       90x160); B2 at the node's two shapes at 640x360 and, in bf16, at
        1280x720 too, bf16 also with each pixel tile (64 and 32 pixels a
        block);
        B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
@@ -24,10 +27,11 @@ Phases (any failure raises; the exit code is then nonzero):
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
-     profiled run (each kernel of the path must show device time; B2's
+     profiled run (each kernel of the path must show device time, and
+     no kernel off it; B2's
      launches are also counted by shape), and check the output:
-       the main path, 640x360 (B1, B2, B3);
-       path A, 1280x720 (B1, B2, B4);
+       the main path, 640x360 (B1 with the lanes blend, B2, B3);
+       path A, 1280x720 (B1 with the map-dtype blend, B2, B4);
        path B, 640x360 with PROPAINTER_TPU_ATTN=halo and
        PROPAINTER_TPU_CORR_KERNEL=pallas (B2, B5, B6);
      then check the card against the host on a small clip, with the
@@ -46,6 +50,11 @@ five timed runs on the host clock), with the port package of another
 checkout DIR (the same seed, so the same inputs in every run), and
 prints them as one JSON line: two trees are compared in one call by
 running them in turns, parent, change, change, parent.
+
+    python3 chip_smoke.py --b7-tiles
+
+builds B7 with 16, 32, 64 and 96 pixels a block and times each, in bf16
+and fp32, at its phase-2 shape (one JSON line).
 """
 
 from __future__ import annotations
@@ -78,8 +87,13 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, batch: int = 10) -> float:
+    """Median over `reps` samples of the CUDA-event time of `batch` calls
+    launched back to back, divided by `batch`, after warm-up. Back to back
+    the card does not wait for the host between calls, so a call is timed
+    at its device time unless the host takes longer to enqueue it. With
+    batch=1 (one call a sample) the card also waits for the host to
+    enqueue the call: that time is in it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -88,10 +102,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(batch):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / batch)
     return statistics.median(times)
 
 
@@ -204,34 +219,41 @@ def grid_sample_taps(maps, xs, ys):
     return lambda: F.grid_sample(maps[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
-def corr_lookup_inputs(dt, gen, im=23):
-    """Both directions of the main path's RAFT call: 23 frame pairs of
-    45x80 1/8-res features, coords [46, 45, 80, 2] (M = 165600)."""
+def corr_lookup_inputs(dt, gen, im=23, h8=45, w8=80):
+    """Both directions of one RAFT call: by default the main path's, 23
+    frame pairs of 45x80 1/8-res features, coords [46, 45, 80, 2] (M =
+    165600); path A's is 3 pairs of 90x160 (M = 86400)."""
     from comfyui_propainter_nodes_tpu_torch.models.raft import build_corr_pyramids
 
-    h8, w8, c = 45, 80, 256
+    c = 256
     f1 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
     f2 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
     fwd, bwd = build_corr_pyramids(f1, f2)
     return fwd, bwd, corr_coords(gen, 2 * im, h8, w8)
 
 
-def check_corr_lookup(dt, gen):
-    """B1 on both directions in one launch, output in the maps' type."""
+def check_corr_lookup(dt, gen, blend="lanes", shape=(23, 45, 80)):
+    """B1 on both directions in one launch, output in the maps' type, with
+    the lanes blend (fp32, one rounding) or the map-dtype blend (each step
+    rounded to bf16), for one RAFT call of `shape` = (pairs, H8, W8)."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as mod
 
-    fwd, bwd, coords = corr_lookup_inputs(dt, gen)
-    out = mod.corr_lookup(fwd, coords, bwd)
+    fwd, bwd, coords = corr_lookup_inputs(dt, gen, *shape)
+    counter = "launches_map" if blend == "map" and dt == torch.bfloat16 else "launches"
+    before = getattr(mod, counter)
+    out = mod.corr_lookup(fwd, coords, bwd, blend=blend)
     torch.cuda.synchronize()
-    ref = mod.corr_lookup_plain(fwd, coords, bwd)
+    require(getattr(mod, counter) == before + 1, f"corr_lookup blend={blend} did not count its launch on {counter}")
+    ref = mod.corr_lookup_plain(fwd, coords, bwd, blend=blend)
     err, rel = rel_err(out, ref)
-    # the same products and sums, each rounded, then one rounding to the
-    # maps' type in both: equal bit for bit
-    log(f"  B1 corr_lookup {str(dt)[6:]} (both directions, M {coords.numel() // 2}): out {str(out.dtype)[6:]}, "
-        f"max_abs_err {err:.3e} rel {rel:.3e} (must be bit-equal)")
-    require(out.dtype == dt and torch.equal(out, ref), "corr_lookup disagrees with its plain version")
-    ms = time_ms(lambda: mod.corr_lookup(fwd, coords, bwd))
-    plain_ms = time_ms(lambda: mod.corr_lookup_plain(fwd, coords, bwd), reps=5, warmup=1)
+    # the same products and sums, each rounded as in the plain version:
+    # equal bit for bit
+    log(f"  B1 corr_lookup {str(dt)[6:]} blend={blend} (both directions, {shape[0]} pairs of {shape[1]}x{shape[2]}, "
+        f"M {coords.numel() // 2}): out {str(out.dtype)[6:]}, max_abs_err {err:.3e} rel {rel:.3e} (must be bit-equal)")
+    require(out.dtype == dt and torch.equal(out, ref), f"corr_lookup blend={blend} disagrees with its plain version")
+    ms = time_ms(lambda: mod.corr_lookup(fwd, coords, bwd, blend=blend))
+    ms_single = time_ms(lambda: mod.corr_lookup(fwd, coords, bwd, blend=blend), batch=1)
+    plain_ms = time_ms(lambda: mod.corr_lookup_plain(fwd, coords, bwd, blend=blend), reps=5, warmup=1, batch=1)
     # library: RAFT's own bilinear_sampler in the maps' type, one
     # grid_sample per level and direction, taps in the kernel's (dx, dy) order
     n = fwd[0].shape[0]
@@ -255,10 +277,11 @@ def check_corr_lookup(dt, gen):
         need += float((rows * cols).sum()) * esz
     n_pix = coords.numel() // 2
     bound, by = bound_ms(n_pix * 324 * 6, need + n_pix * 8 + n_pix * 324 * out.element_size(), torch.float32)
-    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
+    log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (grid_sample in {str(dt)[6:]}, 8 calls, one per level and direction; "
         f"err vs plain {lib_err:.3e})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+    return dict(max_abs_err=err, ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, blend=blend)
 
 
 def check_corr_window(dt, gen):
@@ -289,12 +312,13 @@ def check_corr_window(dt, gen):
         torch.cuda.synchronize()
         ref = plain()
         err, rel = rel_err(out, ref)
-        tol = 1e-6  # the same products and sums, each rounded: equal up to nothing
+        # the same products and sums, each rounded: equal bit for bit
         log(f"  {name} corr_window ({levels} level{'s' * (levels > 1)}) {str(dt)[6:]}: M {m}, "
-            f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
-        require(rel <= tol, f"{name} disagrees with its plain version")
+            f"max_abs_err {err:.3e} rel {rel:.3e} (must be bit-equal)")
+        require(torch.equal(out, ref), f"{name} disagrees with its plain version")
         ms = time_ms(run)
-        plain_ms = time_ms(plain, reps=5, warmup=1)
+        ms_single = time_ms(run, batch=1)
+        plain_ms = time_ms(plain, reps=5, warmup=1, batch=1)
         calls = [grid_sample_taps(pyr[lvl], sx[lvl, :, None, None] + fx[lvl, :, None, None] + taps[None, :],
                                   sy[lvl, :, None, None] + fy[lvl, :, None, None] + taps[:, None])
                  for lvl in range(levels)]
@@ -303,12 +327,17 @@ def check_corr_window(dt, gen):
         library_ms = time_ms(lambda: [f() for f in calls])
         # each pixel's 10x10 window per level, its starts and fractions, the taps
         bound, by = bound_ms(m * levels * 81 * 6, m * levels * (100 * esz + 16 + 81 * 4), torch.float32)
-        log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  library_ms {library_ms:.4f} "
-            f"(grid_sample, {levels} call{'s' * (levels > 1)}, one per level; err vs plain {lib_err:.3e})")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+        log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
+            f"library_ms {library_ms:.4f} (grid_sample, {levels} call{'s' * (levels > 1)}, one per level; "
+            f"err vs plain {lib_err:.3e}); kernel / library {ms / library_ms:.3f}, kernel / bound {ms / bound:.2f}")
+        res[name] = dict(max_abs_err=err, ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=library_ms)
     log(f"    padded level-0 maps {pyr[0].numel() * esz / 2**30:.3f} GiB")
     return res
 
+
+# path A's RAFT call: 4-frame clips at 1280x720, 3 pairs of 90x160 1/8-res maps
+PATH_A_RAFT_CALL = (3, 90, 160)
 
 # B2's shapes: the node's feature propagation (x [5, H/4, W/4, 128], cg 8)
 # and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360 and 1280x720
@@ -352,15 +381,18 @@ def check_deform_conv(dt, gen, shape):
         finally:
             mod.block_rows = pick
     ms = time_ms(lambda: mod.deform_conv2d(*args))
-    plain_ms = time_ms(lambda: mod.deform_conv2d_plain(*args), reps=5, warmup=1)
+    ms_single = time_ms(lambda: mod.deform_conv2d(*args), batch=1)
+    plain_ms = time_ms(lambda: mod.deform_conv2d_plain(*args), reps=5, warmup=1, batch=1)
     n, h, w, cin = shape
     m = n * h * w
     esz = x.element_size()
     nbytes = (m * cin + m * 16 * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
     bound, by = bound_ms(2.0 * m * 9 * cin * cout, nbytes, dt)
-    log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  library_ms null"
+    log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
+        "library_ms null"
         + (f"; by pixel tile: 64 {tiles[64]:.4f}, 32 {tiles[32]:.4f} (the wrapper picks {chosen})" if tiles else ""))
-    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    res = dict(max_abs_err=err, ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               library_ms=None)
     if tiles:
         res.update(ms_tile64=tiles[64], ms_tile32=tiles[32], tile=chosen)
     return res
@@ -445,7 +477,7 @@ def check_window_attention(dt, gen, t_sel, occ):
     ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
     clean = args[:7] + [torch.zeros_like(occ)] + args[8:]
     clean_ms = time_ms(lambda: mod.window_attention(*clean, n_win_per_b=n_win))
-    plain_ms = time_ms(lambda: mod.window_attention_plain(*args, n_win), reps=3, warmup=1)
+    plain_ms = time_ms(lambda: mod.window_attention_plain(*args, n_win), reps=3, warmup=1, batch=1)
     lib = attention_library(args, n_win)
     lib_err, _ = rel_err(lib().reshape(out.shape), ref)
     library_ms = time_ms(lib, reps=5, warmup=1)
@@ -476,7 +508,7 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     del ref
     ms = time_ms(lambda: mod.window_attention_tiled(*args, n_win_per_b=n_win))
     b3_ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
-    plain_ms = time_ms(lambda: mod.window_attention_tiled_plain(*args, n_win), reps=3, warmup=1)
+    plain_ms = time_ms(lambda: mod.window_attention_tiled_plain(*args, n_win), reps=3, warmup=1, batch=1)
     lib = attention_library(args, n_win)
     lib_err, _ = rel_err(lib().reshape(out.shape), out)
     library_ms = time_ms(lib, reps=5, warmup=1)
@@ -525,7 +557,7 @@ def check_window_attention_halo(dt, gen, grid, occ):
     ms = time_ms(lambda: mod.window_attention_halo(*args, **kw))
     clean = args[:7] + (torch.zeros_like(occ3),) + args[8:]
     clean_ms = time_ms(lambda: mod.window_attention_halo(*clean, **kw))
-    plain_ms = time_ms(lambda: mod.window_attention_halo_plain(*args, **kw), reps=3, warmup=1)
+    plain_ms = time_ms(lambda: mod.window_attention_halo_plain(*args, **kw), reps=3, warmup=1, batch=1)
     # library: SDPA over [window | halo | pooled] keys per window
     qw = mod._windows(q, (wh, ww), nh)
     nw, _, _, wsz, ch = qw.shape
@@ -604,6 +636,7 @@ def counters():
 
     return [
         ("corr_lookup", corr_lookup, "launches"),
+        ("corr_lookup_map", corr_lookup, "launches_map"),
         ("deform_conv", deform_conv, "launches"),
         ("window_attention", window_attention, "launches"),
         ("window_attention_tiled", window_attention, "launches_tiled"),
@@ -615,7 +648,8 @@ def counters():
 
 # each counter's kernel as the profiler names it on the node's bf16 paths
 PROFILED = {
-    "corr_lookup": "corr_lookup_kernel", "deform_conv": "deform_conv_mma_kernel",
+    "corr_lookup": "corr_lookup_kernel", "corr_lookup_map": "corr_lookup_map_kernel",
+    "deform_conv": "deform_conv_mma_kernel",
     "window_attention": "window_attention_mma_kernel", "window_attention_tiled": "window_attention_split_mma_kernel",
     "window_attention_halo": "window_attention_halo_mma_kernel", "corr_window4": "corr_window4_kernel",
     "corr_window": "corr_window_kernel",
@@ -662,6 +696,8 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
     if prof is not None:
         require(all(prof["kernels_ms"][PROFILED[k]] > 0 for k in need),
                 f"{tag}: a kernel of the path has no device time in the profile: {prof['kernels_ms']}")
+        require(all(prof["kernels_ms"][PROFILED[k]] == 0 for k in forbid),
+                f"{tag}: a kernel off the path has device time in the profile: {prof['kernels_ms']}")
     require(tuple(img.shape) == (t, h, w, 3) and img.dtype == torch.float32, (img.shape, img.dtype))
     require(tuple(fm.shape) == (t, h, w) and tuple(md.shape) == (t, h, w), (fm.shape, md.shape))
     img_np, md_np = img.numpy(), md.numpy()
@@ -704,7 +740,8 @@ def profile_run(run, timed_wall_s, name):
         log("  profiler: no device time recorded (not measured)")
         return None
     mine = {k: sum(r[0] for r in rows if k in r[2]) for k in (
-        "corr_lookup_kernel", "deform_conv_mma_kernel", "deform_conv_kernel", "window_attention_mma_kernel",
+        "corr_lookup_kernel", "corr_lookup_map_kernel", "deform_conv_mma_kernel", "deform_conv_kernel",
+        "window_attention_mma_kernel",
         "window_attention_kernel",
         "window_attention_split_mma_kernel", "window_attention_split_kernel", "window_attention_combine_kernel",
         "window_attention_halo_mma_kernel", "window_attention_halo_kernel", "corr_window4_kernel",
@@ -810,6 +847,91 @@ def tree_times(tree: str) -> int:
     return 0
 
 
+def b7_tiles() -> int:
+    """`--b7-tiles`: B7 (csrc/corr_window.cu, one level) built with 16,
+    32, 64 and 96 pixels a block (a copy of the source with its `PIX1`
+    constant set, under build/b7_tiles/), each held bit-equal
+    to its plain version and timed at the phase-2 shape (level 0 of the
+    main path's padded pyramid, M = 165600) in bf16 and fp32, in turns
+    (each size twice, in rising then falling order), beside one
+    grid_sample; prints one JSON line."""
+    import ctypes
+
+    from comfyui_propainter_nodes_tpu_torch.models.raft import build_padded_pyramid_bi, padded_starts
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as mod
+
+    tiles = (16, 32, 64, 96)
+    out_dir = os.path.join(HERE, "build", "b7_tiles")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_build.CSRC, "corr_window.cu")) as f:
+        source = f.read()
+    constant = "constexpr int PIX1 = 32;"
+    require(source.count(constant) == 1, f"csrc/corr_window.cu must define `{constant}` once")
+    libs, procs = {}, {}
+    for p in tiles:
+        src = os.path.join(out_dir, f"corr_window_{p}.cu")
+        with open(src, "w") as f:
+            f.write(source.replace(constant, f"constexpr int PIX1 = {p};"))
+        libs[p] = os.path.join(out_dir, f"libcorr_window_{p}.so")
+        procs[p] = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+             "-Xptxas", "-v", src, "-o", libs[p]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for p, proc in procs.items():
+        ptxas = proc.communicate()[0]
+        require(proc.returncode == 0, f"nvcc failed for {p} pixels a block:\n{ptxas}")
+        regs = {k: r["registers"] for k, r in kernel_resources(ptxas, libs[p]).items() if k.startswith("corr_window_kernel")}
+        log(f"  {p} pixels a block: registers {regs}")
+        fn = ctypes.CDLL(libs[p]).propainter_corr_window
+        fn.argtypes, fn.restype = _build._SIGNATURES["propainter_corr_window"], ctypes.c_int
+        fns[p] = fn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for dt in (torch.bfloat16, torch.float32):
+        im, h8, w8, c = 23, 45, 80, 256
+        f1 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
+        f2 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
+        pyr = build_padded_pyramid_bi(f1, f2)
+        del f1, f2
+        sy, sx, fy, fx = padded_starts(pyr, corr_coords(gen, 2 * im, h8, w8))
+        maps, sy, sx, fy, fx = pyr[0], sy[0].contiguous(), sx[0].contiguous(), fy[0].contiguous(), fx[0].contiguous()
+        del pyr
+        m, hp, wp = maps.shape
+        out = torch.empty(m, 9, 9, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(p):
+            status = fns[p](maps.data_ptr(), sy.data_ptr(), sx.data_ptr(), fy.data_ptr(), fx.data_ptr(),
+                            out.data_ptr(), m, hp, wp, int(dt == torch.bfloat16), stream)
+            _build.check(status, f"corr_window {p}")
+
+        ref = mod.corr_window_lookup_plain(maps, sy, sx, fy, fx)
+        for p in tiles:
+            out.fill_(float("nan"))
+            run(p)
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref), f"B7 with {p} pixels a block disagrees with its plain version")
+        ms = {p: [] for p in tiles}
+        for p in tiles + tiles[::-1]:
+            ms[p].append(time_ms(lambda: run(p)))
+        taps = torch.arange(9, device="cuda", dtype=torch.float32)
+        lib = grid_sample_taps(maps, sx[:, None, None] + fx[:, None, None] + taps[None, :],
+                               sy[:, None, None] + fy[:, None, None] + taps[:, None])
+        bound, _ = bound_ms(m * 81 * 6, m * (100 * maps.element_size() + 16 + 81 * 4), torch.float32)
+        key = str(dt)[6:]
+        result[key] = dict(ms={str(p): v for p, v in ms.items()}, library_ms=time_ms(lib), bound_ms=bound)
+        log(f"  {key}: " + ", ".join(f"{p} pixels {v[0]:.4f} / {v[1]:.4f} ms" for p, v in ms.items())
+            + f"; grid_sample {result[key]['library_ms']:.4f}; bound {bound:.4f}")
+        del maps, out, ref
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"b7_tiles": result, "nvidia_smi": smi}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -818,6 +940,8 @@ def main() -> int:
         os.environ.pop(k, None)  # the main path and path A run the default kernels
     if len(sys.argv) == 3 and sys.argv[1] == "--tree":
         return tree_times(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--b7-tiles":
+        return b7_tiles()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
 
     name = torch.cuda.get_device_name(0)
@@ -852,6 +976,13 @@ def main() -> int:
         key = str(dt)[6:]
         res[("B1", key)] = check_corr_lookup(dt, gen)
         torch.cuda.empty_cache()
+        if dt == torch.bfloat16:  # fp32 maps: both blends are the fp32 kernel
+            res[("B1map", key)] = check_corr_lookup(dt, gen, "map")
+            res[("B1_720", key)] = check_corr_lookup(dt, gen, "lanes", PATH_A_RAFT_CALL)
+            res[("B1map_720", key)] = check_corr_lookup(dt, gen, "map", PATH_A_RAFT_CALL)
+            log(f"  B1 map / lanes blend: {res[('B1map', key)]['ms'] / res[('B1', key)]['ms']:.3f} at M 165600, "
+                f"{res[('B1map_720', key)]['ms'] / res[('B1_720', key)]['ms']:.3f} at path A's call")
+            torch.cuda.empty_cache()
         for tag, shape in B2_SHAPES.items():
             if dt == torch.bfloat16 or tag in ("fp", "fc"):  # fp32 at the 640x360 shapes only
                 res[("B2" + tag, key)] = check_deform_conv(dt, gen, shape)
@@ -866,18 +997,21 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     log("phase 3: ProPainterInpaint, 24 frames, default widgets, random weights")
-    base = ("corr_lookup", "deform_conv")
+    # the JAX dispatcher's lookup gate: the lanes blend for the main path's
+    # one RAFT call (w8 = 80, 723.5 MB a direction), the map-dtype blend for
+    # path A's (w8 = 160)
     main_run, main_img, main_md = node_run(
-        "main path 640x360", 360, 640, base + ("window_attention",),
-        ("window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window"), profile_name="profile.txt",
+        "main path 640x360", 360, 640, ("corr_lookup", "deform_conv", "window_attention"),
+        ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window"),
+        profile_name="profile.txt",
     )
     path_a, _, _ = node_run(
-        "path A 1280x720", 720, 1280, base + ("window_attention_tiled",),
-        ("window_attention_halo", "corr_window4", "corr_window"), profile_name="profile_720p.txt",
+        "path A 1280x720", 720, 1280, ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+        ("corr_lookup", "window_attention_halo", "corr_window4", "corr_window"), profile_name="profile_720p.txt",
     )
     path_b, b_img, _ = node_run(
         "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4"),
-        ("corr_lookup", "window_attention", "window_attention_tiled", "corr_window"),
+        ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window"),
         switched=True, profile_name="profile_switches.txt",
     )
     inside = main_md != 0
@@ -898,6 +1032,7 @@ def main() -> int:
     pallas = "comfyui_propainter_nodes_tpu/ops/pallas"
     rows = [  # name, source, replaces, result key, path whose run counts its launches
         ("corr_lookup", "corr_lookup.cu", "corr_lanes.py:55", "B1", main_run),
+        ("corr_lookup_map", "corr_lookup.cu", "corr_lanes.py:55", "B1map", path_a),
         ("deform_conv", "deform_conv.cu", "deform_conv.py:52", "B2fp", main_run),
         ("window_attention", "window_attention.cu", "window_attention.py:52", "B3e", main_run),
         ("window_attention_tiled", "window_attention_tiled.cu", "window_attention.py:176", "B4e", path_a),
@@ -908,13 +1043,19 @@ def main() -> int:
     kernels = []
     for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
+        f32 = res.get((rk, "float32"))  # None for the map blend: fp32 maps take the fp32 kernel of B1
         row = {
             "name": name_k, "route": "cuda", "source": f"{pkg}/csrc/{src}", "replaces": f"{pallas}/{repl}",
             "launches": run["launches"][name_k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "dtype": "bf16",
-            "max_abs_err_fp32": res[(rk, "float32")]["max_abs_err"], "ms_fp32": res[(rk, "float32")]["ms"],
+            "max_abs_err_fp32": f32 and f32["max_abs_err"], "ms_fp32": f32 and f32["ms"],
         }
+        if rk.startswith("B1"):
+            row["blend"] = r["blend"]
+            row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]
+        if rk == "B1map":
+            row["computes"] = "the JAX package's lookup_corr in bf16 (models/raft.py:249-349), taken past the lanes gate"
         if "b3_ms" in r:
             row["b3_ms_same_inputs"] = r["b3_ms"]
         if rk == "B2fp":

@@ -7,14 +7,27 @@
 // What it computes: for every query pixel and every level l, the 9x9
 // bilinear samples of that pixel's correlation map around coords / 2^l,
 // with zero for taps outside the map (grid_sample zeros padding,
-// align_corners=True), in fp32, rounded once to the maps' type on store.
+// align_corners=True), in the maps' type on store.
 // Output channel order is (level, dx, dy): the reference stacks
 // meshgrid(dy, dx) onto (x, y) coords (RAFT corr.py:37-43), so channel
 // i*9 + j samples offset (dx = i - 4, dy = j - 4); the update block's
 // weights depend on it. Each sample combines rows first, then columns,
-// each product and sum rounded (no FMA contraction), so the fp32 result
-// equals the plain PyTorch version bit for bit and the bf16 result equals
-// it rounded.
+// each product and sum rounded (no FMA contraction). Two blends, those of
+// the JAX package's RAFT dispatcher (models/raft.py:540-580 there):
+//   * `corr_lookup_kernel<T>` (the lanes kernel's): fp32 fractions and
+//     fp32 arithmetic, one rounding to T on store, so the fp32 result
+//     equals the plain PyTorch version bit for bit and the bf16 result
+//     equals it rounded;
+//   * `corr_lookup_map_kernel` (bf16 maps; `lookup_corr` there): the
+//     fractions f rounded to bf16, g = bf16(1 - f), and every product and
+//     sum rounded to bf16, as PyTorch and XLA round each bf16 operation
+//     (the fp32 result rounded once: a product of two bf16 values is exact
+//     in fp32, and so is the sum of two unless their exponents lie so far
+//     apart that either rounding returns the larger). The kernel does it
+//     with Hopper's bf16x2 multiplies and bf16 adds, each rounded to
+//     nearest: (v00, v10) * (g, f) in one multiply, then the two summed.
+//     For fp32 maps the two blends are the same arithmetic, and the fp32
+//     kernel serves both.
 //
 // Layout: two natural GPU (pixel-major) pyramids, forward and backward:
 // level l of each is [n_dir, H_l, W_l] in fp32 or bf16 (one pyramid: both
@@ -26,8 +39,9 @@
 // put pixels on the TPU's lanes.
 //
 // What bounds it on the H100: bytes. Each output costs four loads and six
-// flops; the least traffic is the in-map part of each pixel's 10x10 window
-// per level read once, plus the coords and the [n_pix, 324] result.
+// flops (the map blend: three bf16x2 multiplies and three adds); the least
+// traffic is the in-map part of each pixel's 10x10 window per level read
+// once, plus the coords and the [n_pix, 324] result.
 //
 // Design (as the padded-map lookup corr_window4_kernel): a block of 256
 // threads owns 24 pixels. (1) 96 threads compute each (pixel, level)'s
@@ -39,11 +53,14 @@
 // contiguous output range (4 in fp32, 8 in bf16; a bf16 group may span
 // two pixels) and writes them as one 16-byte store. Index math is 32-bit
 // inside a block; only the map planes' and the block's output base are
-// 64-bit.
+// 64-bit. Both blends share the block (`lookup_block<T, MAP>`); only the
+// fractions' form in shared memory and the combine differ.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,12 +84,29 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.0f); }
 
 // the bilinear combine of four corners: rows first, then columns, each
-// product and sum rounded
+// product and sum rounded (fp32)
 __device__ __forceinline__ float combine(float v00, float v01, float v10, float v11, float fy, float fx) {
   const float gy = 1.0f - fy, gx = 1.0f - fx;
   const float vy0 = __fadd_rn(__fmul_rn(v00, gy), __fmul_rn(v10, fy));
   const float vy1 = __fadd_rn(__fmul_rn(v01, gy), __fmul_rn(v11, fy));
   return __fadd_rn(__fmul_rn(vy0, gx), __fmul_rn(vy1, fx));
+}
+
+// the same in bf16, each product and sum rounded to bf16: w points at the
+// window's corner (dy, dx); wy = (gy, fy) and wx = (gx, fx), already bf16
+__device__ __forceinline__ __nv_bfloat16 combine_map(const __nv_bfloat16* w, __nv_bfloat162 wy, __nv_bfloat162 wx) {
+  const __nv_bfloat162 p0 = __hmul2_rn(__halves2bfloat162(w[0], w[WIN]), wy);
+  const __nv_bfloat162 p1 = __hmul2_rn(__halves2bfloat162(w[1], w[WIN + 1]), wy);
+  const __nv_bfloat162 vy = __halves2bfloat162(__hadd_rn(__low2bfloat16(p0), __high2bfloat16(p0)),
+                                               __hadd_rn(__low2bfloat16(p1), __high2bfloat16(p1)));
+  const __nv_bfloat162 q = __hmul2_rn(vy, wx);
+  return __hadd_rn(__low2bfloat16(q), __high2bfloat16(q));
+}
+
+// (bf16(1 - fb), fb) for fb, the fraction f rounded to bf16
+__device__ __forceinline__ __nv_bfloat162 weights_map(float f) {
+  const __nv_bfloat16 fb = __float2bfloat16_rn(f);
+  return __halves2bfloat162(__float2bfloat16_rn(1.0f - __bfloat162float(fb)), fb);
 }
 
 // 16 bytes of outputs
@@ -88,8 +122,18 @@ __device__ __forceinline__ void store16(__nv_bfloat16* o, const float (&r)[8]) {
   }
   *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
 }
+__device__ __forceinline__ void store16(__nv_bfloat16* o, const __nv_bfloat16 (&r)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 v = __halves2bfloat162(r[2 * j], r[2 * j + 1]);
+    w[j] = *reinterpret_cast<uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+}
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) { *o = __float2bfloat16(v); }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, __nv_bfloat16 v) { *o = v; }
 
 struct Pyramids {
   const void* fwd[LEVELS];
@@ -105,15 +149,16 @@ __device__ __forceinline__ V pick(const V (&a)[LEVELS], int l) {
   return l == 0 ? a[0] : l == 1 ? a[1] : l == 2 ? a[2] : a[3];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 3)
-corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict__ out,
-                   long long n_fwd, long long n_pix) {
+// the block of both kernels: MAP selects the map-dtype blend
+template <typename T, bool MAP>
+__device__ __forceinline__ void lookup_block(const Pyramids& py, const float* __restrict__ coords,
+                                             T* __restrict__ out, long long n_fwd, long long n_pix) {
   __shared__ __align__(16) unsigned char win_bytes[PIX * LEVELS * WELEM * sizeof(T)];
   T* win = reinterpret_cast<T*>(win_bytes);  // [pixel][level][10][10]
   __shared__ const T* s_map[LEVELS][PIX];
   __shared__ int s_y[LEVELS][PIX], s_x[LEVELS][PIX];
-  __shared__ float s_fy[LEVELS][PIX], s_fx[LEVELS][PIX];
+  __shared__ float s_fy[LEVELS][PIX], s_fx[LEVELS][PIX];          // lanes blend
+  __shared__ __nv_bfloat162 s_wy[LEVELS][PIX], s_wx[LEVELS][PIX];  // map blend: (g, f)
   const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * PIX;
   const int np = (int)min((long long)PIX, n_pix - p0);
@@ -134,8 +179,13 @@ corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict_
       // clamp before the int conversion: far-away centroids read zeros anyway
       s_x[l][pix] = (int)fminf(fmaxf(x0, -1.0e6f), 1.0e6f) - R;
       s_y[l][pix] = (int)fminf(fmaxf(y0, -1.0e6f), 1.0e6f) - R;
-      s_fx[l][pix] = cx - x0;
-      s_fy[l][pix] = cy - y0;
+      if constexpr (MAP) {
+        s_wx[l][pix] = weights_map(cx - x0);
+        s_wy[l][pix] = weights_map(cy - y0);
+      } else {
+        s_fx[l][pix] = cx - x0;
+        s_fy[l][pix] = cy - y0;
+      }
     }
   }
   __syncthreads();
@@ -183,7 +233,7 @@ corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict_
   for (int i = 0; i < STEPS; ++i) {
     const int j0 = (tid + i * NT) * V;
     if (j0 < n_out) {
-      float res[V];
+      std::conditional_t<MAP, __nv_bfloat16, float> res[V];
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         const int j = min(j0 + k, n_out - 1);
@@ -193,7 +243,11 @@ corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict_
         const int t = r - l * TAPS;
         const int dx = t / 9;
         const T* w = win + (pix * LEVELS + l) * WELEM + (t - dx * 9) * WIN + dx;
-        res[k] = combine(to_f(w[0]), to_f(w[1]), to_f(w[WIN]), to_f(w[WIN + 1]), s_fy[l][pix], s_fx[l][pix]);
+        if constexpr (MAP) {
+          res[k] = combine_map(w, s_wy[l][pix], s_wx[l][pix]);
+        } else {
+          res[k] = combine(to_f(w[0]), to_f(w[1]), to_f(w[WIN]), to_f(w[WIN + 1]), s_fy[l][pix], s_fx[l][pix]);
+        }
       }
       if (j0 + V <= n_out) {
         store16(o + j0, res);
@@ -206,13 +260,29 @@ corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict_
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(NT, 3)
+corr_lookup_kernel(Pyramids py, const float* __restrict__ coords, T* __restrict__ out,
+                   long long n_fwd, long long n_pix) {
+  lookup_block<T, false>(py, coords, out, n_fwd, n_pix);
+}
+
+// a kernel of its own name, so profiles and launch counts tell the blends apart
+__global__ void __launch_bounds__(NT, 3)
+corr_lookup_map_kernel(Pyramids py, const float* __restrict__ coords, __nv_bfloat16* __restrict__ out,
+                       long long n_fwd, long long n_pix) {
+  lookup_block<__nv_bfloat16, true>(py, coords, out, n_fwd, n_pix);
+}
+
 }  // namespace
 
+// mode: 0 fp32 maps (either blend), 1 bf16 maps with the lanes blend,
+// 2 bf16 maps with the map-dtype blend
 extern "C" int propainter_corr_lookup(
     const void* f0, const void* f1, const void* f2, const void* f3,
     const void* b0, const void* b1, const void* b2, const void* b3,
     int h0, int w0, int h1, int w1, int h2, int w2, int h3, int w3,
-    const void* coords, void* out, long long n_fwd, long long n_pix, int is_bf16,
+    const void* coords, void* out, long long n_fwd, long long n_pix, int mode,
     void* stream) {
   Pyramids py;
   py.fwd[0] = f0; py.fwd[1] = f1; py.fwd[2] = f2; py.fwd[3] = f3;
@@ -221,9 +291,12 @@ extern "C" int propainter_corr_lookup(
   py.w[0] = w0; py.w[1] = w1; py.w[2] = w2; py.w[3] = w3;
   const long long blocks = (n_pix + PIX - 1) / PIX;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
     const float* c = reinterpret_cast<const float*>(coords);
-    if (is_bf16) {
+    if (mode == 2) {
+      corr_lookup_map_kernel<<<(unsigned)blocks, NT, 0, s>>>(py, c, reinterpret_cast<__nv_bfloat16*>(out), n_fwd, n_pix);
+    } else if (mode == 1) {
       corr_lookup_kernel<__nv_bfloat16><<<(unsigned)blocks, NT, 0, s>>>(
           py, c, reinterpret_cast<__nv_bfloat16*>(out), n_fwd, n_pix);
     } else {

@@ -20,10 +20,17 @@
 // six flops; the least traffic is each pixel's 10x10 window read once per
 // level plus the [M, 81] fp32 result per level written once.
 //
-// Design of the one-level lookup (B7): one thread per output tap, in
-// output order, so the 81 outputs of a pixel are written by consecutive
-// threads and the four corner loads of neighbouring taps hit the same
-// window rows in L1.
+// Design of the one-level lookup (B7): a block of 256 threads owns 32
+// pixels (a multiple of 4, so the block's [32 * 81] fp32 output range is
+// 16-byte aligned). (1) 32 threads load each pixel's start, clamped once,
+// and fractions into shared memory. (2) The block stages the 32 windows of
+// 10 x 10 map elements in the map's type, each element loaded once, every
+// load of a thread issued before its first shared store. (3) Each thread
+// computes four consecutive outputs of the block's contiguous output range
+// (a group may span two pixels: 81 is odd) and writes them as one 16-byte
+// store; the tail block's last group, if short, is stored element by
+// element. The window rows are 10 elements, so each row touches one to
+// three 32-byte sectors: the bytes moved are about twice the bound's.
 //
 // Design of the four-level lookup (B6): a block of 256 threads owns 24
 // pixels. (1) 96 threads load each (pixel, level)'s start, clamped, and
@@ -66,29 +73,87 @@ __device__ __forceinline__ float combine(float v00, float v01, float v10, float 
   return __fadd_rn(__fmul_rn(vy0, gx), __fmul_rn(vy1, fx));
 }
 
-// one tap of one window
-template <typename T>
-__device__ __forceinline__ float tap(const T* __restrict__ map, int hp, int wp,
-                                     int sy, int sx, float fy, float fx, int dy, int dx) {
-  sy = min(max(sy, 0), hp - WIN);
-  sx = min(max(sx, 0), wp - WIN);
-  const T* p = map + (long long)(sy + dy) * wp + sx + dx;
-  return combine(to_f(p[0]), to_f(p[1]), to_f(p[wp]), to_f(p[wp + 1]), fy, fx);
-}
+constexpr int WELEM = WIN * WIN;     // elements of a window
+constexpr int NT = 256;              // threads per block, both kernels
+// pixels per block, one level: a multiple of 4, so a block's fp32 output
+// range is 16-byte aligned (`python3 chip_smoke.py --b7-tiles` times 16-96)
+constexpr int PIX1 = 32;
 
+// out is [M, 9, 9]
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(NT)
 corr_window_kernel(const T* __restrict__ map, const int* __restrict__ sy,
                    const int* __restrict__ sx, const float* __restrict__ fy,
                    const float* __restrict__ fx, float* __restrict__ out,
-                   long long total, int hp, int wp) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const long long pix = o / TAPS;
-  const int r = (int)(o - pix * TAPS);
-  const int dy = r / 9;
-  const int dx = r - dy * 9;
-  out[o] = tap(map + pix * hp * wp, hp, wp, sy[pix], sx[pix], fy[pix], fx[pix], dy, dx);
+                   long long m, int hp, int wp) {
+  __shared__ __align__(16) unsigned char win_bytes[PIX1 * WELEM * sizeof(T)];
+  T* win = reinterpret_cast<T*>(win_bytes);  // [pixel][10][10]
+  __shared__ int s_y[PIX1], s_x[PIX1];
+  __shared__ float s_fy[PIX1], s_fx[PIX1];
+  const int tid = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * PIX1;
+  const int np = (int)min((long long)PIX1, m - p0);
+
+  // (1) starts and fractions, once per pixel
+  if (tid < np) {
+    s_y[tid] = min(max(sy[p0 + tid], 0), hp - WIN);
+    s_x[tid] = min(max(sx[p0 + tid], 0), wp - WIN);
+    s_fy[tid] = fy[p0 + tid];
+    s_fx[tid] = fx[p0 + tid];
+  }
+  __syncthreads();
+
+  // (2) the windows, each element loaded once: every load is issued
+  // before the first is stored
+  constexpr int LOADS = (PIX1 * WELEM + NT - 1) / NT;
+  const T* base = map + p0 * hp * wp;
+  const int plane = hp * wp;  // Hp * Wp < 2^31 for one pixel
+  T v[LOADS];
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int e = tid + i * NT;
+    if (e < np * WELEM) {
+      const int pix = e / WELEM;
+      const int r = e - pix * WELEM;
+      const int rr = r / WIN;
+      v[i] = __ldg(base + (long long)pix * plane + (s_y[pix] + rr) * wp + s_x[pix] + (r - rr * WIN));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int e = tid + i * NT;
+    if (e < np * WELEM) win[e] = v[i];
+  }
+  __syncthreads();
+
+  // (3) four consecutive outputs of the block's range a thread, one
+  // 16-byte store
+  constexpr int STEPS = (PIX1 * TAPS / 4 + NT - 1) / NT;
+  const int n_out = np * TAPS;
+  float* o = out + p0 * TAPS;
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const int j0 = (tid + i * NT) * 4;
+    if (j0 < n_out) {
+      float res[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = min(j0 + k, n_out - 1);
+        const int pix = j / TAPS;
+        const int t = j - pix * TAPS;
+        const int dy = t / 9;
+        const T* w = win + pix * WELEM + dy * WIN + (t - dy * 9);
+        res[k] = combine(to_f(w[0]), to_f(w[1]), to_f(w[WIN]), to_f(w[WIN + 1]), s_fy[pix], s_fx[pix]);
+      }
+      if (j0 + 4 <= n_out) {
+        *reinterpret_cast<float4*>(o + j0) = make_float4(res[0], res[1], res[2], res[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (j0 + k < n_out) o[j0 + k] = res[k];
+      }
+    }
+  }
 }
 
 struct Levels {
@@ -100,9 +165,7 @@ struct Levels {
 constexpr int LEVELS = 4;
 constexpr int OUT4 = LEVELS * TAPS;  // fp32 outputs of a pixel: [4, 9, 9]
 constexpr int GROUPS = OUT4 / 4;     // 16-byte groups of a pixel's outputs
-constexpr int WELEM = WIN * WIN;     // elements of a window
-constexpr int PIX = 24;              // pixels per block
-constexpr int NT4 = 256;             // threads per block
+constexpr int PIX = 24;              // pixels per block, four levels
 
 // level l's (Hp, Wp) with l known only at run time: selects, not an
 // indexed copy of the parameter arrays
@@ -113,7 +176,7 @@ __device__ __forceinline__ void level_dims(const Levels& lv, int l, int& hp, int
 
 // sy/sx/fy/fx are [4, M]; out is [M, 4, 9, 9]
 template <typename T>
-__global__ void __launch_bounds__(NT4, 3)
+__global__ void __launch_bounds__(NT, 3)
 corr_window4_kernel(Levels lv, const int* __restrict__ sy, const int* __restrict__ sx,
                     const float* __restrict__ fy, const float* __restrict__ fx,
                     float* __restrict__ out, long long m) {
@@ -143,7 +206,7 @@ corr_window4_kernel(Levels lv, const int* __restrict__ sy, const int* __restrict
 
   // (2) the windows, each element loaded once: every load of the four
   // levels is issued before the first is stored
-  constexpr int LOADS = (PIX * WELEM + NT4 - 1) / NT4;
+  constexpr int LOADS = (PIX * WELEM + NT - 1) / NT;
   T v[LEVELS][LOADS];
 #pragma unroll
   for (int l = 0; l < LEVELS; ++l) {
@@ -152,7 +215,7 @@ corr_window4_kernel(Levels lv, const int* __restrict__ sy, const int* __restrict
     const int wp = lv.wp[l];
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
-      const int e = tid + i * NT4;
+      const int e = tid + i * NT;
       if (e < np * WELEM) {
         const int pix = e / WELEM;
         const int r = e - pix * WELEM;
@@ -165,7 +228,7 @@ corr_window4_kernel(Levels lv, const int* __restrict__ sy, const int* __restrict
   for (int l = 0; l < LEVELS; ++l) {
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
-      const int e = tid + i * NT4;
+      const int e = tid + i * NT;
       if (e < np * WELEM) {
         const int pix = e / WELEM;
         win[(pix * LEVELS + l) * WELEM + (e - pix * WELEM)] = v[l][i];
@@ -176,10 +239,10 @@ corr_window4_kernel(Levels lv, const int* __restrict__ sy, const int* __restrict
 
   // (3) four consecutive outputs a thread, one 16-byte store
   float* o = out + p0 * OUT4;
-  constexpr int STEPS = (PIX * GROUPS + NT4 - 1) / NT4;
+  constexpr int STEPS = (PIX * GROUPS + NT - 1) / NT;
 #pragma unroll
   for (int i = 0; i < STEPS; ++i) {
-    const int g = tid + i * NT4;
+    const int g = tid + i * NT;
     if (g < np * GROUPS) {
       const int pix = g / GROUPS;
       const int j0 = (g - pix * GROUPS) * 4;  // first output, in [0, 324)
@@ -205,8 +268,7 @@ extern "C" int propainter_corr_window(const void* map, const void* sy, const voi
                                       long long m, int hp, int wp, int is_bf16,
                                       void* stream) {
   if (hp < WIN || wp < WIN) return (int)cudaErrorInvalidValue;
-  const long long total = m * TAPS;
-  const long long blocks = (total + 255) / 256;
+  const long long blocks = (m + PIX1 - 1) / PIX1;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (blocks > 0) {
     const int* y = reinterpret_cast<const int*>(sy);
@@ -215,11 +277,11 @@ extern "C" int propainter_corr_window(const void* map, const void* sy, const voi
     const float* b = reinterpret_cast<const float*>(fx);
     float* o = reinterpret_cast<float*>(out);
     if (is_bf16) {
-      corr_window_kernel<__nv_bfloat16><<<(unsigned)blocks, 256, 0, s>>>(
-          reinterpret_cast<const __nv_bfloat16*>(map), y, x, a, b, o, total, hp, wp);
+      corr_window_kernel<__nv_bfloat16><<<(unsigned)blocks, NT, 0, s>>>(
+          reinterpret_cast<const __nv_bfloat16*>(map), y, x, a, b, o, m, hp, wp);
     } else {
-      corr_window_kernel<float><<<(unsigned)blocks, 256, 0, s>>>(
-          reinterpret_cast<const float*>(map), y, x, a, b, o, total, hp, wp);
+      corr_window_kernel<float><<<(unsigned)blocks, NT, 0, s>>>(
+          reinterpret_cast<const float*>(map), y, x, a, b, o, m, hp, wp);
     }
   }
   return (int)cudaGetLastError();
@@ -245,9 +307,9 @@ extern "C" int propainter_corr_window4(const void* m0, const void* m1, const voi
     const float* b = reinterpret_cast<const float*>(fx);
     float* o = reinterpret_cast<float*>(out);
     if (is_bf16) {
-      corr_window4_kernel<__nv_bfloat16><<<(unsigned)blocks, NT4, 0, s>>>(lv, y, x, a, b, o, m);
+      corr_window4_kernel<__nv_bfloat16><<<(unsigned)blocks, NT, 0, s>>>(lv, y, x, a, b, o, m);
     } else {
-      corr_window4_kernel<float><<<(unsigned)blocks, NT4, 0, s>>>(lv, y, x, a, b, o, m);
+      corr_window4_kernel<float><<<(unsigned)blocks, NT, 0, s>>>(lv, y, x, a, b, o, m);
     }
   }
   return (int)cudaGetLastError();

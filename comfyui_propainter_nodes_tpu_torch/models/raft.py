@@ -6,7 +6,8 @@ weights, the 20-step recurrent update as a Python loop over the
 computed once (the backward volume is its transpose) as one fp32
 `torch.matmul`, pooled into the pixel-major 4-level pyramids, and looked
 up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py),
-both directions in one launch that writes the compute dtype.
+both directions in one launch that writes the compute dtype, with the
+blend the JAX dispatcher picks (`lookup_mode`).
 With PROPAINTER_TPU_CORR_KERNEL=pallas (read at call time, as the JAX
 package reads it) both directions share one zero-padded pyramid and the
 lookup takes the padded-map window kernel (ops/cuda/corr_window.py),
@@ -162,6 +163,27 @@ def lookup_padded(pyramid, coords):
     return taps.transpose(2, 3).reshape(nb, h8, w8, CORR_LEVELS * 81)
 
 
+def lookup_mode(n: int, h8: int, w8: int, dtype: torch.dtype) -> str:
+    """The lookup the JAX package's `raft_bi_forward` takes for a call of
+    n frame pairs at h8 x w8 (models/raft.py:540-556 there), from the
+    variables it reads, read at call time:
+      "pallas"  PROPAINTER_TPU_CORR_KERNEL=pallas: one padded pyramid, B6;
+      "lanes"   the lanes lookup (B1, fp32 blend), when the variable is
+                unset or "lanes", w8 <= PROPAINTER_TPU_LANES_WMAX (96) and
+                one direction's lanes volume is at most
+                PROPAINTER_TPU_LANES_BUDGET bytes (1 GiB);
+      "map"     otherwise `lookup_corr` (B1 with the map-dtype blend)."""
+    kern = os.environ.get("PROPAINTER_TPU_CORR_KERNEL", "lanes")
+    if kern == "pallas":
+        return "pallas"
+    hw_pad_est = -(-(h8 * w8) // 512) * 512
+    h0_est = -(-h8 // 16) * 16
+    vol_bytes_dir = n * h0_est * w8 * hw_pad_est * dtype.itemsize
+    budget = int(os.environ.get("PROPAINTER_TPU_LANES_BUDGET", str(1 << 30)))
+    wmax = int(os.environ.get("PROPAINTER_TPU_LANES_WMAX", "96"))
+    return "lanes" if kern == "lanes" and vol_bytes_dir <= budget and w8 <= wmax else "map"
+
+
 # ------------------------------------------------------------ update block
 
 
@@ -222,7 +244,20 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
 
     frames: [B, T, H, W, 3] in [-1, 1]. Returns (flows_fwd, flows_bwd),
     each [B, T-1, H, W, 2] fp32. fnet/cnet run once per frame; both
-    directions share one batched update loop."""
+    directions share one batched update loop.
+
+    The lookup follows the JAX dispatcher (`lookup_mode`), whose volume
+    clause reads this call's n = B * (T-1). The blends differ only in
+    bf16. The port's `Pipeline.compute_flow` batches RAFT otherwise than
+    the JAX stage (pipeline/stages.py:398-513 there): where the clip is
+    chunked, the port runs each chunk as it is, and JAX runs chunks
+    padded to the clip length, or one pair a call once one chunk's
+    volume passes 4.5e9 bytes. So chunked clips up to 768 wide (w8 <= 96)
+    can take the other blend: a 640x1136 clip of 13 frames or more runs
+    one pair a call in JAX (lanes) and chunks of up to 12 pairs here
+    (map where a chunk holds 4 pairs or more). Clips that RAFT takes in one call, such as 24 frames at
+    640x360 (lanes), and clips wider than 768, such as 1280x720 (map),
+    choose as JAX does."""
     b, t, h, w, c = frames.shape
     n = b * (t - 1)
     cdt = params["fnet.conv1.weight"].dtype
@@ -235,7 +270,8 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
     fm = fmaps.reshape(b, t, h8, w8, -1)
     f1 = fm[:, :-1].reshape(n, h8, w8, -1)
     f2 = fm[:, 1:].reshape(n, h8, w8, -1)
-    if os.environ.get("PROPAINTER_TPU_CORR_KERNEL", "") == "pallas":
+    mode = lookup_mode(n, h8, w8, cdt)
+    if mode == "pallas":
         pyr = build_padded_pyramid_bi(f1, f2)
 
         def lookup(c):
@@ -245,7 +281,7 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
         pyr_f, pyr_b = build_corr_pyramids(f1, f2)
 
         def lookup(c):  # both directions in one launch, in the maps' dtype
-            return corr_lookup(pyr_f, c, pyr_b)
+            return corr_lookup(pyr_f, c, pyr_b, blend=mode)
 
     del fmaps, fm, f1, f2
 

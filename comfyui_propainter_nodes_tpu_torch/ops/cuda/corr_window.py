@@ -11,10 +11,11 @@ at a clamped start reads zeros; starts are window corners in padded
 coordinates, clamped to [0, Hp-10] x [0, Wp-10]. Outputs are fp32 tap
 grids in natural (dy, dx) order: the 10x10 window, combined rows first
 (by fy), then columns (by fx). The kernels are bytes-bound: each output
-is four loads and six flops. The four-level kernel stages 24 pixels'
-windows in shared memory, each element loaded once, and writes four
-outputs a thread as one 16-byte store (csrc/corr_window.cu). CPU tensors
-take the plain versions; CUDA tensors take the kernels.
+is four loads and six flops. Both kernels stage a block's windows in
+shared memory, each element loaded once (32 pixels a block for one
+level, 24 for four), and write four outputs a thread as one 16-byte
+store (csrc/corr_window.cu). CPU tensors take the plain versions; CUDA
+tensors take the kernels.
 """
 
 from __future__ import annotations

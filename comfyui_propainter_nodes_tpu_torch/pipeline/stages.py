@@ -15,6 +15,7 @@ windows from the per-frame features, in groups of at most 8 windows.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -46,6 +47,19 @@ def get_ref_index(mid_neighbor_id, neighbor_ids, video_length, ref_stride, ref_n
                     break
                 ref_index.append(i)
     return ref_index
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """TF32 off for cuDNN convs and matmuls inside the block (cuDNN convs
+    default to TF32), both flags restored after it, also when it raises."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def flow_chunk_plan(cfg: PipelineConfig, t: int) -> list[tuple[int, int]]:
@@ -141,15 +155,13 @@ class Pipeline:
 
     Params are upstream-layout CPU tensors; they are cast (bf16 under
     fp16="enable", RAFT per `config.raft_half`) and moved once. On the
-    card TF32 is switched off for cuDNN convs and matmuls, so the fp32
-    paths compute in full fp32 (cuDNN convs default to TF32)."""
+    card `process` runs with TF32 off for cuDNN convs and matmuls
+    (`full_fp32`), so the fp32 paths compute in full fp32; the process's
+    own TF32 flags are back as they were after each run."""
 
     def __init__(self, raft_params, flow_params, inpaint_params, config: PipelineConfig, device="cuda"):
         self.config = config
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         rdt = torch.bfloat16 if config.raft_half else torch.float32
         self.cdtype = torch.bfloat16 if config.use_bf16 else torch.float32
         self.raft_params = to_device(raft_params, self.device, rdt)
@@ -310,7 +322,8 @@ class Pipeline:
             stages[name] = time.perf_counter() - t0
             return out
 
-        with torch.inference_mode():
+        fp32 = full_fp32() if self.device.type == "cuda" else contextlib.nullcontext()
+        with fp32, torch.inference_mode():
             gt_flows = timed("compute_flow", self.compute_flow, frames_norm)
             pred_flows = timed("complete_flow", self.complete_flow, gt_flows, flow_masks)
             uf, um = timed("image_propagation", self.image_propagation, frames_norm, masks_dilated, pred_flows)

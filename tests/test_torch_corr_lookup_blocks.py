@@ -16,6 +16,11 @@ rows first, then columns, each product and sum rounded, and rounds once
 to the maps' type. The model runs all blocks at once and must equal the
 two-direction plain lookup bit for bit in fp32, and its fp32 result
 rounded for bf16 maps. Inputs come from a seeded numpy generator.
+
+With blend="map" the model computes as `corr_lookup_map_kernel` does
+for bf16 maps: fractions rounded to bf16, and each fp32 product and sum
+rounded to bf16 (`rb`). tests/test_torch_corr_lookup_blend.py holds it
+against the map-dtype plain lookup.
 """
 
 import numpy as np
@@ -37,11 +42,17 @@ def _live(nb, mask):
     return torch.arange(nb)[:, None].expand_as(mask)[mask]
 
 
-def block_model(fwd, bwd, coords):
-    """corr_lookup(fwd, coords, bwd) as the kernel's blocks compute it;
-    also returns how often each staged window element was loaded and each
-    output written."""
+def rb(x):
+    """x rounded to bf16 and back, as the kernel's `rb`."""
+    return x.to(torch.bfloat16).float()
+
+
+def block_model(fwd, bwd, coords, blend="lanes"):
+    """corr_lookup(fwd, coords, bwd, blend) as the kernel's blocks compute
+    it; also returns how often each staged window element was loaded and
+    each output written."""
     dtype = fwd[0].dtype
+    rnd = rb if blend == "map" and dtype == torch.bfloat16 else (lambda x: x)  # fp32 maps: one kernel
     n_fwd = fwd[0].shape[0]
     flat = coords.reshape(-1, 2)
     m = flat.shape[0]
@@ -64,8 +75,8 @@ def block_model(fwd, bwd, coords):
     x0, y0 = torch.floor(c[:, 0]), torch.floor(c[:, 1])
     s_x[blk, lvl, pix] = x0.clamp(-1e6, 1e6).long() - 4
     s_y[blk, lvl, pix] = y0.clamp(-1e6, 1e6).long() - 4
-    s_fx[blk, lvl, pix] = c[:, 0] - x0
-    s_fy[blk, lvl, pix] = c[:, 1] - y0
+    s_fx[blk, lvl, pix] = rnd(c[:, 0] - x0)
+    s_fy[blk, lvl, pix] = rnd(c[:, 1] - y0)
     s_bwd[blk, lvl, pix] = p >= n_fwd
     s_q[blk, lvl, pix] = torch.where(p >= n_fwd, p - n_fwd, p)
 
@@ -106,10 +117,11 @@ def block_model(fwd, bwd, coords):
             base = (pix * LEVELS + lv) * WELEM + (t % 9) * WIN + t // 9  # (dx, dy) channels
             v00, v01, v10, v11 = (win[blk, base + d].float() for d in (0, 1, WIN, WIN + 1))
             fy, fx = s_fy[blk, lv, pix], s_fx[blk, lv, pix]
-            vy0 = v00 * (1 - fy) + v10 * fy
-            vy1 = v01 * (1 - fy) + v11 * fy
+            gy, gx = rnd(1 - fy), rnd(1 - fx)
+            vy0 = rnd(rnd(v00 * gy) + rnd(v10 * fy))
+            vy1 = rnd(rnd(v01 * gy) + rnd(v11 * fy))
             o = p0[blk, 0] * OUT + j
-            out[o] = vy0 * (1 - fx) + vy1 * fx
+            out[o] = rnd(rnd(vy0 * gx) + rnd(vy1 * fx))
             writes[o] += 1
     used = torch.cat([torch.arange(n * LEVELS * WELEM) + b * PIX * LEVELS * WELEM for b, n in enumerate(np_[:, 0].tolist())])
     return out.reshape(*coords.shape[:3], OUT).to(dtype), loads.reshape(-1)[used], writes

@@ -86,6 +86,34 @@ def test_corr_lookup_two_directions(gen, dt, n):
         assert torch.equal(out, f32.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
+def test_corr_lookup_map_blend(gen, dt, n):
+    """B1 with the map-dtype blend (`corr_lookup_map_kernel` for bf16 maps,
+    the fp32 kernel for fp32 maps), both directions, the 17x23 maps and
+    coords of test_corr_lookup_two_directions: bit-equal to the map-dtype
+    plain lookup; one launch a call, on the variant's own counter in bf16."""
+    f1 = torch.randn(n, 17, 23, 32, generator=gen, device="cuda").to(dt)
+    f2 = torch.randn(n, 17, 23, 32, generator=gen, device="cuda").to(dt)
+    fwd, bwd = build_corr_pyramids(f1, f2)
+    yy, xx = torch.meshgrid(
+        torch.arange(17.0, device="cuda"), torch.arange(23.0, device="cuda"), indexing="ij"
+    )
+    coords = torch.stack([xx, yy], -1)[None] + 8.0 * torch.randn(2 * n, 17, 23, 2, generator=gen, device="cuda")
+    coords[0, :3] = -50.0
+    coords[n, 5:7] = 90.0
+    coords = coords.contiguous()
+    before = (b1.launches, b1.launches_map)
+    out = b1.corr_lookup(fwd, coords, bwd, blend="map")
+    after = (b1.launches, b1.launches_map)
+    assert after == ((before[0], before[1] + 1) if dt == torch.bfloat16 else (before[0] + 1, before[1]))
+    assert out.dtype == dt and out.shape == (2 * n, 17, 23, 324)
+    assert torch.equal(out, b1.corr_lookup_plain(fwd, coords, bwd, blend="map"))
+    assert torch.count_nonzero(out[0, :3]) == 0 and torch.count_nonzero(out[n, 5:7]) == 0
+    lanes = b1.corr_lookup(fwd, coords, bwd)
+    assert torch.equal(out, lanes) == (dt == torch.float32)  # the blends differ in bf16 only
+
+
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("cin,g", [(64, 16), (48, 4), (128, 16), (256, 16)])
 def test_deform_conv_matches_plain(gen, dt, tol, cin, g):
@@ -331,6 +359,27 @@ def test_corr_window4_is_bit_equal(gen, dt, m):
     out = b67.corr_window_lookup4(maps, sy, sx, fy, fx)
     assert b67.launches4 == before + 1
     assert torch.equal(out, b67.corr_window_lookup4_plain(maps, sy, sx, fy, fx))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 33, 701])
+def test_corr_window_is_bit_equal(gen, dt, m):
+    """B7 (32 pixels a block): M below one block, one pixel into a second
+    and a ragged 22nd block (701 = 21 * 32 + 29, ending in a short group of
+    outputs); starts clamped at both ends and far outside the map. Equal
+    bit for bit in both map types."""
+    maps = torch.randn(m, 40, 50, generator=gen, device="cuda").to(dt)
+    sy = torch.randint(-5, 35, (m,), generator=gen, device="cuda").int()
+    sx = torch.randint(-5, 45, (m,), generator=gen, device="cuda").int()
+    sy[0], sx[-1] = -7, 99
+    if m > 2:
+        sy[1], sx[1] = 1 << 30, -(1 << 30)
+    fy = torch.rand(m, generator=gen, device="cuda").to(dt).float()
+    fx = torch.rand(m, generator=gen, device="cuda").to(dt).float()
+    before = b67.launches
+    out = b67.corr_window_lookup(maps, sy, sx, fy, fx)
+    assert b67.launches == before + 1
+    assert torch.equal(out, b67.corr_window_lookup_plain(maps, sy, sx, fy, fx))
 
 
 def test_wrappers_check_their_inputs(gen):
