@@ -17,9 +17,12 @@ Phases (any failure raises; the exit code is then nonzero):
        node run; in bf16 B1 also with the map-dtype blend
        (`corr_lookup_map_kernel`, path A's), both blends at the main
        path's M = 165600 and at path A's per-call shape (3 pairs of
-       90x160); B2 at the node's two shapes at 640x360 and, in bf16, at
-       1280x720 too, bf16 also with each pixel tile (64 and 32 pixels a
-       block);
+       90x160), and the lanes blend (fp32 too) at the outpaint canvas's
+       call (23 pairs of 45x96); B2 at the node's two shapes at 640x360
+       and on the 768x360 outpaint canvas and, in bf16, at 1280x720 too,
+       bf16 also with each pixel tile (64 and 32 pixels a block); B3 also
+       at the outpaint canvas's shapes (30x72 token grid, the ring's
+       occupancy);
        B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
        on the same inputs; B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
@@ -28,14 +31,19 @@ Phases (any failure raises; the exit code is then nonzero):
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
      profiled run (each kernel of the path must show device time, and
-     no kernel off it; B2's
-     launches are also counted by shape), and check the output:
+     no kernel off it; B2's launches are also counted by shape; the
+     device-to-host copy's time is read from the profile), and check the
+     output (the node decodes and fetches only the mask's crop):
        the main path, 640x360 (B1 with the lanes blend, B2, B3);
        path A, 1280x720 (B1 with the map-dtype blend, B2, B4);
        path B, 640x360 with PROPAINTER_TPU_ATTN=halo and
        PROPAINTER_TPU_CORR_KERNEL=pallas (B2, B5, B6);
-     then check the card against the host on a small clip, with the
-     default kernels and with both switches;
+     then ProPainterOutpaint(device="cuda") the same way, path O: 24
+     frames of 640x360 on the default 768x360 canvas (B1 with the lanes
+     blend, B2, B3; its bands, all the card computes there, held against
+     the same node at fp16="disable"); then check the card against the host on a small
+     clip, the inpaint node with the default kernels and with both
+     switches, and the outpaint node;
   4. print the card's name and power limit, a `kernels` JSON line, and
      the result JSON as the last line.
 Needs a CUDA card; exits nonzero without one. Details land in
@@ -43,13 +51,16 @@ chiprun_out/ (ptxas log, profiles, chip_smoke.json).
 
     python3 chip_smoke.py --tree DIR
 
-times only B1 as RAFT calls it, B2 at its four shapes and the attention
+times only B1 as RAFT calls it, B2 at its six shapes and the attention
 kernels B3 and B5 at their phase-2 shapes and inputs, all bf16, and the
-node on each of the three paths (a warm-up, then
-five timed runs on the host clock), with the port package of another
-checkout DIR (the same seed, so the same inputs in every run), and
-prints them as one JSON line: two trees are compared in one call by
-running them in turns, parent, change, change, parent.
+node on each of the three paths and the outpaint node on path O (a
+warm-up, five timed runs on the host clock with the median of each
+stage, and a profiled run for the device-to-host copy's time; null for
+a tree without the outpaint node),
+with the port package of another checkout DIR (the same seed, so the
+same inputs in every run), and prints them as one JSON line: two trees
+are compared in one call by running them in turns, parent, change,
+change, parent.
 
     python3 chip_smoke.py --b7-tiles
 
@@ -339,9 +350,17 @@ def check_corr_window(dt, gen):
 # path A's RAFT call: 4-frame clips at 1280x720, 3 pairs of 90x160 1/8-res maps
 PATH_A_RAFT_CALL = (3, 90, 160)
 
+# the outpaint canvas's RAFT call: 24 frames at 768x360, 23 pairs of 45x96
+PATH_O_RAFT_CALL = (23, 45, 96)
+PATH_O_CANVAS = (360, 768)
+
 # B2's shapes: the node's feature propagation (x [5, H/4, W/4, 128], cg 8)
-# and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360 and 1280x720
-B2_SHAPES = {"fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256)}
+# and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360, 1280x720 and
+# on the 768x360 outpaint canvas
+B2_SHAPES = {
+    "fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256),
+    "fpO": (5, 90, 192, 128), "fcO": (2, 45, 96, 256),
+}
 
 
 def deform_inputs(dt, gen, shape):
@@ -459,20 +478,24 @@ def attention_library(args, n_win):
     return sdpa_library(q.reshape(nw, nh, qt, ch), k_all, v_all, bias, occ, wsz)
 
 
-def check_window_attention(dt, gen, t_sel, occ):
-    """B3 at the 640x360 shapes."""
+def check_window_attention(dt, gen, t_sel, occ, n_win=36, pl_per=91, grid="30x54"):
+    """B3 at a token grid's shapes: the main path's 30x54 (640x360; 36
+    windows a row, 91 pooled keys a frame) by default, or path O's 30x64
+    padded to 30x72 (768x360; 48 windows, 126 pooled keys)."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
 
-    n_win = 36
-    args = attention_inputs(dt, gen, n_win, t_sel, 91, occ)
+    args = attention_inputs(dt, gen, n_win, t_sel, pl_per, occ)
+    tiled = mod.uses_tiled(args[0], args[3], args[5])
+    require(dt != torch.bfloat16 or not tiled, f"B3's bf16 shapes at grid {grid} must take the single-pass kernel")
     out = mod.window_attention(*args, n_win_per_b=n_win)
     torch.cuda.synchronize()
     ref = mod.window_attention_plain(*args, n_win)
     err, rel = rel_err(out, ref)
     tol = 1e-4 if dt == torch.float32 else 2e-2  # softmax over ~2k keys; bf16 output rounding
     nw = occ.numel()
-    log(f"  B3 window_attention {str(dt)[6:]} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
-        f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
+    log(f"  B3 window_attention {str(dt)[6:]} grid {grid} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol}); the dispatcher's choice here: "
+        f"{'tiled (B4)' if tiled else 'single pass (B3)'}")
     require(rel <= tol, "window_attention disagrees with its plain version")
     ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
     clean = args[:7] + [torch.zeros_like(occ)] + args[8:]
@@ -481,11 +504,12 @@ def check_window_attention(dt, gen, t_sel, occ):
     lib = attention_library(args, n_win)
     lib_err, _ = rel_err(lib().reshape(out.shape), ref)
     library_ms = time_ms(lib, reps=5, warmup=1)
-    bound, by = attention_bound(dt, 4, 13 * 45, 45, 128, t_sel * 148, t_sel * 91, occ, n_win)
+    bound, by = attention_bound(dt, 4, 13 * 45, 45, 128, t_sel * 148, t_sel * pl_per, occ, n_win)
     log(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (SDPA, err vs plain {lib_err:.3e}); every window clean {clean_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, occupied_share=int(occ.sum()) / nw, all_clean_ms=clean_ms)
+                library_ms=library_ms, occupied_share=int(occ.sum()) / nw, all_clean_ms=clean_ms,
+                grid=grid, t_sel=t_sel)
 
 
 def check_window_attention_tiled(dt, gen, t_sel, occ):
@@ -579,20 +603,17 @@ def check_window_attention_halo(dt, gen, grid, occ):
                 library_ms=library_ms, occupied_share=int(occ.sum()) / occ.numel(), all_clean_ms=clean_ms)
 
 
-def clip_occupancy(h: int, w: int):
-    """Which 5x9 token windows of the node run on the synthetic h x w
-    clip are occupied, for each of its 5 sliding windows: the clip's
-    dilated masks at 1/4 res, pooled 7x7/3 to the token grid, any touch
-    in a window's local frames (ops/attention.py)."""
+def window_occupancy(md):
+    """Which 5x9 token windows of a 24-frame node run are occupied, for
+    each of its 5 sliding windows: the dilated masks md [24, h, w] at 1/4
+    res, pooled 7x7/3 to the token grid, any touch in a window's local
+    frames (ops/attention.py)."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
     from comfyui_propainter_nodes_tpu_torch.models import propainter as pp
-    from comfyui_propainter_nodes_tpu_torch.ops.dilation import binary_dilation
     from comfyui_propainter_nodes_tpu_torch.ops.pool import max_pool2d
     from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables
 
-    t = 24
-    _, masks = synthetic_clip(t, h, w)
-    md = binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"])
+    t, h, w = md.shape
     pool = pp.attention_pool_mask(pp.downsample_mask(md[None, ..., None], h // 4, w // 4))[0]
     fh, fw = pool.shape[1], pool.shape[2]
     pool = F.pad(pool, (0, 0, 0, -fw % 9, 0, -fh % 5))  # the window padding
@@ -603,6 +624,23 @@ def clip_occupancy(h: int, w: int):
         loc = pool[torch.as_tensor(sels[wi, :l_t_max], device="cuda")] * vl
         occ.append(max_pool2d(loc, (5, 9), (5, 9)).sum(0).reshape(-1) > 0)
     return torch.cat(occ)
+
+
+def clip_occupancy(h: int, w: int):
+    """The inpaint node's occupancy on the synthetic h x w clip."""
+    from comfyui_propainter_nodes_tpu_torch.ops.dilation import binary_dilation
+
+    _, masks = synthetic_clip(24, h, w)
+    return window_occupancy(binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"]))
+
+
+def ring_occupancy():
+    """Path O's occupancy: the outpaint ring of 640x360 frames on the
+    768x360 canvas, every frame (a 30x64 token grid padded to 30x72)."""
+    from comfyui_propainter_nodes_tpu_torch.utils.image import ring_masks
+
+    ring = ring_masks((360, 640), PATH_O_CANVAS, "cuda")[1]
+    return window_occupancy(ring[None].expand(24, *PATH_O_CANVAS).contiguous())
 
 
 # ------------------------------------------------------------------ phase 3
@@ -656,19 +694,12 @@ PROFILED = {
 }
 
 
-def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
+def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
     """Warm-up, timed run (counters reset just before it, read just
-    after), profiled run; output checks. `need` kernels must have
-    launched in the timed run, `forbid` kernels must not."""
-    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+    after), profiled run of a node's `run`. `need` kernels must have
+    launched in the timed run, `forbid` kernels must not. Returns the
+    timed run's outputs and its summary."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
-
-    t = 24
-    frames, masks = synthetic_clip(t, h, w)
-    node = ProPainterInpaint(device="cuda")
-
-    def run():
-        return node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)
 
     with switches(switched):
         t0 = time.perf_counter()
@@ -680,7 +711,7 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
         deform_conv.launch_shapes.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img, fm, md = run()
+        out = run()
         wall = time.perf_counter() - t0
         counts = {name: getattr(mod, attr) for name, mod, attr in counters()}
         b2_shapes = {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()}
@@ -698,6 +729,25 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
                 f"{tag}: a kernel of the path has no device time in the profile: {prof['kernels_ms']}")
         require(all(prof["kernels_ms"][PROFILED[k]] == 0 for k in forbid),
                 f"{tag}: a kernel off the path has device time in the profile: {prof['kernels_ms']}")
+    summary = dict(frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
+                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, profile=prof)
+    return out, summary
+
+
+def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
+    """The inpaint node on a 24-frame h x w clip (`drive`), and its output
+    checks: outside the dilated mask the output is the input, exactly."""
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import crop_decode_ok
+
+    t = 24
+    frames, masks = synthetic_clip(t, h, w)
+    node = ProPainterInpaint(device="cuda")
+
+    def run():
+        return node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)
+
+    (img, fm, md), summary = drive(tag, node, run, t, need, forbid, switched, profile_name)
     require(tuple(img.shape) == (t, h, w, 3) and img.dtype == torch.float32, (img.shape, img.dtype))
     require(tuple(fm.shape) == (t, h, w) and tuple(md.shape) == (t, h, w), (fm.shape, md.shape))
     img_np, md_np = img.numpy(), md.numpy()
@@ -708,23 +758,69 @@ def node_run(tag, h, w, need, forbid, switched=False, profile_name=None):
     err_out = float(np.abs(img_np - orig)[outside].max())
     require(err_out < 1e-6, f"{tag}: output differs from the input outside the dilated mask: {err_out}")
     require(md_np.sum() > 0 and (np.abs(img_np - orig)[~outside]).max() > 0, "the masked region must be inpainted")
-    summary = dict(size=f"{w}x{h}", frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
-                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, profile=prof)
+    log(f"  [{tag}] crop (y0, x0, ch, cw) {node.last_crop}, decoded alone: {crop_decode_ok((h, w), node.last_crop)}")
+    summary.update(size=f"{w}x{h}", crop=node.last_crop)
     return summary, img_np, md_np
 
 
-def profile_run(run, timed_wall_s, name):
-    """One more node run under torch.profiler: device time by kernel, and
-    the device's busy share of the (unprofiled) timed run's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# path O's bf16 bands against the same node's fp32 bands on the card:
+# mean and 99th percentile of |bf16 - fp32| over the band pixels, in
+# [0, 1] units; about 5x the H100's readings of 0.00109 and 0.00392
+# (PERF.md), a fifteenth of the fp32 bands' own spread
+BAND_TOL_MEAN, BAND_TOL_P99 = 0.005, 0.02
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        own_wall_s = time.perf_counter() - t0
+
+def outpaint_run(need, forbid):
+    """Path O: the outpaint node at default widgets on 24 frames of
+    640x360 (a 768x360 canvas, `drive`), and its output checks: the
+    interior is the input exactly, both bands are painted, the mask is
+    the ring and the size is the canvas's. The interior is the host's
+    own bytes, so the bands are all the card computed: they are held
+    against the same node at fp16="disable" on the card (fp32 RAFT and
+    B2, attention through B4's fp32 loop, which the dispatcher's
+    estimate picks for fp32 at these shapes)."""
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterOutpaint
+
+    t, h, w = 24, 360, 640
+    frames, _ = synthetic_clip(t, h, w)
+    node = ProPainterOutpaint(device="cuda")
+
+    def run(widgets=WIDGETS):
+        return node.propainter_outpainting(frames, width=w, height=h, width_scale=1.2, height_scale=1.0, **widgets)
+
+    tag = "path O outpaint 768x360"
+    (img, mask, ow, oh), summary = drive(tag, node, run, t, need, forbid, profile_name="profile_outpaint.txt")
+    require((ow, oh) == (768, 360), f"{tag}: output size {(ow, oh)}")
+    require(tuple(img.shape) == (t, oh, ow, 3) and img.dtype == torch.float32, (img.shape, img.dtype))
+    img_np = img.numpy()
+    require(np.isfinite(img_np).all() and img_np.min() >= 0.0 and img_np.max() <= 1.0, "IMAGE must be finite and in [0, 1]")
+    w_start = (ow - w) // 2
+    require(np.array_equal(img_np[:, :, w_start : w_start + w], frames.astype(np.float32) / 255.0),
+            f"{tag}: the interior differs from the input")
+    bands = (img_np[:, :, :w_start], img_np[:, :, w_start + w :])
+    require(all(b.max() > 0 for b in bands), f"{tag}: a band is all zero")
+    ref_np = run(dict(WIDGETS, fp16="disable"))[0].numpy()
+    ref_bands = (ref_np[:, :, :w_start], ref_np[:, :, w_start + w :])
+    d = np.concatenate([np.abs(a - b).ravel() for a, b in zip(bands, ref_bands)])
+    spread = float(np.mean([np.abs(b - b.mean()).mean() for b in ref_bands]))
+    vs_fp32 = dict(mean=float(d.mean()), p99=float(np.quantile(d, 0.99)), max=float(d.max()),
+                   share_over_1_255=float((d > 1.5 / 255).mean()), fp32_band_spread=spread)
+    log(f"  [{tag}] bands vs the fp32 node on the card: mean |d| {vs_fp32['mean']:.5f} (tol {BAND_TOL_MEAN}), "
+        f"p99 {vs_fp32['p99']:.5f} (tol {BAND_TOL_P99}), max {vs_fp32['max']:.5f}, share > 1/255 "
+        f"{vs_fp32['share_over_1_255']:.4f}; the fp32 bands' mean |x - mean| {spread:.5f}")
+    require(vs_fp32["mean"] <= BAND_TOL_MEAN and vs_fp32["p99"] <= BAND_TOL_P99,
+            f"{tag}: the bf16 bands differ from the fp32 node's: {vs_fp32}")
+    ring = np.ones((t, oh, ow), np.float32)
+    ring[:, :, w_start : w_start + w] = 0.0
+    require(tuple(mask.shape) == ring.shape and np.array_equal(mask.numpy(), ring), f"{tag}: OUTPAINT_MASK is not the ring")
+    summary.update(size=f"{w}x{h} on {ow}x{oh}", band_mean=[float(b.mean()) for b in bands], bands_vs_fp32=vs_fp32)
+    return summary
+
+
+def _device_rows(prof):
+    """(device ms, count, name) of every device-side event of a profile."""
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -734,7 +830,22 @@ def profile_run(run, timed_wall_s, name):
             dev = getattr(e, "self_cuda_time_total", 0.0)
         if dev > 0:
             rows.append((dev / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def profile_run(run, timed_wall_s, name):
+    """One more node run under torch.profiler: device time by kernel, the
+    device-to-host copies' time, and the device's busy share of the
+    (unprofiled) timed run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        own_wall_s = time.perf_counter() - t0
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log("  profiler: no device time recorded (not measured)")
@@ -746,10 +857,11 @@ def profile_run(run, timed_wall_s, name):
         "window_attention_split_mma_kernel", "window_attention_split_kernel", "window_attention_combine_kernel",
         "window_attention_halo_mma_kernel", "window_attention_halo_kernel", "corr_window4_kernel",
         "corr_window_kernel")}
+    dtoh = sum(r[0] for r in rows if "DtoH" in r[2])
     share = busy / (timed_wall_s * 1e3)
     own = busy / (own_wall_s * 1e3)
     log(f"  profiled run: device kernels {busy:.1f} ms = {100 * share:.1f}% of the timed run's "
-        f"wall, {100 * own:.1f}% of its own {own_wall_s:.3f} s; port kernels (ms): "
+        f"wall, {100 * own:.1f}% of its own {own_wall_s:.3f} s; device-to-host copies {dtoh:.2f} ms; port kernels (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in mine.items() if v > 0))
     with open(os.path.join(OUT_DIR, name), "w") as f:
         for dev, cnt, key in rows:
@@ -757,38 +869,47 @@ def profile_run(run, timed_wall_s, name):
     for dev, cnt, key in rows[:10]:
         log(f"    {dev:10.3f} ms {cnt:6d}x  {key[:90]}")
     return dict(device_kernels_ms=busy, busy_share=share, profiled_wall_s=own_wall_s,
-                busy_share_profiled=own, kernels_ms=mine)
+                busy_share_profiled=own, kernels_ms=mine, dtoh_ms=dtoh)
 
 
-def card_vs_host(switched: bool):
+SMALL_INPAINT = dict(width=96, height=64, mask_dilates=4, flow_mask_dilates=4, ref_stride=4,
+                     neighbor_length=4, subvideo_length=80, raft_iter=2, fp16="disable",
+                     _allow_random_weights=True)
+
+
+def card_vs_host(switched: bool, outpaint: bool = False):
     """The same small node run (fp32, 2 RAFT iterations) on the card and on
-    the host, whose kernels are the plain versions."""
-    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+    the host, whose kernels are the plain versions: the inpaint node, or
+    the outpaint node on a 120x96 canvas (all four bands)."""
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint, ProPainterOutpaint
 
     frames, masks = synthetic_clip(8, 120, 160)
-    kw = dict(width=96, height=64, mask_dilates=4, flow_mask_dilates=4, ref_stride=4,
-              neighbor_length=4, subvideo_length=80, raft_iter=2, fp16="disable",
-              _allow_random_weights=True)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    with switches(switched):
-        gpu = ProPainterInpaint(device="cuda").propainter_inpainting(frames, masks, **kw)
-        cpu = ProPainterInpaint(device="cpu").propainter_inpainting(frames, masks, **kw)
+    if outpaint:
+        kw = dict(SMALL_INPAINT, width_scale=1.25, height_scale=1.5)
+        runs = [ProPainterOutpaint(device=d).propainter_outpainting(frames, **kw) for d in ("cuda", "cpu")]
+    else:
+        with switches(switched):
+            runs = [ProPainterInpaint(device=d).propainter_inpainting(frames, masks, **SMALL_INPAINT)
+                    for d in ("cuda", "cpu")]
+    gpu, cpu = runs
     diff = (gpu[0] - cpu[0]).abs()
     share = float((diff > 1.5 / 255).float().mean())
-    tag = "with both switches" if switched else "default kernels"
-    log(f"  card vs host (8x64x96 fp32, {tag}): IMAGE max diff {float(diff.max()):.5f}, "
-        f"share > 1/255: {share:.6f}; masks equal: {bool(torch.equal(gpu[1], cpu[1]) and torch.equal(gpu[2], cpu[2]))}")
-    require(torch.equal(gpu[1], cpu[1]) and torch.equal(gpu[2], cpu[2]), "card and host masks differ")
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in zip(gpu[1:], cpu[1:]))
+    tag = "outpaint node" if outpaint else "with both switches" if switched else "default kernels"
+    log(f"  card vs host (8 frames, {tuple(gpu[0].shape[1:3])} fp32, {tag}): IMAGE max diff {float(diff.max()):.5f}, "
+        f"share > 1/255: {share:.6f}; masks (and size) equal: {same}")
+    require(same, f"card and host masks differ ({tag})")
     # the uint8 floor can flip one level; a flipped image-propagation mask
     # bit can move a few pixels further
-    require(share < 1e-3 and float(diff.mean()) < 1e-3, f"card and host IMAGE differ: share {share}, mean {float(diff.mean())}")
+    require(share < 1e-3 and float(diff.mean()) < 1e-3, f"card and host IMAGE differ ({tag}): share {share}, mean {float(diff.mean())}")
 
 
 def site_times(gen) -> dict:
     """bf16 times for `--tree`: B1 as RAFT's default branch calls it (both
     directions, output in the compute dtype; a package whose lookup takes
     one pyramid is timed as its RAFT called it, two launches, a cat and a
-    cast) and B2 at its four node shapes."""
+    cast) and B2 at its six node shapes."""
     import inspect
 
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
@@ -810,12 +931,24 @@ def site_times(gen) -> dict:
     return times
 
 
+def dtoh_ms(run) -> float:
+    """Device time of the device-to-host copies of one `run`, profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_rows(prof) if "DtoH" in r[2])
+
+
 def tree_times(tree: str) -> int:
-    """`--tree DIR`: B1, B2, B3 and B5 bf16 times and node wall times on
-    each path of the port package in DIR."""
+    """`--tree DIR`: B1, B2, B3 and B5 bf16 times, and node wall times
+    and device-to-host copy times on each path of the port package in DIR
+    (the outpaint node's path O null where DIR has no such node)."""
     sys.path.insert(0, os.path.abspath(tree))
     import comfyui_propainter_nodes_tpu_torch as pkg
-    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+    from comfyui_propainter_nodes_tpu_torch import nodes
 
     require(os.path.dirname(os.path.abspath(pkg.__file__)).startswith(os.path.abspath(tree)), pkg.__file__)
     torch.backends.cudnn.allow_tf32 = False
@@ -830,20 +963,33 @@ def tree_times(tree: str) -> int:
         "B5_30x54": check_window_attention_halo(dt, gen, (30, 54), occ360)["ms"],
         "B5_60x108": check_window_attention_halo(dt, gen, (60, 108), occ720)["ms"],
     }
-    walls = {}
+    walls, dtoh, stages = {}, {}, {}
     for path, h, w, switched in (("main_s", 360, 640, False), ("path_a_s", 720, 1280, False),
-                                 ("path_b_s", 360, 640, True)):
+                                 ("path_b_s", 360, 640, True), ("path_o_s", 360, 640, False)):
         frames, masks = synthetic_clip(24, h, w)
-        node = ProPainterInpaint(device="cuda")
-        runs = []
+        if path != "path_o_s":
+            node = nodes.ProPainterInpaint(device="cuda")
+            run = lambda: node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)  # noqa: E731
+        elif hasattr(nodes, "ProPainterOutpaint"):
+            node = nodes.ProPainterOutpaint(device="cuda")
+            run = lambda: node.propainter_outpainting(  # noqa: E731
+                frames, width=w, height=h, width_scale=1.2, height_scale=1.0, **WIDGETS)
+        else:
+            walls[path], dtoh[path], stages[path] = None, None, None
+            continue
+        runs, per_stage = [], []
         with switches(switched):
             for _ in range(6):  # the first is the warm-up
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)
+                run()
                 runs.append(time.perf_counter() - t0)
+                per_stage.append(node.last_pipeline.stage_seconds)
+            dtoh[path] = dtoh_ms(run)
         walls[path] = runs[1:]
-    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, **walls}))
+        stages[path] = {k: statistics.median(s[k] for s in per_stage[1:]) for k in per_stage[-1]}
+    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, **walls,
+                      "dtoh_ms": dtoh, "stage_medians_s": stages}))
     return 0
 
 
@@ -968,9 +1114,9 @@ def main() -> int:
 
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    occ360, occ720 = clip_occupancy(360, 640), clip_occupancy(720, 1280)
+    occ360, occ720, occ_o = clip_occupancy(360, 640), clip_occupancy(720, 1280), ring_occupancy()
     log(f"  window occupancy of the node runs: 640x360 {int(occ360.sum())}/{occ360.numel()}, "
-        f"1280x720 {int(occ720.sum())}/{occ720.numel()}")
+        f"1280x720 {int(occ720.sum())}/{occ720.numel()}, path O's ring on 768x360 {int(occ_o.sum())}/{occ_o.numel()}")
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt)[6:]
@@ -983,11 +1129,15 @@ def main() -> int:
             log(f"  B1 map / lanes blend: {res[('B1map', key)]['ms'] / res[('B1', key)]['ms']:.3f} at M 165600, "
                 f"{res[('B1map_720', key)]['ms'] / res[('B1_720', key)]['ms']:.3f} at path A's call")
             torch.cuda.empty_cache()
+        res[("B1_O", key)] = check_corr_lookup(dt, gen, "lanes", PATH_O_RAFT_CALL)
+        torch.cuda.empty_cache()
         for tag, shape in B2_SHAPES.items():
-            if dt == torch.bfloat16 or tag in ("fp", "fc"):  # fp32 at the 640x360 shapes only
+            if dt == torch.bfloat16 or tag in ("fp", "fc", "fpO", "fcO"):  # fp32 at 640x360 and path O
                 res[("B2" + tag, key)] = check_deform_conv(dt, gen, shape)
         res[("B3e", key)] = check_window_attention(dt, gen, 7, occ360)
         res[("B3o", key)] = check_window_attention(dt, gen, 6, occ360)
+        res[("B3eO", key)] = check_window_attention(dt, gen, 7, occ_o, 48, 126, "30x72")
+        res[("B3oO", key)] = check_window_attention(dt, gen, 6, occ_o, 48, 126, "30x72")
         res[("B4e", key)] = check_window_attention_tiled(dt, gen, 7, occ720)
         res[("B4o", key)] = check_window_attention_tiled(dt, gen, 6, occ720)
         res[("B5s", key)] = check_window_attention_halo(dt, gen, (30, 54), occ360)
@@ -996,7 +1146,7 @@ def main() -> int:
         res[("B6", key)], res[("B7", key)] = cw["B6"], cw["B7"]
         torch.cuda.empty_cache()
 
-    log("phase 3: ProPainterInpaint, 24 frames, default widgets, random weights")
+    log("phase 3: ProPainterInpaint and ProPainterOutpaint, 24 frames, default widgets, random weights")
     # the JAX dispatcher's lookup gate: the lanes blend for the main path's
     # one RAFT call (w8 = 80, 723.5 MB a direction), the map-dtype blend for
     # path A's (w8 = 160)
@@ -1019,8 +1169,15 @@ def main() -> int:
     path_b["vs_default_inside_mask"] = dict(mean=float(delta.mean()), max=float(delta.max()))
     log(f"  path B vs the main path inside the dilated mask: mean |d| {delta.mean():.6f}, max |d| {delta.max():.6f} "
         "(reported, not gated: B6's fractions are rounded to bf16)")
+    # the outpaint canvas: RAFT's gate at both of its edges (w8 = 96, the
+    # lanes' widest; 976.8 MB of the 1 GiB a direction) still takes the lanes
+    path_o = outpaint_run(
+        ("corr_lookup", "deform_conv", "window_attention"),
+        ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window"),
+    )
     card_vs_host(False)
     card_vs_host(True)
+    card_vs_host(False, outpaint=True)
 
     log("phase 4: report")
     smi = subprocess.run(
@@ -1040,6 +1197,7 @@ def main() -> int:
         ("corr_window4", "corr_window.cu", "corr_lookup.py:91", "B6", path_b),
         ("corr_window", "corr_window.cu", "corr_lookup.py:42", "B7", main_run),
     ]
+    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o}
     kernels = []
     for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
@@ -1050,23 +1208,31 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "dtype": "bf16",
             "max_abs_err_fp32": f32 and f32["max_abs_err"], "ms_fp32": f32 and f32["ms"],
+            "launches_by_path": {p: v["launches"][name_k] for p, v in paths.items()},
         }
         if rk.startswith("B1"):
             row["blend"] = r["blend"]
             row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]
+        if rk == "B1":
+            row["ms_path_o_call"] = res[("B1_O", "bfloat16")]["ms"]
+        if rk == "B3e":  # path O's shapes, t_sel 7 (B3 at t_sel 6 in chip_smoke.json)
+            o, o32 = res[("B3eO", "bfloat16")], res[("B3eO", "float32")]
+            row["path_o_shapes"] = {k: o[k] for k in ("grid", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms", "occupied_share")}
+            row["path_o_shapes"].update(max_abs_err_fp32=o32["max_abs_err"], ms_fp32=o32["ms"])
         if rk == "B1map":
             row["computes"] = "the JAX package's lookup_corr in bf16 (models/raft.py:249-349), taken past the lanes gate"
         if "b3_ms" in r:
             row["b3_ms_same_inputs"] = r["b3_ms"]
         if rk == "B2fp":
             row["ms_by_shape"] = {tag: res[("B2" + tag, "bfloat16")]["ms"] for tag in B2_SHAPES}
-            row["launches_by_shape"] = run["b2_launches_by_shape"]
+            row["launches_by_shape"] = {p: v["b2_launches_by_shape"] for p, v in paths.items()}
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "resources": resources,
-                   "node": {"main": main_run, "path_a": path_a, "path_b": path_b}}, f, indent=1)
+                   "node": paths}, f, indent=1)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

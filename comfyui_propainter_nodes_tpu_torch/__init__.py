@@ -11,8 +11,21 @@ order, flows (dx, dy). Weights are upstream (torch state-dict) layout:
 conv OIHW, conv3d OIDHW, linear (out, in). Convs view NHWC activations
 as channels-last NCHW for cuDNN.
 
-Kernels (ops/cuda/, sources in csrc/): the RAFT correlation lookup, the
-modulated deformable conv and the occupancy-sparse window attention.
+Nodes: `ProPainterInpaint` and `ProPainterOutpaint` (nodes.py), with the
+JAX package's contract.
+
+Kernels (ops/cuda/, sources in csrc/), one for each of the JAX package's
+seven Pallas kernels:
+  B1 the RAFT correlation window lookup, both directions in one launch
+     (corr_lookup.cu: the lanes blend, and the map-dtype blend of the
+     JAX dispatcher's other branch);
+  B2 the modulated deformable 3x3 conv (deform_conv.cu);
+  B3 the occupancy-sparse window attention, single pass
+     (window_attention.cu);
+  B4 the segment-tiled window attention (window_attention_tiled.cu);
+  B5 the halo window attention (window_attention_halo.cu);
+  B6 the four-level padded-map correlation lookup and B7 its one-level
+     form (corr_window.cu).
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version for CPU tensors.
 """

@@ -1,8 +1,9 @@
 """Frozen config tree for the pipeline.
 
-Re-declares the JAX package's `ImageConfig` / `PipelineConfig` so the
-port needs nothing from it. Same fields, same defaults, same derived
-properties: a config means the same run in both packages.
+Re-declares the JAX package's `ImageConfig` / `OutpaintConfig` /
+`PipelineConfig` so the port needs nothing from it. Same fields, same
+defaults, same derived properties: a config means the same run in both
+packages.
 """
 
 from __future__ import annotations
@@ -26,6 +27,21 @@ class ImageConfig:
     @property
     def process_size(self) -> tuple[int, int]:
         return (_mod8(self.width), _mod8(self.height))
+
+
+@dataclass(frozen=True)
+class OutpaintConfig(ImageConfig):
+    """Adds the scaled outpaint canvas (reference utils/image_utils.py:30-49)."""
+
+    width_scale: float = 1.2
+    height_scale: float = 1.0
+
+    @property
+    def outpaint_size(self) -> tuple[int, int]:
+        return (
+            _mod8(int(self.width_scale * self.width)),
+            _mod8(int(self.height_scale * self.height)),
+        )
 
 
 @dataclass(frozen=True)

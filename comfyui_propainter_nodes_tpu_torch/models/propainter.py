@@ -4,8 +4,8 @@ Port of the JAX package's `models/propainter.py` (main path): the
 encoder with grouped fusion, image propagation (warp-fill, no weights)
 and feature propagation (first-order deformable alignment on the
 deform-conv kernel) as Python loops over frames, soft split/comp around
-the 8-block sparse transformer (ops/attention.py), and the full-frame
-decoder over local frames.
+the 8-block sparse transformer (ops/attention.py), and the decoder over
+local frames: full-frame, or only a crop of it (`decoder_crop`).
 
 Window batching pads each window's local and reference frame blocks;
 `l_t_valid` / `ref_valid` give the real counts (None, an int, or a [B]
@@ -24,7 +24,7 @@ from ..ops.conv import leaky_relu, pconv2d
 from ..ops.cuda.deform_conv import deform_conv2d
 from ..ops.dilation import binarize
 from ..ops.pool import max_pool2d
-from ..ops.resize import resize_bilinear, resize_nearest
+from ..ops.resize import resize_2x_window, resize_bilinear, resize_nearest
 from ..ops.warp import flow_warp
 
 Params = Mapping[str, torch.Tensor]
@@ -71,6 +71,35 @@ def decoder(p: Params, x):
     x = leaky_relu(pconv2d(p, "decoder.2", x, padding=(1, 1)), 0.2)
     x = leaky_relu(deconv("decoder.4", x), 0.2)
     return pconv2d(p, "decoder.6", x, padding=(1, 1))
+
+
+DECODER_HALO4 = 4  # 1/4-res halo rows/cols covering the decoder's
+# receptive field (convs +-3.25 at 1/4 incl. the two 2x resizes)
+
+
+def decoder_crop(p: Params, x, y0: int, x0: int, ch: int, cw: int):
+    """`decoder` restricted to the full-res crop [y0:y0+ch, x0:x0+cw).
+
+    x: the full [N, h4, w4, 128] quarter-res features; y0/x0 any full-res
+    offsets (the crop need not be aligned). Exact: a block with
+    DECODER_HALO4 rows and columns of halo, its start clamped into the
+    frame, goes through the decoder with both 2x upsamples on the full
+    image's grid (`resize_2x_window`); the halo, which takes the conv
+    padding and the resizes' edge rows, is trimmed at full res."""
+    n, h4, w4, _ = x.shape
+    halo = DECODER_HALO4
+    nbh = ch // 4 + 2 * halo
+    nbw = cw // 4 + 2 * halo
+    sy = min(max(y0 // 4 - halo, 0), h4 - nbh)
+    sx = min(max(x0 // 4 - halo, 0), w4 - nbw)
+    v = resize_2x_window(x[:, sy : sy + nbh, sx : sx + nbw], sy, sx, h4, w4)
+    v = leaky_relu(pconv2d(p, "decoder.0.conv", v, padding=(1, 1)), 0.2)
+    v = leaky_relu(pconv2d(p, "decoder.2", v, padding=(1, 1)), 0.2)
+    v = resize_2x_window(v, 2 * sy, 2 * sx, 2 * h4, 2 * w4)
+    v = leaky_relu(pconv2d(p, "decoder.4.conv", v, padding=(1, 1)), 0.2)
+    v = pconv2d(p, "decoder.6", v, padding=(1, 1))
+    oy, ox = y0 - 4 * sy, x0 - 4 * sx
+    return v[:, oy : oy + ch, ox : ox + cw]
 
 
 def _deformable_alignment(p: Params, pre: str, x, cond, flow):
@@ -247,11 +276,13 @@ def _t_valid_mask(b, t, l_t, l_t_valid, ref_valid, device):
 def inpaint_generator_from_features(
     p: Params, enc_feat, ds_flows_f, ds_flows_b, ds_mask_in_local,
     ds_mask_updated_local, mask_pool_l, num_local_frames: int, ori_hw,
-    l_t_valid=None, ref_valid=None,
+    l_t_valid=None, ref_valid=None, crop=None,
 ):
     """InpaintGenerator.forward after the encoder: feature propagation over
     local frames, soft split, transformer, soft comp, decoder.
-    enc_feat [B, T, h, w, 128] -> local frames [B, l_t, H, W, 3] in [-1, 1]."""
+    enc_feat [B, T, h, w, 128] -> local frames [B, l_t, H, W, 3] in [-1, 1];
+    with crop = (y0, x0, ch, cw), only that full-res window is decoded
+    (`decoder_crop`, exact) and the result is [B, l_t, ch, cw, 3]."""
     l_t = num_local_frames
     b, t, h, w, _ = enc_feat.shape
     ori_h, ori_w = ori_hw
@@ -271,8 +302,11 @@ def inpaint_generator_from_features(
     )
     trans_feat = soft_comp(p, "sc", trans_feat.reshape(b * t, fh, fw, HIDDEN), (h, w))
     enc_feat = enc_feat + trans_feat.reshape(b, t, h, w, CHANNEL)
-    out = decoder(p, enc_feat[:, :l_t].reshape(b * l_t, h, w, CHANNEL))
-    return torch.tanh(out).reshape(b, l_t, ori_h, ori_w, 3)
+    local = enc_feat[:, :l_t].reshape(b * l_t, h, w, CHANNEL)
+    if crop is not None:
+        y0, x0, ch, cw = crop
+        return torch.tanh(decoder_crop(p, local, y0, x0, ch, cw)).reshape(b, l_t, ch, cw, 3)
+    return torch.tanh(decoder(p, local)).reshape(b, l_t, ori_h, ori_w, 3)
 
 
 def inpaint_generator_forward(

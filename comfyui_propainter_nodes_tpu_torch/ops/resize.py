@@ -109,6 +109,42 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int, align_corners: bool
     return _axis_bilinear(x, w, out_w, x.ndim - 2, align_corners)
 
 
+def _axis_2x_window(v: torch.Tensor, axis: int, k0: int, full: int, align_corners: bool):
+    """Output rows [2*k0, 2*(k0 + n)) of the full 2x resize along `axis`
+    from the block v of input rows [k0, k0 + n): the full image's taps,
+    taken relative to the block; a tap outside the block reads 0, as the
+    JAX package's zero-padded window does. Folded weighted taps, as its
+    phase plan sums them."""
+    n = v.shape[axis]
+    i0, i1, w0, w1 = _folded_taps(full, 2 * full, align_corners)
+    rows = slice(2 * k0, 2 * (k0 + n))
+    r0, r1 = i0[rows] - k0, i1[rows] - k0
+    lo = max(0, -int(min(r0.min(), r1.min())))
+    hi = max(0, int(max(r0.max(), r1.max())) - (n - 1))
+    if lo or hi:
+        pad = [0, 0] * (v.ndim - 1 - axis) + [lo, hi]
+        v = torch.nn.functional.pad(v, pad)
+    dev = v.device
+    shape = [1] * v.ndim
+    shape[axis] = 2 * n
+    v0 = v.index_select(axis, torch.from_numpy(r0 + lo).to(dev))
+    v1 = v.index_select(axis, torch.from_numpy(r1 + lo).to(dev))
+    wt0 = torch.from_numpy(w0[rows]).to(dev, v.dtype).reshape(shape)
+    wt1 = torch.from_numpy(w1[rows]).to(dev, v.dtype).reshape(shape)
+    return v0 * wt0 + v1 * wt1
+
+
+def resize_2x_window(x: torch.Tensor, y0k: int, x0k: int, full_h: int, full_w: int, align_corners: bool = True):
+    """2x bilinear upsample of the block x [..., n_h, n_w, C] that holds
+    rows [y0k, y0k + n_h) and columns [x0k, x0k + n_w) of a full
+    [full_h, full_w] image, sampled on the full image's grid. Output
+    rows and columns inside the block's reach equal the full resize's;
+    the edge ones, whose taps leave the block, are for the caller's halo
+    to trim."""
+    x = _axis_2x_window(x, x.ndim - 3, y0k, full_h, align_corners)
+    return _axis_2x_window(x, x.ndim - 2, x0k, full_w, align_corners)
+
+
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Nearest-neighbour resize of [..., H, W, C] (torch 'nearest')."""
     h, w = x.shape[-3], x.shape[-2]

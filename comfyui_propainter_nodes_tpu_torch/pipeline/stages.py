@@ -11,11 +11,18 @@ masked chunks compute for their real frames). RAFT's clip chunking only
 bounds memory, so all pairs run in one call when the correlation
 volumes fit. The feature stage encodes every frame once and gathers
 windows from the per-frame features, in groups of at most 8 windows.
+
+With a crop (the node's mask bounding box, `nodes.py::_mask_crop_plan`)
+the feature stage decodes, composites and blends only that window: the
+composed video equals the input outside the dilated mask, and
+`decoder_crop` is exact. `process_node_outpaint` runs the stages on the
+outpaint canvas and returns only its bands.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -25,6 +32,7 @@ from ..config import PipelineConfig
 from ..models import flow_completion as fc
 from ..models import propainter as pp
 from ..models import raft
+from ..utils.image import extrapolate_frames
 from ..utils.params import to_device
 
 RAFT_ALLPAIRS_BYTES = 4.5e9  # all-pairs volume budget for one RAFT call
@@ -47,6 +55,19 @@ def get_ref_index(mid_neighbor_id, neighbor_ids, video_length, ref_stride, ref_n
                     break
                 ref_index.append(i)
     return ref_index
+
+
+def crop_decode_ok(hw: tuple[int, int], crop) -> bool:
+    """Whether the feature stage decodes only the crop (the JAX node's
+    gate, stages.py:1646-1653): decoder_crop's halo block must fit inside
+    the frame; PROPAINTER_TPU_CROP_DECODE=0 (read at call time) turns it
+    off, and the full frames are decoded and then cropped."""
+    halo = 8 * pp.DECODER_HALO4  # full-res rows of halo, both sides
+    return (
+        os.environ.get("PROPAINTER_TPU_CROP_DECODE", "1") == "1"
+        and crop[2] + halo <= hw[0]
+        and crop[3] + halo <= hw[1]
+    )
 
 
 @contextlib.contextmanager
@@ -246,10 +267,12 @@ class Pipeline:
 
     # ------------------------------------------------------------- stage 4
 
-    def feature_propagation(self, updated_frames, updated_masks, masks_dilated, pred_flows, original_frames):
+    def feature_propagation(self, updated_frames, updated_masks, masks_dilated, pred_flows, original_frames, crop=None):
         """Sliding-window transformer inference, uint8 composite and overlap
         blend. original_frames [T, H, W, 3] float 0..255. Returns the
-        composed video [T, H, W, 3] float 0..255 (uint8-exact)."""
+        composed video [T, H, W, 3] float 0..255 (uint8-exact); with crop =
+        (y0, x0, ch, cw) only that window of it, [T, ch, cw, 3], decoded
+        alone where `crop_decode_ok` allows."""
         cfg = self.config
         dt = self.cdtype
         dev = self.device
@@ -266,6 +289,14 @@ class Pipeline:
         ff_p = pad_t(pred_flows[0].to(dt))
         fb_p = pad_t(pred_flows[1].to(dt))
         orig_p = pad_t(original_frames.float()[None])[0]
+        # the composite's inputs, cropped: the composite and blend run on the crop
+        md_c, orig_c, decode_crop = md_p[0], orig_p, None
+        if crop is not None:
+            y0, x0, ch, cw = crop
+            md_c = md_c[:, y0 : y0 + ch, x0 : x0 + cw]
+            orig_c = orig_c[:, y0 : y0 + ch, x0 : x0 + cw]
+            if crop_decode_ok((hh, ww), crop):
+                decode_crop = crop
         h4, w4 = hh // 4, ww // 4
         prm = self.inpaint_params
 
@@ -284,7 +315,6 @@ class Pipeline:
             gloc = gsel[:, :l_t_max]
             gvl = torch.as_tensor(valids[grp][:, :l_t_max], device=dev, dtype=dt)[:, :, None, None, None]
             gst = [int(s) for s in starts[grp]]
-            md_local = md_p[0, gloc] * gvl
             pred = pp.inpaint_generator_from_features(
                 prm,
                 enc_all[gsel],
@@ -297,21 +327,25 @@ class Pipeline:
                 (hh, ww),
                 l_t_valid=torch.as_tensor(lts[grp], device=dev),
                 ref_valid=torch.as_tensor(refs[grp], device=dev),
+                crop=decode_crop,
             )
+            if crop is not None and decode_crop is None:
+                pred = pred[:, :, y0 : y0 + ch, x0 : x0 + cw]
             # uint8 composite (propainter_inference.py:283-293)
             pred_byte = torch.floor((pred.float() + 1.0) / 2.0 * 255.0)
-            binary = md_local.float()
-            orig = torch.stack([orig_p[s : s + l_t_max] for s in gst])
+            binary = (md_c[gloc] * gvl).float()
+            orig = torch.stack([orig_c[s : s + l_t_max] for s in gst])
             imgs.append(torch.floor(pred_byte * binary + orig * (1.0 - binary)))
         return _blend_windows(torch.cat(imgs, dim=0), starts, slot_valid, t, l_t_max)
 
     # ------------------------------------------------------------ full run
 
-    def process(self, frames_norm, flow_masks, masks_dilated, original_frames):
+    def process(self, frames_norm, flow_masks, masks_dilated, original_frames, crop=None):
         """The four stages. frames_norm [1, T, H, W, 3] fp32 in [-1, 1];
         masks [1, T, H, W, 1]; original_frames [T, H, W, 3] float 0..255.
-        Returns the composed video [T, H, W, 3] float 0..255. Per-stage
-        wall times (synchronised on the card) land in `stage_seconds`."""
+        Returns the composed video [T, H, W, 3] float 0..255, or with crop =
+        (y0, x0, ch, cw) its window [T, ch, cw, 3]. Per-stage wall times
+        (synchronised on the card) land in `stage_seconds`."""
         stages = {}
 
         def timed(name, fn, *args):
@@ -329,7 +363,34 @@ class Pipeline:
             uf, um = timed("image_propagation", self.image_propagation, frames_norm, masks_dilated, pred_flows)
             out = timed(
                 "feature_propagation", self.feature_propagation,
-                uf, um, masks_dilated, pred_flows, original_frames,
+                uf, um, masks_dilated, pred_flows, original_frames, crop,
             )
         self.stage_seconds = stages
         return out
+
+    def process_node_outpaint(self, frames_u8, canvas_hw: tuple[int, int]):
+        """The outpaint node's run. frames_u8 [T, ph, pw, 3] uint8 on the
+        device go centred on a zero canvas of canvas_hw with both ring
+        masks (`extrapolate_frames`; k / 255 * 255 is k again in fp32);
+        the four stages take the canvas as the original frames.
+        Returns the composed canvas's uint8 bands, top, bottom, left and
+        right, empty ones left out: the interior equals the input bytes
+        (its dilated mask is 0), so the caller already holds it."""
+        t, ph, pw, _ = frames_u8.shape
+        chh, cww = canvas_hw
+        h_start, w_start = (chh - ph) // 2, (cww - pw) // 2
+        canvas, flow_masks, masks_dilated = extrapolate_frames(frames_u8.float() / 255.0, pw, ph, cww, chh)
+        canvas = canvas * 255.0
+        composed = self.process(
+            (canvas / 255.0 * 2.0 - 1.0)[None],
+            flow_masks[None].contiguous(),
+            masks_dilated[None].contiguous(),
+            canvas,
+        ).to(torch.uint8)
+        bands = []
+        if h_start:
+            bands += [composed[:, :h_start], composed[:, h_start + ph :]]
+        if w_start:
+            mid = composed[:, h_start : h_start + ph]
+            bands += [mid[:, :, :w_start], mid[:, :, w_start + pw :]]
+        return bands

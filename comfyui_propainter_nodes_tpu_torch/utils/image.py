@@ -1,6 +1,6 @@
 """On-device image preprocessing: PIL-equivalent bicubic resize, byte
 quantization, mask dilation and [-1, 1] normalization, batched over the
-whole [T, H, W, C] stack."""
+whole [T, H, W, C] stack; the outpaint canvas and its ring masks."""
 
 from __future__ import annotations
 
@@ -74,3 +74,38 @@ def prepare_masks(masks: torch.Tensor, out_w: int, out_h: int, flow_dilates: int
     flow_masks = binary_dilation(base, flow_dilates) if flow_dilates > 0 else base
     masks_dilated = binary_dilation(base, mask_dilates) if mask_dilates > 0 else base
     return flow_masks[..., None], masks_dilated[..., None]
+
+
+def ring_masks(frame_hw, canvas_hw, device=None):
+    """The outpaint canvas's (flow_mask, mask_dilated) [canvas_h, canvas_w]
+    (utils/image_utils.py:237-252): 1 outside the centred frame, 0 inside;
+    the flow mask's hole is inset by 4 px on an axis whose margin is
+    above 10 px."""
+    out_h, out_w = frame_hw
+    canvas_h, canvas_w = canvas_hw
+    h_start = (canvas_h - out_h) // 2
+    w_start = (canvas_w - out_w) // 2
+    dil_h = 4 if h_start > 10 else 0
+    dil_w = 4 if w_start > 10 else 0
+    flow_mask = torch.ones((canvas_h, canvas_w), device=device)
+    flow_mask[h_start + dil_h : h_start + out_h - dil_h, w_start + dil_w : w_start + out_w - dil_w] = 0.0
+    mask_dilated = torch.ones((canvas_h, canvas_w), device=device)
+    mask_dilated[h_start : h_start + out_h, w_start : w_start + out_w] = 0.0
+    return flow_mask, mask_dilated
+
+
+def extrapolate_frames(frames: torch.Tensor, out_w: int, out_h: int, canvas_w: int, canvas_h: int):
+    """Outpainting canvas (utils/image_utils.py:200-252). frames [T, H, W, 3]
+    in [0, 1] -> (canvas [T, canvas_h, canvas_w, 3] in [0, 1] with the
+    resized frames centred, flow_masks, masks_dilated [T, canvas_h,
+    canvas_w, 1])."""
+    t = frames.shape[0]
+    byte0 = torch.floor(torch.clamp(frames.float() * 255.0, 0.0, 255.0))
+    byte = resize_frames(byte0, out_w, out_h) / 255.0
+    h_start = (canvas_h - out_h) // 2
+    w_start = (canvas_w - out_w) // 2
+    canvas = frames.new_zeros((t, canvas_h, canvas_w, 3))
+    canvas[:, h_start : h_start + out_h, w_start : w_start + out_w] = byte.to(canvas.dtype)
+    flow_mask, mask_dilated = ring_masks((out_h, out_w), (canvas_h, canvas_w), frames.device)
+    shape = (t, canvas_h, canvas_w, 1)
+    return canvas, flow_mask[None, :, :, None].expand(shape), mask_dilated[None, :, :, None].expand(shape)

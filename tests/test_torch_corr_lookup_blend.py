@@ -146,8 +146,13 @@ ENVS = {
     "einsum": {"PROPAINTER_TPU_CORR_KERNEL": "einsum"},
 }
 # the default choices: the main path (24 frames at 640x360) takes the lanes
-# blend in bf16, path A (1280x720 in 4-frame calls) and a 41-frame clip the map blend
-EXPECTED_DEFAULT = {(23, 45, 80): "lanes", (3, 90, 160): "map", (40, 45, 80): "map"}
+# blend in bf16, path A (1280x720 in 4-frame calls) and a 41-frame clip the map
+# blend; on the outpaint canvas (768x360, w8 = 96, the lanes' widest) 24 frames
+# take the lanes blend and 27 frames, past the 1 GiB volume, the map blend
+EXPECTED_DEFAULT = {
+    (23, 45, 80): "lanes", (3, 90, 160): "map", (40, 45, 80): "map",
+    (23, 45, 96): "lanes", (26, 45, 96): "map",
+}
 
 
 @pytest.mark.parametrize("env", list(ENVS))

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from comfyui_propainter_nodes_tpu import NODE_CLASS_MAPPINGS as JAX_CLASSES
+from comfyui_propainter_nodes_tpu import NODE_DISPLAY_NAME_MAPPINGS as JAX_NAMES
 from comfyui_propainter_nodes_tpu.nodes import ProPainterInpaint as JaxInpaint
-from comfyui_propainter_nodes_tpu_torch import NODE_CLASS_MAPPINGS
-from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+from comfyui_propainter_nodes_tpu_torch import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
+from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint, ProPainterOutpaint
 
 torch.set_num_threads(1)
 
@@ -57,13 +59,18 @@ def test_node_matches_jax_node():
 
 
 def test_node_contract():
-    assert set(NODE_CLASS_MAPPINGS) == {"ProPainterInpaint"}
-    assert ProPainterInpaint.INPUT_TYPES() == JaxInpaint.INPUT_TYPES()
-    for attr in ("RETURN_TYPES", "RETURN_NAMES", "FUNCTION", "CATEGORY"):
-        assert getattr(ProPainterInpaint, attr) == getattr(JaxInpaint, attr)
+    assert set(NODE_CLASS_MAPPINGS) == {"ProPainterInpaint", "ProPainterOutpaint"}
+    assert set(NODE_CLASS_MAPPINGS) == set(JAX_CLASSES)
+    assert NODE_DISPLAY_NAME_MAPPINGS == JAX_NAMES
+    for name, node in NODE_CLASS_MAPPINGS.items():
+        jax_node = JAX_CLASSES[name]
+        assert node.INPUT_TYPES() == jax_node.INPUT_TYPES()
+        for attr in ("RETURN_TYPES", "RETURN_NAMES", "FUNCTION", "CATEGORY"):
+            assert getattr(node, attr) == getattr(jax_node, attr)
 
 
-def test_node_without_card_raises(monkeypatch):
+@pytest.mark.parametrize("node", [ProPainterInpaint, ProPainterOutpaint])
+def test_node_without_card_raises(monkeypatch, node):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        ProPainterInpaint()
+        node()
