@@ -23,8 +23,10 @@ Phases (any failure raises; the exit code is then nonzero):
        bf16 also with each pixel tile (64 and 32 pixels a block); B3 also
        at the outpaint canvas's shapes (30x72 token grid, the ring's
        occupancy);
-       B4 (segment-tiled attention) at the 1280x720 shapes, with B3 timed
-       on the same inputs; B5 (halo attention) at the 640x360 and
+       B4 (segment-tiled attention) at the 1280x720 shapes, path A's
+       (5 windows of 13 frames) and path S's (one window of 19 frames,
+       t_sel 10 and 9, the middle window's occupancy), with B3 timed on
+       the same inputs; B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
        main path's padded pyramid and B7 (one level) on its level 0;
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
@@ -41,9 +43,19 @@ Phases (any failure raises; the exit code is then nonzero):
      then ProPainterOutpaint(device="cuda") the same way, path O: 24
      frames of 640x360 on the default 768x360 canvas (B1 with the lanes
      blend, B2, B3; its bands, all the card computes there, held against
-     the same node at fp16="disable"); then check the card against the host on a small
+     the same node at fp16="disable"); then path S: the long-video
+     entry point `process_streaming` over 240 frames at 1280x720 read from
+     .npy files through `VideoSource`, twice: with blocking stage timers
+     and each stage's peak memory, then as a user runs it, with the launch
+     counters reset just before it (B1 with the map-dtype blend, B2, B4;
+     every frame written once, in order, uint8-exact, equal to the input
+     outside its dilated mask; wall, frames/s, time to the first write,
+     peak memory and memory after each window's eviction);
+     then check the card against the host on a small
      clip, the inpaint node with the default kernels and with both
-     switches, and the outpaint node;
+     switches, and the outpaint node; and streaming against the
+     in-memory run on the card (48 frames at 640x360, subvideo_length 16,
+     fp32 and bf16, differing bytes counted);
   4. print the card's name and power limit, a `kernels` JSON line, and
      the result JSON as the last line.
 Needs a CUDA card; exits nonzero without one. Details land in
@@ -66,11 +78,18 @@ change, parent.
 
 builds B7 with 16, 32, 64 and 96 pixels a block and times each, in bf16
 and fp32, at its phase-2 shape (one JSON line).
+
+    python3 chip_smoke.py --fc-plan
+
+measures flow completion's peak memory and time at path S's largest
+completion chunk and path A's, with both directions batched (the port's
+plan), in turn, and (path A) decoded at once (one JSON line).
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -79,11 +98,16 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# the nodes' progress bars (tqdm, on stderr) off; tqdm reads this when it is
+# first imported, which importing torch does
+os.environ["TQDM_DISABLE"] = "1"
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -354,12 +378,23 @@ PATH_A_RAFT_CALL = (3, 90, 160)
 PATH_O_RAFT_CALL = (23, 45, 96)
 PATH_O_CANVAS = (360, 768)
 
+# path S: process_streaming over the synthetic clip at 1280x720, 240 frames
+# (frames, height, width), default widgets
+PATH_S = (240, 720, 1280)
+
+# streaming against in-memory on the card: (frames, height, width)
+STREAM_CLIP = (48, 360, 640)
+
+# path S's RAFT calls: 4-frame clips, 3 or 4 pairs of 90x160 (path A's is 3)
+PATH_S_RAFT_CALL = (4, 90, 160)
+
 # B2's shapes: the node's feature propagation (x [5, H/4, W/4, 128], cg 8)
 # and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360, 1280x720 and
-# on the 768x360 outpaint canvas
+# on the 768x360 outpaint canvas; path S's feature propagation, one window a
+# call (x [1, ...])
 B2_SHAPES = {
     "fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256),
-    "fpO": (5, 90, 192, 128), "fcO": (2, 45, 96, 256),
+    "fpO": (5, 90, 192, 128), "fcO": (2, 45, 96, 256), "fpS": (1, 180, 320, 128),
 }
 
 
@@ -418,11 +453,13 @@ def check_deform_conv(dt, gen, shape):
 
 
 def attention_biases(b, t, t_sel, per_key):
-    """t_ind frames (every other one) and one padded ref frame in batch
-    row 1: bias_w [B, T*45] and one [B, T_sel*n] bias per segment length n."""
+    """t_ind frames (every other one: from frame 0 when t_sel is ceil(t / 2),
+    else from frame 1) and one padded ref frame, the last, in batch row 1
+    (row 0 when b is 1): bias_w [B, T*45] and one [B, T_sel*n] bias per
+    segment length n."""
     tv = torch.ones(b, t, dtype=torch.bool, device="cuda")
-    tv[1, -1] = False
-    in_tind = (torch.arange(t, device="cuda") % 2) == (0 if t_sel == 7 else 1)
+    tv[min(1, b - 1), -1] = False
+    in_tind = (torch.arange(t, device="cuda") % 2) == (0 if t_sel == (t + 1) // 2 else 1)
     bias_w = torch.where(in_tind[None] & tv, 0.0, -1e9).repeat_interleave(45, 1).float().contiguous()
     sel = tv[:, in_tind]
     return [bias_w] + [torch.where(sel, 0.0, -1e9).repeat_interleave(n, 1).float().contiguous() for n in per_key]
@@ -455,8 +492,11 @@ def attention_bound(dt, nh, qt, wsz, ch, rl, pl_len, occ, n_win):
     return bound_ms(flops, nbytes, dt)
 
 
-def attention_inputs(dt, gen, n_win, t_sel, pl_per, occ):
-    b, nh, t, wsz, ch = 5, 4, 13, 45, 128
+def attention_inputs(dt, gen, n_win, t_sel, pl_per, occ, b=5, t=13):
+    """A layer's attention inputs: b batch rows (windows of the sliding
+    window loop) of t frames, n_win token windows a row; by default a
+    24-frame node's group of 5 windows of 13 frames."""
+    nh, wsz, ch = 4, 45, 128
     rl, pl_len = t_sel * 148, t_sel * pl_per
     nw = b * n_win
 
@@ -512,13 +552,14 @@ def check_window_attention(dt, gen, t_sel, occ, n_win=36, pl_per=91, grid="30x54
                 grid=grid, t_sel=t_sel)
 
 
-def check_window_attention_tiled(dt, gen, t_sel, occ):
+def check_window_attention_tiled(dt, gen, t_sel, occ, b=5, t=13):
     """B4 at the 1280x720 shapes (144 windows per batch row, pooled
-    segment t_sel * 405 keys), and B3 on the same inputs."""
+    segment t_sel * 405 keys), and B3 on the same inputs: by default path
+    A's 5 windows of 13 frames; path S's is one window of 19 (b=1, t=19)."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
 
     n_win = 144
-    args = attention_inputs(dt, gen, n_win, t_sel, 405, occ)
+    args = attention_inputs(dt, gen, n_win, t_sel, 405, occ, b, t)
     require(mod.uses_tiled(args[0], args[3], args[5]), "the 1280x720 shapes must take the tiled kernel")
     out = mod.window_attention_tiled(*args, n_win_per_b=n_win)
     torch.cuda.synchronize()
@@ -526,7 +567,7 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     err, rel = rel_err(out, ref)
     tol = 1e-4 if dt == torch.float32 else 2e-2  # softmax over ~4.5k keys; bf16 output rounding
     nw = occ.numel()
-    log(f"  B4 window_attention_tiled {str(dt)[6:]} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
+    log(f"  B4 window_attention_tiled {str(dt)[6:]} b={b} t={t} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "window_attention_tiled disagrees with its plain version")
     del ref
@@ -536,11 +577,11 @@ def check_window_attention_tiled(dt, gen, t_sel, occ):
     lib = attention_library(args, n_win)
     lib_err, _ = rel_err(lib().reshape(out.shape), out)
     library_ms = time_ms(lib, reps=5, warmup=1)
-    bound, by = attention_bound(dt, 4, 13 * 45, 45, 128, t_sel * 148, t_sel * 405, occ, n_win)
+    bound, by = attention_bound(dt, 4, t * 45, 45, 128, t_sel * 148, t_sel * 405, occ, n_win)
     log(f"    ms {ms:.4f}  B3 on the same inputs {b3_ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (SDPA, err vs kernel {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw)
+                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw, b=b, t=t, t_sel=t_sel)
 
 
 def check_window_attention_halo(dt, gen, grid, occ):
@@ -603,26 +644,37 @@ def check_window_attention_halo(dt, gen, grid, occ):
                 library_ms=library_ms, occupied_share=int(occ.sum()) / occ.numel(), all_clean_ms=clean_ms)
 
 
-def window_occupancy(md):
-    """Which 5x9 token windows of a 24-frame node run are occupied, for
-    each of its 5 sliding windows: the dilated masks md [24, h, w] at 1/4
-    res, pooled 7x7/3 to the token grid, any touch in a window's local
-    frames (ops/attention.py)."""
-    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+def token_pool(md):
+    """The dilated masks md [t, h, w] at 1/4 res, pooled 7x7/3 to the
+    token grid and padded to whole 5x9 windows: [t, Hp, Wp, 1]."""
     from comfyui_propainter_nodes_tpu_torch.models import propainter as pp
-    from comfyui_propainter_nodes_tpu_torch.ops.pool import max_pool2d
-    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables
 
     t, h, w = md.shape
     pool = pp.attention_pool_mask(pp.downsample_mask(md[None, ..., None], h // 4, w // 4))[0]
     fh, fw = pool.shape[1], pool.shape[2]
-    pool = F.pad(pool, (0, 0, 0, -fw % 9, 0, -fh % 5))  # the window padding
-    sels, valids, _, _, _, _, l_t_max, _ = _window_tables(PipelineConfig(), t)
+    return F.pad(pool, (0, 0, 0, -fw % 9, 0, -fh % 5))
+
+
+def occupied(loc):
+    """[n_win] bool: the token windows any of a sliding window's local
+    frames touches, loc [l_t, Hp, Wp, 1] (ops/attention.py)."""
+    from comfyui_propainter_nodes_tpu_torch.ops.pool import max_pool2d
+
+    return max_pool2d(loc, (5, 9), (5, 9)).sum(0).reshape(-1) > 0
+
+
+def window_occupancy(md):
+    """Which 5x9 token windows of a 24-frame node run are occupied, for
+    each of its 5 sliding windows, from the dilated masks md [24, h, w]."""
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables
+
+    pool = token_pool(md)
+    sels, valids, _, _, _, _, l_t_max, _ = _window_tables(PipelineConfig(), md.shape[0])
     occ = []
     for wi in range(sels.shape[0]):
         vl = torch.as_tensor(valids[wi, :l_t_max], device="cuda")[:, None, None, None]
-        loc = pool[torch.as_tensor(sels[wi, :l_t_max], device="cuda")] * vl
-        occ.append(max_pool2d(loc, (5, 9), (5, 9)).sum(0).reshape(-1) > 0)
+        occ.append(occupied(pool[torch.as_tensor(sels[wi, :l_t_max], device="cuda")] * vl))
     return torch.cat(occ)
 
 
@@ -632,6 +684,31 @@ def clip_occupancy(h: int, w: int):
 
     _, masks = synthetic_clip(24, h, w)
     return window_occupancy(binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"]))
+
+
+def path_s_window():
+    """(frames of one path-S window's attention, t_sel of its even and odd
+    layers, its local frames): the middle window of the 240-frame clip at
+    default widgets, 11 local and 8 reference slots."""
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables
+
+    sels, _, starts, lts, _, _, l_t_max, ref_max = _window_tables(PipelineConfig(), PATH_S[0])
+    wi = sels.shape[0] // 2
+    t_win = l_t_max + ref_max
+    return t_win, ((t_win + 1) // 2, t_win // 2), list(range(int(starts[wi]), int(starts[wi] + lts[wi])))
+
+
+def path_s_occupancy():
+    """Path S's occupancy: the middle window's local frames of the
+    240-frame 1280x720 clip (144 token windows of the 60x108 grid)."""
+    from comfyui_propainter_nodes_tpu_torch.ops.dilation import binary_dilation
+
+    _, h, w = PATH_S
+    base = clip_base(h, w)
+    masks = np.stack([clip_frame(base, i)[1] for i in path_s_window()[2]])
+    md = binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"])
+    return occupied(token_pool(md))
 
 
 def ring_occupancy():
@@ -646,18 +723,31 @@ def ring_occupancy():
 # ------------------------------------------------------------------ phase 3
 
 
-def synthetic_clip(t: int, h: int, w: int):
-    """Moving box over a gradient (the JAX package's bench clip)."""
+def clip_base(h: int, w: int):
+    """The synthetic clip's gradient background [h, w, 3] in [0, 1]."""
     yy, xx = np.mgrid[0:h, 0:w]
-    base = np.stack([yy / h, xx / w, (yy + xx) / (h + w)], axis=-1).astype(np.float32)
-    frames = np.repeat(base[None], t, axis=0)
-    masks = np.zeros((t, h, w), dtype=np.float32)
-    for i in range(t):
-        x0 = int(w * 0.2) + 3 * i
-        y0 = int(h * 0.3) + i
-        frames[i, y0 : y0 + h // 6, x0 : x0 + w // 8] = [1.0, 0.2, 0.2]
-        masks[i, y0 : y0 + h // 6, x0 : x0 + w // 8] = 1.0
-    return (frames * 255).astype(np.uint8), (masks * 255).astype(np.uint8)
+    return np.stack([yy / h, xx / w, (yy + xx) / (h + w)], axis=-1).astype(np.float32)
+
+
+def clip_frame(base, i: int):
+    """Frame i of the synthetic clip and its mask, uint8: a box moving 3 px
+    right and 1 px down a frame over the gradient."""
+    h, w = base.shape[:2]
+    frame = base.copy()
+    mask = np.zeros((h, w), dtype=np.float32)
+    x0 = int(w * 0.2) + 3 * i
+    y0 = int(h * 0.3) + i
+    frame[y0 : y0 + h // 6, x0 : x0 + w // 8] = [1.0, 0.2, 0.2]
+    mask[y0 : y0 + h // 6, x0 : x0 + w // 8] = 1.0
+    return (frame * 255).astype(np.uint8), (mask * 255).astype(np.uint8)
+
+
+def synthetic_clip(t: int, h: int, w: int):
+    """Moving box over a gradient (the JAX package's bench clip): frames
+    [t, h, w, 3] and masks [t, h, w], uint8."""
+    base = clip_base(h, w)
+    pairs = [clip_frame(base, i) for i in range(t)]
+    return np.stack([f for f, _ in pairs]), np.stack([m for _, m in pairs])
 
 
 WIDGETS = dict(
@@ -817,6 +907,10 @@ def outpaint_run(need, forbid):
     return summary
 
 
+# the port's stage timers' profiler ranges (utils/profiling.py::stage_timer)
+STAGE_RANGES = {"compute_flow", "complete_flow", "image_propagation", "feature_propagation", "stream_prep", "stream_write"}
+
+
 def _device_rows(prof):
     """(device ms, count, name) of every device-side event of a profile."""
     from torch.autograd import DeviceType
@@ -825,6 +919,8 @@ def _device_rows(prof):
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue  # host ops: their device time is their kernels'
+        if getattr(e, "is_user_annotation", False) or e.key in STAGE_RANGES:
+            continue  # a stage timer's range: its device span holds kernels counted on their own
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
@@ -905,6 +1001,276 @@ def card_vs_host(switched: bool, outpaint: bool = False):
     require(share < 1e-3 and float(diff.mean()) < 1e-3, f"card and host IMAGE differ ({tag}): share {share}, mean {float(diff.mean())}")
 
 
+def write_clip_npy(folder: str, t: int, h: int, w: int):
+    """synthetic_clip(t, h, w), written frame by frame as uint8 .npy files
+    in folder: frames [t, h, w, 3] and masks [t, h, w, 1]."""
+    paths = os.path.join(folder, "frames.npy"), os.path.join(folder, "masks.npy")
+    frames = np.lib.format.open_memmap(paths[0], "w+", np.uint8, (t, h, w, 3))
+    masks = np.lib.format.open_memmap(paths[1], "w+", np.uint8, (t, h, w, 1))
+    base = clip_base(h, w)
+    for i in range(t):
+        frames[i], masks[i, ..., 0] = clip_frame(base, i)
+    frames.flush()
+    masks.flush()
+    return paths
+
+
+def node_widgets() -> dict:
+    """The pipeline's share of WIDGETS (PipelineConfig's fields)."""
+    return {k: WIDGETS[k] for k in ("ref_stride", "neighbor_length", "subvideo_length", "raft_iter", "fp16")}
+
+
+def path_s_run(need, forbid):
+    """Path S: `process_streaming` over the 240-frame 1280x720 clip, read
+    from .npy files by two `VideoSource`s, at default widgets with random
+    weights, twice. The first run takes the stage times with blocking
+    timers and each stage's peak (wrapped pipeline methods); the second
+    runs as a user runs it (timers not blocking, nothing wrapped), with the
+    launch counters reset just before it, and gives the wall, frames/s,
+    the first write, the launches and the peak. In both the writer only
+    copies each frame into a float32 host array and the progress callback
+    reads memory_allocated after each window's eviction. After the second
+    run every frame must have been written once, in order, be integral in
+    0..255 and equal the input bytes outside its dilated mask (streaming
+    pastes nothing on the host: these are the card's bytes)."""
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
+    from comfyui_propainter_nodes_tpu_torch.pipeline.streaming import process_streaming
+    from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+    from comfyui_propainter_nodes_tpu_torch.utils.frameio import VideoSource
+
+    t, h, w = PATH_S
+    tag = f"path S streaming {t} frames {w}x{h}"
+    md_dil, fm_dil = WIDGETS["mask_dilates"], WIDGETS["flow_mask_dilates"]
+    pipe = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
+    out = np.zeros((t, h, w, 3), np.float32)  # touched here, not in the timed runs
+    watched = ("compute_flow", "complete_flow_chunk", "image_prop_chunk", "feature_window")
+
+    def stream(frames, masks, stage_peaks=None):
+        """One run; its wall, first write, writes (start, n), memory after
+        each window and peak. With stage_peaks, each watched method's peak
+        is read and reset around its calls; what the counter holds between
+        them goes under "outside"."""
+        st = dict(first=None, writes=[], live=[])
+
+        def write(start, arr):
+            if st["first"] is None:
+                st["first"] = time.perf_counter() - st["t0"]
+            st["writes"].append((start, arr.shape[0]))
+            out[start : start + arr.shape[0]] = arr
+
+        def progress(stage, done, total):
+            if stage == "feature_windows":
+                st["live"].append(torch.cuda.memory_allocated())
+
+        def peak_of(name, fn):
+            def run(*args):
+                stage_peaks["outside"] = max(stage_peaks.get("outside", 0), torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                res = fn(*args)
+                stage_peaks[name] = max(stage_peaks.get(name, 0), torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                return res
+
+            return run
+
+        pipe.progress = progress
+        if stage_peaks is not None:
+            for m in watched:
+                setattr(pipe, m, peak_of(m, getattr(pipe, m)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            st["t0"] = t0 = time.perf_counter()
+            st["caches"] = process_streaming(
+                pipe, frames.fetch, lambda s, c: masks.fetch(s, c)[..., 0], t, write,
+                md_dil, fm_dil, prefetch=frames.prefetch,
+            )
+            torch.cuda.synchronize()
+            st["wall"] = time.perf_counter() - t0
+        finally:
+            pipe.progress = None
+            if stage_peaks is not None:
+                for m in watched:
+                    delattr(pipe, m)
+        st["peak"] = torch.cuda.max_memory_allocated()
+        if stage_peaks is not None:
+            stage_peaks["outside"] = max(stage_peaks.get("outside", 0), st["peak"])
+            st["peak"] = max(stage_peaks.values())
+        starts = [s0 for s0, _ in st["writes"]]
+        require(starts == [0] + [s0 + n for s0, n in st["writes"][:-1]] and all(n > 0 for _, n in st["writes"])
+                and sum(n for _, n in st["writes"]) == t, f"{tag}: writes {st['writes']}")
+        return st
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fpath, mpath = write_clip_npy(tmp, t, h, w)
+        log(f"  [{tag}] clip written as uint8 .npy in {time.perf_counter() - t0:.2f} s "
+            f"({(os.path.getsize(fpath) + os.path.getsize(mpath)) / 1e9:.3f} GB)")
+        base_bytes = torch.cuda.memory_allocated()
+        stage_peaks = {}
+        with VideoSource(fpath) as frames, VideoSource(mpath) as masks:
+            profiling.reset()
+            blk = stream(frames, masks, stage_peaks)
+            stages = profiling.summary()
+            profiling.set_blocking(False)
+            try:
+                profiling.reset()
+                for _, mod, attr in counters():
+                    setattr(mod, attr, 0)
+                deform_conv.launch_shapes.clear()
+                run = stream(frames, masks)
+                counts = {name: getattr(mod, attr) for name, mod, attr in counters()}
+                unblocked = profiling.summary()
+            finally:
+                profiling.set_blocking(True)
+            b2_shapes = {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()}
+            # outside the dilated mask, the composed frames are the input bytes
+            err_out, painted, bad = 0.0, 0.0, 0
+            with torch.inference_mode():
+                for s0 in range(0, t, 16):
+                    n = min(16, t - s0)
+                    _, byte = image_utils.prepare_frames(torch.from_numpy(frames.fetch(s0, n)).cuda(), w, h)
+                    m = torch.from_numpy(masks.fetch(s0, n)[..., 0]).cuda()
+                    md = image_utils.prepare_masks(m, w, h, fm_dil, md_dil)[1]
+                    o = torch.from_numpy(out[s0 : s0 + n]).cuda()
+                    bad += int((~torch.isfinite(o) | (o != o.floor()) | (o < 0) | (o > 255)).sum())
+                    d = (o - byte).abs()
+                    err_out = max(err_out, float((d * (1 - md)).max()))
+                    painted = max(painted, float((d * md).max()))
+            copy_ms = write_copy_ab(torch.from_numpy(out[:5]).cuda())
+    log(f"  [{tag}] wall {run['wall']:.3f} s = {t / run['wall']:.3f} frames/s; first frames written after "
+        f"{run['first']:.3f} s (timers not blocking, nothing wrapped; the blocking run before it: "
+        f"{blk['wall']:.3f} s, first write {blk['first']:.3f} s)")
+    log(f"  [{tag}] stage timers, blocking run: "
+        + ", ".join(f"{k} {v['seconds']:.3f} ({v['calls']})" for k, v in stages.items()))
+    log(f"  [{tag}] stage timers, second run (not blocking: host time to enqueue, a stage's wait for the "
+        f"card where it reads a value): "
+        + ", ".join(f"{k} {v['seconds']:.3f} ({v['calls']})" for k, v in unblocked.items()))
+    for name, st in (("blocking", blk), ("second", run)):
+        log(f"  [{tag}] {name} run: max_memory_allocated {st['peak'] / 2**30:.3f} GiB; memory_allocated before the "
+            f"run {base_bytes / 2**30:.3f} GiB, after each window's eviction: max {max(st['live']) / 2**30:.3f}, "
+            f"last {st['live'][-1] / 2**30:.3f} GiB ({len(st['live'])} windows); largest live entries per cache "
+            f"{st['caches']}")
+    log(f"  [{tag}] after each window's eviction, GiB (second run): "
+        + " ".join(f"{v / 2**30:.2f}" for v in run["live"]))
+    log(f"  [{tag}] peak allocated by stage (GiB, blocking run): "
+        + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in stage_peaks.items()))
+    log(f"  [{tag}] one flush of 5 frames to the host (ms, median of 20): float32 {copy_ms['float32']:.3f}, "
+        f"uint8 then widened on the host {copy_ms['uint8']:.3f}")
+    log(f"  [{tag}] launches {counts}; B2 launches by x shape {b2_shapes}")
+    log(f"  [{tag}] output vs input outside the dilated mask: max |d| {err_out} (must be 0); inside: max |d| "
+        f"{painted}; values not integral in 0..255: {bad}")
+    require(bad == 0, f"{tag}: {bad} values not integral in 0..255")
+    require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
+    require(all(counts[k] == 0 for k in forbid), f"{tag}: a kernel off the path was launched: {counts}")
+    require(err_out == 0.0, f"{tag}: output differs from the input outside the dilated mask: {err_out}")
+    require(painted > 0, f"{tag}: the masked region must be inpainted")
+    return dict(frames=t, size=f"{w}x{h}", seconds=run["wall"], fps=t / run["wall"], first_write_s=run["first"],
+                blocking_seconds=blk["wall"], blocking_first_write_s=blk["first"], stages=stages,
+                stages_not_blocking=unblocked, peak_bytes=run["peak"], blocking_peak_bytes=blk["peak"],
+                stage_peak_bytes=stage_peaks, base_bytes=base_bytes, live_after_eviction_bytes=run["live"],
+                blocking_live_after_eviction_bytes=blk["live"], cache_peaks=run["caches"], launches=counts,
+                b2_launches_by_shape=b2_shapes, flush_copy_ms=copy_ms)
+
+
+def write_copy_ab(frames, reps: int = 20) -> dict:
+    """One streaming flush (5 composed frames on the card) to a float32
+    host array: as float32, or as uint8 widened on the host, alternating;
+    medians in ms."""
+    times = {"float32": [], "uint8": []}
+    for _ in range(reps):
+        for kind in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "float32":
+                frames.to("cpu", copy=True).numpy()
+            else:
+                frames.to(torch.uint8).cpu().numpy().astype(np.float32)
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def first_difference(pipe, fnorm, fm) -> str:
+    """Where fp32 streaming and in-memory runs part, among the ops each
+    batches otherwise: RAFT on all the clip's pairs against the first
+    completion chunk's pairs alone, then the encoder on all frames against
+    one window's frame count; else the windows' generator (8 windows a
+    call in memory, one streaming)."""
+    from comfyui_propainter_nodes_tpu_torch.models import propainter as pp
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables, complete_chunk_plan, full_fp32
+
+    s_f, e_f = complete_chunk_plan(pipe.config, fnorm.shape[0] - 1)[0][:2]
+    *_, l_t_max, ref_max = _window_tables(pipe.config, fnorm.shape[0])
+    n = l_t_max + ref_max
+    with torch.inference_mode(), full_fp32():
+        ff_all = pipe.compute_flow(fnorm[None])[0][:, s_f:e_f]
+        ff_chunk = pipe.compute_flow(fnorm[None, s_f : e_f + 1])[0]
+        d = float((ff_all - ff_chunk).abs().max())
+        if d > 0:
+            return f"compute_flow (RAFT on {fnorm.shape[0] - 1} pairs against {e_f - s_f}): max |d| {d:.3e}"
+        x, m = fnorm.to(pipe.cdtype), fm.to(pipe.cdtype)
+        enc_all = pp.encode_features(pipe.inpaint_params, x, m, m)[:n]
+        enc_win = pp.encode_features(pipe.inpaint_params, x[:n], m[:n], m[:n])
+        d = float((enc_all - enc_win).abs().max())
+        if d > 0:
+            return f"encode_features ({fnorm.shape[0]} frames a call against {n}): max |d| {d:.3e}"
+    return "neither RAFT nor the encoder: the windows' generator (8 windows a call against 1)"
+
+
+def stream_vs_memory(fp16: str) -> dict:
+    """process_streaming against Pipeline.process on one pipeline, 48
+    frames at 640x360, ref_stride 4, neighbor_length 10, subvideo_length
+    16, raft_iter 20: three completion and three image-propagation chunks,
+    reference frames, the updated-frame cache evicting from window 6. Held
+    to the card-against-host tolerance of PERF.md section 2 (all but < 0.1%
+    of values within one uint8 level); the differing bytes and the blend
+    each run's RAFT took are printed (in bf16 the in-memory run's one call
+    of 47 pairs passes the lanes gate's 1 GiB and takes the map blend,
+    streaming's calls of at most 26 pairs take the lanes blend)."""
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup
+    from comfyui_propainter_nodes_tpu_torch.pipeline.streaming import process_streaming
+    from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
+
+    t, h, w = STREAM_CLIP
+    md_dil, fm_dil = WIDGETS["mask_dilates"], WIDGETS["flow_mask_dilates"]
+    frames_u8, masks_u8 = synthetic_clip(t, h, w)
+    frames, masks = frames_u8.astype(np.float32) / 255.0, masks_u8.astype(np.float32) / 255.0
+    cfg = PipelineConfig(**dict(node_widgets(), ref_stride=4, subvideo_length=16, fp16=fp16), process_size=(w, h))
+    pipe = get_pipeline(cfg, torch.device("cuda"), True)
+
+    def blends():
+        return dict(lanes=corr_lookup.launches, map=corr_lookup.launches_map)
+
+    corr_lookup.launches = corr_lookup.launches_map = 0
+    fnorm, byte = image_utils.prepare_frames(torch.from_numpy(frames).cuda(), w, h)
+    fm, md = image_utils.prepare_masks(torch.from_numpy(masks).cuda(), w, h, fm_dil, md_dil)
+    mem = pipe.process(fnorm[None], fm[None], md[None], byte).cpu().numpy()
+    mem_blends = blends()
+    corr_lookup.launches = corr_lookup.launches_map = 0
+    out = np.full((t, h, w, 3), -1.0, np.float32)
+
+    def write(start, arr):
+        out[start : start + arr.shape[0]] = arr
+
+    process_streaming(pipe, lambda s, c: frames[s : s + c], lambda s, c: masks[s : s + c], t, write, md_dil, fm_dil)
+    stream_blends = blends()
+    d = np.abs(out - mem)
+    n_diff, share, mean = int((d > 0).sum()), float((d > 1.5).mean()), float(d.mean()) / 255.0
+    where = first_difference(pipe, fnorm, fm) if n_diff and fp16 == "disable" else None
+    log(f"  streaming vs in-memory ({t} frames {w}x{h}, fp16={fp16}): {n_diff} of {d.size} bytes differ, "
+        f"max |d| {float(d.max())}, share > 1 level {share:.6f}, mean |d| {mean:.2e} (in [0, 1]); RAFT blend "
+        f"launches in memory {mem_blends}, streaming {stream_blends}" + (f"; first difference: {where}" if where else ""))
+    require(out.min() >= 0, f"streaming vs in-memory (fp16={fp16}): a frame was not written")
+    require(share < 1e-3 and mean < 1e-3, f"streaming and in-memory runs differ (fp16={fp16}): share {share}, mean {mean}")
+    return dict(differing_bytes=n_diff, bytes=d.size, max_abs=float(d.max()), share_over_1=share, mean=mean,
+                blends_in_memory=mem_blends, blends_streaming=stream_blends, first_difference=where)
+
+
 def site_times(gen) -> dict:
     """bf16 times for `--tree`: B1 as RAFT's default branch calls it (both
     directions, output in the compute dtype; a package whose lookup takes
@@ -951,6 +1317,10 @@ def tree_times(tree: str) -> int:
     from comfyui_propainter_nodes_tpu_torch import nodes
 
     require(os.path.dirname(os.path.abspath(pkg.__file__)).startswith(os.path.abspath(tree)), pkg.__file__)
+    if importlib.util.find_spec("comfyui_propainter_nodes_tpu_torch.utils.profiling") is not None:
+        from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+        profiling.set_blocking(True)  # stage times synchronised, as a tree without the timers takes them
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -990,6 +1360,74 @@ def tree_times(tree: str) -> int:
         stages[path] = {k: statistics.median(s[k] for s in per_stage[1:]) for k in per_stage[-1]}
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, **walls,
                       "dtoh_ms": dtoh, "stage_medians_s": stages}))
+    return 0
+
+
+def fc_plan() -> int:
+    """`--fc-plan`: flow completion's memory plan at path S's largest
+    completion chunk (90 pairs at 1280x720) and at path A's (23 pairs),
+    bf16, random weights. Plans: both directions in one batched call with
+    the decoder in calls within `DECODE_BYTES` (the port's), the
+    directions in turn with 8-frame decoder calls (the JAX package's past
+    its area gate), and at path A the batched call decoded at once. Each:
+    the peak above the inputs (an out-of-memory is recorded as such) and
+    the median of 3 timed calls after a warm-up; prints one JSON line."""
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.models import flow_completion as fc
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
+
+    _build.build()
+    _build.library()
+    _, h, w = PATH_S
+    p = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True).flow_params
+    frame_bytes = h * w * 32 * 2
+
+    def in_turn(ff, fb, mk):
+        mf, mb = ff * (1 - mk[:, :-1]), fb * (1 - mk[:, 1:])
+        pf = fc.flow_complete_forward(p, mf, mk[:, :-1])
+        return pf, fc.flow_complete_forward(p, mb.flip(1), mk[:, 1:].flip(1)).flip(1)
+
+    plans = {
+        "batched": (fc.DECODE_BYTES, lambda *a: fc.forward_bidirect_flow(p, *a)),
+        "in_turn_8": (8 * frame_bytes, in_turn),
+        "batched_whole": (1 << 62, lambda *a: fc.forward_bidirect_flow(p, *a)),
+    }
+    result = {}
+    budget = fc.DECODE_BYTES
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for pairs in (90, 23):
+        ff, fb = (torch.randn(2, 1, pairs, h, w, 2, generator=g, device="cuda") * 3).to(torch.bfloat16)
+        mk = torch.zeros(1, pairs + 1, h, w, 1, device="cuda", dtype=torch.bfloat16)
+        mk[:, :, h // 3 : 2 * h // 3, w // 3 : w // 2] = 1
+        for name, (decode_bytes, fn) in plans.items():
+            if name == "batched_whole" and pairs == 90:
+                continue  # more than 60 GB
+            fc.DECODE_BYTES = decode_bytes
+            key = f"{pairs}_pairs/{name}"
+            try:
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    fn(ff, fb, mk)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    times = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        fn(ff, fb, mk)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                result[key] = {"peak_gib": peak / 2**30, "seconds": statistics.median(times)}
+            except torch.cuda.OutOfMemoryError as e:
+                result[key] = {"oom": str(e).splitlines()[0]}
+            finally:
+                fc.DECODE_BYTES = budget
+                torch.cuda.empty_cache()
+            log(f"  fc plan {key}: {result[key]}")
+        del ff, fb, mk
+    print(json.dumps({"fc_plan": result}))
     return 0
 
 
@@ -1088,8 +1526,12 @@ def main() -> int:
         return tree_times(sys.argv[2])
     if len(sys.argv) == 2 and sys.argv[1] == "--b7-tiles":
         return b7_tiles()
+    if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
+        return fc_plan()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
+    profiling.set_blocking(True)  # stage times synchronised on the card
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
@@ -1115,8 +1557,11 @@ def main() -> int:
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     occ360, occ720, occ_o = clip_occupancy(360, 640), clip_occupancy(720, 1280), ring_occupancy()
+    occ_s = path_s_occupancy()
+    t_win_s, t_sel_s, _ = path_s_window()
     log(f"  window occupancy of the node runs: 640x360 {int(occ360.sum())}/{occ360.numel()}, "
-        f"1280x720 {int(occ720.sum())}/{occ720.numel()}, path O's ring on 768x360 {int(occ_o.sum())}/{occ_o.numel()}")
+        f"1280x720 {int(occ720.sum())}/{occ720.numel()}, path O's ring on 768x360 {int(occ_o.sum())}/{occ_o.numel()}, "
+        f"path S's middle window {int(occ_s.sum())}/{occ_s.numel()} ({t_win_s} frames, t_sel {t_sel_s})")
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt)[6:]
@@ -1126,6 +1571,7 @@ def main() -> int:
             res[("B1map", key)] = check_corr_lookup(dt, gen, "map")
             res[("B1_720", key)] = check_corr_lookup(dt, gen, "lanes", PATH_A_RAFT_CALL)
             res[("B1map_720", key)] = check_corr_lookup(dt, gen, "map", PATH_A_RAFT_CALL)
+            res[("B1map_S", key)] = check_corr_lookup(dt, gen, "map", PATH_S_RAFT_CALL)
             log(f"  B1 map / lanes blend: {res[('B1map', key)]['ms'] / res[('B1', key)]['ms']:.3f} at M 165600, "
                 f"{res[('B1map_720', key)]['ms'] / res[('B1_720', key)]['ms']:.3f} at path A's call")
             torch.cuda.empty_cache()
@@ -1140,6 +1586,8 @@ def main() -> int:
         res[("B3oO", key)] = check_window_attention(dt, gen, 6, occ_o, 48, 126, "30x72")
         res[("B4e", key)] = check_window_attention_tiled(dt, gen, 7, occ720)
         res[("B4o", key)] = check_window_attention_tiled(dt, gen, 6, occ720)
+        res[("B4eS", key)] = check_window_attention_tiled(dt, gen, t_sel_s[0], occ_s, 1, t_win_s)
+        res[("B4oS", key)] = check_window_attention_tiled(dt, gen, t_sel_s[1], occ_s, 1, t_win_s)
         res[("B5s", key)] = check_window_attention_halo(dt, gen, (30, 54), occ360)
         res[("B5l", key)] = check_window_attention_halo(dt, gen, (60, 108), occ720)
         cw = check_corr_window(dt, gen)
@@ -1177,7 +1625,14 @@ def main() -> int:
     )
     card_vs_host(False)
     card_vs_host(True)
+    # path S: RAFT at w8 = 160 takes the map blend; one window of 19 frames
+    # a transformer call, B4 by the size estimate
+    path_s = path_s_run(
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+        ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
+    )
     card_vs_host(False, outpaint=True)
+    streaming = {fp16: stream_vs_memory(fp16) for fp16 in ("disable", "enable")}
 
     log("phase 4: report")
     smi = subprocess.run(
@@ -1197,7 +1652,7 @@ def main() -> int:
         ("corr_window4", "corr_window.cu", "corr_lookup.py:91", "B6", path_b),
         ("corr_window", "corr_window.cu", "corr_lookup.py:42", "B7", main_run),
     ]
-    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o}
+    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s}
     kernels = []
     for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
@@ -1213,8 +1668,15 @@ def main() -> int:
         if rk.startswith("B1"):
             row["blend"] = r["blend"]
             row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]
+        if rk == "B1map":
+            row["ms_path_s_call"] = res[("B1map_S", "bfloat16")]["ms"]
         if rk == "B1":
             row["ms_path_o_call"] = res[("B1_O", "bfloat16")]["ms"]
+        if rk == "B4e":  # path S's window, the even layers' t_sel (the odd in chip_smoke.json)
+            s_, s32 = res[("B4eS", "bfloat16")], res[("B4eS", "float32")]
+            row["path_s_shapes"] = {k: s_[k] for k in ("b", "t", "t_sel", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms", "b3_ms", "occupied_share")}
+            row["path_s_shapes"].update(max_abs_err_fp32=s32["max_abs_err"], ms_fp32=s32["ms"])
         if rk == "B3e":  # path O's shapes, t_sel 7 (B3 at t_sel 6 in chip_smoke.json)
             o, o32 = res[("B3eO", "bfloat16")], res[("B3eO", "float32")]
             row["path_o_shapes"] = {k: o[k] for k in ("grid", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1232,6 +1694,7 @@ def main() -> int:
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "resources": resources,
+                   "streaming_vs_in_memory": streaming,
                    "node": paths}, f, indent=1)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -12,7 +12,13 @@ conv OIHW, conv3d OIDHW, linear (out, in). Convs view NHWC activations
 as channels-last NCHW for cuDNN.
 
 Nodes: `ProPainterInpaint` and `ProPainterOutpaint` (nodes.py), with the
-JAX package's contract.
+JAX package's contract; each run reports progress and leaves a run record
+(utils/profiling.py, utils/metrics.py).
+
+Long videos: `pipeline/streaming.py::process_streaming` streams a clip
+through the four stages with a working set of O(subvideo_length) frames,
+bit for bit the in-memory run, fed by `utils/frameio.py::VideoSource`
+(the native .npy reader of native/frameio.cpp).
 
 Kernels (ops/cuda/, sources in csrc/), one for each of the JAX package's
 seven Pallas kernels:

@@ -7,6 +7,15 @@ bidirectional propagation as a Python loop over frames with a
 `forward_bidirect_flow` batched into one network call, and the
 second-order deformable alignment on the deform-conv kernel
 (ops/cuda/deform_conv.py).
+
+The decoder's full-res activations are the network's largest (32
+channels a pixel for every frame): it decodes as many frames a call as
+keep one of them within `DECODE_BYTES`: in bf16 one call for a node's
+24 frames at 1280x720, three for a streaming chunk of 90 pairs there.
+The decoder is per-frame pure, so the computation is the same; the
+values agree within fp32 rounding (a conv may take another algorithm
+for another batch size). Decoded at once, a 90-pair chunk at 1280x720
+asks for more than 60 GB.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ Params = Mapping[str, torch.Tensor]
 
 CHANNEL = 128
 DEFORM_GROUPS = 16
+# the largest full-res decoder activation of one decoder call, in bytes
+DECODE_BYTES = 4 << 30
 
 
 def _p3d(p: Params, pre: str, x, stride: int):
@@ -136,10 +147,11 @@ def flow_complete_forward(p: Params, masked_flows, masks):
     b, t, h, w, _ = masked_flows.shape
     inputs = torch.cat([masked_flows, masks], dim=-1)
     e1, e2 = _encode(p, inputs)
-    prop = _bidirectional_propagation(p, _mid(p, e2))
-    bt = b * t
-    flow = _decode(p, prop.reshape(bt, h // 8, w // 8, CHANNEL), e1.reshape(bt, h // 4, w // 4, 64))
-    return flow.reshape(b, t, h, w, 2)
+    prop = _bidirectional_propagation(p, _mid(p, e2)).reshape(b * t, h // 8, w // 8, CHANNEL)
+    e1 = e1.reshape(b * t, h // 4, w // 4, 64)
+    chunk = max(1, DECODE_BYTES // (h * w * 32 * prop.element_size()))
+    flow = [_decode(p, prop[i : i + chunk], e1[i : i + chunk]) for i in range(0, b * t, chunk)]
+    return (flow[0] if len(flow) == 1 else torch.cat(flow)).reshape(b, t, h, w, 2)
 
 
 def forward_bidirect_flow(p: Params, flows_f, flows_b, masks):

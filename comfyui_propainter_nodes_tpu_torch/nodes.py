@@ -11,9 +11,16 @@ Only what can differ from the input comes back from the device: the
 inpaint node's mask bounding box (`_mask_crop_plan`), the outpaint
 node's bands. The host pastes them over the frames it holds and builds
 the masks outside them itself.
+
+Each run reports its stages' progress (`utils/profiling.py::NodeProgress`:
+ComfyUI's progress bar, tqdm or stderr) and leaves a run record
+(`utils/metrics.py::last_run`, and a JSON line in the file that
+PROPAINTER_TPU_METRICS names).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -21,8 +28,10 @@ import torch
 from .config import ImageConfig, OutpaintConfig, PipelineConfig
 from .ops.dilation import binary_dilation
 from .pipeline.stages import Pipeline
+from .utils import profiling
 from .utils import weights as weights_zoo
 from .utils.image import resize_frames, ring_masks
+from .utils.metrics import RunRecorder
 
 _PIPELINE_CACHE: dict = {}
 _PARAM_CACHE: dict = {}
@@ -150,6 +159,18 @@ def get_pipeline(config: PipelineConfig, device, allow_random_weights: bool = Fa
     return _PIPELINE_CACHE[key]
 
 
+@contextlib.contextmanager
+def _node_progress(pipe: Pipeline, t: int):
+    """The run's stages tick a `NodeProgress` of its own; the cached
+    pipeline's earlier callback is back after the run."""
+    prev = pipe.progress
+    pipe.progress = profiling.NodeProgress(t)
+    try:
+        yield
+    finally:
+        pipe.progress = prev
+
+
 class ProPainterInpaint:
     """ComfyUI Node for performing inpainting on video frames using ProPainter."""
 
@@ -248,17 +269,18 @@ class ProPainterInpaint:
 
         pipe = get_pipeline(config, dev, _allow_random_weights)
         self.last_pipeline, self.last_crop = pipe, crop
-        comp_crop = pipe.process(
-            frames_norm[None], flow_masks[None, ..., None], masks_dilated[None, ..., None], byte, crop=crop
-        )
-        # fetch the crops only; paste them over the host's own bytes (or the
-        # device-resized frames, fetched once) and over zero masks
-        y0, x0, ch, cw = crop
-        window = (slice(None), slice(y0, y0 + ch), slice(x0, x0 + cw))
-        base_u8 = frames_r if frames_r is not None else byte.to(torch.uint8).cpu().numpy()
-        out_images = _paste(base_u8.astype(np.float32), crop, comp_crop.to(torch.uint8)).div_(255.0)
-        fm = _paste(np.zeros((t, ph, pw), np.float32), crop, flow_masks[window].bool())
-        md = _paste(np.zeros((t, ph, pw), np.float32), crop, masks_dilated[window].bool())
+        with _node_progress(pipe, t), RunRecorder("inpaint", config, t):
+            comp_crop = pipe.process(
+                frames_norm[None], flow_masks[None, ..., None], masks_dilated[None, ..., None], byte, crop=crop
+            )
+            # fetch the crops only; paste them over the host's own bytes (or
+            # the device-resized frames, fetched once) and over zero masks
+            y0, x0, ch, cw = crop
+            window = (slice(None), slice(y0, y0 + ch), slice(x0, x0 + cw))
+            base_u8 = frames_r if frames_r is not None else byte.to(torch.uint8).cpu().numpy()
+            out_images = _paste(base_u8.astype(np.float32), crop, comp_crop.to(torch.uint8)).div_(255.0)
+            fm = _paste(np.zeros((t, ph, pw), np.float32), crop, flow_masks[window].bool())
+            md = _paste(np.zeros((t, ph, pw), np.float32), crop, masks_dilated[window].bool())
         return out_images, fm.squeeze(), md.squeeze()
 
 
@@ -337,7 +359,8 @@ class ProPainterOutpaint:
 
         pipe = get_pipeline(config, dev, _allow_random_weights)
         self.last_pipeline = pipe
-        bands = [b.cpu().numpy() for b in pipe.process_node_outpaint(frames_dev, (chh, cw))]
+        with _node_progress(pipe, t), RunRecorder("outpaint", config, t):
+            bands = [b.cpu().numpy() for b in pipe.process_node_outpaint(frames_dev, (chh, cw))]
 
         # the interior is the host's own bytes (composed == input there,
         # exactly); the bands fill the ring around it

@@ -17,13 +17,19 @@ the feature stage decodes, composites and blends only that window: the
 composed video equals the input outside the dilated mask, and
 `decoder_crop` is exact. `process_node_outpaint` runs the stages on the
 outpaint canvas and returns only its bands.
+
+`process` times each stage with `utils/profiling.stage_timer` (one
+registry for the whole package) and every stage reports its progress
+through `Pipeline.progress`. The chunk methods `complete_flow_chunk`,
+`image_prop_chunk` and `feature_window` are the units the long-video
+path (`pipeline/streaming.py`) runs; the in-memory loops call the same
+first two.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ from ..models import propainter as pp
 from ..models import raft
 from ..utils.image import extrapolate_frames
 from ..utils.params import to_device
+from ..utils.profiling import progress_report, stage_timer
 
 RAFT_ALLPAIRS_BYTES = 4.5e9  # all-pairs volume budget for one RAFT call
 WINDOW_GROUP = 8  # windows per batched transformer forward
@@ -189,10 +196,11 @@ class Pipeline:
         self.flow_params = to_device(flow_params, self.device, self.cdtype)
         self.inpaint_params = to_device(inpaint_params, self.device, self.cdtype)
         self.stage_seconds: dict[str, float] = {}
+        # progress callback: fn(stage_name, done_units, total_units)
+        self.progress = None
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _report(self, stage: str, done: int, total: int) -> None:
+        progress_report(self.progress, stage, done, total)
 
     # ------------------------------------------------------------- stage 1
 
@@ -204,66 +212,81 @@ class Pipeline:
         bounds = flow_chunk_plan(cfg, t)
         h8w8 = (h // 8) * (w // 8)
         vol_bytes = 2 * (t - 1) * h8w8 * h8w8 * (2 if cfg.raft_half else 4) * 1.36
+        self._report("compute_flow", 0, 1)
         if len(bounds) == 1 or vol_bytes <= RAFT_ALLPAIRS_BYTES:
-            return raft.raft_bi_forward(self.raft_params, frames, iters=cfg.raft_iter)
-        ff, fb = [], []
-        for s, e in bounds:
-            f_, b_ = raft.raft_bi_forward(self.raft_params, frames[:, s:e], iters=cfg.raft_iter)
-            ff.append(f_)
-            fb.append(b_)
-        return torch.cat(ff, dim=1), torch.cat(fb, dim=1)
+            out = raft.raft_bi_forward(self.raft_params, frames, iters=cfg.raft_iter)
+        else:
+            ff, fb = [], []
+            for s, e in bounds:
+                f_, b_ = raft.raft_bi_forward(self.raft_params, frames[:, s:e], iters=cfg.raft_iter)
+                ff.append(f_)
+                fb.append(b_)
+            out = torch.cat(ff, dim=1), torch.cat(fb, dim=1)
+        self._report("compute_flow", 1, 1)
+        return out
 
     # ------------------------------------------------------------- stage 2
+
+    def complete_flow_chunk(self, ff, fb, mk):
+        """One flow-completion chunk: flows (ff, fb) [1, n, H, W, 2] and
+        flow masks [1, n + 1, H, W, 1] -> the completed flows, in the
+        compute dtype."""
+        dt = self.cdtype
+        ff, fb, mk = ff.to(dt), fb.to(dt), mk.to(dt)
+        pf, pb = fc.forward_bidirect_flow(self.flow_params, ff, fb, mk)
+        return fc.combine_flow(ff, fb, pf, pb, mk)
 
     def complete_flow(self, flows, flow_masks):
         """Flow completion over subvideo chunks with a 5-frame halo.
         flows (f, b) [1, T-1, H, W, 2]; flow_masks [1, T, H, W, 1]."""
-        dt = self.cdtype
-        ff, fb = flows[0].to(dt), flows[1].to(dt)
-        mk = flow_masks.to(dt)
-        prm = self.flow_params
-
-        def one_chunk(f_, b_, m_):
-            pf, pb = fc.forward_bidirect_flow(prm, f_, b_, m_)
-            return fc.combine_flow(f_, b_, pf, pb, m_)
-
+        ff, fb = flows
+        self._report("complete_flow", 0, 1)
         flow_length = ff.shape[1]
         if flow_length <= self.config.subvideo_length:
-            return one_chunk(ff, fb, mk)
-        bounds = complete_chunk_plan(self.config, flow_length)
-        out_f, out_b = [], []
-        for s_f, e_f, ps, pe in bounds:
-            of, ob = one_chunk(ff[:, s_f:e_f], fb[:, s_f:e_f], mk[:, s_f : e_f + 1])
-            end = e_f - s_f - pe
-            out_f.append(of[:, ps:end])
-            out_b.append(ob[:, ps:end])
-        return torch.cat(out_f, dim=1), torch.cat(out_b, dim=1)
+            out = self.complete_flow_chunk(ff, fb, flow_masks)
+        else:
+            out_f, out_b = [], []
+            for s_f, e_f, ps, pe in complete_chunk_plan(self.config, flow_length):
+                of, ob = self.complete_flow_chunk(ff[:, s_f:e_f], fb[:, s_f:e_f], flow_masks[:, s_f : e_f + 1])
+                end = e_f - s_f - pe
+                out_f.append(of[:, ps:end])
+                out_b.append(ob[:, ps:end])
+            out = torch.cat(out_f, dim=1), torch.cat(out_b, dim=1)
+        self._report("complete_flow", 1, 1)
+        return out
 
     # ------------------------------------------------------------- stage 3
+
+    def image_prop_chunk(self, fr, mk, ff, fb):
+        """One image-propagation chunk: frames [1, n, H, W, 3] in [-1, 1],
+        dilated masks [1, n, H, W, 1], completed flows [1, n - 1, H, W, 2]
+        -> (updated_frames, updated_masks) in the compute dtype."""
+        dt = self.cdtype
+        fr, mk, ff, fb = fr.to(dt), mk.to(dt), ff.to(dt), fb.to(dt)
+        masked = fr * (1 - mk)
+        prop, upd_mask = pp.bidirectional_propagation_image(masked, ff, fb, mk, "nearest")
+        return fr * (1 - mk) + prop * mk, upd_mask
 
     def image_propagation(self, frames, masks_dilated, pred_flows):
         """Pixel-domain propagation in <=100-frame chunks with a 10-frame
         halo. Returns (updated_frames, updated_masks) in the compute dtype."""
-        dt = self.cdtype
-        fr, mk = frames.to(dt), masks_dilated.to(dt)
-        ff, fb = pred_flows[0].to(dt), pred_flows[1].to(dt)
-
-        def one_chunk(fr_, mk_, ff_, fb_):
-            masked = fr_ * (1 - mk_)
-            prop, upd_mask = pp.bidirectional_propagation_image(masked, ff_, fb_, mk_, "nearest")
-            return fr_ * (1 - mk_) + prop * mk_, upd_mask
-
-        t = fr.shape[1]
+        ff, fb = pred_flows
+        self._report("image_propagation", 0, 1)
+        t = frames.shape[1]
         if t <= min(100, self.config.subvideo_length):
-            return one_chunk(fr, mk, ff, fb)
-        bounds = imgprop_chunk_plan(self.config, t)
-        out_fr, out_mk = [], []
-        for s_f, e_f, ps, pe in bounds:
-            uf, um = one_chunk(fr[:, s_f:e_f], mk[:, s_f:e_f], ff[:, s_f : e_f - 1], fb[:, s_f : e_f - 1])
-            end = e_f - s_f - pe
-            out_fr.append(uf[:, ps:end])
-            out_mk.append(um[:, ps:end])
-        return torch.cat(out_fr, dim=1), torch.cat(out_mk, dim=1)
+            out = self.image_prop_chunk(frames, masks_dilated, ff, fb)
+        else:
+            out_fr, out_mk = [], []
+            for s_f, e_f, ps, pe in imgprop_chunk_plan(self.config, t):
+                uf, um = self.image_prop_chunk(
+                    frames[:, s_f:e_f], masks_dilated[:, s_f:e_f], ff[:, s_f : e_f - 1], fb[:, s_f : e_f - 1]
+                )
+                end = e_f - s_f - pe
+                out_fr.append(uf[:, ps:end])
+                out_mk.append(um[:, ps:end])
+            out = torch.cat(out_fr, dim=1), torch.cat(out_mk, dim=1)
+        self._report("image_propagation", 1, 1)
+        return out
 
     # ------------------------------------------------------------- stage 4
 
@@ -308,6 +331,7 @@ class Pipeline:
         ds_um_all = pp.downsample_mask(um_p, h4, w4)[0]
         pool_all = pp.attention_pool_mask(ds_md_all[None])[0]
 
+        self._report("feature_propagation", 0, n_windows)
         imgs = []
         for g0 in range(0, n_windows, WINDOW_GROUP):
             grp = list(range(g0, min(n_windows, g0 + WINDOW_GROUP)))
@@ -336,7 +360,33 @@ class Pipeline:
             binary = (md_c[gloc] * gvl).float()
             orig = torch.stack([orig_c[s : s + l_t_max] for s in gst])
             imgs.append(torch.floor(pred_byte * binary + orig * (1.0 - binary)))
+            self._report("feature_propagation", grp[-1] + 1, n_windows)
         return _blend_windows(torch.cat(imgs, dim=0), starts, slot_valid, t, l_t_max)
+
+    def feature_window(self, frames, masks, upd_masks, flows, old, orig, blend, l_t: int, n_ref: int):
+        """One sliding window of the feature stage, full frames: the
+        transformer on the window's frames, the uint8 composite, and the
+        overlap blend against the composed frames under the window.
+
+        frames / masks / upd_masks [1, T_sel, H, W, C]: the updated frames,
+        dilated and updated masks of the window's l_t_max local slots then
+        its reference slots (padded slots' masks zeroed; l_t and n_ref
+        are the real counts); flows (f, b) [1, l_t_max - 1, H, W, 2];
+        old [l_t_max, H, W, 3] the composed frames under the window and
+        orig the input bytes there, float 0..255; blend [l_t_max] 1.0 on a
+        first visit, 0.5 on a revisit, 0.0 on a padded slot.
+        Returns the blended [l_t_max, H, W, 3], float 0..255."""
+        l_t_max = old.shape[0]
+        pred = pp.inpaint_generator_forward(
+            self.inpaint_params, frames, flows[0], flows[1], masks, upd_masks, l_t_max,
+            l_t_valid=l_t, ref_valid=n_ref,
+        )[0].float()
+        # uint8 composite (propainter_inference.py:283-293)
+        pred_byte = torch.floor((pred + 1.0) / 2.0 * 255.0)
+        binary = masks[0, :l_t_max].float()
+        img = torch.floor(pred_byte * binary + orig * (1.0 - binary))
+        b = blend[:, None, None, None]
+        return torch.floor(b * img + (1.0 - b) * old)
 
     # ------------------------------------------------------------ full run
 
@@ -345,15 +395,14 @@ class Pipeline:
         masks [1, T, H, W, 1]; original_frames [T, H, W, 3] float 0..255.
         Returns the composed video [T, H, W, 3] float 0..255, or with crop =
         (y0, x0, ch, cw) its window [T, ch, cw, 3]. Per-stage wall times
-        (synchronised on the card) land in `stage_seconds`."""
+        (`stage_timer`: synchronised on the card in blocking mode) land in
+        `stage_seconds`."""
         stages = {}
 
         def timed(name, fn, *args):
-            self._sync()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            self._sync()
-            stages[name] = time.perf_counter() - t0
+            with stage_timer(name) as tm:
+                out = fn(*args)
+            stages[name] = tm.seconds
             return out
 
         fp32 = full_fp32() if self.device.type == "cuda" else contextlib.nullcontext()

@@ -8,6 +8,7 @@ layers and recurrent steps)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from comfyui_propainter_nodes_tpu.models import flow_completion as jfc
@@ -59,4 +60,37 @@ def test_forward_bidirect_flow_and_combine():
     comb_ref = jfc.combine_flow(jnp.asarray(ff), jnp.asarray(fb), *ref, jnp.asarray(masks))
     comb = tfc.combine_flow(torch.from_numpy(ff), torch.from_numpy(fb), *out, torch.from_numpy(masks))
     for o, r in zip(comb, comb_ref):
+        _close_rel(o, r)
+
+
+@pytest.mark.parametrize(
+    "frames_a_call, jax_env",
+    [
+        (3, {"PROPAINTER_TPU_FC_CHUNK_AREA": "1"}),
+        (1, {"PROPAINTER_TPU_FC_CHUNK_AREA": "1", "PROPAINTER_TPU_FC_BIGAREA": "1", "PROPAINTER_TPU_FC_SLAB_NB": "3"}),
+    ],
+    ids=["decode_3_frames", "decode_1_frame"],
+)
+def test_forward_bidirect_flow_decoded_in_chunks(monkeypatch, frames_a_call, jax_env):
+    """The port's decoder in calls of `frames_a_call` frames (its memory
+    budget lowered to that) against the JAX package's high-res path
+    (directions in turn, temporal-halo-chunked encoder, decoder in chunks
+    of 8 frames; of 2 and a row-slabbed encoder in the second case), both
+    forced at 64x96: 9 frames, so 16 batched entries and a short last
+    call."""
+    pj, pt = _params(random_params("flow_completion", seed=2))
+    rng = np.random.default_rng(6)
+    ff = (rng.standard_normal((1, 8, 64, 96, 2)) * 2).astype(np.float32)
+    fb = (rng.standard_normal((1, 8, 64, 96, 2)) * 2).astype(np.float32)
+    masks = (rng.uniform(size=(1, 9, 64, 96, 1)) > 0.7).astype(np.float32)
+    for k, v in jax_env.items():
+        monkeypatch.setenv(k, v)
+    ref = jfc.forward_bidirect_flow(pj, jnp.asarray(ff), jnp.asarray(fb), jnp.asarray(masks))
+    calls = []
+    decode = tfc._decode
+    monkeypatch.setattr(tfc, "_decode", lambda p, prop, e1: calls.append(prop.shape[0]) or decode(p, prop, e1))
+    monkeypatch.setattr(tfc, "DECODE_BYTES", frames_a_call * 64 * 96 * 32 * 4)
+    out = tfc.forward_bidirect_flow(pt, torch.from_numpy(ff), torch.from_numpy(fb), torch.from_numpy(masks))
+    assert calls == [frames_a_call] * (16 // frames_a_call) + [16 % frames_a_call] * (16 % frames_a_call > 0)
+    for o, r in zip(out, ref):
         _close_rel(o, r)
