@@ -25,8 +25,11 @@ Phases (any failure raises; the exit code is then nonzero):
        occupancy);
        B4 (segment-tiled attention) at the 1280x720 shapes, path A's
        (5 windows of 13 frames) and path S's (one window of 19 frames,
-       t_sel 10 and 9, the middle window's occupancy), with B3 timed on
-       the same inputs; B5 (halo attention) at the 640x360 and
+       t_sel 10 and 9, the middle window's occupancy), and in bf16 at
+       path H's (one window of 19 frames at 1920x1080), with B3 timed on
+       the same inputs; B1's map blend and B2 bf16 also at path H's shapes
+       (a RAFT call of 2 pairs of 135x240; x[2,135,240,256] and
+       x[1,270,480,128]); B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
        main path's padded pyramid and B7 (one level) on its level 0;
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
@@ -50,7 +53,15 @@ Phases (any failure raises; the exit code is then nonzero):
      counters reset just before it (B1 with the map-dtype blend, B2, B4;
      every frame written once, in order, uint8-exact, equal to the input
      outside its dilated mask; wall, frames/s, time to the first write,
-     peak memory and memory after each window's eviction);
+     peak memory and memory after each window's eviction, which must not
+     grow between chunk fills); then, at 1920x1080, each memory plan that
+     no path takes forced on 20 frames against the path's forms (also
+     path H's warm-up), and path H: `process_streaming` over 120 frames
+     at 1920x1080, one run with blocking stage timers (B1 with the
+     map-dtype blend, B2, B4; the form of each RAFT call and completion
+     chunk; the output checked as path S's; peak at most 64 GiB; the live
+     set flat between chunk fills); the five earlier paths' launches are
+     held to `EARLIER_LAUNCHES`;
      then check the card against the host on a small
      clip, the inpaint node with the default kernels and with both
      switches, and the outpaint node; and streaming against the
@@ -81,9 +92,11 @@ and fp32, at its phase-2 shape (one JSON line).
 
     python3 chip_smoke.py --fc-plan
 
-measures flow completion's peak memory and time at path S's largest
-completion chunk and path A's, with both directions batched (the port's
-plan), in turn, and (path A) decoded at once (one JSON line).
+measures flow completion's peak memory and time on path H's 85-pair
+chunk at 1920x1080 in every combination of the directions (batched or
+in turn), the encoder (whole or temporal chunks) and its rows (full or
+slabs), at path S's largest chunk and path A's in the port's plan and in
+turn, and RAFT's forms on 25 frames at 1920x1080 (one JSON line).
 """
 
 from __future__ import annotations
@@ -143,6 +156,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, batch: int = 10) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / batch)
     return statistics.median(times)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def require(cond, msg) -> None:
@@ -388,13 +407,20 @@ STREAM_CLIP = (48, 360, 640)
 # path S's RAFT calls: 4-frame clips, 3 or 4 pairs of 90x160 (path A's is 3)
 PATH_S_RAFT_CALL = (4, 90, 160)
 
+# path H: process_streaming over the synthetic clip at 1920x1080, 120 frames
+# (the JAX package's scripts/bench_configs.py config 5), default widgets;
+# its RAFT calls: 3-frame clips, 1 or 2 pairs of 135x240
+PATH_H = (120, 1080, 1920)
+PATH_H_RAFT_CALL = (2, 135, 240)
+
 # B2's shapes: the node's feature propagation (x [5, H/4, W/4, 128], cg 8)
 # and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360, 1280x720 and
 # on the 768x360 outpaint canvas; path S's feature propagation, one window a
-# call (x [1, ...])
+# call (x [1, ...]); path H's completion and feature propagation at 1920x1080
 B2_SHAPES = {
     "fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256),
     "fpO": (5, 90, 192, 128), "fcO": (2, 45, 96, 256), "fpS": (1, 180, 320, 128),
+    "fcH": (2, 135, 240, 256), "fpH": (1, 270, 480, 128),
 }
 
 
@@ -552,22 +578,22 @@ def check_window_attention(dt, gen, t_sel, occ, n_win=36, pl_per=91, grid="30x54
                 grid=grid, t_sel=t_sel)
 
 
-def check_window_attention_tiled(dt, gen, t_sel, occ, b=5, t=13):
-    """B4 at the 1280x720 shapes (144 windows per batch row, pooled
-    segment t_sel * 405 keys), and B3 on the same inputs: by default path
-    A's 5 windows of 13 frames; path S's is one window of 19 (b=1, t=19)."""
+def check_window_attention_tiled(dt, gen, t_sel, occ, b=5, t=13, n_win=144, pl_per=405):
+    """B4 and B3 on the same inputs, by default at the 1280x720 shapes (144
+    windows per batch row, pooled segment t_sel * 405 keys) of path A's 5
+    windows of 13 frames; path S's is one window of 19 (b=1, t=19), path
+    H's one window of 19 at 1920x1080 (324 windows, t_sel * 880 keys)."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
 
-    n_win = 144
-    args = attention_inputs(dt, gen, n_win, t_sel, 405, occ, b, t)
-    require(mod.uses_tiled(args[0], args[3], args[5]), "the 1280x720 shapes must take the tiled kernel")
+    args = attention_inputs(dt, gen, n_win, t_sel, pl_per, occ, b, t)
+    require(mod.uses_tiled(args[0], args[3], args[5]), f"the shapes of {n_win} windows must take the tiled kernel")
     out = mod.window_attention_tiled(*args, n_win_per_b=n_win)
     torch.cuda.synchronize()
     ref = mod.window_attention_tiled_plain(*args, n_win)
     err, rel = rel_err(out, ref)
     tol = 1e-4 if dt == torch.float32 else 2e-2  # softmax over ~4.5k keys; bf16 output rounding
     nw = occ.numel()
-    log(f"  B4 window_attention_tiled {str(dt)[6:]} b={b} t={t} t_sel={t_sel}: occupied {int(occ.sum())}/{nw}; "
+    log(f"  B4 window_attention_tiled {str(dt)[6:]} b={b} t={t} t_sel={t_sel} windows {n_win}: occupied {int(occ.sum())}/{nw}; "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "window_attention_tiled disagrees with its plain version")
     del ref
@@ -577,11 +603,12 @@ def check_window_attention_tiled(dt, gen, t_sel, occ, b=5, t=13):
     lib = attention_library(args, n_win)
     lib_err, _ = rel_err(lib().reshape(out.shape), out)
     library_ms = time_ms(lib, reps=5, warmup=1)
-    bound, by = attention_bound(dt, 4, t * 45, 45, 128, t_sel * 148, t_sel * 405, occ, n_win)
+    bound, by = attention_bound(dt, 4, t * 45, 45, 128, t_sel * 148, t_sel * pl_per, occ, n_win)
     log(f"    ms {ms:.4f}  B3 on the same inputs {b3_ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         f"library_ms {library_ms:.4f} (SDPA, err vs kernel {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw, b=b, t=t, t_sel=t_sel)
+                library_ms=library_ms, b3_ms=b3_ms, occupied_share=int(occ.sum()) / nw, b=b, t=t, t_sel=t_sel,
+                n_win=n_win)
 
 
 def check_window_attention_halo(dt, gen, grid, occ):
@@ -686,27 +713,29 @@ def clip_occupancy(h: int, w: int):
     return window_occupancy(binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"]))
 
 
-def path_s_window():
-    """(frames of one path-S window's attention, t_sel of its even and odd
-    layers, its local frames): the middle window of the 240-frame clip at
-    default widgets, 11 local and 8 reference slots."""
+def stream_window(t: int):
+    """(frames of one streaming window's attention, t_sel of its even and
+    odd layers, its local frames): the middle window of a t-frame clip at
+    default widgets (for 120 and 240 frames, 11 local and 8 reference
+    slots)."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
     from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_tables
 
-    sels, _, starts, lts, _, _, l_t_max, ref_max = _window_tables(PipelineConfig(), PATH_S[0])
+    sels, _, starts, lts, _, _, l_t_max, ref_max = _window_tables(PipelineConfig(), t)
     wi = sels.shape[0] // 2
     t_win = l_t_max + ref_max
     return t_win, ((t_win + 1) // 2, t_win // 2), list(range(int(starts[wi]), int(starts[wi] + lts[wi])))
 
 
-def path_s_occupancy():
-    """Path S's occupancy: the middle window's local frames of the
-    240-frame 1280x720 clip (144 token windows of the 60x108 grid)."""
+def stream_occupancy(path):
+    """A streaming path's occupancy: the middle window's local frames of
+    its (t, h, w) clip (144 token windows of the 60x108 grid at 1280x720,
+    324 of the 90x162 grid at 1920x1080)."""
     from comfyui_propainter_nodes_tpu_torch.ops.dilation import binary_dilation
 
-    _, h, w = PATH_S
+    t, h, w = path
     base = clip_base(h, w)
-    masks = np.stack([clip_frame(base, i)[1] for i in path_s_window()[2]])
+    masks = np.stack([clip_frame(base, i)[1] for i in stream_window(t)[2]])
     md = binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"])
     return occupied(token_pool(md))
 
@@ -789,22 +818,17 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
     after), profiled run of a node's `run`. `need` kernels must have
     launched in the timed run, `forbid` kernels must not. Returns the
     timed run's outputs and its summary."""
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
-
     with switches(switched):
         t0 = time.perf_counter()
         run()
         log(f"  warm-up run {time.perf_counter() - t0:.3f} s")
         torch.cuda.reset_peak_memory_stats()
-        for _, mod, attr in counters():
-            setattr(mod, attr, 0)
-        deform_conv.launch_shapes.clear()
+        reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run()
         wall = time.perf_counter() - t0
-        counts = {name: getattr(mod, attr) for name, mod, attr in counters()}
-        b2_shapes = {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()}
+        counts, b2_shapes = read_counters()
         stages = node.last_pipeline.stage_seconds
         peak = torch.cuda.max_memory_allocated()
         log(f"  [{tag}] timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
@@ -812,8 +836,7 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
         log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; launches {counts}; B2 launches by x shape {b2_shapes}")
         prof = profile_run(run, wall, profile_name)
 
-    require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
-    require(all(counts[k] == 0 for k in forbid), f"{tag}: a kernel off the path was launched: {counts}")
+    require_kernels(tag, counts, need, forbid)
     if prof is not None:
         require(all(prof["kernels_ms"][PROFILED[k]] > 0 for k in need),
                 f"{tag}: a kernel of the path has no device time in the profile: {prof['kernels_ms']}")
@@ -1020,6 +1043,136 @@ def node_widgets() -> dict:
     return {k: WIDGETS[k] for k in ("ref_stride", "neighbor_length", "subvideo_length", "raft_iter", "fp16")}
 
 
+# the pipeline methods whose peaks the blocking streaming runs read
+WATCHED = ("compute_flow", "complete_flow_chunk", "image_prop_chunk", "feature_window")
+
+
+def stream_clip(pipe, frames, masks, t: int, out, tag: str, stage_peaks=None) -> dict:
+    """One process_streaming run over `t` frames read by the VideoSources
+    `frames` and `masks`, written into `out`: its wall, first write,
+    writes (start, n), memory after each window's eviction and peak, and
+    before each window's tick the count of chunks that entered a cache
+    (frames fetched, completion and image-propagation chunks). With
+    stage_peaks, each watched method's peak is read and reset around its
+    calls; what the counter holds between them goes under "outside"."""
+    from comfyui_propainter_nodes_tpu_torch.pipeline.streaming import process_streaming
+
+    st = dict(first=None, writes=[], live=[], fills=[])
+    fills = [0]
+
+    def counted(fn):
+        def run(*args):
+            fills[0] += 1
+            return fn(*args)
+
+        return run
+
+    def write(start, arr):
+        if st["first"] is None:
+            st["first"] = time.perf_counter() - st["t0"]
+        st["writes"].append((start, arr.shape[0]))
+        out[start : start + arr.shape[0]] = arr
+
+    def progress(stage, done, total):
+        if stage == "feature_windows":
+            st["live"].append(torch.cuda.memory_allocated())
+            st["fills"].append(fills[0])
+
+    def peak_of(name, fn):
+        def run(*args):
+            stage_peaks["outside"] = max(stage_peaks.get("outside", 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            res = fn(*args)
+            stage_peaks[name] = max(stage_peaks.get(name, 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return res
+
+        return run
+
+    pipe.progress = progress
+    for m in ("complete_flow_chunk", "image_prop_chunk"):
+        setattr(pipe, m, counted(getattr(pipe, m)))
+    if stage_peaks is not None:
+        for m in WATCHED:
+            setattr(pipe, m, peak_of(m, getattr(pipe, m)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        st["t0"] = t0 = time.perf_counter()
+        st["caches"] = process_streaming(
+            pipe, counted(frames.fetch), lambda s, c: masks.fetch(s, c)[..., 0], t, write,
+            WIDGETS["mask_dilates"], WIDGETS["flow_mask_dilates"], prefetch=frames.prefetch,
+        )
+        torch.cuda.synchronize()
+        st["wall"] = time.perf_counter() - t0
+    finally:
+        pipe.progress = None
+        for m in WATCHED:
+            pipe.__dict__.pop(m, None)
+    st["peak"] = torch.cuda.max_memory_allocated()
+    if stage_peaks is not None:
+        stage_peaks["outside"] = max(stage_peaks.get("outside", 0), st["peak"])
+        st["peak"] = max(stage_peaks.values())
+    starts = [s0 for s0, _ in st["writes"]]
+    require(starts == [0] + [s0 + n for s0, n in st["writes"][:-1]] and all(n > 0 for _, n in st["writes"])
+            and sum(n for _, n in st["writes"]) == t, f"{tag}: writes {st['writes']}")
+    return st
+
+
+def check_streamed(frames, masks, out, t: int, h: int, w: int, tag: str) -> dict:
+    """Every streamed frame integral in 0..255 and equal to the input bytes
+    outside its dilated mask (streaming pastes nothing on the host: these
+    are the card's bytes), and the masked region painted."""
+    from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
+
+    err_out, painted, bad = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for s0 in range(0, t, 16):
+            n = min(16, t - s0)
+            _, byte = image_utils.prepare_frames(torch.from_numpy(frames.fetch(s0, n)).cuda(), w, h)
+            m = torch.from_numpy(masks.fetch(s0, n)[..., 0]).cuda()
+            md = image_utils.prepare_masks(m, w, h, WIDGETS["flow_mask_dilates"], WIDGETS["mask_dilates"])[1]
+            o = torch.from_numpy(out[s0 : s0 + n]).cuda()
+            bad += int((~torch.isfinite(o) | (o != o.floor()) | (o < 0) | (o > 255)).sum())
+            d = (o - byte).abs()
+            err_out = max(err_out, float((d * (1 - md)).max()))
+            painted = max(painted, float((d * md).max()))
+    log(f"  [{tag}] output vs input outside the dilated mask: max |d| {err_out} (must be 0); inside: max |d| "
+        f"{painted}; values not integral in 0..255: {bad}")
+    require(bad == 0, f"{tag}: {bad} values not integral in 0..255")
+    require(err_out == 0.0, f"{tag}: output differs from the input outside the dilated mask: {err_out}")
+    require(painted > 0, f"{tag}: the masked region must be inpainted")
+    return dict(max_abs_outside=err_out, max_abs_inside=painted)
+
+
+def streaming_pipeline(h: int, w: int):
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+
+    return get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
+
+
+def reset_counters():
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
+
+    for _, mod, attr in counters():
+        setattr(mod, attr, 0)
+    deform_conv.launch_shapes.clear()
+
+
+def read_counters():
+    """(launches by kernel, B2's launches by x shape)."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
+
+    return ({name: getattr(mod, attr) for name, mod, attr in counters()},
+            {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()})
+
+
+def require_kernels(tag, counts, need, forbid):
+    require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
+    require(all(counts[k] == 0 for k in forbid), f"{tag}: a kernel off the path was launched: {counts}")
+
+
 def path_s_run(need, forbid):
     """Path S: `process_streaming` over the 240-frame 1280x720 clip, read
     from .npy files by two `VideoSource`s, at default widgets with random
@@ -1031,79 +1184,14 @@ def path_s_run(need, forbid):
     copies each frame into a float32 host array and the progress callback
     reads memory_allocated after each window's eviction. After the second
     run every frame must have been written once, in order, be integral in
-    0..255 and equal the input bytes outside its dilated mask (streaming
-    pastes nothing on the host: these are the card's bytes)."""
-    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
-    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
-    from comfyui_propainter_nodes_tpu_torch.pipeline.streaming import process_streaming
-    from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
+    0..255 and equal the input bytes outside its dilated mask."""
     from comfyui_propainter_nodes_tpu_torch.utils import profiling
     from comfyui_propainter_nodes_tpu_torch.utils.frameio import VideoSource
 
     t, h, w = PATH_S
     tag = f"path S streaming {t} frames {w}x{h}"
-    md_dil, fm_dil = WIDGETS["mask_dilates"], WIDGETS["flow_mask_dilates"]
-    pipe = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
+    pipe = streaming_pipeline(h, w)
     out = np.zeros((t, h, w, 3), np.float32)  # touched here, not in the timed runs
-    watched = ("compute_flow", "complete_flow_chunk", "image_prop_chunk", "feature_window")
-
-    def stream(frames, masks, stage_peaks=None):
-        """One run; its wall, first write, writes (start, n), memory after
-        each window and peak. With stage_peaks, each watched method's peak
-        is read and reset around its calls; what the counter holds between
-        them goes under "outside"."""
-        st = dict(first=None, writes=[], live=[])
-
-        def write(start, arr):
-            if st["first"] is None:
-                st["first"] = time.perf_counter() - st["t0"]
-            st["writes"].append((start, arr.shape[0]))
-            out[start : start + arr.shape[0]] = arr
-
-        def progress(stage, done, total):
-            if stage == "feature_windows":
-                st["live"].append(torch.cuda.memory_allocated())
-
-        def peak_of(name, fn):
-            def run(*args):
-                stage_peaks["outside"] = max(stage_peaks.get("outside", 0), torch.cuda.max_memory_allocated())
-                torch.cuda.reset_peak_memory_stats()
-                res = fn(*args)
-                stage_peaks[name] = max(stage_peaks.get(name, 0), torch.cuda.max_memory_allocated())
-                torch.cuda.reset_peak_memory_stats()
-                return res
-
-            return run
-
-        pipe.progress = progress
-        if stage_peaks is not None:
-            for m in watched:
-                setattr(pipe, m, peak_of(m, getattr(pipe, m)))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            st["t0"] = t0 = time.perf_counter()
-            st["caches"] = process_streaming(
-                pipe, frames.fetch, lambda s, c: masks.fetch(s, c)[..., 0], t, write,
-                md_dil, fm_dil, prefetch=frames.prefetch,
-            )
-            torch.cuda.synchronize()
-            st["wall"] = time.perf_counter() - t0
-        finally:
-            pipe.progress = None
-            if stage_peaks is not None:
-                for m in watched:
-                    delattr(pipe, m)
-        st["peak"] = torch.cuda.max_memory_allocated()
-        if stage_peaks is not None:
-            stage_peaks["outside"] = max(stage_peaks.get("outside", 0), st["peak"])
-            st["peak"] = max(stage_peaks.values())
-        starts = [s0 for s0, _ in st["writes"]]
-        require(starts == [0] + [s0 + n for s0, n in st["writes"][:-1]] and all(n > 0 for _, n in st["writes"])
-                and sum(n for _, n in st["writes"]) == t, f"{tag}: writes {st['writes']}")
-        return st
-
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         fpath, mpath = write_clip_npy(tmp, t, h, w)
@@ -1113,33 +1201,18 @@ def path_s_run(need, forbid):
         stage_peaks = {}
         with VideoSource(fpath) as frames, VideoSource(mpath) as masks:
             profiling.reset()
-            blk = stream(frames, masks, stage_peaks)
+            blk = stream_clip(pipe, frames, masks, t, out, tag, stage_peaks)
             stages = profiling.summary()
             profiling.set_blocking(False)
             try:
                 profiling.reset()
-                for _, mod, attr in counters():
-                    setattr(mod, attr, 0)
-                deform_conv.launch_shapes.clear()
-                run = stream(frames, masks)
-                counts = {name: getattr(mod, attr) for name, mod, attr in counters()}
+                reset_counters()
+                run = stream_clip(pipe, frames, masks, t, out, tag)
+                counts, b2_shapes = read_counters()
                 unblocked = profiling.summary()
             finally:
                 profiling.set_blocking(True)
-            b2_shapes = {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()}
-            # outside the dilated mask, the composed frames are the input bytes
-            err_out, painted, bad = 0.0, 0.0, 0
-            with torch.inference_mode():
-                for s0 in range(0, t, 16):
-                    n = min(16, t - s0)
-                    _, byte = image_utils.prepare_frames(torch.from_numpy(frames.fetch(s0, n)).cuda(), w, h)
-                    m = torch.from_numpy(masks.fetch(s0, n)[..., 0]).cuda()
-                    md = image_utils.prepare_masks(m, w, h, fm_dil, md_dil)[1]
-                    o = torch.from_numpy(out[s0 : s0 + n]).cuda()
-                    bad += int((~torch.isfinite(o) | (o != o.floor()) | (o < 0) | (o > 255)).sum())
-                    d = (o - byte).abs()
-                    err_out = max(err_out, float((d * (1 - md)).max()))
-                    painted = max(painted, float((d * md).max()))
+            checked = check_streamed(frames, masks, out, t, h, w, tag)
             copy_ms = write_copy_ab(torch.from_numpy(out[:5]).cuda())
     log(f"  [{tag}] wall {run['wall']:.3f} s = {t / run['wall']:.3f} frames/s; first frames written after "
         f"{run['first']:.3f} s (timers not blocking, nothing wrapped; the blocking run before it: "
@@ -1155,25 +1228,186 @@ def path_s_run(need, forbid):
             f"last {st['live'][-1] / 2**30:.3f} GiB ({len(st['live'])} windows); largest live entries per cache "
             f"{st['caches']}")
     log(f"  [{tag}] after each window's eviction, GiB (second run): "
-        + " ".join(f"{v / 2**30:.2f}" for v in run["live"]))
+        + " ".join(f"{v / 2**30:.2f}" for v in run["live"]) + f"; chunks that entered a cache before each window: "
+        f"{run['fills']}")
     log(f"  [{tag}] peak allocated by stage (GiB, blocking run): "
         + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in stage_peaks.items()))
     log(f"  [{tag}] one flush of 5 frames to the host (ms, median of 20): float32 {copy_ms['float32']:.3f}, "
         f"uint8 then widened on the host {copy_ms['uint8']:.3f}")
     log(f"  [{tag}] launches {counts}; B2 launches by x shape {b2_shapes}")
-    log(f"  [{tag}] output vs input outside the dilated mask: max |d| {err_out} (must be 0); inside: max |d| "
-        f"{painted}; values not integral in 0..255: {bad}")
-    require(bad == 0, f"{tag}: {bad} values not integral in 0..255")
-    require(all(counts[k] > 0 for k in need), f"{tag}: a kernel of the path was not launched: {counts}")
-    require(all(counts[k] == 0 for k in forbid), f"{tag}: a kernel off the path was launched: {counts}")
-    require(err_out == 0.0, f"{tag}: output differs from the input outside the dilated mask: {err_out}")
-    require(painted > 0, f"{tag}: the masked region must be inpainted")
+    require_kernels(tag, counts, need, forbid)
+    for st in (blk, run):
+        grown = live_growth(st["live"], st["fills"], h, w)
+        require(not grown, f"{tag}: the live set grows between chunk fills at windows {grown}: {st['live']}")
     return dict(frames=t, size=f"{w}x{h}", seconds=run["wall"], fps=t / run["wall"], first_write_s=run["first"],
                 blocking_seconds=blk["wall"], blocking_first_write_s=blk["first"], stages=stages,
                 stages_not_blocking=unblocked, peak_bytes=run["peak"], blocking_peak_bytes=blk["peak"],
                 stage_peak_bytes=stage_peaks, base_bytes=base_bytes, live_after_eviction_bytes=run["live"],
                 blocking_live_after_eviction_bytes=blk["live"], cache_peaks=run["caches"], launches=counts,
-                b2_launches_by_shape=b2_shapes, flush_copy_ms=copy_ms)
+                b2_launches_by_shape=b2_shapes, flush_copy_ms=copy_ms, output=checked)
+
+
+def record_forms(pipe, forms: list):
+    """Wrap the pipeline's compute_flow and complete_flow_chunk to record,
+    for each call, the form it takes by the gates (RAFT: frames, form and
+    lookup; completion: pairs and `completion_plan`)."""
+    from comfyui_propainter_nodes_tpu_torch.models import flow_completion as fc
+    from comfyui_propainter_nodes_tpu_torch.pipeline import stages
+
+    cfg = pipe.config
+    compute_flow, complete = pipe.compute_flow, pipe.complete_flow_chunk
+
+    def flow(frames):
+        t, hw = frames.shape[1], (frames.shape[2], frames.shape[3])
+        forms.append(("compute_flow", t, stages.raft_form(cfg, t, hw), stages.jax_flow_lookup(cfg, t, hw)))
+        return compute_flow(frames)
+
+    def chunk(ff, fb, mk):
+        forms.append(("complete_flow_chunk", ff.shape[1], fc.completion_plan(ff.shape, pipe.cdtype)))
+        return complete(ff, fb, mk)
+
+    pipe.compute_flow, pipe.complete_flow_chunk = flow, chunk
+
+
+# the earlier paths' launches (every other counter 0); path S's B1 map
+# count is 76 RAFT calls of 20 iterations: its 24-pair flow sub-ranges
+EARLIER_LAUNCHES = {
+    "main": dict(corr_lookup=20, deform_conv=66, window_attention=8),
+    "path_a": dict(corr_lookup_map=120, deform_conv=66, window_attention_tiled=8),
+    "path_b": dict(deform_conv=66, window_attention_halo=8, corr_window4=20),
+    "path_o": dict(corr_lookup=20, deform_conv=66, window_attention=8),
+    "path_s": dict(corr_lookup_map=1520, deform_conv=1568, window_attention_tiled=384),
+}
+
+def live_growth(live, fills, h: int, w: int) -> list:
+    """The windows whose live set (memory after the window's eviction)
+    exceeds the live set at the last window where a chunk entered a cache
+    by more than the window loop's own transients: one window's flows
+    (10 pairs of both directions, bf16, concatenated where the window
+    spans two completion chunks) and 64 MiB. Between chunk fills a
+    bounded working set does not grow with the window index."""
+    slack = 10 * 2 * h * w * 2 * 2 + (64 << 20)
+    grown, ref = [], live[0]
+    for i in range(len(live)):
+        if i == 0 or fills[i] != fills[i - 1]:
+            ref = live[i]
+        elif live[i] > ref + slack:
+            grown.append(i)
+    return grown
+
+
+PEAK_LIMIT = 64 << 30  # path H's peak: leaves 15 GiB of the card to the other models of a graph
+
+
+def path_h_run(need, forbid):
+    """Path H: `process_streaming` over the 120-frame 1920x1080 clip (the
+    JAX package's config 5: ref_stride 10, neighbor_length 10,
+    subvideo_length 80, raft_iter 20, bf16), read from .npy files by two
+    `VideoSource`s, one run with blocking stage timers, each stage's peak,
+    the launch counters reset just before it, and the form of each RAFT
+    call and completion chunk recorded. Requires: every frame written
+    once, in order, integral in 0..255 and the input outside its dilated
+    mask; peak allocated <= 64 GiB; the live set after each window's
+    eviction not growing between chunk fills (`live_growth`)."""
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+    from comfyui_propainter_nodes_tpu_torch.utils.frameio import VideoSource
+
+    t, h, w = PATH_H
+    tag = f"path H streaming {t} frames {w}x{h}"
+    pipe = streaming_pipeline(h, w)
+    out = np.zeros((t, h, w, 3), np.float32)
+    forms, stage_peaks = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fpath, mpath = write_clip_npy(tmp, t, h, w)
+        base_bytes = torch.cuda.memory_allocated()
+        with VideoSource(fpath) as frames, VideoSource(mpath) as masks:
+            profiling.reset()
+            record_forms(pipe, forms)
+            try:
+                reset_counters()
+                run = stream_clip(pipe, frames, masks, t, out, tag, stage_peaks)
+                counts, b2_shapes = read_counters()
+            finally:
+                pipe.__dict__.pop("compute_flow", None)
+                pipe.__dict__.pop("complete_flow_chunk", None)
+            stages = profiling.summary()
+            checked = check_streamed(frames, masks, out, t, h, w, tag)
+    live = run["live"]
+    grown = live_growth(live, run["fills"], h, w)
+    log(f"  [{tag}] wall {run['wall']:.3f} s = {t / run['wall']:.3f} frames/s (blocking stage timers); first frames "
+        f"written after {run['first']:.3f} s")
+    log(f"  [{tag}] stage timers: " + ", ".join(f"{k} {v['seconds']:.3f} ({v['calls']})" for k, v in stages.items()))
+    log(f"  [{tag}] max_memory_allocated {run['peak'] / 2**30:.3f} GiB (limit {PEAK_LIMIT / 2**30:.0f}); by stage: "
+        + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in stage_peaks.items()))
+    log(f"  [{tag}] memory_allocated before the run {base_bytes / 2**30:.3f} GiB; after each window's eviction (GiB): "
+        + " ".join(f"{v / 2**30:.2f}" for v in live) + f"; largest live entries per cache {run['caches']}; "
+        f"chunks that entered a cache before each window: {run['fills']}")
+    for f in forms:
+        log(f"  [{tag}] {f[0]}: " + ", ".join(str(x) for x in f[1:]))
+    log(f"  [{tag}] launches {counts}; B2 launches by x shape {b2_shapes}")
+    require_kernels(tag, counts, need, forbid)
+    require(run["peak"] <= PEAK_LIMIT, f"{tag}: peak {run['peak'] / 2**30:.3f} GiB over {PEAK_LIMIT / 2**30:.0f}")
+    require(not grown, f"{tag}: the live set grows between chunk fills at windows {grown}: {live}")
+    return dict(frames=t, size=f"{w}x{h}", seconds=run["wall"], fps=t / run["wall"], first_write_s=run["first"],
+                stages=stages, peak_bytes=run["peak"], stage_peak_bytes=stage_peaks, base_bytes=base_bytes,
+                live_after_eviction_bytes=live, cache_peaks=run["caches"], launches=counts,
+                b2_launches_by_shape=b2_shapes, forms=forms, output=checked)
+
+
+def forced_forms() -> dict:
+    """At 1920x1080 on the card: process_streaming over 20 frames of the
+    synthetic clip (default widgets) with the forms path H takes, then with
+    each form that no path takes forced through its budget, on the same
+    inputs: RAFT a pair a call, and with the directions in turn; the
+    completion's directions in turn; its encoder in temporal chunks, in row
+    slabs; its mid dilation in frame chunks; the generator's encoder and
+    decoder in frame chunks of 4 and 2 (the JAX package's). Each output is
+    held against the path forms' with the card-against-host tolerance
+    (all but < 0.1% of values within one uint8 level, mean |d| < 1e-3 in
+    [0, 1]); the peak and wall of each run are logged. The first run is
+    also path H's warm-up at its shapes."""
+    from comfyui_propainter_nodes_tpu_torch.models import flow_completion as fc
+    from comfyui_propainter_nodes_tpu_torch.models.raft import call_bytes
+    from comfyui_propainter_nodes_tpu_torch.pipeline import stages
+    from comfyui_propainter_nodes_tpu_torch.utils.frameio import VideoSource
+
+    t, h, w = 20, PATH_H[1], PATH_H[2]
+    pipe = streaming_pipeline(h, w)
+    cfg = pipe.config
+    dt = pipe.cdtype
+    forced = {
+        "path forms": {},
+        "RAFT a pair a call": dict(stages__RAFT_CALL_BYTES=1.5 * call_bytes(1, h // 8, w // 8, 2, "map")),
+        "RAFT a pair a call, directions in turn": dict(stages__RAFT_CALL_BYTES=1),
+        "completion directions in turn": dict(fc__BATCH_BYTES=0),
+        "completion encoder in temporal chunks": dict(fc__ENCODE_BYTES=0),
+        "completion encoder in row slabs": dict(fc__SLAB_BYTES=256 << 20),
+        "completion mid in frame chunks": dict(fc__MID_BYTES=0),
+        "generator encoder and decoder in frame chunks": dict(
+            pp__ENCODE_BYTES=4 * (h // 4) * (w // 4) * 512 * 2, pp__DECODE_BYTES=2 * h * w * 64 * 2),
+    }
+    res, base = {}, None
+    out = np.zeros((t, h, w, 3), np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        fpath, mpath = write_clip_npy(tmp, t, h, w)
+        with VideoSource(fpath) as frames, VideoSource(mpath) as masks:
+            for name, values in forced.items():
+                with budgets(**values):
+                    plan = dict(raft=stages.raft_form(cfg, t, (h, w)),
+                                completion=fc.completion_plan((1, t - 1, h, w, 2), dt))
+                    st = stream_clip(pipe, frames, masks, t, out, f"forced forms: {name}")
+                r = dict(seconds=st["wall"], peak_gib=st["peak"] / 2**30, forms=plan)
+                if base is None:
+                    base = out.copy()
+                else:
+                    d = np.abs(out - base)
+                    r.update(differing_bytes=int((d > 0).sum()), max_abs=float(d.max()),
+                             share_over_1=float((d > 1.5).mean()), mean=float(d.mean()) / 255.0)
+                log(f"  forced forms at {w}x{h}, {t} frames: {name}: {r}")
+                if base is not None and name != "path forms":
+                    require(r["share_over_1"] < 1e-3 and r["mean"] < 1e-3, f"forced form {name} differs: {r}")
+                res[name] = r
+    return res
 
 
 def write_copy_ab(frames, reps: int = 20) -> dict:
@@ -1363,71 +1597,135 @@ def tree_times(tree: str) -> int:
     return 0
 
 
+def measure(fn, reps: int = 3) -> dict:
+    """fn's peak allocated above what is allocated before it (an
+    out-of-memory is recorded as such) and the median of `reps` timed
+    calls after the first; the last output under "out"."""
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        times = []
+        for _ in range(reps):
+            del out
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return {"peak_gib": peak / 2**30, "seconds": statistics.median(times), "out": out}
+    except torch.cuda.OutOfMemoryError as e:
+        return {"oom": str(e).splitlines()[0]}
+    finally:
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def budgets(**values):
+    """Module budgets (`module.NAME` for each `module__NAME` given) set for
+    the block, restored after it."""
+    from comfyui_propainter_nodes_tpu_torch.models import flow_completion, propainter
+    from comfyui_propainter_nodes_tpu_torch.pipeline import stages
+
+    mods = {"fc": flow_completion, "pp": propainter, "stages": stages}
+    old = {}
+    try:
+        for key, v in values.items():
+            mod, name = key.split("__")
+            old[(mod, name)] = getattr(mods[mod], name)
+            setattr(mods[mod], name, v)
+        yield
+    finally:
+        for (mod, name), v in old.items():
+            setattr(mods[mod], name, v)
+
+
+BIG = 1 << 62
+# --fc-plan's combinations at 1920x1080: directions, encoder, rows
+FC_COMBOS = {
+    (d, e, r): dict(fc__BATCH_BYTES=BIG if d == "batched" else 0, fc__ENCODE_BYTES=BIG if e == "whole" else 0,
+                    fc__SLAB_BYTES=BIG if r == "full rows" else 1 << 30)
+    for d in ("batched", "in turn") for e in ("whole", "temporal chunks") for r in ("full rows", "slabs")
+}
+
+
+def raft_form_budgets(h8: int, w8: int) -> list:
+    """(form, RAFT_CALL_BYTES) that make `raft_form` pick the path's own
+    form (None), then a pair a call, then a pair a call with the
+    directions in turn, for calls of the map blend at h8 x w8, bf16."""
+    from comfyui_propainter_nodes_tpu_torch.models.raft import call_bytes
+
+    one = call_bytes(1, h8, w8, 2, "map")
+    return [(None, BIG), ("per pair", 1.5 * one), ("per pair, directions in turn", 1)]
+
+
 def fc_plan() -> int:
-    """`--fc-plan`: flow completion's memory plan at path S's largest
-    completion chunk (90 pairs at 1280x720) and at path A's (23 pairs),
-    bf16, random weights. Plans: both directions in one batched call with
-    the decoder in calls within `DECODE_BYTES` (the port's), the
-    directions in turn with 8-frame decoder calls (the JAX package's past
-    its area gate), and at path A the batched call decoded at once. Each:
-    the peak above the inputs (an out-of-memory is recorded as such) and
-    the median of 3 timed calls after a warm-up; prints one JSON line."""
+    """`--fc-plan`: flow completion's memory plans, bf16, random weights:
+    at path H's first completion chunk (85 pairs at 1920x1080) every
+    combination of the directions (batched or in turn), the encoder (the
+    whole clip or temporal chunks) and its rows (full, or slabs within 1
+    GiB a call), forced through the budgets; at path S's 90-pair chunk and
+    path A's 23 pairs at 1280x720 the port's plan, the directions in turn,
+    and (path A) the decoder in one call. Then RAFT's forms at path H's
+    sub-range of 24 pairs (25 frames at 1920x1080, 20 iterations): chunks
+    of 2 pairs, a pair a call, a pair a call with the directions in turn
+    (their flows against the chunks'). Each: the peak above its inputs (an
+    out-of-memory is recorded as such) and the median of 3 timed calls
+    after a warm-up; prints one JSON line."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
     from comfyui_propainter_nodes_tpu_torch.models import flow_completion as fc
     from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
+    from comfyui_propainter_nodes_tpu_torch.pipeline import stages
 
     _build.build()
     _build.library()
-    _, h, w = PATH_S
-    p = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True).flow_params
-    frame_bytes = h * w * 32 * 2
-
-    def in_turn(ff, fb, mk):
-        mf, mb = ff * (1 - mk[:, :-1]), fb * (1 - mk[:, 1:])
-        pf = fc.flow_complete_forward(p, mf, mk[:, :-1])
-        return pf, fc.flow_complete_forward(p, mb.flip(1), mk[:, 1:].flip(1)).flip(1)
-
-    plans = {
-        "batched": (fc.DECODE_BYTES, lambda *a: fc.forward_bidirect_flow(p, *a)),
-        "in_turn_8": (8 * frame_bytes, in_turn),
-        "batched_whole": (1 << 62, lambda *a: fc.forward_bidirect_flow(p, *a)),
-    }
     result = {}
-    budget = fc.DECODE_BYTES
     g = torch.Generator(device="cuda").manual_seed(0)
-    for pairs in (90, 23):
+    cases = [(PATH_H, 85, FC_COMBOS), (PATH_S, 90, None), (PATH_S, 23, None)]
+    for (_, h, w), pairs, combos in cases:
+        pipe = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
+        p = pipe.flow_params
+        if combos is None:
+            combos = {("port plan",): {}, ("in turn",): dict(fc__BATCH_BYTES=0)}
+            if pairs == 23:
+                combos[("decoded at once",)] = dict(fc__DECODE_BYTES=BIG)
         ff, fb = (torch.randn(2, 1, pairs, h, w, 2, generator=g, device="cuda") * 3).to(torch.bfloat16)
         mk = torch.zeros(1, pairs + 1, h, w, 1, device="cuda", dtype=torch.bfloat16)
         mk[:, :, h // 3 : 2 * h // 3, w // 3 : w // 2] = 1
-        for name, (decode_bytes, fn) in plans.items():
-            if name == "batched_whole" and pairs == 90:
-                continue  # more than 60 GB
-            fc.DECODE_BYTES = decode_bytes
-            key = f"{pairs}_pairs/{name}"
-            try:
-                with torch.inference_mode():
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    base = torch.cuda.memory_allocated()
-                    fn(ff, fb, mk)
-                    torch.cuda.synchronize()
-                    peak = torch.cuda.max_memory_allocated() - base
-                    times = []
-                    for _ in range(3):
-                        t0 = time.perf_counter()
-                        fn(ff, fb, mk)
-                        torch.cuda.synchronize()
-                        times.append(time.perf_counter() - t0)
-                result[key] = {"peak_gib": peak / 2**30, "seconds": statistics.median(times)}
-            except torch.cuda.OutOfMemoryError as e:
-                result[key] = {"oom": str(e).splitlines()[0]}
-            finally:
-                fc.DECODE_BYTES = budget
-                torch.cuda.empty_cache()
-            log(f"  fc plan {key}: {result[key]}")
-        del ff, fb, mk
-    print(json.dumps({"fc_plan": result}))
+        log(f"  {pairs} pairs at {w}x{h}: the port's plan {fc.completion_plan(ff.shape, ff.dtype)}")
+        for combo, values in combos.items():
+            key = f"{w}x{h}/{pairs}_pairs/" + ", ".join(combo)
+            with budgets(**values), torch.inference_mode():
+                r = measure(lambda: fc.forward_bidirect_flow(p, ff, fb, mk))
+            r.pop("out", None)
+            result[key] = r
+            log(f"  fc plan {key}: {r}")
+        del ff, fb, mk, pipe, p
+        torch.cuda.empty_cache()
+    t, h, w = 25, PATH_H[1], PATH_H[2]
+    pipe = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
+    frames = (torch.rand(1, t, h, w, 3, generator=g, device="cuda") * 2 - 1)
+    frames[:, :, 200:500, 300:700] = frames[:, :1, 200:500, 300:700]
+    ref = None
+    for form, budget in raft_form_budgets(h // 8, w // 8):
+        with budgets(stages__RAFT_CALL_BYTES=budget), torch.inference_mode():
+            taken = stages.raft_form(pipe.config, t, (h, w))
+            require(form in (None, taken), f"RAFT_CALL_BYTES {budget} gives {taken}, not {form}")
+            r = measure(lambda: pipe.compute_flow(frames), reps=1)
+            form = taken
+        out = r.pop("out", None)
+        if out is not None and ref is None:
+            ref = out
+        elif out is not None:
+            scale = max(float(a.abs().max()) for a in ref)
+            r["max_abs_diff_vs_path_form"] = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
+            r["flow_scale"] = scale
+        result[f"raft/{w}x{h}/{t}_frames/{form}"] = r
+        log(f"  raft form {form}: {r}")
+    print(json.dumps({"fc_plan": result, "nvidia_smi": nvidia_smi()}))
     return 0
 
 
@@ -1510,9 +1808,7 @@ def b7_tiles() -> int:
             + f"; grid_sample {result[key]['library_ms']:.4f}; bound {bound:.4f}")
         del maps, out, ref
         torch.cuda.empty_cache()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"b7_tiles": result, "nvidia_smi": smi}))
+    print(json.dumps({"b7_tiles": result, "nvidia_smi": nvidia_smi()}))
     return 0
 
 
@@ -1528,6 +1824,7 @@ def main() -> int:
         return b7_tiles()
     if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
         return fc_plan()
+    t_start = time.perf_counter()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
     from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
@@ -1557,11 +1854,13 @@ def main() -> int:
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     occ360, occ720, occ_o = clip_occupancy(360, 640), clip_occupancy(720, 1280), ring_occupancy()
-    occ_s = path_s_occupancy()
-    t_win_s, t_sel_s, _ = path_s_window()
+    occ_s, occ_h = stream_occupancy(PATH_S), stream_occupancy(PATH_H)
+    t_win_s, t_sel_s, _ = stream_window(PATH_S[0])
+    t_win_h, t_sel_h, _ = stream_window(PATH_H[0])
     log(f"  window occupancy of the node runs: 640x360 {int(occ360.sum())}/{occ360.numel()}, "
         f"1280x720 {int(occ720.sum())}/{occ720.numel()}, path O's ring on 768x360 {int(occ_o.sum())}/{occ_o.numel()}, "
-        f"path S's middle window {int(occ_s.sum())}/{occ_s.numel()} ({t_win_s} frames, t_sel {t_sel_s})")
+        f"path S's middle window {int(occ_s.sum())}/{occ_s.numel()} ({t_win_s} frames, t_sel {t_sel_s}), "
+        f"path H's {int(occ_h.sum())}/{occ_h.numel()} ({t_win_h} frames, t_sel {t_sel_h})")
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt)[6:]
@@ -1572,6 +1871,12 @@ def main() -> int:
             res[("B1_720", key)] = check_corr_lookup(dt, gen, "lanes", PATH_A_RAFT_CALL)
             res[("B1map_720", key)] = check_corr_lookup(dt, gen, "map", PATH_A_RAFT_CALL)
             res[("B1map_S", key)] = check_corr_lookup(dt, gen, "map", PATH_S_RAFT_CALL)
+            torch.cuda.empty_cache()
+            res[("B1map_H", key)] = check_corr_lookup(dt, gen, "map", PATH_H_RAFT_CALL)
+            torch.cuda.empty_cache()
+            for i, tag in ((0, "B4eH"), (1, "B4oH")):  # bf16 only: the fp32 library call would not fit
+                res[(tag, key)] = check_window_attention_tiled(dt, gen, t_sel_h[i], occ_h, 1, t_win_h, 324, 880)
+                torch.cuda.empty_cache()
             log(f"  B1 map / lanes blend: {res[('B1map', key)]['ms'] / res[('B1', key)]['ms']:.3f} at M 165600, "
                 f"{res[('B1map_720', key)]['ms'] / res[('B1_720', key)]['ms']:.3f} at path A's call")
             torch.cuda.empty_cache()
@@ -1631,14 +1936,23 @@ def main() -> int:
         ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
         ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
     )
+    # path H at 1920x1080: the forced forms first (also its warm-up); RAFT
+    # (w8 = 240) takes the map blend, the windows B4
+    forced = forced_forms()
+    path_h = path_h_run(
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+        ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
+    )
     card_vs_host(False, outpaint=True)
     streaming = {fp16: stream_vs_memory(fp16) for fp16 in ("disable", "enable")}
+    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s, "path_h": path_h}
+    for path, expected in EARLIER_LAUNCHES.items():
+        got = {k: v for k, v in paths[path]["launches"].items() if v}
+        require(got == expected, f"{path}: launches {got}, expected {expected}")
+    log(f"  the earlier paths' launches as expected: {EARLIER_LAUNCHES}")
 
-    log("phase 4: report")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    log(f"phase 4: report ({time.perf_counter() - t_start:.1f} s since the build began)")
+    smi = nvidia_smi()
     log(smi)
     pkg = "comfyui_propainter_nodes_tpu_torch"
     pallas = "comfyui_propainter_nodes_tpu/ops/pallas"
@@ -1652,7 +1966,6 @@ def main() -> int:
         ("corr_window4", "corr_window.cu", "corr_lookup.py:91", "B6", path_b),
         ("corr_window", "corr_window.cu", "corr_lookup.py:42", "B7", main_run),
     ]
-    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s}
     kernels = []
     for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
@@ -1670,6 +1983,8 @@ def main() -> int:
             row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]
         if rk == "B1map":
             row["ms_path_s_call"] = res[("B1map_S", "bfloat16")]["ms"]
+            h_ = res[("B1map_H", "bfloat16")]
+            row["path_h_call"] = {k: h_[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if rk == "B1":
             row["ms_path_o_call"] = res[("B1_O", "bfloat16")]["ms"]
         if rk == "B4e":  # path S's window, the even layers' t_sel (the odd in chip_smoke.json)
@@ -1677,6 +1992,9 @@ def main() -> int:
             row["path_s_shapes"] = {k: s_[k] for k in ("b", "t", "t_sel", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                         "bound_by", "library_ms", "b3_ms", "occupied_share")}
             row["path_s_shapes"].update(max_abs_err_fp32=s32["max_abs_err"], ms_fp32=s32["ms"])
+            h_ = res[("B4eH", "bfloat16")]
+            row["path_h_shapes"] = {k: h_[k] for k in ("b", "t", "t_sel", "n_win", "max_abs_err", "ms", "plain_ms",
+                                                        "bound_ms", "bound_by", "library_ms", "b3_ms", "occupied_share")}
         if rk == "B3e":  # path O's shapes, t_sel 7 (B3 at t_sel 6 in chip_smoke.json)
             o, o32 = res[("B3eO", "bfloat16")], res[("B3eO", "float32")]
             row["path_o_shapes"] = {k: o[k] for k in ("grid", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1694,7 +2012,7 @@ def main() -> int:
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "resources": resources,
-                   "streaming_vs_in_memory": streaming,
+                   "streaming_vs_in_memory": streaming, "forced_forms_1080p": forced,
                    "node": paths}, f, indent=1)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

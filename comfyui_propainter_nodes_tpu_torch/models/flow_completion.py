@@ -1,21 +1,43 @@
 """Recurrent flow completion network.
 
-Port of the JAX package's `models/flow_completion.py` (main path): the
-P3D encoder and mid dilation as NDHWC convs, the second-order
-bidirectional propagation as a Python loop over frames with a
-(prev1, prev2) carry, both temporal directions of
-`forward_bidirect_flow` batched into one network call, and the
-second-order deformable alignment on the deform-conv kernel
+Port of the JAX package's `models/flow_completion.py`: the P3D encoder
+and mid dilation as NDHWC convs, the second-order bidirectional
+propagation as a Python loop over frames with a (prev1, prev2) carry,
+and the second-order deformable alignment on the deform-conv kernel
 (ops/cuda/deform_conv.py).
 
-The decoder's full-res activations are the network's largest (32
-channels a pixel for every frame): it decodes as many frames a call as
-keep one of them within `DECODE_BYTES`: in bf16 one call for a node's
-24 frames at 1280x720, three for a streaming chunk of 90 pairs there.
-The decoder is per-frame pure, so the computation is the same; the
-values agree within fp32 rounding (a conv may take another algorithm
-for another batch size). Decoded at once, a 90-pair chunk at 1280x720
-asks for more than 60 GB.
+Memory plans. Each is exact in the computation it chunks (per-frame
+pure, or covered by a halo; a conv may take another algorithm for
+another batch size, so values agree within fp32 rounding), and each
+engages when the largest activation of the unchunked form, estimated
+from the shapes, passes its budget (bytes, sized for an 80 GB card):
+  * both temporal directions of `forward_bidirect_flow` in one batched
+    call; in turn past BATCH_BYTES (`directions_in_turn`);
+  * the encoder on the whole clip; past ENCODE_BYTES in temporal chunks
+    of CHUNK_T frames with a HALO_T-frame halo (`_encode_chunked`: the
+    four dilated-2 temporal convs see +-8 frames);
+  * each encoder call in full rows; past SLAB_BYTES in row slabs with a
+    2-row halo at 1/8 (`_slab_plan`, `_encode_slabbed`);
+  * the mid dilation on every frame at once; past MID_BYTES in chunks of
+    CHUNK_T frames;
+  * the decoder in calls that keep one full-res activation within
+    DECODE_BYTES (72 frames in bf16 at 1280x720, 32 at 1920x1080).
+The budgets keep the fastest form that fits, measured by `chip_smoke.py
+--fc-plan` on path H's 85-pair chunk at 1920x1080 in bf16 (NVIDIA H100
+80GB HBM3, 700.00 W; peak above the inputs, median of 3 calls):
+
+  directions  encoder          rows   peak GiB  seconds
+  batched     whole            full     38.75    1.116   (path H)
+  batched     whole            slabs    35.72    1.186
+  batched     temporal chunks  full     35.72    1.424
+  in turn     whole            full     31.04    1.198
+  in turn     temporal chunks  full     31.04    1.489
+
+So every path up to 1080p on an 80 GB card takes the first row (the
+encoder's halo doubles its work in temporal chunks, for 3 GiB); the gates
+try, in this order, the directions in turn, temporal chunks, slabs and
+mid chunks only where a chunk's estimate passes its budget: above
+1920x1080, or for chunks of more than about 115 pairs there.
 """
 
 from __future__ import annotations
@@ -33,8 +55,15 @@ Params = Mapping[str, torch.Tensor]
 
 CHANNEL = 128
 DEFORM_GROUPS = 16
-# the largest full-res decoder activation of one decoder call, in bytes
-DECODE_BYTES = 4 << 30
+# budgets of the memory plans, in bytes of the unchunked form's largest
+# activation (see the module docstring)
+DECODE_BYTES = 4 << 30  # one decoder call's full-res 32-channel activation
+ENCODE_BYTES = 8 << 30  # the encoder's half-res 32-channel activation of the clip
+SLAB_BYTES = 8 << 30  # the same for one encoder call (the clip or a temporal chunk)
+MID_BYTES = 2 << 30  # the mid dilation's 1/8-res 128-channel activation
+BATCH_BYTES = 16 << 30  # what both directions in one call hold (`directions_in_turn`)
+CHUNK_T = 16  # frames a temporal chunk of the encoder, and of the mid dilation
+HALO_T = 8  # the encoder's temporal receptive field: four dilated-2 convs
 
 
 def _p3d(p: Params, pre: str, x, stride: int):
@@ -110,12 +139,9 @@ def _bidirectional_propagation(p: Params, x):
     return out.reshape(t, n, h, w, c2 // 2).movedim(0, 1) + x
 
 
-def _encode(p: Params, inputs):
-    """[B,T,H,W,3] -> (e1 [B,T,H/4,W/4,64], e2 [B,T,H/8,W/8,128]); the
-    (1,5,5) stride-2 downsample conv uses replicate spatial padding."""
-    b, t, h, w, c = inputs.shape
-    xp = F.pad(inputs.reshape(b * t, h, w, c).permute(0, 3, 1, 2), (2, 2, 2, 2), mode="replicate")
-    xp = xp.permute(0, 2, 3, 1).reshape(b, t, h + 4, w + 4, c)
+def _encode_core(p: Params, xp):
+    """The encoder on an input already edge-padded by 2 in H and W:
+    [B,T,H+4,W+4,3] -> (e1 [B,T,H/4,W/4,64], e2 [B,T,H/8,W/8,128])."""
     x = leaky_relu(pconv3d(p, "downsample.0", xp, stride=(1, 2, 2)), 0.2)
     e1 = leaky_relu(_p3d(p, "encoder1.0", x, 1), 0.2)
     e1 = leaky_relu(_p3d(p, "encoder1.2", e1, 2), 0.2)
@@ -124,11 +150,116 @@ def _encode(p: Params, inputs):
     return e1, e2
 
 
-def _mid(p: Params, e2):
-    """Three dilated spatial convs at 1/8 res."""
+def _edge_pad(inputs):
+    """The (1,5,5) stride-2 downsample conv's replicate padding of 2."""
+    b, t, h, w, c = inputs.shape
+    xp = F.pad(inputs.reshape(b * t, h, w, c).permute(0, 3, 1, 2), (2, 2, 2, 2), mode="replicate")
+    return xp.permute(0, 2, 3, 1).reshape(b, t, h + 4, w + 4, c)
+
+
+def _half_res_bytes(shape, esz: int) -> int:
+    """The encoder's largest activation: [B, T, H/2, W/2, 32]."""
+    b, t, h, w, _ = shape
+    return b * t * (h // 2) * (w // 2) * 32 * esz
+
+
+def _slab_plan(h8: int, nb: int):
+    """Row slabs of nb rows at 1/8 (the JAX package's `_slab_plan`):
+    (start, length, keep8, keep4, rows) per slab, start and length in
+    rows of the edge-padded input (h_xe = 8 h8 + 4 rows), every start a
+    multiple of 8 so that slab-local 1/2, 1/4 and 1/8 rows align with
+    the global ones, with a halo of 2 rows at 1/8 (16 input rows) that
+    covers the encoder's receptive field; keep8 / keep4 are the first
+    kept rows at 1/8 and 1/4. The first and last slabs end at the frame
+    edges, where the convs' own padding is the global one. nb must be at
+    least 2: a slab of fewer rows would not advance past its halo."""
+    if nb < 2:
+        raise ValueError(f"_slab_plan: a slab holds at least 2 rows at 1/8, got {nb}")
+    plan = []
+    a = 0
+    h_xe = 8 * h8 + 4
+    while a < h8:
+        nb_i = min(nb, h8 - a)
+        if a == 0:
+            s, length, k8, k4 = 0, 8 * nb_i + 16, 0, 0
+        else:
+            s = 8 * (a - 2)
+            length = (h_xe - s) if a + nb_i == h8 else 8 * (nb_i + 4)
+            k8, k4 = 2, 4
+        plan.append((s, min(length, h_xe - s), k8, k4, nb_i))
+        a += nb_i
+    return plan
+
+
+def _encode_slabbed(p: Params, inputs, nb: int):
+    """The encoder in row slabs of nb rows at 1/8 (`_slab_plan`): the
+    input is edge-padded once and each slab sliced from it."""
+    h8 = inputs.shape[2] // 8
+    xe = _edge_pad(inputs)
+    e1s, e2s = [], []
+    for s, length, k8, k4, nb_i in _slab_plan(h8, nb):
+        e1c, e2c = _encode_core(p, xe[:, :, s : s + length])
+        e1s.append(e1c[:, :, k4 : k4 + 2 * nb_i])
+        e2s.append(e2c[:, :, k8 : k8 + nb_i])
+    return torch.cat(e1s, dim=2), torch.cat(e2s, dim=2)
+
+
+def _slab_rows(shape, esz: int) -> int | None:
+    """Rows at 1/8 of one slab of an encoder call on `shape`, or None when
+    its half-res activation is within SLAB_BYTES: a slab of nb rows holds
+    4 nb + 16 rows at 1/2 with its halo."""
+    if _half_res_bytes(shape, esz) <= SLAB_BYTES:
+        return None
+    b, t, h, w, _ = shape
+    rows2 = SLAB_BYTES / (b * t * (w // 2) * 32 * esz)
+    return max(2, min(h // 8, int((rows2 - 16) // 4)))
+
+
+def _encode_call(p: Params, inputs):
+    """One encoder call, in row slabs past SLAB_BYTES."""
+    nb = _slab_rows(inputs.shape, inputs.element_size())
+    if nb is not None:
+        return _encode_slabbed(p, inputs, nb)
+    return _encode_core(p, _edge_pad(inputs))
+
+
+def _encode_chunked(p: Params, inputs):
+    """The encoder over temporal chunks of CHUNK_T frames, each encoded
+    with up to HALO_T real frames on either side, [s - 8, e + 8) clamped
+    to the clip: a kept frame sees the same taps as in the whole clip,
+    and at the clip's ends the temporal convs' own zero padding is the
+    whole clip's."""
+    t = inputs.shape[1]
+    e1s, e2s = [], []
+    for s in range(0, t, CHUNK_T):
+        e = min(t, s + CHUNK_T)
+        lo, hi = max(0, s - HALO_T), min(t, e + HALO_T)
+        e1c, e2c = _encode_call(p, inputs[:, lo:hi])
+        e1s.append(e1c[:, s - lo : e - lo])
+        e2s.append(e2c[:, s - lo : e - lo])
+    return torch.cat(e1s, dim=1), torch.cat(e2s, dim=1)
+
+
+def _encode(p: Params, inputs):
+    """[B,T,H,W,3] -> (e1 [B,T,H/4,W/4,64], e2 [B,T,H/8,W/8,128]): on
+    the whole clip, or in temporal chunks past ENCODE_BYTES."""
+    if _half_res_bytes(inputs.shape, inputs.element_size()) > ENCODE_BYTES:
+        return _encode_chunked(p, inputs)
+    return _encode_call(p, inputs)
+
+
+def _mid_body(p: Params, e2):
     mid = leaky_relu(pconv3d(p, "mid_dilation.0", e2, padding=(0, 3, 3), dilation=(1, 3, 3)), 0.2)
     mid = leaky_relu(pconv3d(p, "mid_dilation.2", mid, padding=(0, 2, 2), dilation=(1, 2, 2)), 0.2)
     return leaky_relu(pconv3d(p, "mid_dilation.4", mid, padding=(0, 1, 1)), 0.2)
+
+
+def _mid(p: Params, e2):
+    """Three dilated spatial convs at 1/8 res, per-frame pure: in chunks
+    of CHUNK_T frames past MID_BYTES."""
+    if e2.numel() * e2.element_size() <= MID_BYTES:
+        return _mid_body(p, e2)
+    return torch.cat([_mid_body(p, e2[:, s : s + CHUNK_T]) for s in range(0, e2.shape[1], CHUNK_T)], dim=1)
 
 
 def _decode(p: Params, prop2, e1_2):
@@ -154,13 +285,48 @@ def flow_complete_forward(p: Params, masked_flows, masks):
     return (flow[0] if len(flow) == 1 else torch.cat(flow)).reshape(b, t, h, w, 2)
 
 
+def directions_in_turn(shape, dtype) -> bool:
+    """Whether `forward_bidirect_flow` completes the two directions in
+    turn for flows of `shape` [B, T, H, W, 2]: what the batched call holds
+    through its propagation, per frame of its batch 18 H W values (e1 at
+    1/4 with 64 channels; the mid features, both propagation directions,
+    the fusion's 256 channels and its output at 1/8), passes BATCH_BYTES."""
+    b, t, h, w, _ = shape
+    return 2 * b * t * h * w * 18 * dtype.itemsize > BATCH_BYTES
+
+
+def completion_plan(shape, dtype) -> dict:
+    """The forms `forward_bidirect_flow` takes for flows of `shape`
+    [B, T, H, W, 2] in `dtype`, by the gates above: the directions, the
+    encoder (whole or temporal chunks; the rows of a slab, or None), the
+    mid dilation and the frames of a decoder call."""
+    b, t, h, w, _ = shape
+    esz = dtype.itemsize
+    in_turn = directions_in_turn(shape, dtype)
+    call = (b if in_turn else 2 * b, t, h, w, 3)
+    chunked = _half_res_bytes(call, esz) > ENCODE_BYTES
+    encoder_call = (call[0], min(t, CHUNK_T + 2 * HALO_T)) + call[2:] if chunked else call
+    return dict(
+        directions="in turn" if in_turn else "batched",
+        encoder="temporal chunks" if chunked else "whole",
+        slab_rows=_slab_rows(encoder_call, esz),
+        mid="chunks" if call[0] * t * (h // 8) * (w // 8) * CHANNEL * esz > MID_BYTES else "whole",
+        decoder_frames=max(1, DECODE_BYTES // (h * w * 32 * esz)),
+    )
+
+
 def forward_bidirect_flow(p: Params, flows_f, flows_b, masks):
-    """Complete both directions in one batched call; the backward stream
-    runs time-flipped. flows_* [B, T-1, H, W, 2]; masks [B, T, H, W, 1]."""
+    """Complete both directions, the backward stream time-flipped: in one
+    batched call, or in turn past BATCH_BYTES (the JAX package's high-res
+    form; the network has no coupling across its batch).
+    flows_* [B, T-1, H, W, 2]; masks [B, T, H, W, 1]."""
     masks_fwd = masks[:, :-1]
     masks_bwd = masks[:, 1:]
     mf = flows_f * (1 - masks_fwd)
     mb = flows_b * (1 - masks_bwd)
+    if directions_in_turn(flows_f.shape, flows_f.dtype):
+        pf = flow_complete_forward(p, mf, masks_fwd)
+        return pf, flow_complete_forward(p, mb.flip(1), masks_bwd.flip(1)).flip(1)
     pred = flow_complete_forward(
         p,
         torch.cat([mf, mb.flip(1)], dim=0),

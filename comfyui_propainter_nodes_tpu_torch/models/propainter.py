@@ -7,6 +7,14 @@ deform-conv kernel) as Python loops over frames, soft split/comp around
 the 8-block sparse transformer (ops/attention.py), and the decoder over
 local frames: full-frame, or only a crop of it (`decoder_crop`).
 
+Memory plans (per-frame pure, so exact): `encode_features` encodes as
+many frames a call as keep its largest activation (1/4 res, 512
+channels) within ENCODE_BYTES, and `decoder` decodes as many as keep
+its full-res 64-channel activation within DECODE_BYTES. Every path up
+to 1920x1080 runs each in one call on an 80 GB card (a streaming window
+at 1080p encodes 19 frames, 2.5 GB, and decodes 11, 2.9 GB; the outpaint
+node's group of 8 windows on its 768x360 canvas decodes 88, 3.1 GB).
+
 Window batching pads each window's local and reference frame blocks;
 `l_t_valid` / `ref_valid` give the real counts (None, an int, or a [B]
 tensor per window). Callers zero the masks of padded slots; real-frame
@@ -34,6 +42,19 @@ HIDDEN = 512
 DEFORM_GROUPS = 16
 
 _ENC_GROUPS = {10: 2, 12: 4, 14: 8, 16: 1}
+# the largest activation of one call, in bytes: the encoder's at 1/4 res
+# (512 channels), the decoder's at full res (64 channels)
+ENCODE_BYTES = 4 << 30
+DECODE_BYTES = 4 << 30
+
+
+def _frame_chunks(fn, x, frame_bytes: int, budget: int):
+    """fn over x [N, ...] in calls of as many frames as keep
+    frame_bytes a frame within budget."""
+    step = max(1, budget // frame_bytes)
+    if x.shape[0] <= step:
+        return fn(x)
+    return torch.cat([fn(x[i : i + step]) for i in range(0, x.shape[0], step)])
 
 
 def encoder(p: Params, x):
@@ -60,7 +81,15 @@ def encoder(p: Params, x):
 
 
 def decoder(p: Params, x):
-    """Two 2x (bilinear, align_corners=True) deconvs back to full res, 3ch."""
+    """Two 2x (bilinear, align_corners=True) deconvs back to full res, 3ch:
+    [N, h4, w4, 128] -> [N, 4 h4, 4 w4, 3], in frame chunks past
+    DECODE_BYTES."""
+    n, h4, w4, _ = x.shape
+    return _frame_chunks(lambda v: _decoder_body(p, v), x, 16 * h4 * w4 * 64 * x.element_size(), DECODE_BYTES)
+
+
+def _decoder_body(p: Params, x):
+    """The decoder on one call's frames."""
 
     def deconv(pre, v):
         n, h, w, _ = v.shape
@@ -236,8 +265,11 @@ def img_propagation(masked_frames, flows_f, flows_b, masks, interpolation="neare
 
 
 def encode_features(p: Params, masked_frames, masks_in, masks_updated):
-    """Per-frame encoder features: [N,H,W,3] + 2 masks -> [N,H/4,W/4,128]."""
-    return encoder(p, torch.cat([masked_frames, masks_in, masks_updated], dim=-1))
+    """Per-frame encoder features: [N,H,W,3] + 2 masks -> [N,H/4,W/4,128],
+    in frame chunks past ENCODE_BYTES."""
+    n, h, w, _ = masked_frames.shape
+    x = torch.cat([masked_frames, masks_in, masks_updated], dim=-1)
+    return _frame_chunks(lambda v: encoder(p, v), x, (h // 4) * (w // 4) * 512 * x.element_size(), ENCODE_BYTES)
 
 
 def downsample_flow(flows, h: int, w: int):

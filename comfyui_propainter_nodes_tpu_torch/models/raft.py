@@ -7,7 +7,11 @@ computed once (the backward volume is its transpose) as one fp32
 `torch.matmul`, pooled into the pixel-major 4-level pyramids, and looked
 up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py),
 both directions in one launch that writes the compute dtype, with the
-blend the JAX dispatcher picks (`lookup_mode`).
+blend the caller names or, by default, the one the JAX dispatcher picks
+(`lookup_mode`). `raft_forward` is one direction (the JAX package's
+memory-lean form); `raft_bi_forward_seqdir` runs the two directions in
+turn on it, so one direction's pyramid is live at a time.
+`call_bytes` estimates what one call holds in its correlation volume.
 With PROPAINTER_TPU_CORR_KERNEL=pallas (read at call time, as the JAX
 package reads it) both directions share one zero-padded pyramid and the
 lookup takes the padded-map window kernel (ops/cuda/corr_window.py),
@@ -84,11 +88,13 @@ def basic_encoder(p: Params, pre: str, x, norm: str):
 
 def _all_pairs_corr(fmap1, fmap2):
     """[N, H, W, C] x2 -> [N, H*W, H*W] correlation / sqrt(C), computed in
-    fp32 and stored in the compute dtype."""
+    fp32 and stored in the compute dtype. The scale is applied in place:
+    one fp32 product is live, not two (3.9 GiB a pair at 1920x1080)."""
     n, h, w, c = fmap1.shape
     f1 = fmap1.reshape(n, h * w, c).float()
     f2 = fmap2.reshape(n, h * w, c).float()
-    corr = torch.matmul(f1, f2.transpose(1, 2)) / math.sqrt(c)
+    corr = torch.matmul(f1, f2.transpose(1, 2))
+    corr.div_(math.sqrt(c))
     return corr.to(fmap1.dtype)
 
 
@@ -115,6 +121,26 @@ def build_corr_pyramids(fmap1, fmap2):
     # at n = 1 the reshape of the transpose is a strided view, not a copy
     bwd = pool_pyramid(corr.transpose(1, 2).reshape(n * h * w, h, w).contiguous())
     return fwd, bwd
+
+
+def build_corr_pyramid(fmap1, fmap2):
+    """One direction's pixel-major pyramid: corr[n, p, :] over image-2
+    coords (the forward half of `build_corr_pyramids`)."""
+    n, h, w, _ = fmap1.shape
+    return pool_pyramid(_all_pairs_corr(fmap1, fmap2).reshape(n * h * w, h, w))
+
+
+def build_padded_pyramid(fmap1, fmap2):
+    """One direction's zero-padded 4-level pyramid (the JAX package's
+    `build_corr_pyramid(pad=True)`), laid out as `build_padded_pyramid_bi`
+    lays out each half."""
+    n, h, w, _ = fmap1.shape
+    corr = _all_pairs_corr(fmap1, fmap2)
+    level0 = corr.new_zeros((n * h * w, h + 2 * PAD, w + 2 * PAD))
+    level0[:, PAD : PAD + h, PAD : PAD + w] = corr.view(n * h * w, h, w)
+    del corr
+    coarse = pool_pyramid(level0[:, PAD : PAD + h, PAD : PAD + w])[1:]
+    return [level0] + [F.pad(m, (PAD, PAD, PAD, PAD)) for m in coarse]
 
 
 def build_padded_pyramid_bi(fmap1, fmap2):
@@ -184,6 +210,33 @@ def lookup_mode(n: int, h8: int, w8: int, dtype: torch.dtype) -> str:
     return "lanes" if kern == "lanes" and vol_bytes_dir <= budget and w8 <= wmax else "map"
 
 
+def forward_lookup_mode() -> str:
+    """The lookup the JAX package's one-direction `raft_forward` takes
+    (models/raft.py:423-471 there): never the lanes lookup; "pallas" under
+    PROPAINTER_TPU_CORR_KERNEL=pallas, else `lookup_corr` ("map")."""
+    return "pallas" if os.environ.get("PROPAINTER_TPU_CORR_KERNEL", "lanes") == "pallas" else "map"
+
+
+def call_bytes(n: int, h8: int, w8: int, esz: int, mode: str, directions: int = 2) -> float:
+    """Peak bytes one RAFT call of n pairs at h8 x w8 holds in its
+    correlation volume: the larger of the all-pairs product (V = n *
+    (h8 * w8)^2 values in fp32, and its cast to the compute dtype of
+    esz bytes) and the pyramids that follow it (per direction 4/3 of V
+    in that dtype: the backward level 0 is a contiguous copy of the
+    transpose; zero-padded by PAD on each side under "pallas"). At
+    1920x1080 in bf16 a pair's product is 3.9 GiB of fp32; the encoders,
+    the update loop and the flows it leaves out came to about 3 GiB more
+    for 2-pair calls there (`chip_smoke.py --fc-plan`)."""
+    hw = h8 * w8
+    v = float(n) * hw * hw
+    product = v * 4 + (v * esz if esz != 4 else 0)
+    per_dir = 4 / 3 * v * esz
+    if mode == "pallas":
+        per_dir *= (h8 + 2 * PAD) * (w8 + 2 * PAD) / hw
+        return max(product, v * esz + directions * per_dir)
+    return max(product, directions * per_dir)
+
+
 # ------------------------------------------------------------ update block
 
 
@@ -239,25 +292,82 @@ def convex_upsample(flow, mask):
 # ------------------------------------------------------------------ forward
 
 
-def raft_bi_forward(params: Params, frames, iters: int = 20):
+def _refine(params: Params, cnet, lookup, h8: int, w8: int, iters: int):
+    """The update loop and convex upsampling, shared by both forms:
+    cnet [M, H8, W8, 256] context features in the order of the lookup's
+    batch -> flows [M, 8*H8, 8*W8, 2] fp32."""
+    cdt = cnet.dtype
+    net = torch.tanh(cnet[..., :HDIM])
+    inp = torch.relu(cnet[..., HDIM:])
+    coords0 = coords_grid(cnet.shape[0], h8, w8, device=cnet.device)
+    coords1 = coords0.clone()
+    for _ in range(iters):
+        corr = lookup(coords1)
+        flow = coords1 - coords0
+        net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
+        coords1 = coords1 + delta.float()
+    return convex_upsample(coords1 - coords0, _upsample_mask(params, net).float())
+
+
+def _lookup_fn(mode: str, fmap1, fmap2, bidirectional: bool):
+    """The lookup of one call: "pallas" (B6 on the zero-padded pyramid)
+    or B1 with the "lanes" or "map" blend; both directions in one
+    pyramid pair (or one padded pyramid) when bidirectional."""
+    if mode == "pallas":
+        pyr = build_padded_pyramid_bi(fmap1, fmap2) if bidirectional else build_padded_pyramid(fmap1, fmap2)
+        return lambda c: lookup_padded(pyr, c)
+    if bidirectional:
+        pyr_f, pyr_b = build_corr_pyramids(fmap1, fmap2)
+    else:
+        pyr_f, pyr_b = build_corr_pyramid(fmap1, fmap2), None
+    return lambda c: corr_lookup(pyr_f, c, pyr_b, blend=mode)
+
+
+def raft_forward(params: Params, image1, image2, iters: int = 20, blend: str | None = None):
+    """Flow from image1 to image2 (the JAX package's `raft_forward`,
+    models/raft.py:423-471 there). Images [N, H, W, 3] in [-1, 1] ->
+    [N, H, W, 2] fp32. fnet runs on both images, cnet on image1; one
+    direction's pyramid. `blend` names the lookup ("lanes", "map" or
+    "pallas"); by default the one JAX's `raft_forward` takes
+    (`forward_lookup_mode`)."""
+    cdt = params["fnet.conv1.weight"].dtype
+    n, h, w, _ = image1.shape
+    h8, w8 = h // 8, w // 8
+    fmaps = basic_encoder(params, "fnet", torch.cat([image1, image2]).to(cdt), norm="instance")
+    lookup = _lookup_fn(blend or forward_lookup_mode(), fmaps[:n], fmaps[n:], bidirectional=False)
+    del fmaps
+    cnet = basic_encoder(params, "cnet", image1.to(cdt), norm="batch")
+    return _refine(params, cnet, lookup, h8, w8, iters)
+
+
+def raft_bi_forward_seqdir(params: Params, frames, iters: int = 20, blend: str | None = None):
+    """Bidirectional flow with the directions in turn (the JAX package's
+    `raft_bi_forward_seqdir`, models/raft.py:474-498 there): the forward
+    `raft_forward` ends before the backward one starts, so one
+    direction's pyramid is live at a time. frames [B, T, H, W, 3] ->
+    (flows_fwd, flows_bwd), each [B, T-1, H, W, 2] fp32."""
+    b, t, h, w, c = frames.shape
+    im1 = frames[:, :-1].reshape(b * (t - 1), h, w, c)
+    im2 = frames[:, 1:].reshape(b * (t - 1), h, w, c)
+    f_fwd = raft_forward(params, im1, im2, iters, blend).reshape(b, t - 1, h, w, 2)
+    f_bwd = raft_forward(params, im2, im1, iters, blend).reshape(b, t - 1, h, w, 2)
+    return f_fwd, f_bwd
+
+
+def raft_bi_forward(params: Params, frames, iters: int = 20, blend: str | None = None):
     """Bidirectional flow over a clip (flow_comp_raft.py:39-58).
 
     frames: [B, T, H, W, 3] in [-1, 1]. Returns (flows_fwd, flows_bwd),
     each [B, T-1, H, W, 2] fp32. fnet/cnet run once per frame; both
     directions share one batched update loop.
 
-    The lookup follows the JAX dispatcher (`lookup_mode`), whose volume
-    clause reads this call's n = B * (T-1). The blends differ only in
-    bf16. The port's `Pipeline.compute_flow` batches RAFT otherwise than
-    the JAX stage (pipeline/stages.py:398-513 there): where the clip is
-    chunked, the port runs each chunk as it is, and JAX runs chunks
-    padded to the clip length, or one pair a call once one chunk's
-    volume passes 4.5e9 bytes. So chunked clips up to 768 wide (w8 <= 96)
-    can take the other blend: a 640x1136 clip of 13 frames or more runs
-    one pair a call in JAX (lanes) and chunks of up to 12 pairs here
-    (map where a chunk holds 4 pairs or more). Clips that RAFT takes in one call, such as 24 frames at
-    640x360 (lanes), and clips wider than 768, such as 1280x720 (map),
-    choose as JAX does."""
+    `blend` names the lookup ("lanes", "map" or "pallas"). By default it
+    follows the JAX dispatcher (`lookup_mode`), whose volume clause reads
+    this call's n = B * (T-1). The JAX stage plan batches RAFT otherwise
+    than a caller may (pairs a call, padded chunks), and the blends differ
+    in bf16, so `Pipeline.compute_flow` names the blend the JAX stage
+    takes for its clip (`pipeline/stages.py::jax_flow_lookup`) in every
+    call it makes."""
     b, t, h, w, c = frames.shape
     n = b * (t - 1)
     cdt = params["fnet.conv1.weight"].dtype
@@ -270,36 +380,14 @@ def raft_bi_forward(params: Params, frames, iters: int = 20):
     fm = fmaps.reshape(b, t, h8, w8, -1)
     f1 = fm[:, :-1].reshape(n, h8, w8, -1)
     f2 = fm[:, 1:].reshape(n, h8, w8, -1)
-    mode = lookup_mode(n, h8, w8, cdt)
-    if mode == "pallas":
-        pyr = build_padded_pyramid_bi(f1, f2)
-
-        def lookup(c):
-            return lookup_padded(pyr, c)
-
-    else:
-        pyr_f, pyr_b = build_corr_pyramids(f1, f2)
-
-        def lookup(c):  # both directions in one launch, in the maps' dtype
-            return corr_lookup(pyr_f, c, pyr_b, blend=mode)
-
+    # both directions in one launch, in the maps' dtype
+    lookup = _lookup_fn(blend or lookup_mode(n, h8, w8, cdt), f1, f2, bidirectional=True)
     del fmaps, fm, f1, f2
 
     # context order matches the lookup batch: [fwd image1 ++ bwd image1]
     cn = cnet_all.reshape(b, t, h8, w8, -1)
     cnet = torch.cat([cn[:, :-1], cn[:, 1:]], dim=0).reshape(2 * n, h8, w8, -1)
-    net = torch.tanh(cnet[..., :HDIM])
-    inp = torch.relu(cnet[..., HDIM:])
-
-    coords0 = coords_grid(2 * n, h8, w8, device=frames.device)
-    coords1 = coords0.clone()
-    for _ in range(iters):
-        corr = lookup(coords1)
-        flow = coords1 - coords0
-        net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
-        coords1 = coords1 + delta.float()
-
-    flows = convex_upsample(coords1 - coords0, _upsample_mask(params, net).float())
+    flows = _refine(params, cnet, lookup, h8, w8, iters)
     return (
         flows[:n].reshape(b, t - 1, h, w, 2),
         flows[n:].reshape(b, t - 1, h, w, 2),

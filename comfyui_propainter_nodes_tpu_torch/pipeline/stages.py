@@ -43,6 +43,11 @@ from ..utils.params import to_device
 from ..utils.profiling import progress_report, stage_timer
 
 RAFT_ALLPAIRS_BYTES = 4.5e9  # all-pairs volume budget for one RAFT call
+# what one RAFT call may hold in its correlation volume (`raft.call_bytes`):
+# above it RAFT runs a pair a call, then a pair a call with the directions
+# in turn. A chunk of 2 pairs at 1920x1080 holds 11.7 GiB in bf16, so every
+# path up to 1080p keeps its chunks on an 80 GB card
+RAFT_CALL_BYTES = 24 << 30
 WINDOW_GROUP = 8  # windows per batched transformer forward
 
 
@@ -94,6 +99,72 @@ def flow_chunk_plan(cfg: PipelineConfig, t: int) -> list[tuple[int, int]]:
     """RAFT clip bounds with 1-frame overlap (propainter_inference.py:75-93)."""
     clip = cfg.raft_chunk_len()
     return [(c if c == 0 else c - 1, min(t, c + clip)) for c in range(0, t, clip)]
+
+
+def jax_flow_lookup(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
+    """The lookup the JAX stage plan takes for one `compute_flow` call of
+    t frames at hw = (H, W) (`Pipeline._flow_fn`, stages.py:355-515
+    there), with the variables it reads and their defaults, read at call
+    time. Its RAFT calls hold n pairs:
+      one call        one chunk, or the all-pairs volume 2 (t-1) h8w8^2
+                      esz 1.36 within PROPAINTER_TPU_RAFT_ALLPAIRS_BYTES
+                      (4.5e9): n = t - 1;
+      chunk by chunk  the chunks' total over that budget, one chunk within
+                      it: n = clip (JAX pads the first chunk to clip + 1);
+      pair by pair    one chunk over it: n = 1, and past
+                      PROPAINTER_TPU_RAFT_SEQDIR_BYTES (2e9) for one pair's
+                      volume the directions in turn, whose `raft_forward`
+                      never takes the lanes lookup;
+      chunks batched  otherwise: n = n_chunks clip.
+    The lookup of n pairs is `raft.lookup_mode`'s. (JAX's clip-parallel
+    branch is multi-device and not ported.)"""
+    bounds = flow_chunk_plan(cfg, t)
+    clip = cfg.raft_chunk_len()
+    h8, w8 = hw[0] // 8, hw[1] // 8
+    dtype = torch.bfloat16 if cfg.raft_half else torch.float32
+
+    def volume(pairs):
+        return 2 * pairs * (h8 * w8) ** 2 * dtype.itemsize * 1.36
+
+    budget = float(os.environ.get("PROPAINTER_TPU_RAFT_ALLPAIRS_BYTES", 4.5e9))
+    if len(bounds) == 1 or volume(t - 1) <= budget:
+        n = t - 1
+    elif volume(clip) * len(bounds) > budget and volume(clip) <= budget:
+        n = clip
+    elif volume(clip) * len(bounds) > budget:
+        if volume(1) > float(os.environ.get("PROPAINTER_TPU_RAFT_SEQDIR_BYTES", 2e9)):
+            return raft.forward_lookup_mode()
+        n = 1
+    else:
+        n = len(bounds) * clip
+    return raft.lookup_mode(n, h8, w8, dtype)
+
+
+def raft_form(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
+    """How `Pipeline.compute_flow` runs RAFT on t frames at hw:
+      "one call"   one chunk, or the all-pairs volume within
+                   RAFT_ALLPAIRS_BYTES (the JAX stage's rule);
+      "chunks"     otherwise, one call a chunk of `flow_chunk_plan`;
+    and where the largest of those calls would hold more than
+    RAFT_CALL_BYTES (`raft.call_bytes`, counted in the port's own
+    tensors), one pair a call ("per pair"), or past that for one pair,
+    one pair a call with the directions in turn ("per pair, directions
+    in turn"). Each pair's flow is the same in every form: pairs and
+    directions are independent. On an 80 GB card the last two engage
+    only above 1920x1080."""
+    bounds = flow_chunk_plan(cfg, t)
+    h8, w8 = hw[0] // 8, hw[1] // 8
+    esz = 2 if cfg.raft_half else 4
+    mode = jax_flow_lookup(cfg, t, hw)
+    if len(bounds) == 1 or 2 * (t - 1) * (h8 * w8) ** 2 * esz * 1.36 <= RAFT_ALLPAIRS_BYTES:
+        form, n = "one call", t - 1
+    else:
+        form, n = "chunks", max(e - s - 1 for s, e in bounds)
+    if raft.call_bytes(n, h8, w8, esz, mode) <= RAFT_CALL_BYTES:
+        return form
+    if raft.call_bytes(1, h8, w8, esz, mode) <= RAFT_CALL_BYTES:
+        return "per pair"
+    return "per pair, directions in turn"
 
 
 def complete_chunk_plan(cfg: PipelineConfig, flow_length: int):
@@ -206,31 +277,35 @@ class Pipeline:
 
     def compute_flow(self, frames):
         """Bidirectional RAFT flow. frames [1, T, H, W, 3] fp32 in [-1, 1]
-        -> (flows_f, flows_b) [1, T-1, H, W, 2] fp32."""
+        -> (flows_f, flows_b) [1, T-1, H, W, 2] fp32, in the form
+        `raft_form` picks; every call takes the blend of the JAX stage
+        plan for this clip (`jax_flow_lookup`)."""
         cfg = self.config
-        t, h, w = frames.shape[1], frames.shape[2], frames.shape[3]
-        bounds = flow_chunk_plan(cfg, t)
-        h8w8 = (h // 8) * (w // 8)
-        vol_bytes = 2 * (t - 1) * h8w8 * h8w8 * (2 if cfg.raft_half else 4) * 1.36
-        self._report("compute_flow", 0, 1)
-        if len(bounds) == 1 or vol_bytes <= RAFT_ALLPAIRS_BYTES:
-            out = raft.raft_bi_forward(self.raft_params, frames, iters=cfg.raft_iter)
+        t, hw = frames.shape[1], (frames.shape[2], frames.shape[3])
+        form = raft_form(cfg, t, hw)
+        blend = jax_flow_lookup(cfg, t, hw)
+        prm, iters = self.raft_params, cfg.raft_iter
+        if form == "one call":
+            calls = [(raft.raft_bi_forward, 0, t)]
+        elif form == "chunks":
+            calls = [(raft.raft_bi_forward, s, e) for s, e in flow_chunk_plan(cfg, t)]
         else:
-            ff, fb = [], []
-            for s, e in bounds:
-                f_, b_ = raft.raft_bi_forward(self.raft_params, frames[:, s:e], iters=cfg.raft_iter)
-                ff.append(f_)
-                fb.append(b_)
-            out = torch.cat(ff, dim=1), torch.cat(fb, dim=1)
+            fn = raft.raft_bi_forward if form == "per pair" else raft.raft_bi_forward_seqdir
+            calls = [(fn, i, i + 2) for i in range(t - 1)]
+        self._report("compute_flow", 0, 1)
+        ff, fb = zip(*(fn(prm, frames[:, s:e], iters, blend) for fn, s, e in calls))
         self._report("compute_flow", 1, 1)
-        return out
+        return (ff[0], fb[0]) if len(calls) == 1 else (torch.cat(ff, dim=1), torch.cat(fb, dim=1))
 
     # ------------------------------------------------------------- stage 2
 
     def complete_flow_chunk(self, ff, fb, mk):
         """One flow-completion chunk: flows (ff, fb) [1, n, H, W, 2] and
         flow masks [1, n + 1, H, W, 1] -> the completed flows, in the
-        compute dtype."""
+        compute dtype. Past its memory budget `forward_bidirect_flow`
+        completes the directions in turn (the JAX stage's high-res form,
+        stages.py:1428-1487 there): one direction's activations are live
+        at a time."""
         dt = self.cdtype
         ff, fb, mk = ff.to(dt), fb.to(dt), mk.to(dt)
         pf, pb = fc.forward_bidirect_flow(self.flow_params, ff, fb, mk)

@@ -6,7 +6,10 @@ the same four stages over a sliding working set of O(subvideo_length)
 frames and gives the same bytes:
 
   * RAFT flows are independent per frame pair, so each is computed for
-    exactly the pair range a completion chunk needs;
+    exactly the pair range a completion chunk needs: above 640x480 in
+    sub-ranges of STREAM_FLOW_PAIRS pairs, each its own `compute_flow`
+    call, as the JAX driver calls it (`_flows_range`, streaming.py:164-197
+    there), so each call takes the JAX stage's RAFT blend;
   * flow-completion and image-propagation chunks have ABSOLUTE bounds
     (`complete_chunk_plan`, `imgprop_chunk_plan`: multiples of the
     chunk length with fixed halos, propainter_inference.py:115-144,
@@ -35,6 +38,8 @@ import torch
 from ..utils import image as image_utils
 from ..utils.profiling import stage_timer
 from .stages import Pipeline, _window_tables, complete_chunk_plan, full_fp32, imgprop_chunk_plan
+
+STREAM_FLOW_PAIRS = 24  # RAFT pairs a compute_flow call above 640x480
 
 
 class _ChunkCache:
@@ -136,17 +141,30 @@ def _stream(pipe, fetch, fetch_mask, t, write, mask_dilates, flow_mask_dilates, 
     fc_plan = complete_chunk_plan(cfg, flow_len)
     rdt = pipe.raft_params["fnet.conv1.weight"].dtype
 
+    def _flows(lo: int, hi: int):
+        """RAFT flows (f, b) of pairs [lo, hi) in the compute dtype: one
+        `compute_flow` call, or above 640x480 one a sub-range of
+        STREAM_FLOW_PAIRS pairs. RAFT casts its frames to its parameters'
+        dtype and completion its flows to the compute dtype: casting here
+        changes no value."""
+        step = hi - lo if ph * pw <= 640 * 480 else STREAM_FLOW_PAIRS
+        parts_f, parts_b = [], []
+        for a in range(lo, hi, step):
+            frames = gather("norm", a, min(hi, a + step) + 1, rdt)[None]
+            with stage_timer("compute_flow"):
+                ff, fb = pipe.compute_flow(frames)
+            parts_f.append(ff.to(dt))
+            parts_b.append(fb.to(dt))
+        if len(parts_f) == 1:
+            return parts_f[0], parts_b[0]
+        return torch.cat(parts_f, 1), torch.cat(parts_b, 1)
+
     def _completed(k: int):
         s_f, e_f, ps, pe = fc_plan[k]
-        # RAFT casts its frames to its parameters' dtype and completion
-        # its flows to the compute dtype: casting here changes no value
-        frames = gather("norm", s_f, e_f + 1, rdt)[None]
-        with stage_timer("compute_flow"):
-            ff, fb = pipe.compute_flow(frames)
-        del frames
+        ff, fb = _flows(s_f, e_f)
         mk = gather("flow_mask", s_f, e_f + 1, dt)[None]
         with stage_timer("complete_flow"):
-            of, ob = pipe.complete_flow_chunk(ff.to(dt), fb.to(dt), mk)
+            of, ob = pipe.complete_flow_chunk(ff, fb, mk)
         end = e_f - s_f - pe
         return s_f + ps, of[:, ps:end].clone(), ob[:, ps:end].clone()  # the halos freed
 
