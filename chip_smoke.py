@@ -32,6 +32,12 @@ Phases (any failure raises; the exit code is then nonzero):
        x[1,270,480,128]); B5 (halo attention) at the 640x360 and
        1280x720 token grids; B6 (four-level padded-map lookup) on the
        main path's padded pyramid and B7 (one level) on its level 0;
+       and at paths C and M's shapes, in both dtypes: B1 on path C's
+       108-pair call of 45x80 (the map blend; fp32 maps the fp32
+       kernel) and path M (1, 2)'s 12-pair calls (lanes), B2 at
+       x[4,45,80,256], x[8,90,160,128] and x[4,90,160,128], and B4 at
+       path C's middle window group (8 windows of 19 frames, t_sel 10
+       and 9, 36 token windows a row, its occupancy);
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
@@ -66,7 +72,23 @@ Phases (any failure raises; the exit code is then nonzero):
      clip, the inpaint node with the default kernels and with both
      switches, and the outpaint node; and streaming against the
      in-memory run on the card (48 frames at 640x360, subvideo_length 16,
-     fp32 and bf16, differing bytes counted);
+     fp32 and bf16, differing bytes counted); then path C:
+     `Pipeline.process` on 100 frames at 640x360 (default widgets) with
+     PROPAINTER_TPU_CLIP_PARALLEL=1 and no mesh, RAFT's 9 chunks in one
+     108-pair call, 2 completion and 2 image-propagation chunks batched
+     (B1 with the map-dtype blend, B2, B4: its 19-frame windows pass the
+     JAX size estimate's 12e6; a warm-up and a timed bf16 run;
+     fp32 held against the chunks in turn within the card-against-host
+     tolerance); and path M: the same clip on two ranks, processes of
+     their own (one card over gloo when the machine shows one, a card
+     each over NCCL otherwise), with meshes (2, 1) (clip-parallel stages
+     1-3, window data parallelism: B1 map, B2, B4) and (1, 2) (the
+     sequence-parallel transformer, which takes no kernel: B1 map, B2),
+     each in fp32, held against path C's fp32 output, and in bf16 timed
+     (on (1, 2) once more with the gathers and the gathered-KV
+     attention timed apart);
+     every rank's output is the whole video, integral and the input
+     outside its dilated mask;
   4. print the card's name and power limit, a `kernels` JSON line, and
      the result JSON as the last line.
 Needs a CUDA card; exits nonzero without one. Details land in
@@ -84,6 +106,12 @@ with the port package of another checkout DIR (the same seed, so the
 same inputs in every run), and prints them as one JSON line: two trees
 are compared in one call by running them in turns, parent, change,
 change, parent.
+
+    python3 chip_smoke.py --tree-cm DIR
+
+times path C and path M (2, 1) in bf16 with the port package of another
+checkout DIR (a warm-up and three timed runs each, blocking stage
+timers; one JSON line); run parent, change, change, parent in one call.
 
     python3 chip_smoke.py --b7-tiles
 
@@ -316,9 +344,22 @@ def check_corr_lookup(dt, gen, blend="lanes", shape=(23, 45, 80)):
     for pyr, flat in ((fwd, coords[: coords.shape[0] // 2].reshape(-1, 2)), (bwd, coords[coords.shape[0] // 2 :].reshape(-1, 2))):
         calls += [grid_sample_taps(m, flat[:, 0, None, None] / 2**lvl + d[:, None], flat[:, 1, None, None] / 2**lvl + d[None, :])
                   for lvl, m in enumerate(pyr)]
-    lib = torch.cat([torch.cat([f().reshape(n, 81) for f in calls[i : i + 4]], 1) for i in (0, 4)]).reshape(out.shape)
-    lib_err, _ = rel_err(lib, ref)
-    library_ms = time_ms(lambda: [f() for f in calls])
+
+    def library():
+        return torch.cat([torch.cat([f().reshape(n, 81) for f in calls[i : i + 4]], 1) for i in (0, 4)]).reshape(out.shape)
+
+    cudnn = True
+    try:
+        lib = library()
+    except RuntimeError as e:  # cuDNN's sampler refuses maps this large (path C's call): grid_sample's own kernel
+        if "CUDNN_STATUS_NOT_SUPPORTED" not in str(e):
+            raise
+        cudnn = False
+    with torch.backends.cudnn.flags(enabled=cudnn):
+        if not cudnn:
+            lib = library()
+        lib_err, _ = rel_err(lib, ref)
+        library_ms = time_ms(lambda: [f() for f in calls])
     # bytes this data needs: in-range part of each 10x10 window, coords, output
     esz = fwd[0].element_size()
     need = 0
@@ -332,10 +373,10 @@ def check_corr_lookup(dt, gen, blend="lanes", shape=(23, 45, 80)):
     n_pix = coords.numel() // 2
     bound, by = bound_ms(n_pix * 324 * 6, need + n_pix * 8 + n_pix * 324 * out.element_size(), torch.float32)
     log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
-        f"library_ms {library_ms:.4f} (grid_sample in {str(dt)[6:]}, 8 calls, one per level and direction; "
-        f"err vs plain {lib_err:.3e})")
+        f"library_ms {library_ms:.4f} (grid_sample in {str(dt)[6:]}, 8 calls, one per level and direction"
+        f"{'' if cudnn else ', cuDNN off: it refuses these maps'}; err vs plain {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms, blend=blend)
+                library_ms=library_ms, library_cudnn=cudnn, blend=blend)
 
 
 def check_corr_window(dt, gen):
@@ -413,15 +454,24 @@ PATH_S_RAFT_CALL = (4, 90, 160)
 PATH_H = (120, 1080, 1920)
 PATH_H_RAFT_CALL = (2, 135, 240)
 
+# paths C and M at 640x360: path C's one clip-parallel RAFT call (9 chunks
+# of 12 pairs of 45x80) and path M (1, 2)'s, one chunk a call
+PATH_C_RAFT_CALL = (108, 45, 80)
+PATH_M_RAFT_CALL = (12, 45, 80)
+
 # B2's shapes: the node's feature propagation (x [5, H/4, W/4, 128], cg 8)
 # and flow completion (x [2, H/8, W/8, 256], cg 16), at 640x360, 1280x720 and
 # on the 768x360 outpaint canvas; path S's feature propagation, one window a
-# call (x [1, ...]); path H's completion and feature propagation at 1920x1080
+# call (x [1, ...]); path H's completion and feature propagation at 1920x1080;
+# path C's batched completion (2 chunks, both directions) and window groups
+# of 8 and 4 at 640x360 (path M (2, 1)'s: fc and fpC4)
 B2_SHAPES = {
     "fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256),
     "fpO": (5, 90, 192, 128), "fcO": (2, 45, 96, 256), "fpS": (1, 180, 320, 128),
     "fcH": (2, 135, 240, 256), "fpH": (1, 270, 480, 128),
+    "fcC": (4, 45, 80, 256), "fpC": (8, 90, 160, 128), "fpC4": (4, 90, 160, 128),
 }
+B2_FP32 = ("fp", "fc", "fpO", "fcO", "fcC", "fpC", "fpC4")  # the shapes a path also runs in fp32
 
 
 def deform_inputs(dt, gen, shape):
@@ -705,11 +755,11 @@ def window_occupancy(md):
     return torch.cat(occ)
 
 
-def clip_occupancy(h: int, w: int):
-    """The inpaint node's occupancy on the synthetic h x w clip."""
+def clip_occupancy(h: int, w: int, t: int = 24):
+    """The inpaint node's occupancy on the synthetic t-frame h x w clip."""
     from comfyui_propainter_nodes_tpu_torch.ops.dilation import binary_dilation
 
-    _, masks = synthetic_clip(24, h, w)
+    _, masks = synthetic_clip(t, h, w)
     return window_occupancy(binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"]))
 
 
@@ -738,6 +788,23 @@ def stream_occupancy(path):
     masks = np.stack([clip_frame(base, i)[1] for i in stream_window(t)[2]])
     md = binary_dilation(torch.from_numpy(masks != 0).float().cuda(), WIDGETS["mask_dilates"])
     return occupied(token_pool(md))
+
+
+def group_occupancy(path):
+    """Path C's middle window group on its (t, h, w) clip: (the windows in
+    the group, their occupancy [b * n_win]); 100 frames hold 20 sliding
+    windows, batched 8, 8 and 4 a transformer call."""
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import _window_group_size, _window_tables
+
+    t, h, w = path
+    occ = clip_occupancy(h, w, t)
+    n_windows = _window_tables(PipelineConfig(), t)[0].shape[0]
+    g = _window_group_size(n_windows, 1)
+    starts = list(range(0, n_windows, g))
+    lo = starts[len(starts) // 2]
+    b, n_win = min(g, n_windows - lo), occ.numel() // n_windows
+    return b, occ[lo * n_win : (lo + b) * n_win]
 
 
 def ring_occupancy():
@@ -1597,6 +1664,86 @@ def tree_times(tree: str) -> int:
     return 0
 
 
+TREE_CM_REPS = 3  # `--tree-cm`'s timed runs a path
+
+
+def timed_runs(pipe, args, before=None) -> list:
+    """A warm-up, then TREE_CM_REPS synchronised runs of pipe.process:
+    each run's wall and stage seconds (blocking stage timers)."""
+    pipe.process(*args)
+    runs = []
+    for _ in range(TREE_CM_REPS):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process(*args)
+        torch.cuda.synchronize()
+        runs.append(dict(pipe.stage_seconds, wall=time.perf_counter() - t0))
+    return runs
+
+
+def tree_cm_rank(rank: int, tree: str, rendezvous: str, out: str) -> None:
+    """One of `--tree-cm`'s two ranks: path M (2, 1) in bf16 over gloo with
+    the port package in `tree`; its runs written to `out`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.abspath(tree))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
+
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
+    try:
+        profiling.set_blocking(True)
+        params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+        mesh = make_mesh(model_parallel=1)
+        pipe = Pipeline(*params, path_config("enable"), mesh=mesh)
+        with open(out, "w") as f:
+            json.dump(timed_runs(pipe, path_inputs(mesh.device), dist.barrier), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tree_cm(tree: str) -> int:
+    """`--tree-cm DIR`: path C (`PROPAINTER_TPU_CLIP_PARALLEL=1`, one
+    card) and path M (2, 1) (two ranks over gloo on the card) in bf16
+    with the port package in DIR, a warm-up and TREE_CM_REPS timed runs
+    each; prints one JSON line with every run and the medians."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import comfyui_propainter_nodes_tpu_torch as pkg
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+    require(os.path.dirname(os.path.abspath(pkg.__file__)).startswith(os.path.abspath(tree)), pkg.__file__)
+    profiling.set_blocking(True)
+    pipe = get_pipeline(path_config("enable"), torch.device("cuda"), True)
+    os.environ["PROPAINTER_TPU_CLIP_PARALLEL"] = "1"
+    try:
+        path_c = timed_runs(pipe, path_inputs("cuda"))
+    finally:
+        os.environ.pop("PROPAINTER_TPU_CLIP_PARALLEL")
+    del pipe
+    with tempfile.TemporaryDirectory() as d:
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(2)]
+        spawn_ranks(tree_cm_rank, [(r, tree, os.path.join(d, "rendezvous"), outs[r]) for r in range(2)])
+        path_m = []
+        for o in outs:
+            with open(o) as f:
+                path_m.append(json.load(f))
+
+    def medians(runs):
+        return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "path_c": path_c, "path_m_2x1": path_m,
+                      "medians": {"path_c": medians(path_c), "path_m_2x1": [medians(r) for r in path_m]}}))
+    return 0
+
+
 def measure(fn, reps: int = 3) -> dict:
     """fn's peak allocated above what is allocated before it (an
     out-of-memory is recorded as such) and the median of `reps` timed
@@ -1812,6 +1959,371 @@ def b7_tiles() -> int:
     return 0
 
 
+PATH_C = (100, 360, 640)  # paths C and M: the synthetic clip at default widgets
+M_JOIN_TIMEOUT_S = 900  # path M's ranks, from their start to their last result
+M_COLLECTIVE_TIMEOUT_S = 300  # a collective that waits longer fails its rank
+
+
+def path_inputs(device):
+    """Path C's clip prepared as the inpaint node prepares it (default
+    dilations): (frames_norm [1, T, H, W, 3], flow_masks, masks_dilated
+    [1, T, H, W, 1], the frames' bytes [T, H, W, 3]) on `device`."""
+    from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
+
+    t, h, w = PATH_C
+    frames_u8, masks_u8 = synthetic_clip(t, h, w)
+    fnorm, byte = image_utils.prepare_frames(torch.from_numpy(frames_u8.astype(np.float32) / 255.0).to(device), w, h)
+    fm, md = image_utils.prepare_masks(torch.from_numpy(masks_u8.astype(np.float32) / 255.0).to(device), w, h,
+                                       WIDGETS["flow_mask_dilates"], WIDGETS["mask_dilates"])
+    return fnorm[None], fm[None], md[None], byte
+
+
+def path_config(fp16: str):
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+
+    h, w = PATH_C[1:]
+    return PipelineConfig(**dict(node_widgets(), fp16=fp16), process_size=(w, h))
+
+
+def check_video(out, md, byte, tag: str) -> np.ndarray:
+    """A composed video on the card: the whole clip, integral in 0..255,
+    the input bytes outside the dilated mask. Returns it as uint8."""
+    t, h, w = PATH_C
+    require(tuple(out.shape) == (t, h, w, 3), f"{tag}: output shape {tuple(out.shape)}")
+    o = out.cpu().numpy()
+    require(np.isfinite(o).all() and o.min() >= 0 and o.max() <= 255 and np.array_equal(o, np.floor(o)),
+            f"{tag}: output not integral in 0..255")
+    outside = md[0, ..., 0].cpu().numpy() == 0
+    require(np.array_equal(o[outside], byte.cpu().numpy()[outside]), f"{tag}: output differs from the input outside the dilated mask")
+    return o.astype(np.uint8)
+
+
+def video_diff(a: np.ndarray, b: np.ndarray) -> dict:
+    """Differing bytes of two uint8 videos, and the card-against-host
+    tolerance's numbers (share over one level, mean |d| in [0, 1])."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return dict(differing_bytes=int((d > 0).sum()), share_differing=float((d > 0).mean()), max_abs=int(d.max()),
+                share_over_1=float((d > 1).mean()), mean=float(d.mean()) / 255.0)
+
+
+def within_tolerance(d: dict) -> bool:
+    return d["share_over_1"] < 1e-3 and d["mean"] < 1e-3
+
+
+def recorded_raft(forms: list):
+    """Context: RAFT's two bidirectional forms wrapped to record each
+    call's (pairs, blend)."""
+    from comfyui_propainter_nodes_tpu_torch.models import raft
+
+    fns = raft.raft_bi_forward, raft.raft_bi_forward_seqdir
+
+    def wrap(fn):
+        def f(params, frames, iters=20, blend=None):
+            forms.append((frames.shape[0] * (frames.shape[1] - 1), blend))
+            return fn(params, frames, iters, blend)
+        return f
+
+    @contextlib.contextmanager
+    def ctx():
+        raft.raft_bi_forward, raft.raft_bi_forward_seqdir = (wrap(g) for g in fns)
+        try:
+            yield
+        finally:
+            raft.raft_bi_forward, raft.raft_bi_forward_seqdir = fns
+
+    return ctx()
+
+
+def path_c_run(need, forbid, ref_dir: str) -> dict:
+    """Path C: `Pipeline.process` on the 100-frame 640x360 synthetic clip at
+    default widgets with PROPAINTER_TPU_CLIP_PARALLEL=1 and no mesh: RAFT's
+    9 chunks in one 108-pair call, the 2 completion and 2
+    image-propagation chunks each as one batched call. bf16: a warm-up,
+    then a timed run (launch counters reset just before it, each RAFT
+    call's pairs and blend recorded); fp32: the same clip with and
+    without the variable, held to the card-against-host tolerance; bf16
+    without the variable, its differing bytes logged. Every output is
+    checked (`check_video`); the fp32 and bf16 outputs with the variable
+    are written to ref_dir for path M."""
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+    from comfyui_propainter_nodes_tpu_torch.pipeline import stages
+
+    t, h, w = PATH_C
+    tag = f"path C clip-parallel {t} frames {w}x{h}"
+    args = path_inputs("cuda")
+    pipe = get_pipeline(path_config("enable"), torch.device("cuda"), True)
+    pipe32 = get_pipeline(path_config("disable"), torch.device("cuda"), True)
+    forms = []
+    os.environ["PROPAINTER_TPU_CLIP_PARALLEL"] = "1"
+    try:
+        form = stages.raft_form(pipe.config, t, (h, w), pipe._clip_dp())
+        t0 = time.perf_counter()
+        pipe.process(*args)
+        log(f"  [{tag}] warm-up run {time.perf_counter() - t0:.3f} s")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        torch.cuda.synchronize()
+        with recorded_raft(forms):
+            t0 = time.perf_counter()
+            out = pipe.process(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts, b2_shapes = read_counters()
+        peak, stage_s = torch.cuda.max_memory_allocated(), dict(pipe.stage_seconds)
+        out32 = pipe32.process(*args)
+    finally:
+        os.environ.pop("PROPAINTER_TPU_CLIP_PARALLEL")
+    log(f"  [{tag}] timed run (bf16) {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stage_s.items()))
+    log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; RAFT form {form!r}, calls (pairs, blend) {forms}")
+    log(f"  [{tag}] launches {counts}; B2 launches by x shape {b2_shapes}")
+    require_kernels(tag, counts, need, forbid)
+    require(len(forms) == 1, f"{tag}: RAFT ran in {len(forms)} calls, not one")
+    c16 = check_video(out, args[2], args[3], tag + " bf16")
+    c32 = check_video(out32, args[2], args[3], tag + " fp32")
+    in_turn32 = check_video(pipe32.process(*args), args[2], args[3], tag + " fp32, chunks in turn")
+    in_turn16 = check_video(pipe.process(*args), args[2], args[3], tag + " bf16, chunks in turn")
+    d32, d16 = video_diff(c32, in_turn32), video_diff(c16, in_turn16)
+    log(f"  [{tag}] against the chunks in turn: fp32 {d32}; bf16 {d16}")
+    require(within_tolerance(d32), f"{tag}: the fp32 clip-parallel run differs from the chunks in turn: {d32}")
+    np.save(os.path.join(ref_dir, "disable.npy"), c32)
+    np.save(os.path.join(ref_dir, "enable.npy"), c16)
+    return dict(frames=t, size=f"{w}x{h}", seconds=wall, fps=t / wall, stages=stage_s, peak_bytes=peak,
+                raft_form=form, raft_calls=forms, launches=counts, b2_launches_by_shape=b2_shapes,
+                fp32_vs_in_turn=d32, bf16_vs_in_turn=d16)
+
+
+# path M's meshes (data, model) and the kernels each must launch (the rest
+# must not): clip-parallel stages 1-3 and window data parallelism on
+# (2, 1); on (1, 2) the stages 1-3 in turn on both ranks (RAFT's 9 chunks
+# a call each: all 99 pairs' volume, 6.98e9 bytes, passes the JAX stage's
+# 4.5e9; 12 pairs take the lanes blend) and the sequence-parallel
+# transformer, which takes no kernel (as in JAX). The
+# windows of 100 frames hold 19 frames (11 local, 8 reference slots):
+# the JAX size estimate, 14.9e6 and 14.1e6 at t_sel 10 and 9, sends
+# them to B4 (B3 below 12e6, as on the 24-frame main path)
+PATH_M_MESHES = {
+    (2, 1): ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+    (1, 2): ("corr_lookup", "deform_conv"),
+}
+
+
+def gather_seconds(mesh, nbytes: int) -> float:
+    """Median of 3 of one all_gather over the mesh's data axis of a card
+    tensor of nbytes a rank, synchronised on both sides."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import DATA_AXIS
+
+    x = torch.ones(nbytes // 4, device=mesh.device)
+    mesh.all_gather(x, DATA_AXIS)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_gather(x, DATA_AXIS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def feature_split(pipe, args) -> dict:
+    """One more run of pipe with every `Mesh.all_gather` and every
+    gathered-KV attention call (`ops/attention.py::_gathered_kv_attention`)
+    timed, each synchronised on both sides: the feature stage's seconds,
+    the gathers' (inside the attention and outside it: the transformer's
+    output), their count and bytes, and the attention's seconds less its
+    gathers. A gather's time includes its wait for the other rank."""
+    from comfyui_propainter_nodes_tpu_torch.ops import attention
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import Mesh
+
+    spent = dict(gather_in_attention_s=0.0, gather_other_s=0.0, attention_s=0.0, gathers=0, gathered_bytes=0)
+    inside = []
+    gather, attend = Mesh.all_gather, attention._gathered_kv_attention
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key if key else ("gather_in_attention_s" if inside else "gather_other_s")] += time.perf_counter() - t0
+            if not key and out is not a[1]:  # an axis of one rank returns x, gathering nothing
+                spent["gathers"] += 1
+                spent["gathered_bytes"] += out.numel() * out.element_size()
+            return out
+        return run
+
+    def attend_timed(*a, **k):
+        inside.append(1)
+        try:
+            return timed(attend, "attention_s")(*a, **k)
+        finally:
+            inside.pop()
+
+    Mesh.all_gather, attention._gathered_kv_attention = timed(gather, None), attend_timed
+    try:
+        pipe.process(*args)
+    finally:
+        Mesh.all_gather, attention._gathered_kv_attention = gather, attend
+    spent["feature_propagation_s"] = pipe.stage_seconds["feature_propagation"]
+    spent["attention_less_gathers_s"] = spent["attention_s"] - spent["gather_in_attention_s"]
+    return spent
+
+
+def path_m_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: str) -> None:
+    """One rank of path M (a process of its own): on each mesh of
+    PATH_M_MESHES, `Pipeline.process` on path C's clip in fp32, then in
+    bf16 a warm-up and a timed run, each run's launches counted (the bf16
+    run's held to the mesh's kernels) and peak read; every output checked
+    (`check_video`) and compared with path C's of the same dtype; on the
+    first mesh also one all_gather of 64 MiB timed (`gather_seconds`).
+    Writes its results to ref_dir/rank{rank}.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    # ranks that share a card: blocks a rank frees go back to the card, not
+    # to its own cache (read at the rank's first CUDA allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
+
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
+    try:
+        profiling.set_blocking(True)
+        params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+        results = {}
+        for shape, need in PATH_M_MESHES.items():
+            mesh = make_mesh(model_parallel=shape[1])
+            args = path_inputs(mesh.device)
+            if shape == (2, 1):
+                results["all_gather_64MiB_s"] = gather_seconds(mesh, 64 << 20)
+                log(f"  [path M rank {rank}] one all_gather of 64 MiB a rank over {backend}: "
+                    f"{results['all_gather_64MiB_s']:.4f} s (median of 3)")
+            for fp16 in ("disable", "enable"):
+                tag = f"path M rank {rank} mesh {shape} fp16={fp16}"
+                pipe = Pipeline(*params, path_config(fp16), mesh=mesh)
+                if fp16 == "enable":
+                    t0 = time.perf_counter()
+                    pipe.process(*args)
+                    log(f"  [{tag}] warm-up {time.perf_counter() - t0:.3f} s")
+                dist.barrier()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pipe.process(*args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts, _ = read_counters()
+                video = check_video(out, args[2], args[3], tag)
+                if fp16 == "enable":  # the default widgets (fp32 maps take B1's one fp32 kernel)
+                    require_kernels(tag, counts, need, [k for k, _, _ in counters() if k not in need])
+                log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
+                results[f"{shape[0]}x{shape[1]} {fp16}"] = dict(
+                    seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=torch.cuda.max_memory_allocated(),
+                    launches=counts, vs_path_c=video_diff(video, np.load(os.path.join(ref_dir, f"{fp16}.npy"))),
+                    clip_parallel=pipe._clip_parallel(), seq=pipe._seq_selected(PATH_C[1]), device=str(mesh.device),
+                )
+                if shape == (1, 2) and fp16 == "enable":  # where the sequence-parallel feature stage's time goes
+                    results["feature_split"] = feature_split(pipe, args)
+                    log(f"  [{tag}] the feature stage split (an extra run, synchronised timers): {results['feature_split']}")
+                del pipe, out
+        with open(os.path.join(ref_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, rank_args: list) -> None:
+    """target(*args) in a process of its own (spawn) for each args of
+    rank_args, after this process has handed its cached blocks back to
+    the card. A rank that fails, or does not finish within
+    M_JOIN_TIMEOUT_S, fails the script; every rank is stopped."""
+    import gc
+    import multiprocessing
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  ranks: this process holds {torch.cuda.memory_reserved() / 2**30:.3f} GiB of the card")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in rank_args]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, M_JOIN_TIMEOUT_S - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        require(not hung, f"ranks {hung} still running after {M_JOIN_TIMEOUT_S} s")
+        codes = [p.exitcode for p in procs]
+        require(codes == [0] * len(procs), f"rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+
+
+def path_m_run(ref_dir: str) -> dict:
+    """Path M: two ranks, processes of their own (spawn), each running
+    `path_m_rank`: on one card over gloo when the machine shows one card,
+    a card each over NCCL otherwise (`backend_for`). A rank that fails, or
+    does not finish within M_JOIN_TIMEOUT_S, fails the script (its
+    collectives time out after M_COLLECTIVE_TIMEOUT_S); both are stopped.
+    fp32 outputs are held to path C's fp32 output within the
+    card-against-host tolerance; bf16 differing bytes are logged."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import backend_for
+
+    world = 2
+    backend = backend_for(world, "cuda")
+    log(f"  path M: {world} ranks, {torch.cuda.device_count()} card(s), backend {backend}")
+    t0 = time.perf_counter()
+    spawn_ranks(path_m_rank, [(r, world, backend, os.path.join(ref_dir, "rendezvous"), ref_dir) for r in range(world)])
+    log(f"  path M: both ranks done in {time.perf_counter() - t0:.1f} s (process start and kernel load included)")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(ref_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    summary = {"all_gather_64MiB_s": [rk.pop("all_gather_64MiB_s") for rk in ranks],
+               "feature_split_1x2_bf16": [rk.pop("feature_split") for rk in ranks]}
+    for key in ranks[0]:
+        per = [rk[key] for rk in ranks]
+        for r, v in enumerate(per):
+            log(f"  [path M {key}] rank {r} on {v['device']}: {v['seconds']:.3f} s = {PATH_C[0] / v['seconds']:.3f} "
+                f"frames/s; peak {v['peak_bytes'] / 2**30:.3f} GiB; stages (s) "
+                + ", ".join(f"{k} {s:.4f}" for k, s in v["stages"].items())
+                + f"; launches {v['launches']}; against path C: {v['vs_path_c']}")
+            if key.endswith("disable"):
+                require(within_tolerance(v["vs_path_c"]), f"path M {key} rank {r}: fp32 output differs from path C's: {v['vs_path_c']}")
+        wall = max(v["seconds"] for v in per)
+        pair_peak = sum(v["peak_bytes"] for v in per)
+        log(f"  [path M {key}] the pair: {wall:.3f} s = {PATH_C[0] / wall:.3f} frames/s (the slower rank); peaks summed "
+            f"{pair_peak / 2**30:.3f} GiB")
+        summary[key] = dict(seconds=wall, fps=PATH_C[0] / wall, peak_bytes_summed=pair_peak, ranks=per)
+    # the kernels line's count: both ranks' timed bf16 runs on both meshes
+    launches = {name: sum(v["launches"][name] for rk in ranks for k, v in rk.items() if k.endswith("enable"))
+                for name, _, _ in counters()}
+    return dict(backend=backend, cards=torch.cuda.device_count(), meshes=summary, launches=launches)
+
+
+KEEP = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a kernels row's numbers
+
+
+def subset(r: dict, keys) -> dict:
+    return {k: r[k] for k in keys}
+
+
+def fp32_of(r: dict) -> dict:
+    return dict(max_abs_err_fp32=r["max_abs_err"], ms_fp32=r["ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1820,6 +2332,8 @@ def main() -> int:
         os.environ.pop(k, None)  # the main path and path A run the default kernels
     if len(sys.argv) == 3 and sys.argv[1] == "--tree":
         return tree_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--tree-cm":
+        return tree_cm(sys.argv[2])
     if len(sys.argv) == 2 and sys.argv[1] == "--b7-tiles":
         return b7_tiles()
     if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
@@ -1857,10 +2371,13 @@ def main() -> int:
     occ_s, occ_h = stream_occupancy(PATH_S), stream_occupancy(PATH_H)
     t_win_s, t_sel_s, _ = stream_window(PATH_S[0])
     t_win_h, t_sel_h, _ = stream_window(PATH_H[0])
+    t_win_c, t_sel_c, _ = stream_window(PATH_C[0])
+    b_c, occ_c = group_occupancy(PATH_C)
     log(f"  window occupancy of the node runs: 640x360 {int(occ360.sum())}/{occ360.numel()}, "
         f"1280x720 {int(occ720.sum())}/{occ720.numel()}, path O's ring on 768x360 {int(occ_o.sum())}/{occ_o.numel()}, "
         f"path S's middle window {int(occ_s.sum())}/{occ_s.numel()} ({t_win_s} frames, t_sel {t_sel_s}), "
-        f"path H's {int(occ_h.sum())}/{occ_h.numel()} ({t_win_h} frames, t_sel {t_sel_h})")
+        f"path H's {int(occ_h.sum())}/{occ_h.numel()} ({t_win_h} frames, t_sel {t_sel_h}), "
+        f"path C's middle group of {b_c} windows {int(occ_c.sum())}/{occ_c.numel()} ({t_win_c} frames, t_sel {t_sel_c})")
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt)[6:]
@@ -1883,7 +2400,7 @@ def main() -> int:
         res[("B1_O", key)] = check_corr_lookup(dt, gen, "lanes", PATH_O_RAFT_CALL)
         torch.cuda.empty_cache()
         for tag, shape in B2_SHAPES.items():
-            if dt == torch.bfloat16 or tag in ("fp", "fc", "fpO", "fcO"):  # fp32 at 640x360 and path O
+            if dt == torch.bfloat16 or tag in B2_FP32:
                 res[("B2" + tag, key)] = check_deform_conv(dt, gen, shape)
         res[("B3e", key)] = check_window_attention(dt, gen, 7, occ360)
         res[("B3o", key)] = check_window_attention(dt, gen, 6, occ360)
@@ -1893,6 +2410,15 @@ def main() -> int:
         res[("B4o", key)] = check_window_attention_tiled(dt, gen, 6, occ720)
         res[("B4eS", key)] = check_window_attention_tiled(dt, gen, t_sel_s[0], occ_s, 1, t_win_s)
         res[("B4oS", key)] = check_window_attention_tiled(dt, gen, t_sel_s[1], occ_s, 1, t_win_s)
+        # paths C and M: B1 on path C's one 108-pair call (bf16 maps take the
+        # map blend past the lanes gate, fp32 maps the fp32 kernel) and on path
+        # M (1, 2)'s 12-pair calls (lanes); B4 on path C's middle window group
+        res[("B1C", key)] = check_corr_lookup(dt, gen, "map", PATH_C_RAFT_CALL)
+        torch.cuda.empty_cache()
+        res[("B1M", key)] = check_corr_lookup(dt, gen, "lanes", PATH_M_RAFT_CALL)
+        for i, tag in ((0, "B4eC"), (1, "B4oC")):
+            res[(tag, key)] = check_window_attention_tiled(dt, gen, t_sel_c[i], occ_c, b_c, t_win_c, 36, 91)
+            torch.cuda.empty_cache()
         res[("B5s", key)] = check_window_attention_halo(dt, gen, (30, 54), occ360)
         res[("B5l", key)] = check_window_attention_halo(dt, gen, (60, 108), occ720)
         cw = check_corr_window(dt, gen)
@@ -1945,7 +2471,17 @@ def main() -> int:
     )
     card_vs_host(False, outpaint=True)
     streaming = {fp16: stream_vs_memory(fp16) for fp16 in ("disable", "enable")}
-    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s, "path_h": path_h}
+    # paths C and M, 100 frames at 640x360: the clip-parallel RAFT call of
+    # 108 pairs at w8 = 80 passes the lanes gate's 1 GiB (the map blend)
+    with tempfile.TemporaryDirectory() as ref_dir:
+        path_c = path_c_run(
+            PATH_M_MESHES[(2, 1)],
+            ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
+            ref_dir,
+        )
+        path_m = path_m_run(ref_dir)
+    paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s, "path_h": path_h,
+             "path_c": path_c, "path_m": path_m}
     for path, expected in EARLIER_LAUNCHES.items():
         got = {k: v for k, v in paths[path]["launches"].items() if v}
         require(got == expected, f"{path}: launches {got}, expected {expected}")
@@ -1987,6 +2523,12 @@ def main() -> int:
             row["path_h_call"] = {k: h_[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if rk == "B1":
             row["ms_path_o_call"] = res[("B1_O", "bfloat16")]["ms"]
+            # fp32 maps take this kernel on path C's call; path M (1, 2) runs it on 12 pairs
+            row["path_c_shapes"] = dict(call=PATH_C_RAFT_CALL, dtype="fp32", **subset(res[("B1C", "float32")], KEEP))
+            row["path_m_shapes"] = dict(call=PATH_M_RAFT_CALL, **subset(res[("B1M", "bfloat16")], KEEP),
+                                        **fp32_of(res[("B1M", "float32")]))
+        if rk == "B1map":
+            row["path_c_shapes"] = dict(call=PATH_C_RAFT_CALL, **subset(res[("B1C", "bfloat16")], KEEP))
         if rk == "B4e":  # path S's window, the even layers' t_sel (the odd in chip_smoke.json)
             s_, s32 = res[("B4eS", "bfloat16")], res[("B4eS", "float32")]
             row["path_s_shapes"] = {k: s_[k] for k in ("b", "t", "t_sel", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1995,6 +2537,10 @@ def main() -> int:
             h_ = res[("B4eH", "bfloat16")]
             row["path_h_shapes"] = {k: h_[k] for k in ("b", "t", "t_sel", "n_win", "max_abs_err", "ms", "plain_ms",
                                                         "bound_ms", "bound_by", "library_ms", "b3_ms", "occupied_share")}
+            # path C's middle window group, the even layers' t_sel (the odd in chip_smoke.json)
+            row["path_c_shapes"] = dict(subset(res[("B4eC", "bfloat16")], KEEP + ("b", "t", "t_sel", "n_win", "b3_ms",
+                                                                                 "occupied_share")),
+                                        **fp32_of(res[("B4eC", "float32")]))
         if rk == "B3e":  # path O's shapes, t_sel 7 (B3 at t_sel 6 in chip_smoke.json)
             o, o32 = res[("B3eO", "bfloat16")], res[("B3eO", "float32")]
             row["path_o_shapes"] = {k: o[k] for k in ("grid", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2006,7 +2552,10 @@ def main() -> int:
             row["b3_ms_same_inputs"] = r["b3_ms"]
         if rk == "B2fp":
             row["ms_by_shape"] = {tag: res[("B2" + tag, "bfloat16")]["ms"] for tag in B2_SHAPES}
-            row["launches_by_shape"] = {p: v["b2_launches_by_shape"] for p, v in paths.items()}
+            row["launches_by_shape"] = {p: v.get("b2_launches_by_shape") for p, v in paths.items()}
+            row["path_c_shapes"] = {"x".join(map(str, B2_SHAPES[tag])): dict(subset(res[("B2" + tag, "bfloat16")], KEEP),
+                                                                             **fp32_of(res[("B2" + tag, "float32")]))
+                                    for tag in ("fcC", "fpC", "fpC4")}
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}

@@ -20,6 +20,14 @@ through the four stages with a working set of O(subvideo_length) frames,
 bit for bit the in-memory run, fed by `utils/frameio.py::VideoSource`
 (the native .npy reader of native/frameio.cpp).
 
+Multi-device inference (parallel/): `make_mesh` lays the ranks of a
+torch.distributed process group out as a (data, model) grid (NCCL where
+each rank has a card, gloo where ranks share one or run on the CPU);
+`Pipeline(..., mesh=)` splits the chunk loops and window groups over the
+data ranks and the transformer's frames over the model ranks (gathered
+K/V), and every rank returns the whole video. The nodes and streaming
+take no mesh. `parallel/sharding.py` holds the weights' rule table.
+
 Kernels (ops/cuda/, sources in csrc/), one for each of the JAX package's
 seven Pallas kernels:
   B1 the RAFT correlation window lookup, both directions in one launch

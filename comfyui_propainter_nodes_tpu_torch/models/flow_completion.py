@@ -4,7 +4,10 @@ Port of the JAX package's `models/flow_completion.py`: the P3D encoder
 and mid dilation as NDHWC convs, the second-order bidirectional
 propagation as a Python loop over frames with a (prev1, prev2) carry,
 and the second-order deformable alignment on the deform-conv kernel
-(ops/cuda/deform_conv.py).
+(ops/cuda/deform_conv.py). Zero-padded chunks carry their real lengths
+(`t_valid`, an int or a [B] tensor: the clip-parallel stage's): the
+encoder re-zeroes the padding before each temporal conv and the backward
+propagation restarts at the last real frame, so real frames are exact.
 
 Memory plans. Each is exact in the computation it chunks (per-frame
 pure, or covered by a halo; a conv may take another algorithm for
@@ -66,11 +69,25 @@ CHUNK_T = 16  # frames a temporal chunk of the encoder, and of the mid dilation
 HALO_T = 8  # the encoder's temporal receptive field: four dilated-2 convs
 
 
-def _p3d(p: Params, pre: str, x, stride: int):
+def _valid_tmask(t: int, t_valid, dtype, device):
+    """Mask of real frames: [1, T] for a count (an int), [B, T] for a [B]
+    tensor of counts (clip-parallel chunks)."""
+    tv = torch.as_tensor(t_valid, device=device)
+    ar = torch.arange(t, device=device)
+    m = ar[None] < (tv[:, None] if tv.ndim else tv)
+    return m.to(dtype)
+
+
+def _p3d(p: Params, pre: str, x, stride: int, t_valid=None):
     """P3DBlock: (1,3,3) spatial conv + LeakyReLU, then a (3,1,1)
-    dilated-2 temporal conv."""
+    dilated-2 temporal conv. With t_valid, frames past the real ones are
+    zeroed before the temporal conv: the spatial conv's bias makes zero
+    padding nonzero, and zeroing restores the temporal conv's own zero
+    padding for the real frames, exactly."""
     y = pconv3d(p, pre + ".conv1.0", x, stride=(1, stride, stride), padding=(0, 1, 1))
     y = leaky_relu(y, 0.2)
+    if t_valid is not None:
+        y = y * _valid_tmask(y.shape[1], t_valid, y.dtype, y.device)[:, :, None, None, None]
     return pconv3d(p, pre + ".conv2.0", y, padding=(2, 0, 0), dilation=(2, 1, 1))
 
 
@@ -101,37 +118,56 @@ def _second_order_align(p: Params, pre: str, x, extra_feat):
     )
 
 
-def _propagate_direction(p: Params, module: str, x_seq, extra_seq):
+def _propagate_direction(p: Params, module: str, x_seq, extra_seq, first_index=0):
     """One direction of the second-order propagation. x_seq [T, N, H, W, C]
     in propagation order; extra_seq (forward pass) the other direction's
-    features."""
+    features. first_index: the step where propagation (re)starts, an int
+    or a [N] tensor (each batch row its own); steps before it are padding
+    (zeros for an int; for a tensor they run, their values unused)."""
     t, n, h, w, c = x_seq.shape
     da = f"feat_prop_module.deform_align.{module}"
     bb = f"feat_prop_module.backbone.{module}"
     zeros = x_seq.new_zeros((n, h, w, c))
+    per_row = first_index if isinstance(first_index, torch.Tensor) and first_index.ndim == 1 else None
+    first = 0 if per_row is not None else int(first_index)
+    # each step's restart flags [T, N], made once: the loop copies nothing to the card
+    restarts = None if per_row is None else torch.arange(t, device=x_seq.device)[:, None] == per_row.to(x_seq.device)[None]
     prev1, prev2 = zeros, zeros
     outs = []
     for i in range(t):
+        if i < first:
+            outs.append(zeros)
+            continue
         feat_current = x_seq[i]
-        if i == 0:
+        restart = None
+        if i == first:
             # the reference skips alignment on the first frame
             feat_prop = zeros
         else:
             cond = torch.cat([prev1, feat_current, prev2], dim=-1)
             feat_prop = _second_order_align(p, da, torch.cat([prev1, prev2], dim=-1), cond)
+            if per_row is not None:
+                restart = restarts[i].reshape(n, 1, 1, 1)
+                feat_prop = torch.where(restart, zeros, feat_prop)
         parts = [feat_current] + ([extra_seq[i]] if extra_seq is not None else []) + [feat_prop]
         y = leaky_relu(pconv2d(p, bb + ".0", torch.cat(parts, dim=-1), padding=(1, 1)), 0.1)
         out = feat_prop + pconv2d(p, bb + ".2", y, padding=(1, 1))
-        prev2 = zeros if i == 0 else prev1
+        if i == first:
+            prev2 = zeros
+        else:
+            prev2 = prev1 if restart is None else torch.where(restart, zeros, prev1)
         prev1 = out
         outs.append(out)
     return torch.stack(outs)
 
 
-def _bidirectional_propagation(p: Params, x):
-    """x: [N, T, H, W, C] -> [N, T, H, W, C]."""
+def _bidirectional_propagation(p: Params, x, t_valid=None):
+    """x: [N, T, H, W, C] -> [N, T, H, W, C]. With t_valid (the real
+    leading frames, an int or a [N] tensor) the backward pass restarts at
+    the last real frame."""
     x_t = x.movedim(1, 0)
-    bwd = _propagate_direction(p, "backward_", x_t.flip(0), None).flip(0)
+    bwd_first = 0 if t_valid is None else x.shape[1] - t_valid
+    bwd = _propagate_direction(p, "backward_", x_t.flip(0), None, bwd_first).flip(0)
     fwd = _propagate_direction(p, "forward_", x_t, bwd)
     fused = torch.cat([bwd, fwd], dim=-1)
     t, n, h, w, c2 = fused.shape
@@ -139,14 +175,14 @@ def _bidirectional_propagation(p: Params, x):
     return out.reshape(t, n, h, w, c2 // 2).movedim(0, 1) + x
 
 
-def _encode_core(p: Params, xp):
+def _encode_core(p: Params, xp, t_valid=None):
     """The encoder on an input already edge-padded by 2 in H and W:
     [B,T,H+4,W+4,3] -> (e1 [B,T,H/4,W/4,64], e2 [B,T,H/8,W/8,128])."""
     x = leaky_relu(pconv3d(p, "downsample.0", xp, stride=(1, 2, 2)), 0.2)
-    e1 = leaky_relu(_p3d(p, "encoder1.0", x, 1), 0.2)
-    e1 = leaky_relu(_p3d(p, "encoder1.2", e1, 2), 0.2)
-    e2 = leaky_relu(_p3d(p, "encoder2.0", e1, 1), 0.2)
-    e2 = leaky_relu(_p3d(p, "encoder2.2", e2, 2), 0.2)
+    e1 = leaky_relu(_p3d(p, "encoder1.0", x, 1, t_valid), 0.2)
+    e1 = leaky_relu(_p3d(p, "encoder1.2", e1, 2, t_valid), 0.2)
+    e2 = leaky_relu(_p3d(p, "encoder2.0", e1, 1, t_valid), 0.2)
+    e2 = leaky_relu(_p3d(p, "encoder2.2", e2, 2, t_valid), 0.2)
     return e1, e2
 
 
@@ -191,14 +227,14 @@ def _slab_plan(h8: int, nb: int):
     return plan
 
 
-def _encode_slabbed(p: Params, inputs, nb: int):
+def _encode_slabbed(p: Params, inputs, nb: int, t_valid=None):
     """The encoder in row slabs of nb rows at 1/8 (`_slab_plan`): the
     input is edge-padded once and each slab sliced from it."""
     h8 = inputs.shape[2] // 8
     xe = _edge_pad(inputs)
     e1s, e2s = [], []
     for s, length, k8, k4, nb_i in _slab_plan(h8, nb):
-        e1c, e2c = _encode_core(p, xe[:, :, s : s + length])
+        e1c, e2c = _encode_core(p, xe[:, :, s : s + length], t_valid)
         e1s.append(e1c[:, :, k4 : k4 + 2 * nb_i])
         e2s.append(e2c[:, :, k8 : k8 + nb_i])
     return torch.cat(e1s, dim=2), torch.cat(e2s, dim=2)
@@ -215,37 +251,39 @@ def _slab_rows(shape, esz: int) -> int | None:
     return max(2, min(h // 8, int((rows2 - 16) // 4)))
 
 
-def _encode_call(p: Params, inputs):
+def _encode_call(p: Params, inputs, t_valid=None):
     """One encoder call, in row slabs past SLAB_BYTES."""
     nb = _slab_rows(inputs.shape, inputs.element_size())
     if nb is not None:
-        return _encode_slabbed(p, inputs, nb)
-    return _encode_core(p, _edge_pad(inputs))
+        return _encode_slabbed(p, inputs, nb, t_valid)
+    return _encode_core(p, _edge_pad(inputs), t_valid)
 
 
-def _encode_chunked(p: Params, inputs):
+def _encode_chunked(p: Params, inputs, t_valid=None):
     """The encoder over temporal chunks of CHUNK_T frames, each encoded
     with up to HALO_T real frames on either side, [s - 8, e + 8) clamped
     to the clip: a kept frame sees the same taps as in the whole clip,
     and at the clip's ends the temporal convs' own zero padding is the
-    whole clip's."""
+    whole clip's. t_valid (the clip's real frames) carries into each
+    chunk's own frames."""
     t = inputs.shape[1]
     e1s, e2s = [], []
     for s in range(0, t, CHUNK_T):
         e = min(t, s + CHUNK_T)
         lo, hi = max(0, s - HALO_T), min(t, e + HALO_T)
-        e1c, e2c = _encode_call(p, inputs[:, lo:hi])
+        tv = None if t_valid is None else (torch.as_tensor(t_valid) - lo).clamp(0, hi - lo)
+        e1c, e2c = _encode_call(p, inputs[:, lo:hi], tv)
         e1s.append(e1c[:, s - lo : e - lo])
         e2s.append(e2c[:, s - lo : e - lo])
     return torch.cat(e1s, dim=1), torch.cat(e2s, dim=1)
 
 
-def _encode(p: Params, inputs):
+def _encode(p: Params, inputs, t_valid=None):
     """[B,T,H,W,3] -> (e1 [B,T,H/4,W/4,64], e2 [B,T,H/8,W/8,128]): on
     the whole clip, or in temporal chunks past ENCODE_BYTES."""
     if _half_res_bytes(inputs.shape, inputs.element_size()) > ENCODE_BYTES:
-        return _encode_chunked(p, inputs)
-    return _encode_call(p, inputs)
+        return _encode_chunked(p, inputs, t_valid)
+    return _encode_call(p, inputs, t_valid)
 
 
 def _mid_body(p: Params, e2):
@@ -273,12 +311,14 @@ def _decode(p: Params, prop2, e1_2):
     return _deconv(p, "upsample.2", up)
 
 
-def flow_complete_forward(p: Params, masked_flows, masks):
-    """masked_flows [B,T,H,W,2], masks [B,T,H,W,1] -> completed [B,T,H,W,2]."""
+def flow_complete_forward(p: Params, masked_flows, masks, t_valid=None):
+    """masked_flows [B,T,H,W,2], masks [B,T,H,W,1] -> completed [B,T,H,W,2].
+    t_valid: the count of real leading frames where T is zero-padded at
+    the end (an int, or a [B] tensor); real frames' results are exact."""
     b, t, h, w, _ = masked_flows.shape
     inputs = torch.cat([masked_flows, masks], dim=-1)
-    e1, e2 = _encode(p, inputs)
-    prop = _bidirectional_propagation(p, _mid(p, e2)).reshape(b * t, h // 8, w // 8, CHANNEL)
+    e1, e2 = _encode(p, inputs, t_valid)
+    prop = _bidirectional_propagation(p, _mid(p, e2), t_valid).reshape(b * t, h // 8, w // 8, CHANNEL)
     e1 = e1.reshape(b * t, h // 4, w // 4, 64)
     chunk = max(1, DECODE_BYTES // (h * w * 32 * prop.element_size()))
     flow = [_decode(p, prop[i : i + chunk], e1[i : i + chunk]) for i in range(0, b * t, chunk)]
@@ -315,25 +355,48 @@ def completion_plan(shape, dtype) -> dict:
     )
 
 
-def forward_bidirect_flow(p: Params, flows_f, flows_b, masks):
+def _prefix_flip(t: int, t_valid, device):
+    """Time flip of the real prefix of each clip, the padding left at the
+    end: a function of [B, T, ...] tensors, for t_valid None (the whole
+    clip), an int or a [B] tensor."""
+    if t_valid is None:
+        return lambda a: a.flip(1)
+    tv = torch.as_tensor(t_valid, device=device)
+    ar = torch.arange(t, device=device)
+    if tv.ndim == 0:
+        idx = torch.where(ar < tv, tv - 1 - ar, ar)
+        return lambda a: a.index_select(1, idx)
+    idx = torch.where(ar[None] < tv[:, None], tv[:, None] - 1 - ar[None], ar[None])  # [B, T]
+    return lambda a: torch.take_along_dim(a, idx.reshape(idx.shape + (1,) * (a.ndim - 2)), dim=1)
+
+
+def forward_bidirect_flow(p: Params, flows_f, flows_b, masks, t_valid=None):
     """Complete both directions, the backward stream time-flipped: in one
     batched call, or in turn past BATCH_BYTES (the JAX package's high-res
     form; the network has no coupling across its batch).
-    flows_* [B, T-1, H, W, 2]; masks [B, T, H, W, 1]."""
+    flows_* [B, T-1, H, W, 2]; masks [B, T, H, W, 1]. t_valid: the count
+    of real flows where T-1 is zero-padded at the end, an int or a [B]
+    tensor (clip-parallel chunks); the backward stream flips only the
+    real prefix, so the padding stays at the end."""
     masks_fwd = masks[:, :-1]
     masks_bwd = masks[:, 1:]
     mf = flows_f * (1 - masks_fwd)
     mb = flows_b * (1 - masks_bwd)
+    flip = _prefix_flip(flows_f.shape[1], t_valid, flows_f.device)
     if directions_in_turn(flows_f.shape, flows_f.dtype):
-        pf = flow_complete_forward(p, mf, masks_fwd)
-        return pf, flow_complete_forward(p, mb.flip(1), masks_bwd.flip(1)).flip(1)
+        pf = flow_complete_forward(p, mf, masks_fwd, t_valid)
+        return pf, flip(flow_complete_forward(p, flip(mb), flip(masks_bwd), t_valid))
+    tv2 = t_valid
+    if isinstance(t_valid, torch.Tensor) and t_valid.ndim == 1:
+        tv2 = torch.cat([t_valid, t_valid])
     pred = flow_complete_forward(
         p,
-        torch.cat([mf, mb.flip(1)], dim=0),
-        torch.cat([masks_fwd, masks_bwd.flip(1)], dim=0),
+        torch.cat([mf, flip(mb)], dim=0),
+        torch.cat([masks_fwd, flip(masks_bwd)], dim=0),
+        tv2,
     )
     b = flows_f.shape[0]
-    return pred[:b], pred[b:].flip(1)
+    return pred[:b], flip(pred[b:])
 
 
 def combine_flow(flows_f, flows_b, pred_f, pred_b, masks):

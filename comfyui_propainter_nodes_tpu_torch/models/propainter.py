@@ -18,7 +18,10 @@ node's group of 8 windows on its 768x360 canvas decodes 88, 3.1 GB).
 Window batching pads each window's local and reference frame blocks;
 `l_t_valid` / `ref_valid` give the real counts (None, an int, or a [B]
 tensor per window). Callers zero the masks of padded slots; real-frame
-outputs are exact.
+outputs are exact. Image propagation takes real lengths too (`t_valid`,
+an int or a [B] tensor): the clip-parallel stage batches padded chunks.
+Under `parallel/sequence.py::sequence_sharding` the transformer runs
+sequence-parallel over the mesh's model axis.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..ops.dilation import binarize
 from ..ops.pool import max_pool2d
 from ..ops.resize import resize_2x_window, resize_bilinear, resize_nearest
 from ..ops.warp import flow_warp
+from ..parallel.sequence import sequence_active, sequence_parallel_transformer
 
 Params = Mapping[str, torch.Tensor]
 
@@ -170,12 +174,29 @@ def _align_flows(flows):
     return torch.cat([torch.zeros_like(flows[:1]), flows], dim=0)
 
 
-def _prop_direction_image(x_seq, mask_seq, flows_prop, flows_check, interpolation):
+def _prop_direction_image(x_seq, mask_seq, flows_prop, flows_check, interpolation, first_index=0):
     """Non-learnable direction: warp-fill. x_seq/mask_seq [T, N, H, W, C];
-    flows_* [T-1, N, H, W, 2]. Returns (feats, masks) [T, ...]."""
-    feat_prop, mask_prop = x_seq[0], mask_seq[0]  # the first frame is kept
-    feats, masks = [feat_prop], [mask_prop]
-    for i in range(1, x_seq.shape[0]):
+    flows_* [T-1, N, H, W, 2]. Returns (feats, masks) [T, ...].
+
+    first_index: the step where propagation (re)starts, keeping the frame
+    as it is: an int, or a [N] tensor (each batch row its own). Steps
+    before it are padding (zeros for an int; for a tensor they run, their
+    values unused), so real frames' results do not depend on it."""
+    per_row = first_index if isinstance(first_index, torch.Tensor) and first_index.ndim == 1 else None
+    first = 0 if per_row is not None else int(first_index)
+    # each step's restart flags [T, N], made once: the loop copies nothing to the card
+    restarts = _first_flags(x_seq.shape[0], per_row, x_seq.device) if per_row is not None else None
+    feats, masks = [], []
+    for i in range(x_seq.shape[0]):
+        if i < first:
+            feats.append(torch.zeros_like(x_seq[i]))
+            masks.append(torch.zeros_like(mask_seq[i]))
+            continue
+        if i == first:  # the first frame is kept
+            feat_prop, mask_prop = x_seq[i], mask_seq[i]
+            feats.append(feat_prop)
+            masks.append(mask_prop)
+            continue
         feat_current, mask_current = x_seq[i], mask_seq[i]
         flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
         if interpolation == "bilinear":
@@ -192,6 +213,10 @@ def _prop_direction_image(x_seq, mask_seq, flows_prop, flows_check, interpolatio
         union = binarize(mask_current * valid * (1 - mask_prop_valid))
         feat_prop = union * feat_warped + (1 - union) * feat_current
         mask_prop = binarize(mask_current * (1 - valid * (1 - mask_prop_valid)))
+        if per_row is not None:
+            restart = _bflag(restarts[i], feat_prop)
+            feat_prop = torch.where(restart, feat_current, feat_prop)
+            mask_prop = torch.where(restart, mask_current, mask_prop)
         feats.append(feat_prop)
         masks.append(mask_prop)
     return torch.stack(feats), torch.stack(masks)
@@ -228,13 +253,19 @@ def _prop_direction_feature(p, module, x_seq, mask_seq, flows_prop, flows_check,
     return torch.stack(outs)
 
 
-def bidirectional_propagation_image(x, flows_f, flows_b, mask, interpolation="nearest"):
+def bidirectional_propagation_image(x, flows_f, flows_b, mask, interpolation="nearest", t_valid=None):
     """x [B,T,H,W,3]; flows [B,T-1,H,W,2]; mask [B,T,H,W,1] ->
-    (prop_frames, updated_masks) [B,T,H,W,*]."""
+    (prop_frames, updated_masks) [B,T,H,W,*].
+
+    t_valid: the count of real leading frames where T is zero-padded at
+    the end, an int or a [B] tensor (clip-parallel chunks); real frames'
+    results are exact: the backward pass, which meets the padding first,
+    restarts at the last real frame."""
     xs, ms = x.movedim(1, 0), mask.movedim(1, 0)
     ff, fb = flows_f.movedim(1, 0), flows_b.movedim(1, 0)
+    bwd_first = 0 if t_valid is None else x.shape[1] - t_valid
     feats_b, masks_b = _prop_direction_image(
-        xs.flip(0), ms.flip(0), ff.flip(0), fb.flip(0), interpolation
+        xs.flip(0), ms.flip(0), ff.flip(0), fb.flip(0), interpolation, bwd_first
     )
     feats_b, masks_b = feats_b.flip(0), masks_b.flip(0)
     feats_f, masks_f = _prop_direction_image(feats_b, masks_b, fb, ff, interpolation)
@@ -259,9 +290,10 @@ def bidirectional_propagation_feature(p: Params, x, flows_f, flows_b, mask, t_va
     return (y + xs).movedim(0, 1)
 
 
-def img_propagation(masked_frames, flows_f, flows_b, masks, interpolation="nearest"):
-    """InpaintGenerator.img_propagation."""
-    return bidirectional_propagation_image(masked_frames, flows_f, flows_b, masks, interpolation)
+def img_propagation(masked_frames, flows_f, flows_b, masks, interpolation="nearest", t_valid=None):
+    """InpaintGenerator.img_propagation; t_valid as in
+    `bidirectional_propagation_image`."""
+    return bidirectional_propagation_image(masked_frames, flows_f, flows_b, masks, interpolation, t_valid)
 
 
 def encode_features(p: Params, masked_frames, masks_in, masks_updated):
@@ -328,10 +360,15 @@ def inpaint_generator_from_features(
 
     trans_feat = soft_split(p, "ss", enc_feat.reshape(b * t, h, w, CHANNEL))
     fh, fw = trans_feat.shape[1], trans_feat.shape[2]
-    trans_feat = transformer_stack(
-        p, "transformers", trans_feat.reshape(b, t, fh, fw, HIDDEN), (h, w),
-        mask_pool_l, t_valid_mask=t_valid_mask,
-    )
+    trans_feat = trans_feat.reshape(b, t, fh, fw, HIDDEN)
+    seq = sequence_active()
+    if seq is not None:
+        # the feature stage's sequence-parallel form: T split over the mesh axis
+        trans_feat = sequence_parallel_transformer(
+            p, "transformers", trans_feat, (h, w), mask_pool_l, seq[0], t_valid_mask=t_valid_mask, axis=seq[1],
+        )
+    else:
+        trans_feat = transformer_stack(p, "transformers", trans_feat, (h, w), mask_pool_l, t_valid_mask=t_valid_mask)
     trans_feat = soft_comp(p, "sc", trans_feat.reshape(b * t, fh, fw, HIDDEN), (h, w))
     enc_feat = enc_feat + trans_feat.reshape(b, t, h, w, CHANNEL)
     local = enc_feat[:, :l_t].reshape(b * l_t, h, w, CHANNEL)

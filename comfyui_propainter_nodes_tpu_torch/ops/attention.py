@@ -11,7 +11,10 @@ they are (pooled keys unbroadcast, per batch row). With
 PROPAINTER_TPU_ATTN=halo (read at call time) the layer takes the halo
 kernel instead (ops/cuda/window_attention_halo.py): it reads windows from
 the token grids and a halo of the circularly padded K/V in place of the
-rolled copies.
+rolled copies. Under sequence parallelism (`seq`, parallel/sequence.py)
+the layer takes no kernel, as in the JAX package: each rank's queries
+attend over K/V segments all-gathered across the ranks, in stock torch
+ops (`_gathered_kv_attention`).
 
 SoftSplit is one strided conv; SoftComp and FusionFeedForward run in
 stride-phase space (fold/unfold composed with the linear layers become
@@ -21,6 +24,7 @@ stride-phase space (fold/unfold composed with the linear layers become
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import Mapping
 
@@ -178,6 +182,93 @@ def _window_partition(x: torch.Tensor, window, n_head: int) -> torch.Tensor:
     return x.reshape(b, nh * nw, n_head, t, wh * ww, c // n_head)
 
 
+def _build_rolled(a: torch.Tensor, window, n_head: int) -> torch.Tensor:
+    """The 4 diagonally rolled copies of a [B, T, H, W, C] key grid,
+    window-partitioned and kept at their out-of-window survivors:
+    [B, nW, head, T, 148, ch]. Partition of each roll == a shifted-origin
+    partition of ONE circularly padded tensor."""
+    wh, ww = window
+    h, w = a.shape[2], a.shape[3]
+    eh, ew = (wh + 1) // 2, (ww + 1) // 2
+    ap = torch.cat([a[:, :, -eh:], a, a[:, :, :eh]], dim=2)
+    ap = torch.cat([ap[:, :, :, -ew:], ap, ap[:, :, :, :ew]], dim=3)
+    parts = []
+    for s_y, s_x in [(-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)]:
+        oy, ox = eh - s_y, ew - s_x
+        parts.append(_window_partition(ap[:, :, oy : oy + h, ox : ox + w], window, n_head))
+    idx = torch.as_tensor(_valid_rolled_indices(tuple(window)), device=a.device)
+    return torch.cat(parts, dim=4).index_select(4, idx)
+
+
+LOGITS_BYTES = 1.2e9  # past this the gathered-KV logits run in window chunks of about half of it
+
+
+def _gathered_kv_attention(q, k, v, pool_k, pool_v, occ, ti, tv, seq, window, n_head: int):
+    """The attention of one rank's T share over key segments gathered
+    from every share (the JAX package's XLA branch under `axis_name`,
+    ops/attention.py:314-320 and 444-533 there), in stock torch ops: K, V
+    and the pooled K/V are all-gathered over the axis, and the window and
+    rolled segments are built from the gathered K/V at the global t_ind
+    frames (JAX gathers the two segments, which are index maps of the
+    same frames: 4.3 times the bytes, 45 + 148 keys a window position);
+    occupied windows attend over them with the global validity tv as an
+    additive -1e9 key bias, in chunks of windows past LOGITS_BYTES of
+    fp32 logits; clean windows attend within each local frame.
+    q/k/v [B, T, H', W', C] (window-padded grid, this rank's frames);
+    pool_k/pool_v [B, T, ph, pw, C]; occ [B, nW] bool; ti global frame
+    indices; tv [B, T_glob] bool. Returns [B, T, H', W', C]."""
+    mesh, axis = seq
+    b, t, new_h, new_w, c = q.shape
+    wh, ww = window
+    ch = c // n_head
+    n_wh, n_ww = new_h // wh, new_w // ww
+    n_win = n_wh * n_ww
+    dev = q.device
+
+    win_q = _window_partition(q, window, n_head)  # [B, nW, hd, T, 45, ch]
+    win_k = _window_partition(k, window, n_head)
+    win_v = _window_partition(v, window, n_head)
+    ti_t = torch.as_tensor(np.asarray(ti), device=dev)
+
+    def global_sel(a):  # [B, T, ...] -> [B, t_sel, ...] at the global t_ind frames
+        return mesh.all_gather(a, axis, dim=1).index_select(1, ti_t)
+
+    k_sel, v_sel = global_sel(k), global_sel(v)
+    wk_s, wv_s = _window_partition(k_sel, window, n_head), _window_partition(v_sel, window, n_head)
+    rk_s, rv_s = _build_rolled(k_sel, window, n_head), _build_rolled(v_sel, window, n_head)
+    t_sel = len(ti)
+    p_len = pool_k.shape[2] * pool_k.shape[3]
+
+    def heads_of(a):  # [B, t_sel, ph, pw, C] -> [B, head, t_sel, ph*pw, ch]
+        return a.reshape(b, t_sel, p_len, n_head, ch).permute(0, 3, 1, 2, 4)
+
+    pk_s, pv_s = heads_of(global_sel(pool_k)), heads_of(global_sel(pool_v))
+    k_per_t = wh * ww + rk_s.shape[4] + p_len
+    key_bias = torch.where(tv.index_select(1, ti_t), 0.0, NEG).repeat_interleave(k_per_t, dim=1)
+    scale = 1.0 / math.sqrt(ch)
+
+    def occupied(lo: int, hi: int):
+        cw = hi - lo
+        pk_b = pk_s[:, None].expand(b, cw, n_head, t_sel, p_len, ch)
+        pv_b = pv_s[:, None].expand(b, cw, n_head, t_sel, p_len, ch)
+        ka = torch.cat([wk_s[:, lo:hi], rk_s[:, lo:hi], pk_b], dim=4).reshape(b, cw, n_head, t_sel * k_per_t, ch)
+        va = torch.cat([wv_s[:, lo:hi], rv_s[:, lo:hi], pv_b], dim=4).reshape(b, cw, n_head, t_sel * k_per_t, ch)
+        qa = win_q[:, lo:hi].reshape(b, cw, n_head, t * wh * ww, ch)
+        att = torch.einsum("bwhqc,bwhkc->bwhqk", qa, ka) * scale
+        att = torch.softmax(att + key_bias[:, None, None, None, :].to(att.dtype), dim=-1)
+        return torch.einsum("bwhqk,bwhkc->bwhqc", att, va).reshape(b, cw, n_head, t, wh * ww, ch)
+
+    logits_bytes = b * n_win * n_head * (t * wh * ww) * (t_sel * k_per_t) * 4
+    step = n_win if logits_bytes <= LOGITS_BYTES else max(1, int(6e8 // (logits_bytes // n_win)))
+    out_a = torch.cat([occupied(lo, min(n_win, lo + step)) for lo in range(0, n_win, step)], dim=1)
+
+    att_b = torch.softmax(torch.einsum("bwhtqc,bwhtkc->bwhtqk", win_q, win_k) * scale, dim=-1)
+    out_b = torch.einsum("bwhtqk,bwhtkc->bwhtqc", att_b, win_v)
+    out = torch.where(occ[:, :, None, None, None, None], out_a, out_b)
+    out = out.reshape(b, n_wh, n_ww, n_head, t, wh, ww, ch)
+    return out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, t, new_h, new_w, c)
+
+
 def sparse_window_attention(
     p: Params,
     pre: str,
@@ -188,13 +279,19 @@ def sparse_window_attention(
     window_size: tuple[int, int] = (5, 9),
     pool_size: tuple[int, int] = (4, 4),
     t_valid_mask: torch.Tensor | None = None,
+    seq=None,
 ) -> torch.Tensor:
     """SparseWindowAttention.forward.
 
     x: [B, T, H, W, C] tokens (post-LN); mask: [B, l_t, H, W, 1] local
     sparsity mask; t_ind: frame subset for the occupied branch (temporal
     dilation) or None; t_valid_mask: [T] or [B, T] bool, keys of padded
-    frames are masked out of the occupied branch."""
+    frames are masked out of the occupied branch.
+
+    seq = (mesh, axis): sequence parallelism (parallel/sequence.py). x is
+    this rank's contiguous share of T; the occupied branch attends over
+    key segments all-gathered across the axis (`_gathered_kv_attention`).
+    mask, t_ind and t_valid_mask are then the whole clip's (global T)."""
     b, t, h, w, c = x.shape
     dev = x.device
     wh, ww = window_size
@@ -210,11 +307,6 @@ def sparse_window_attention(
     k = linear(p, pre + ".key", x)
     v = linear(p, pre + ".value", x)
 
-    ti = np.arange(t) if t_ind is None else np.asarray(t_ind)
-    ti_t = torch.as_tensor(ti, device=dev)
-    t_sel = len(ti)
-    eh, ew = (wh + 1) // 2, (ww + 1) // 2
-
     # pooled global tokens: depthwise 4x4 stride-4 conv, then key/value
     pool_x = conv2d(
         x.reshape(b * t, new_h, new_w, c), p[pre + ".pool_layer.weight"],
@@ -223,17 +315,34 @@ def sparse_window_attention(
     p_h, p_w = pool_x.shape[1], pool_x.shape[2]
     pool_x = pool_x.reshape(b, t, p_h, p_w, c)
 
+    # occupancy: a window is occupied if the mask touches it in any local frame
+    l_t = mask.shape[1]
+    occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
+    occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
+
+    if seq is not None:
+        t_glob = t * seq[0].shape[seq[1]]
+        ti = np.arange(t_glob) if t_ind is None else np.asarray(t_ind)
+        tv = torch.ones((b, t_glob), dtype=torch.bool, device=dev)
+        if t_valid_mask is not None:
+            tv = t_valid_mask.to(dev).reshape(-1, t_glob).expand(b, t_glob)
+        out = _gathered_kv_attention(
+            q, k, v, linear(p, pre + ".key", pool_x), linear(p, pre + ".value", pool_x), occ, ti, tv, seq,
+            window_size, n_head,
+        )
+        return linear(p, pre + ".proj", out[:, :, :h, :w])
+
+    ti = np.arange(t) if t_ind is None else np.asarray(t_ind)
+    ti_t = torch.as_tensor(ti, device=dev)
+    t_sel = len(ti)
+    eh, ew = (wh + 1) // 2, (ww + 1) // 2
+
     def heads_of(a):  # [B, T, ph, pw, C] -> [B, head, T_sel*ph*pw, ch]
         a = a.reshape(b, t, p_h * p_w, n_head, ch).permute(0, 3, 1, 2, 4)
         return a.index_select(2, ti_t).reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous()
 
     pk = heads_of(linear(p, pre + ".key", pool_x))
     pv = heads_of(linear(p, pre + ".value", pool_x))
-
-    # occupancy: a window is occupied if the mask touches it in any local frame
-    l_t = mask.shape[1]
-    occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
-    occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
 
     if t_valid_mask is None:
         tv = torch.ones((b, t), dtype=torch.bool, device=dev)
@@ -266,23 +375,9 @@ def sparse_window_attention(
     win_q = _window_partition(q, window_size, n_head)
     win_k = _window_partition(k, window_size, n_head)
     win_v = _window_partition(v, window_size, n_head)
-    shifts = [(-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)]
-    idx = torch.as_tensor(_valid_rolled_indices(window_size), device=dev)
-
-    def build_rolled(a):
-        # partition of each roll == a shifted-origin partition of ONE
-        # circularly padded tensor, built at the t_ind frames only
-        a = a.index_select(1, ti_t)
-        ap = torch.cat([a[:, :, -eh:], a, a[:, :, :eh]], dim=2)
-        ap = torch.cat([ap[:, :, :, -ew:], ap, ap[:, :, :, :ew]], dim=3)
-        parts = []
-        for s_y, s_x in shifts:
-            oy, ox = eh - s_y, ew - s_x
-            parts.append(_window_partition(ap[:, :, oy : oy + new_h, ox : ox + new_w], window_size, n_head))
-        return torch.cat(parts, dim=4).index_select(4, idx)
-
-    rk = build_rolled(k)
-    rv = build_rolled(v)
+    # rolled keys at the t_ind frames only
+    rk = _build_rolled(k.index_select(1, ti_t), window_size, n_head)
+    rv = _build_rolled(v.index_select(1, ti_t), window_size, n_head)
     n_rolled = rk.shape[4]
     bias_r = bias_sel.repeat_interleave(n_rolled, dim=1).contiguous()
 
@@ -303,12 +398,12 @@ def sparse_window_attention(
 # -------------------------------------------------------------- FFN + block
 
 
-def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None):
+def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None, seq=None):
     """TemporalSparseTransformer. x: [B, T, f_h, f_w, C] tokens."""
     b, t, fh, fw, c = x.shape
     att = sparse_window_attention(
         p, pre + ".attention", layer_norm(p, pre + ".norm1", x), mask, t_ind,
-        t_valid_mask=t_valid_mask,
+        t_valid_mask=t_valid_mask, seq=seq,
     )
     x = x + att
     y = layer_norm(p, pre + ".norm2", x)
@@ -318,14 +413,16 @@ def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_ma
 
 def transformer_stack(
     p: Params, pre: str, x, fold_size, mask, depths: int = 8, t_dilation: int = 2,
-    t_valid_mask=None,
+    t_valid_mask=None, seq=None, t_total: int | None = None,
 ):
     """TemporalSparseTransformerBlock: `depths` blocks, block i attends the
-    temporal-dilation frame subset arange(i % t_dilation, T, t_dilation)."""
-    t = x.shape[1]
+    temporal-dilation frame subset arange(i % t_dilation, T, t_dilation).
+    seq / t_total: sequence parallelism (x is this rank's T share; the
+    frame subsets are of the global t_total frames)."""
+    t = t_total if t_total is not None else x.shape[1]
     for i in range(depths):
         x = transformer_block(
             p, f"{pre}.transformer.{i}", x, fold_size, mask,
-            np.arange(i % t_dilation, t, t_dilation), t_valid_mask,
+            np.arange(i % t_dilation, t, t_dilation), t_valid_mask, seq=seq,
         )
     return x

@@ -1,16 +1,24 @@
 """Pipeline stages: flow -> completion -> image prop -> feature prop.
 
-Port of the JAX package's `pipeline/stages.py` main path, as eager
-PyTorch on one device. Chunk boundaries follow the reference inference script
-(propainter_inference.py): flow-completion subvideo chunks with a
-5-frame halo, image-propagation chunks of <= 100 frames with a 10-frame
-halo, sliding neighbor windows with global reference frames and the
-first-visit / 0.5-blend overlap merge. The chunk loops are plain Python
-loops over unpadded chunks (exactly what the JAX package's padded,
-masked chunks compute for their real frames). RAFT's clip chunking only
-bounds memory, so all pairs run in one call when the correlation
-volumes fit. The feature stage encodes every frame once and gathers
-windows from the per-frame features, in groups of at most 8 windows.
+Port of the JAX package's `pipeline/stages.py`, as eager PyTorch on one
+device or on the ranks of a mesh. Chunk boundaries follow the reference
+inference script (propainter_inference.py): flow-completion subvideo
+chunks with a 5-frame halo, image-propagation chunks of <= 100 frames
+with a 10-frame halo, sliding neighbor windows with global reference
+frames and the first-visit / 0.5-blend overlap merge. The chunk loops
+are plain Python loops over unpadded chunks (exactly what the JAX
+package's padded, masked chunks compute for their real frames). RAFT's
+clip chunking only bounds memory, so all pairs run in one call when the
+correlation volumes fit. The feature stage encodes every frame once and
+gathers windows from the per-frame features, in groups of
+`_window_group_size` windows.
+
+Clip parallelism (the JAX stage's mesh branches, `Pipeline(mesh=)`, or
+PROPAINTER_TPU_CLIP_PARALLEL=1 on one card): stages 1-3 pad their chunks
+to one length, batch them on a chunk axis with their real lengths and
+split it over the data ranks (`Pipeline._chunk_mapped`); the windows of
+each group split the same way; the model ranks split the transformer's
+T (`parallel/sequence.py`). Every rank returns the whole video.
 
 With a crop (the node's mask bounding box, `nodes.py::_mask_crop_plan`)
 the feature stage decodes, composites and blends only that window: the
@@ -38,6 +46,8 @@ from ..config import PipelineConfig
 from ..models import flow_completion as fc
 from ..models import propainter as pp
 from ..models import raft
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sequence import sequence_sharding
 from ..utils.image import extrapolate_frames
 from ..utils.params import to_device
 from ..utils.profiling import progress_report, stage_timer
@@ -48,7 +58,6 @@ RAFT_ALLPAIRS_BYTES = 4.5e9  # all-pairs volume budget for one RAFT call
 # in turn. A chunk of 2 pairs at 1920x1080 holds 11.7 GiB in bf16, so every
 # path up to 1080p keeps its chunks on an 80 GB card
 RAFT_CALL_BYTES = 24 << 30
-WINDOW_GROUP = 8  # windows per batched transformer forward
 
 
 def get_ref_index(mid_neighbor_id, neighbor_ids, video_length, ref_stride, ref_num):
@@ -101,14 +110,18 @@ def flow_chunk_plan(cfg: PipelineConfig, t: int) -> list[tuple[int, int]]:
     return [(c if c == 0 else c - 1, min(t, c + clip)) for c in range(0, t, clip)]
 
 
-def jax_flow_lookup(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
+def jax_flow_lookup(cfg: PipelineConfig, t: int, hw: tuple[int, int], clip_dp: int | None = None) -> str:
     """The lookup the JAX stage plan takes for one `compute_flow` call of
     t frames at hw = (H, W) (`Pipeline._flow_fn`, stages.py:355-515
     there), with the variables it reads and their defaults, read at call
     time. Its RAFT calls hold n pairs:
-      one call        one chunk, or the all-pairs volume 2 (t-1) h8w8^2
-                      esz 1.36 within PROPAINTER_TPU_RAFT_ALLPAIRS_BYTES
-                      (4.5e9): n = t - 1;
+      one call        one chunk: n = t - 1;
+      clip-parallel   clip_dp (the data ranks) given, more than one chunk:
+                      the chunks padded to clip + 1 frames and split over
+                      the ranks, n = ceil(n_chunks / clip_dp) clip
+                      (`Pipeline._clip_parallel`, stages.py:372-423 there);
+      one call        the all-pairs volume 2 (t-1) h8w8^2 esz 1.36 within
+                      PROPAINTER_TPU_RAFT_ALLPAIRS_BYTES (4.5e9): n = t - 1;
       chunk by chunk  the chunks' total over that budget, one chunk within
                       it: n = clip (JAX pads the first chunk to clip + 1);
       pair by pair    one chunk over it: n = 1, and past
@@ -116,8 +129,7 @@ def jax_flow_lookup(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
                       volume the directions in turn, whose `raft_forward`
                       never takes the lanes lookup;
       chunks batched  otherwise: n = n_chunks clip.
-    The lookup of n pairs is `raft.lookup_mode`'s. (JAX's clip-parallel
-    branch is multi-device and not ported.)"""
+    The lookup of n pairs is `raft.lookup_mode`'s."""
     bounds = flow_chunk_plan(cfg, t)
     clip = cfg.raft_chunk_len()
     h8, w8 = hw[0] // 8, hw[1] // 8
@@ -127,7 +139,9 @@ def jax_flow_lookup(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
         return 2 * pairs * (h8 * w8) ** 2 * dtype.itemsize * 1.36
 
     budget = float(os.environ.get("PROPAINTER_TPU_RAFT_ALLPAIRS_BYTES", 4.5e9))
-    if len(bounds) == 1 or volume(t - 1) <= budget:
+    if len(bounds) > 1 and clip_dp is not None:
+        n = -(-len(bounds) // clip_dp) * clip
+    elif len(bounds) == 1 or volume(t - 1) <= budget:
         n = t - 1
     elif volume(clip) * len(bounds) > budget and volume(clip) <= budget:
         n = clip
@@ -140,11 +154,16 @@ def jax_flow_lookup(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
     return raft.lookup_mode(n, h8, w8, dtype)
 
 
-def raft_form(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
+def raft_form(cfg: PipelineConfig, t: int, hw: tuple[int, int], clip_dp: int | None = None) -> str:
     """How `Pipeline.compute_flow` runs RAFT on t frames at hw:
-      "one call"   one chunk, or the all-pairs volume within
-                   RAFT_ALLPAIRS_BYTES (the JAX stage's rule);
-      "chunks"     otherwise, one call a chunk of `flow_chunk_plan`;
+      "one call"       one chunk, or the all-pairs volume within
+                       RAFT_ALLPAIRS_BYTES (the JAX stage's rule);
+      "clip-parallel"  clip_dp given (the data ranks of a clip-parallel
+                       pipeline) and more than one chunk: the chunks
+                       padded to clip + 1 frames, each data rank's share
+                       in one call;
+      "chunks"         otherwise, one call a chunk of `flow_chunk_plan`
+                       (in the clip-parallel form, a chunk of the share);
     and where the largest of those calls would hold more than
     RAFT_CALL_BYTES (`raft.call_bytes`, counted in the port's own
     tensors), one pair a call ("per pair"), or past that for one pair,
@@ -155,8 +174,13 @@ def raft_form(cfg: PipelineConfig, t: int, hw: tuple[int, int]) -> str:
     bounds = flow_chunk_plan(cfg, t)
     h8, w8 = hw[0] // 8, hw[1] // 8
     esz = 2 if cfg.raft_half else 4
-    mode = jax_flow_lookup(cfg, t, hw)
-    if len(bounds) == 1 or 2 * (t - 1) * (h8 * w8) ** 2 * esz * 1.36 <= RAFT_ALLPAIRS_BYTES:
+    mode = jax_flow_lookup(cfg, t, hw, clip_dp)
+    clip = cfg.raft_chunk_len()
+    if len(bounds) > 1 and clip_dp is not None:
+        form, n = "clip-parallel", -(-len(bounds) // clip_dp) * clip
+        if raft.call_bytes(n, h8, w8, esz, mode) > RAFT_CALL_BYTES:
+            form, n = "chunks", clip
+    elif len(bounds) == 1 or 2 * (t - 1) * (h8 * w8) ** 2 * esz * 1.36 <= RAFT_ALLPAIRS_BYTES:
         form, n = "one call", t - 1
     else:
         form, n = "chunks", max(e - s - 1 for s, e in bounds)
@@ -249,18 +273,71 @@ def _blend_windows(imgs, starts, slot_valid, t: int, l_t_max: int):
     return canvas[:t]
 
 
+def _window_group_size(n_windows: int, dp: int) -> int:
+    """Windows a batched transformer forward: all of them up to
+    PROPAINTER_TPU_WINDOW_BATCH (read at call time; 8: the transformer
+    holds about 0.4 GB of K/V a window at 640x360), rounded up to a
+    multiple of the data ranks (the JAX stage's rule, stages.py:222-231)."""
+    env = os.environ.get("PROPAINTER_TPU_WINDOW_BATCH")
+    g = min(n_windows, int(env) if env else 8)
+    return -(-g // dp) * dp
+
+
+def _pad_t(a, n: int):
+    """[B, T, ...] zero-padded at the end of T to n frames."""
+    return torch.cat([a, a.new_zeros((a.shape[0], n - a.shape[1]) + a.shape[2:])], dim=1)
+
+
+def _form_calls(form: str, t: int, chunks) -> list[tuple[int, int]]:
+    """The frame ranges (start, end) of a `raft_form` form's RAFT calls
+    over t frames: the chunks `chunks` ("chunks"), one a pair ("per
+    pair", with or without the directions in turn), else one call."""
+    if form == "chunks":
+        return chunks
+    if form.startswith("per pair"):
+        return [(i, i + 2) for i in range(t - 1)]
+    return [(0, t)]
+
+
+def _stitch(parts, bounds):
+    """Each chunk's outputs (a tuple [1, n, ...] a chunk) with its halos
+    (bounds: (start, end, lead_halo, tail_halo)) cut, concatenated on T."""
+    cut = [tuple(o[:, ps : e - s - pe] for o in outs) for outs, (s, e, ps, pe) in zip(parts, bounds)]
+    return tuple(torch.cat(col, dim=1) for col in zip(*cut))
+
+
+def _raft_calls(prm, frames, calls, form: str, iters: int, blend: str):
+    """RAFT over the frame ranges `calls` ((start, end) of frames [1, T,
+    ...], in order, covering every pair once) of a `raft_form` form: the
+    pairs' flows (f, b) [1, T-1, H, W, 2] fp32."""
+    fn = raft.raft_bi_forward_seqdir if form == "per pair, directions in turn" else raft.raft_bi_forward
+    ff, fb = zip(*(fn(prm, frames[:, s:e], iters, blend) for s, e in calls))
+    return (ff[0], fb[0]) if len(calls) == 1 else (torch.cat(ff, dim=1), torch.cat(fb, dim=1))
+
+
 class Pipeline:
-    """End-to-end video inpainting on one device.
+    """End-to-end video inpainting on one device, or on the ranks of a mesh.
 
     Params are upstream-layout CPU tensors; they are cast (bf16 under
     fp16="enable", RAFT per `config.raft_half`) and moved once. On the
     card `process` runs with TF32 off for cuDNN convs and matmuls
     (`full_fp32`), so the fp32 paths compute in full fp32; the process's
-    own TF32 flags are back as they were after each run."""
+    own TF32 flags are back as they were after each run.
 
-    def __init__(self, raft_params, flow_params, inpaint_params, config: PipelineConfig, device="cuda"):
+    mesh (`parallel/mesh.py::make_mesh`, every rank builds its Pipeline
+    with its own): the data ranks split the chunk loops of stages 1-3
+    (clip parallelism: on with more than one data rank, or under
+    PROPAINTER_TPU_CLIP_PARALLEL=1 with no mesh, as one batched call) and
+    each window group of stage 4; the model ranks split the transformer's
+    T (sequence parallelism, below 512 rows or under PROPAINTER_TPU_SEQ=1).
+    Every rank returns the whole video. The device is the mesh's."""
+
+    def __init__(self, raft_params, flow_params, inpaint_params, config: PipelineConfig, device=None, mesh=None):
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"Pipeline: device {device} is not the mesh's {mesh.device}")
+        self.device = mesh.device if mesh is not None else torch.device(device or "cuda")
         rdt = torch.bfloat16 if config.raft_half else torch.float32
         self.cdtype = torch.bfloat16 if config.use_bf16 else torch.float32
         self.raft_params = to_device(raft_params, self.device, rdt)
@@ -273,6 +350,84 @@ class Pipeline:
     def _report(self, stage: str, done: int, total: int) -> None:
         progress_report(self.progress, stage, done, total)
 
+    # --------------------------------------------------- mesh plumbing
+
+    def _clip_parallel(self) -> bool:
+        """Whether stages 1-3 batch their chunk loops on a chunk axis split
+        over the data ranks: PROPAINTER_TPU_CLIP_PARALLEL=1 / 0 (read at
+        call time) forces it (with no mesh, one batched call: fewer calls,
+        more memory); by default on with more than one data rank."""
+        env = os.environ.get("PROPAINTER_TPU_CLIP_PARALLEL")
+        if env is not None:
+            return env == "1"
+        return self._dp() > 1
+
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+
+    def _mp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[MODEL_AXIS]
+
+    def _seq_selected(self, h: int) -> bool:
+        """How the feature stage uses more than one model rank: sequence
+        parallelism (`parallel/sequence.py`) below 512 rows, where an H
+        split would leave too few token rows a rank, else the JAX
+        package's spatial H split (not ported: ROADMAP.md Queue A item
+        6b). PROPAINTER_TPU_SEQ=1 / 0 forces the choice."""
+        if self._mp() <= 1:
+            return False
+        env = os.environ.get("PROPAINTER_TPU_SEQ")
+        if env is not None:
+            return env == "1"
+        return h < 512
+
+    def _chunk_mapped(self, fn):
+        """fn(*arrays) -> tuple of tensors, run by each data rank on its
+        contiguous share of the arrays' leading (chunk) axis, whose length
+        is a multiple of the data ranks; the outputs are all-gathered over
+        the data axis, so every rank holds them all. Chunks are
+        independent: nothing else crosses ranks. With one data rank, fn."""
+        dp = self._dp()
+        if dp <= 1:
+            return fn
+        mesh = self.mesh
+        i = mesh.index(DATA_AXIS)
+
+        def mapped(*arrays):
+            share = arrays[0].shape[0] // dp
+            outs = fn(*(a[i * share : (i + 1) * share] for a in arrays))
+            return tuple(mesh.all_gather(o, DATA_AXIS) for o in outs)
+
+        return mapped
+
+    @staticmethod
+    def _pad_chunk_axis(arrays: tuple, dp: int) -> tuple:
+        """The leading (chunk) axis padded to a multiple of dp by repeating
+        the last chunk."""
+        n_pad = (-arrays[0].shape[0]) % dp
+        if not n_pad:
+            return arrays
+        return tuple(torch.cat([a, a[-1:].expand((n_pad,) + a.shape[1:])]) for a in arrays)
+
+    def _clip_dp(self) -> int | None:
+        """The data ranks a clip-parallel stage splits its chunks over, or
+        None where the stages run their chunks in turn."""
+        return self._dp() if self._clip_parallel() else None
+
+    def _batched_chunks(self, fn, take, sizes, bounds) -> list:
+        """fn over the chunks `bounds` ((start, end, ...)) batched on a
+        chunk axis (the JAX stage's clip-parallel stages 2 and 3): take(s,
+        e) gives a chunk's arrays [1, n, ...], each zero-padded at the end
+        of T to its entry of `sizes`; fn gets them with the real lengths e -
+        s (a [n_chunks] tensor on the device) as its last argument, the
+        chunk axis split over the data ranks. Returns each chunk's
+        outputs, a tuple of [1, ...]."""
+        cols = zip(*(take(s, e) for s, e, _, _ in bounds))
+        batch = tuple(torch.cat([_pad_t(a, n) for a in col]) for col, n in zip(cols, sizes))
+        lengths = torch.tensor([e - s for s, e, _, _ in bounds], device=self.device)
+        outs = self._chunk_mapped(fn)(*self._pad_chunk_axis(batch + (lengths,), self._dp()))
+        return [tuple(o[ci : ci + 1] for o in outs) for ci in range(len(bounds))]
+
     # ------------------------------------------------------------- stage 1
 
     def compute_flow(self, frames):
@@ -282,84 +437,121 @@ class Pipeline:
         plan for this clip (`jax_flow_lookup`)."""
         cfg = self.config
         t, hw = frames.shape[1], (frames.shape[2], frames.shape[3])
-        form = raft_form(cfg, t, hw)
-        blend = jax_flow_lookup(cfg, t, hw)
-        prm, iters = self.raft_params, cfg.raft_iter
-        if form == "one call":
-            calls = [(raft.raft_bi_forward, 0, t)]
-        elif form == "chunks":
-            calls = [(raft.raft_bi_forward, s, e) for s, e in flow_chunk_plan(cfg, t)]
-        else:
-            fn = raft.raft_bi_forward if form == "per pair" else raft.raft_bi_forward_seqdir
-            calls = [(fn, i, i + 2) for i in range(t - 1)]
+        clip_dp = self._clip_dp()
+        bounds = flow_chunk_plan(cfg, t)
+        form = raft_form(cfg, t, hw, clip_dp)
+        blend = jax_flow_lookup(cfg, t, hw, clip_dp)
         self._report("compute_flow", 0, 1)
-        ff, fb = zip(*(fn(prm, frames[:, s:e], iters, blend) for fn, s, e in calls))
+        if clip_dp is not None and len(bounds) > 1:
+            out = self._flow_clip_parallel(frames, bounds, form, blend)
+        else:
+            out = _raft_calls(self.raft_params, frames, _form_calls(form, t, bounds), form, cfg.raft_iter, blend)
         self._report("compute_flow", 1, 1)
-        return (ff[0], fb[0]) if len(calls) == 1 else (torch.cat(ff, dim=1), torch.cat(fb, dim=1))
+        return out
+
+    def _flow_clip_parallel(self, frames, bounds, form: str, blend: str):
+        """RAFT's clip-parallel form (the JAX stage's, stages.py:372-423):
+        the chunks padded to clip + 1 frames by repeating their last frame,
+        batched on a chunk axis, each data rank's share in the calls of
+        `form`, the flows gathered and the padding's dropped."""
+        cfg = self.config
+        n1 = cfg.raft_chunk_len() + 1
+        chunks = []
+        for s, e in bounds:
+            ck = frames[0, s:e]
+            chunks.append(torch.cat([ck, ck[-1:].expand((n1 - (e - s),) + ck.shape[1:])]))
+        (batch,) = self._pad_chunk_axis((torch.stack(chunks),), self._dp())
+
+        def share(b):
+            if form == "clip-parallel":
+                return raft.raft_bi_forward(self.raft_params, b, cfg.raft_iter, blend)
+            calls = _form_calls(form, n1, [(0, n1)])  # a chunk of the share a call
+            flows = [_raft_calls(self.raft_params, b[j : j + 1], calls, form, cfg.raft_iter, blend) for j in range(len(b))]
+            return torch.cat([f for f, _ in flows]), torch.cat([f for _, f in flows])
+
+        ff, fb = self._chunk_mapped(share)(batch)
+        return (
+            torch.cat([ff[ci : ci + 1, : e - s - 1] for ci, (s, e) in enumerate(bounds)], dim=1),
+            torch.cat([fb[ci : ci + 1, : e - s - 1] for ci, (s, e) in enumerate(bounds)], dim=1),
+        )
 
     # ------------------------------------------------------------- stage 2
 
-    def complete_flow_chunk(self, ff, fb, mk):
-        """One flow-completion chunk: flows (ff, fb) [1, n, H, W, 2] and
-        flow masks [1, n + 1, H, W, 1] -> the completed flows, in the
+    def complete_flow_chunk(self, ff, fb, mk, t_valid=None):
+        """One flow-completion chunk: flows (ff, fb) [B, n, H, W, 2] and
+        flow masks [B, n + 1, H, W, 1] -> the completed flows, in the
         compute dtype. Past its memory budget `forward_bidirect_flow`
         completes the directions in turn (the JAX stage's high-res form,
         stages.py:1428-1487 there): one direction's activations are live
-        at a time."""
+        at a time. t_valid: the real flows of zero-padded chunks (an int
+        or a [B] tensor)."""
         dt = self.cdtype
         ff, fb, mk = ff.to(dt), fb.to(dt), mk.to(dt)
-        pf, pb = fc.forward_bidirect_flow(self.flow_params, ff, fb, mk)
+        pf, pb = fc.forward_bidirect_flow(self.flow_params, ff, fb, mk, t_valid)
         return fc.combine_flow(ff, fb, pf, pb, mk)
 
     def complete_flow(self, flows, flow_masks):
         """Flow completion over subvideo chunks with a 5-frame halo.
-        flows (f, b) [1, T-1, H, W, 2]; flow_masks [1, T, H, W, 1]."""
+        flows (f, b) [1, T-1, H, W, 2]; flow_masks [1, T, H, W, 1]. The
+        chunks run in turn, or clip-parallel: zero-padded to one length
+        (subvideo_length + 10 flows) with their real lengths, batched and
+        split over the data ranks (the JAX stage's, stages.py:572-620)."""
         ff, fb = flows
         self._report("complete_flow", 0, 1)
         flow_length = ff.shape[1]
         if flow_length <= self.config.subvideo_length:
             out = self.complete_flow_chunk(ff, fb, flow_masks)
         else:
-            out_f, out_b = [], []
-            for s_f, e_f, ps, pe in complete_chunk_plan(self.config, flow_length):
-                of, ob = self.complete_flow_chunk(ff[:, s_f:e_f], fb[:, s_f:e_f], flow_masks[:, s_f : e_f + 1])
-                end = e_f - s_f - pe
-                out_f.append(of[:, ps:end])
-                out_b.append(ob[:, ps:end])
-            out = torch.cat(out_f, dim=1), torch.cat(out_b, dim=1)
+            bounds = complete_chunk_plan(self.config, flow_length)
+
+            def take(s, e):
+                return ff[:, s:e], fb[:, s:e], flow_masks[:, s : e + 1]
+
+            if self._clip_parallel() and len(bounds) > 1:
+                n = self.config.subvideo_length + 10
+                parts = self._batched_chunks(self.complete_flow_chunk, take, (n, n, n + 1), bounds)
+            else:
+                parts = [self.complete_flow_chunk(*take(s, e)) for s, e, _, _ in bounds]
+            out = _stitch(parts, bounds)
         self._report("complete_flow", 1, 1)
         return out
 
     # ------------------------------------------------------------- stage 3
 
-    def image_prop_chunk(self, fr, mk, ff, fb):
-        """One image-propagation chunk: frames [1, n, H, W, 3] in [-1, 1],
-        dilated masks [1, n, H, W, 1], completed flows [1, n - 1, H, W, 2]
-        -> (updated_frames, updated_masks) in the compute dtype."""
+    def image_prop_chunk(self, fr, mk, ff, fb, t_valid=None):
+        """One image-propagation chunk: frames [B, n, H, W, 3] in [-1, 1],
+        dilated masks [B, n, H, W, 1], completed flows [B, n - 1, H, W, 2]
+        -> (updated_frames, updated_masks) in the compute dtype. t_valid:
+        the real frames of zero-padded chunks (an int or a [B] tensor)."""
         dt = self.cdtype
         fr, mk, ff, fb = fr.to(dt), mk.to(dt), ff.to(dt), fb.to(dt)
         masked = fr * (1 - mk)
-        prop, upd_mask = pp.bidirectional_propagation_image(masked, ff, fb, mk, "nearest")
+        prop, upd_mask = pp.bidirectional_propagation_image(masked, ff, fb, mk, "nearest", t_valid)
         return fr * (1 - mk) + prop * mk, upd_mask
 
     def image_propagation(self, frames, masks_dilated, pred_flows):
         """Pixel-domain propagation in <=100-frame chunks with a 10-frame
-        halo. Returns (updated_frames, updated_masks) in the compute dtype."""
+        halo, in turn or clip-parallel (zero-padded to sub + 20 frames,
+        the JAX stage's, stages.py:701-760). Returns (updated_frames,
+        updated_masks) in the compute dtype."""
         ff, fb = pred_flows
         self._report("image_propagation", 0, 1)
         t = frames.shape[1]
-        if t <= min(100, self.config.subvideo_length):
+        sub = min(100, self.config.subvideo_length)
+        if t <= sub:
             out = self.image_prop_chunk(frames, masks_dilated, ff, fb)
         else:
-            out_fr, out_mk = [], []
-            for s_f, e_f, ps, pe in imgprop_chunk_plan(self.config, t):
-                uf, um = self.image_prop_chunk(
-                    frames[:, s_f:e_f], masks_dilated[:, s_f:e_f], ff[:, s_f : e_f - 1], fb[:, s_f : e_f - 1]
-                )
-                end = e_f - s_f - pe
-                out_fr.append(uf[:, ps:end])
-                out_mk.append(um[:, ps:end])
-            out = torch.cat(out_fr, dim=1), torch.cat(out_mk, dim=1)
+            bounds = imgprop_chunk_plan(self.config, t)
+
+            def take(s, e):
+                return frames[:, s:e], masks_dilated[:, s:e], ff[:, s : e - 1], fb[:, s : e - 1]
+
+            if self._clip_parallel() and len(bounds) > 1:
+                n = sub + 20
+                parts = self._batched_chunks(self.image_prop_chunk, take, (n, n, n - 1, n - 1), bounds)
+            else:
+                parts = [self.image_prop_chunk(*take(s, e)) for s, e, _, _ in bounds]
+            out = _stitch(parts, bounds)
         self._report("image_propagation", 1, 1)
         return out
 
@@ -370,16 +562,30 @@ class Pipeline:
         blend. original_frames [T, H, W, 3] float 0..255. Returns the
         composed video [T, H, W, 3] float 0..255 (uint8-exact); with crop =
         (y0, x0, ch, cw) only that window of it, [T, ch, cw, 3], decoded
-        alone where `crop_decode_ok` allows."""
+        alone where `crop_decode_ok` allows.
+
+        Windows run in groups of `_window_group_size`; with more than one
+        data rank each rank runs its contiguous share of a group (padded
+        by repeating its last window) and the composed windows are
+        gathered (the JAX stage's, stages.py:945-963). With more than one
+        model rank the transformer runs sequence-parallel; the JAX
+        package's other form, the spatial H split at 512 rows or more,
+        is not ported and raises."""
         cfg = self.config
         dt = self.cdtype
         dev = self.device
         t, hh, ww = updated_frames.shape[1], updated_frames.shape[2], updated_frames.shape[3]
+        if self._mp() > 1 and not self._seq_selected(hh):
+            raise NotImplementedError(
+                f"feature stage: {self._mp()} model ranks at {hh} rows take the spatial H split, which is "
+                "not ported (ROADMAP.md Queue A item 6b); PROPAINTER_TPU_SEQ=1 runs sequence parallelism"
+            )
         sels, valids, starts, lts, refs, slot_valid, l_t_max, _ = _window_tables(cfg, t)
         n_windows = sels.shape[0]
+        dp = self._dp()
 
         def pad_t(a):  # zero frames after the end: window slices stay in range
-            return torch.cat([a, a.new_zeros((a.shape[0], l_t_max) + a.shape[2:])], dim=1)
+            return _pad_t(a, a.shape[1] + l_t_max)
 
         uf_p = pad_t(updated_frames.to(dt))
         um_p = pad_t(updated_masks.to(dt))
@@ -398,7 +604,9 @@ class Pipeline:
         h4, w4 = hh // 4, ww // 4
         prm = self.inpaint_params
 
-        # per-frame work once per unique frame; windows gather from it
+        # per-frame work once per unique frame, whole on every rank (a
+        # gather of the features would move more than encoding them);
+        # windows gather from it
         enc_all = pp.encode_features(prm, uf_p[0, :t], md_p[0, :t], um_p[0, :t])
         ds_ff_all = pp.downsample_flow(ff_p, h4, w4)[0]
         ds_fb_all = pp.downsample_flow(fb_p, h4, w4)[0]
@@ -406,10 +614,9 @@ class Pipeline:
         ds_um_all = pp.downsample_mask(um_p, h4, w4)[0]
         pool_all = pp.attention_pool_mask(ds_md_all[None])[0]
 
-        self._report("feature_propagation", 0, n_windows)
-        imgs = []
-        for g0 in range(0, n_windows, WINDOW_GROUP):
-            grp = list(range(g0, min(n_windows, g0 + WINDOW_GROUP)))
+        def windows(grp):
+            """The composed windows `grp` (a tensor of window ids)."""
+            grp = grp.tolist()
             gsel = torch.as_tensor(sels[grp], device=dev)
             gloc = gsel[:, :l_t_max]
             gvl = torch.as_tensor(valids[grp][:, :l_t_max], device=dev, dtype=dt)[:, :, None, None, None]
@@ -434,8 +641,18 @@ class Pipeline:
             pred_byte = torch.floor((pred.float() + 1.0) / 2.0 * 255.0)
             binary = (md_c[gloc] * gvl).float()
             orig = torch.stack([orig_c[s : s + l_t_max] for s in gst])
-            imgs.append(torch.floor(pred_byte * binary + orig * (1.0 - binary)))
-            self._report("feature_propagation", grp[-1] + 1, n_windows)
+            return (torch.floor(pred_byte * binary + orig * (1.0 - binary)),)
+
+        seq = sequence_sharding(self.mesh) if self._mp() > 1 else contextlib.nullcontext()
+        group = _window_group_size(n_windows, dp)
+        self._report("feature_propagation", 0, n_windows)
+        imgs = []
+        with seq:
+            for g0 in range(0, n_windows, group):
+                grp = torch.arange(g0, min(n_windows, g0 + group))
+                (out,) = self._chunk_mapped(windows)(*self._pad_chunk_axis((grp,), dp))
+                imgs.append(out[: len(grp)])
+                self._report("feature_propagation", int(grp[-1]) + 1, n_windows)
         return _blend_windows(torch.cat(imgs, dim=0), starts, slot_valid, t, l_t_max)
 
     def feature_window(self, frames, masks, upd_masks, flows, old, orig, blend, l_t: int, n_ref: int):

@@ -281,3 +281,73 @@ def test_call_bytes_counts_the_product_and_both_pyramids():
     assert traft.call_bytes(2, 135, 240, 2, "lanes") == 12 * v
     assert traft.call_bytes(1, 135, 240, 2, "map", directions=1) == 6 * v
     assert traft.call_bytes(1, 135, 240, 2, "pallas") > traft.call_bytes(1, 135, 240, 2, "map")
+
+
+def jax_clip_parallel_branch(monkeypatch, shapes, cfg: JaxConfig, t: int, hw, dp: int):
+    """(lookup, pairs) of the RAFT call of the JAX stage's clip-parallel
+    `_flow_fn(t, hw)`: with dp = 1 under PROPAINTER_TPU_CLIP_PARALLEL=1
+    and no mesh, else on a dp-device mesh (the branch is on by default),
+    traced with abstract inputs; inside shard_map the probe sees one
+    device's share."""
+    from comfyui_propainter_nodes_tpu.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(jdc, "_USE_PALLAS", True)
+    monkeypatch.setattr(jlanes, "build_corr_pyramids_lanes", _probe("lanes"))
+    monkeypatch.setattr(jraft, "build_corr_pyramid_bi", _probe(None))
+    monkeypatch.setattr(jraft, "build_corr_pyramid", _probe(None))
+    if dp == 1:
+        monkeypatch.setenv("PROPAINTER_TPU_CLIP_PARALLEL", "1")
+    stage = jstages.Pipeline({}, {}, {}, cfg, mesh=None if dp == 1 else make_mesh(dp, model_parallel=1))
+    assert stage._clip_parallel() and stage._dp() == dp
+    fn = stage._flow_fn(t, hw)
+    dt = jnp.bfloat16 if cfg.raft_half else jnp.float32
+    spec = {k: jax.ShapeDtypeStruct(s, dt) for k, s in shapes.items()}
+    frames = jax.ShapeDtypeStruct((1, t) + tuple(hw) + (3,), jnp.float32)
+    with pytest.raises(_Chose) as chose:
+        jax.eval_shape(fn, spec, frames)
+    return chose.value.args[0]
+
+
+# clips of 2 or more RAFT chunks: path C's (9 chunks of 12 at 640x360),
+# the 720x480 and 1280x720 buckets, the portrait phone clip
+CP_CLIPS = [(100, 360, 640), (25, 480, 720), (24, 720, 1280), (13, 1136, 640)]
+
+
+@pytest.mark.parametrize("dp", [1, 2, 4], ids=["variable", "mesh2", "mesh4"])
+@pytest.mark.parametrize("fp16", ["enable", "disable"])
+@pytest.mark.parametrize("t,h,w", CP_CLIPS)
+def test_jax_flow_lookup_clip_parallel_branch(monkeypatch, raft_shapes, dp, fp16, t, h, w):
+    """The clip-parallel branch: each rank's call holds ceil(n_chunks / dp)
+    chunks of clip pairs, and `jax_flow_lookup(..., clip_dp=dp)` names the
+    lookup the JAX stage's call takes; the port runs the share in one call
+    where it fits RAFT_CALL_BYTES, else a chunk a call (1280x720)."""
+    for k in VARS:
+        monkeypatch.delenv(k, raising=False)
+    widgets = dict(fp16=fp16, raft_iter=1, process_size=(w, h))
+    cfg = PipelineConfig(**widgets)
+    branch, pairs = jax_clip_parallel_branch(monkeypatch, raft_shapes, JaxConfig(**widgets), t, (h, w), dp)
+    n_chunks = len(stages.flow_chunk_plan(cfg, t))
+    assert n_chunks > 1 and pairs == -(-n_chunks // dp) * cfg.raft_chunk_len()
+    assert stages.jax_flow_lookup(cfg, t, (h, w), clip_dp=dp) == branch
+    # the port's memory forms apply inside the share's call
+    fits = traft.call_bytes(pairs, h // 8, w // 8, 2 if fp16 == "enable" else 4, branch) <= stages.RAFT_CALL_BYTES
+    assert stages.raft_form(cfg, t, (h, w), clip_dp=dp) == ("clip-parallel" if fits else "chunks")
+    if (t, h, w, dp, fp16) == (100, 360, 640, 1, "enable"):  # path C: 108 pairs at w8 = 80 pass the lanes gate
+        assert (branch, pairs) == ("map", 108)
+
+
+def test_clip_parallel_compute_flow_hands_every_call_the_jax_blend(monkeypatch):
+    """Path C's clip at 640x360 under PROPAINTER_TPU_CLIP_PARALLEL=1: one
+    RAFT call of the 9 chunks padded to 13 frames (108 pairs), with the
+    JAX stage's blend; the flows of the real pairs come back in order."""
+    for k in VARS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("PROPAINTER_TPU_CLIP_PARALLEL", "1")
+    seen = []
+    _recording(monkeypatch, seen)
+    t, h, w = 100, 360, 640
+    cfg = PipelineConfig(process_size=(w, h))
+    pipe = stages.Pipeline({"fnet.conv1.weight": torch.zeros(1)}, {}, {}, cfg, device="cpu")
+    ff, fb = pipe.compute_flow(torch.zeros(()).expand(1, t, h, w, 3))
+    assert ff.shape == fb.shape == (1, t - 1, h, w, 2)
+    assert seen == [(12, "map")]  # stand-in records pairs per clip: one call of 9 clips of 12 pairs

@@ -129,7 +129,7 @@ def test_encode_takes_chunks_and_slabs_past_their_budgets(fc_params, monkeypatch
     whole = tfc._encode(pt, torch.from_numpy(x))
     calls = []
     slabbed = tfc._encode_slabbed
-    monkeypatch.setattr(tfc, "_encode_slabbed", lambda p, v, nb: calls.append((v.shape[1], nb)) or slabbed(p, v, nb))
+    monkeypatch.setattr(tfc, "_encode_slabbed", lambda p, v, nb, *tv: calls.append((v.shape[1], nb)) or slabbed(p, v, nb, *tv))
     monkeypatch.setattr(tfc, "ENCODE_BYTES", 0)
     monkeypatch.setattr(tfc, "SLAB_BYTES", 1)
     out = tfc._encode(pt, torch.from_numpy(x))
@@ -179,7 +179,7 @@ def test_forward_bidirect_flow_directions_in_turn(fc_params, monkeypatch):
     batched = tfc.forward_bidirect_flow(pt, *args)
     batches = []
     complete = tfc.flow_complete_forward
-    monkeypatch.setattr(tfc, "flow_complete_forward", lambda p, f, m: batches.append(f.shape[0]) or complete(p, f, m))
+    monkeypatch.setattr(tfc, "flow_complete_forward", lambda p, f, m, *tv: batches.append(f.shape[0]) or complete(p, f, m, *tv))
     monkeypatch.setattr(tfc, "BATCH_BYTES", 0)
     assert tfc.directions_in_turn(args[0].shape, torch.float32)
     out = tfc.forward_bidirect_flow(pt, *args)

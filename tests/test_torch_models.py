@@ -94,3 +94,74 @@ def test_forward_bidirect_flow_decoded_in_chunks(monkeypatch, frames_a_call, jax
     assert calls == [frames_a_call] * (16 // frames_a_call) + [16 % frames_a_call] * (16 % frames_a_call > 0)
     for o, r in zip(out, ref):
         _close_rel(o, r)
+
+
+def _padded_clips(rng, lengths, n, h, w, c, scale):
+    """[B, n, h, w, c] values with each clip's frames past its real length
+    zeroed, as the clip-parallel stages pad their chunks."""
+    x = (rng.standard_normal((len(lengths), n, h, w, c)) * scale).astype(np.float32)
+    for i, tv in enumerate(lengths):
+        x[i, tv:] = 0.0
+    return x
+
+
+def _valid(tv, b):
+    """(JAX t_valid, port t_valid, per-clip lengths) of an int or a list."""
+    if isinstance(tv, int):
+        return jnp.asarray(tv), tv, [tv] * b
+    return jnp.asarray(tv), torch.tensor(tv), tv
+
+
+@pytest.mark.parametrize("tv", [3, [4, 2]], ids=["scalar", "per_clip"])
+def test_forward_bidirect_flow_t_valid(tv):
+    """Zero-padded chunks of 4 flows with their real lengths (an int, or a
+    [B] tensor: the clip-parallel completion's) against the JAX
+    `forward_bidirect_flow(..., t_valid)` and the port on each clip's real
+    frames alone, on the real frames."""
+    pj, pt = _params(random_params("flow_completion", seed=2))
+    rng = np.random.default_rng(5)
+    b = 1 if isinstance(tv, int) else len(tv)
+    tvj, tvt, lengths = _valid(tv, b)
+    ff = _padded_clips(rng, lengths, 4, 64, 96, 2, 3.0)
+    fb = _padded_clips(rng, lengths, 4, 64, 96, 2, 3.0)
+    masks = np.zeros((b, 5, 64, 96, 1), np.float32)
+    for i, n in enumerate(lengths):
+        masks[i, : n + 1, 20:40, 30:60] = 1.0
+    ref = jfc.forward_bidirect_flow(pj, jnp.asarray(ff), jnp.asarray(fb), jnp.asarray(masks), tvj)
+    out = tfc.forward_bidirect_flow(pt, torch.from_numpy(ff), torch.from_numpy(fb), torch.from_numpy(masks), tvt)
+    for i, n in enumerate(lengths):
+        alone = tfc.forward_bidirect_flow(
+            pt, torch.from_numpy(ff[i : i + 1, :n]), torch.from_numpy(fb[i : i + 1, :n]),
+            torch.from_numpy(masks[i : i + 1, : n + 1]),
+        )
+        for o, r, a in zip(out, ref, alone):
+            _close_rel(o[i, :n], np.asarray(r)[i, :n])
+            _close_rel(o[i : i + 1, :n], a.numpy())
+
+
+@pytest.mark.parametrize("tv", [5, [6, 4]], ids=["scalar", "per_clip"])
+def test_img_propagation_t_valid(tv):
+    """Image propagation of zero-padded chunks of 6 frames with their real
+    lengths against the JAX `bidirectional_propagation_image(...,
+    t_valid)` and the port on each clip's real frames alone."""
+    from comfyui_propainter_nodes_tpu.models import propainter as jpp
+    from comfyui_propainter_nodes_tpu_torch.models import propainter as tpp
+
+    rng = np.random.default_rng(6)
+    b = 1 if isinstance(tv, int) else len(tv)
+    tvj, tvt, lengths = _valid(tv, b)
+    x = _padded_clips(rng, lengths, 6, 32, 48, 3, 0.5)
+    ff = _padded_clips(rng, [n - 1 for n in lengths], 5, 32, 48, 2, 2.0)
+    fb = _padded_clips(rng, [n - 1 for n in lengths], 5, 32, 48, 2, 2.0)
+    m = np.zeros((b, 6, 32, 48, 1), np.float32)
+    for i, n in enumerate(lengths):
+        m[i, :n, 8:20, 10:30] = 1.0
+    ref = jpp.bidirectional_propagation_image(*(jnp.asarray(a) for a in (x, ff, fb, m)), "nearest", t_valid=tvj)
+    out = tpp.img_propagation(*(torch.from_numpy(a) for a in (x, ff, fb, m)), "nearest", t_valid=tvt)
+    for i, n in enumerate(lengths):
+        alone = tpp.img_propagation(
+            *(torch.from_numpy(a[i : i + 1, :k]) for a, k in ((x, n), (ff, n - 1), (fb, n - 1), (m, n))), "nearest"
+        )
+        for o, r, a in zip(out, ref, alone):
+            _close_rel(o[i, :n], np.asarray(r)[i, :n])
+            np.testing.assert_array_equal(o[i : i + 1, :n].numpy(), a.numpy())
