@@ -472,51 +472,61 @@ B2_SHAPES = {
     "fcC": (4, 45, 80, 256), "fpC": (8, 90, 160, 128), "fpC4": (4, 90, 160, 128),
 }
 B2_FP32 = ("fp", "fc", "fpO", "fcO", "fcC", "fpC", "fpC4")  # the shapes a path also runs in fp32
+# B2's row form at path MH's per-rank shapes (both dtypes): x [5, 180, 320,
+# 128] whole, each rank's 96 output rows (its 90 widened by 6, clamped)
+B2_ROWS = {"fpMH0": ((5, 180, 320, 128), (0, 96)), "fpMH1": ((5, 180, 320, 128), (84, 96))}
 
 
-def deform_inputs(dt, gen, shape):
+def deform_inputs(dt, gen, shape, rows=None):
+    """B2's inputs at x's shape; offsets and mask for rows[1] output rows
+    where rows = (row0, Ho) is given."""
     n, h, w, cin = shape
+    ho = h if rows is None else rows[1]
     g, cout = 16, 128
     x = torch.randn(n, h, w, cin, generator=gen, device="cuda").to(dt)
-    off = (torch.randn(n, h, w, g, 9, 2, generator=gen, device="cuda") * 3.0).to(dt)
-    mask = torch.rand(n, h, w, g, 9, generator=gen, device="cuda").to(dt)
+    off = (torch.randn(n, ho, w, g, 9, 2, generator=gen, device="cuda") * 3.0).to(dt)
+    mask = torch.rand(n, ho, w, g, 9, generator=gen, device="cuda").to(dt)
     wt = (torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") / math.sqrt(9 * cin)).to(dt)
     bias = (torch.randn(cout, generator=gen, device="cuda") * 0.05).to(dt)
     return x, off, mask, wt, bias
 
 
-def check_deform_conv(dt, gen, shape):
+def check_deform_conv(dt, gen, shape, rows=None):
     """B2 against its plain version; bf16 is also timed with each pixel
-    tile of the tensor-core kernel (64 and 32 pixels a block)."""
+    tile of the tensor-core kernel (64 and 32 pixels a block). rows =
+    (row0, Ho): the row form, Ho output rows from x's row row0."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as mod
 
-    args = deform_inputs(dt, gen, shape)
+    args = deform_inputs(dt, gen, shape, rows)
+    row0 = 0 if rows is None else rows[0]
     x, cout = args[0], args[3].shape[0]
-    out = mod.deform_conv2d(*args)
+    out = mod.deform_conv2d(*args, row0=row0)
     torch.cuda.synchronize()
-    ref = mod.deform_conv2d_plain(*args)
+    ref = mod.deform_conv2d_plain(*args, row0=row0)
     err, rel = rel_err(out, ref)
     tol = 1e-4 if dt == torch.float32 else 1e-2  # 9*Cin-term fp32 sums; bf16 samples and output rounding
-    log(f"  B2 deform_conv {str(dt)[6:]} x{list(shape)}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
+    form = "" if rows is None else f" rows [{row0}, {row0 + rows[1]})"
+    log(f"  B2 deform_conv {str(dt)[6:]} x{list(shape)}{form}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "deform_conv2d disagrees with its plain version")
     del ref
+    n, h, w, cin = shape
+    ho = h if rows is None else rows[1]
     tiles = {}
     if dt == torch.bfloat16:
-        chosen = mod.block_rows(x.shape[0] * x.shape[1] * x.shape[2], cout, x.device)
+        chosen = mod.block_rows(n * ho * w, cout, x.device)
         pick = mod.block_rows
         try:
-            for rows in (64, 32):
-                mod.block_rows = lambda m, c, d, rows=rows: rows  # noqa: E731
-                tiles[rows] = time_ms(lambda: mod.deform_conv2d(*args))
+            for bm in (64, 32):
+                mod.block_rows = lambda m, c, d, bm=bm: bm  # noqa: E731
+                tiles[bm] = time_ms(lambda: mod.deform_conv2d(*args, row0=row0))
         finally:
             mod.block_rows = pick
-    ms = time_ms(lambda: mod.deform_conv2d(*args))
-    ms_single = time_ms(lambda: mod.deform_conv2d(*args), batch=1)
-    plain_ms = time_ms(lambda: mod.deform_conv2d_plain(*args), reps=5, warmup=1, batch=1)
-    n, h, w, cin = shape
-    m = n * h * w
+    ms = time_ms(lambda: mod.deform_conv2d(*args, row0=row0))
+    ms_single = time_ms(lambda: mod.deform_conv2d(*args, row0=row0), batch=1)
+    plain_ms = time_ms(lambda: mod.deform_conv2d_plain(*args, row0=row0), reps=5, warmup=1, batch=1)
+    m = n * ho * w
     esz = x.element_size()
-    nbytes = (m * cin + m * 16 * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
+    nbytes = (n * h * w * cin + m * 16 * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
     bound, by = bound_ms(2.0 * m * 9 * cin * cout, nbytes, dt)
     log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
         "library_ms null"
@@ -1964,13 +1974,14 @@ M_JOIN_TIMEOUT_S = 900  # path M's ranks, from their start to their last result
 M_COLLECTIVE_TIMEOUT_S = 300  # a collective that waits longer fails its rank
 
 
-def path_inputs(device):
-    """Path C's clip prepared as the inpaint node prepares it (default
-    dilations): (frames_norm [1, T, H, W, 3], flow_masks, masks_dilated
-    [1, T, H, W, 1], the frames' bytes [T, H, W, 3]) on `device`."""
+def path_inputs(device, clip=PATH_C):
+    """The synthetic clip (T, H, W) of `clip` (path C's by default) prepared
+    as the inpaint node prepares it (default dilations): (frames_norm
+    [1, T, H, W, 3], flow_masks, masks_dilated [1, T, H, W, 1], the
+    frames' bytes [T, H, W, 3]) on `device`."""
     from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
 
-    t, h, w = PATH_C
+    t, h, w = clip
     frames_u8, masks_u8 = synthetic_clip(t, h, w)
     fnorm, byte = image_utils.prepare_frames(torch.from_numpy(frames_u8.astype(np.float32) / 255.0).to(device), w, h)
     fm, md = image_utils.prepare_masks(torch.from_numpy(masks_u8.astype(np.float32) / 255.0).to(device), w, h,
@@ -1978,17 +1989,17 @@ def path_inputs(device):
     return fnorm[None], fm[None], md[None], byte
 
 
-def path_config(fp16: str):
+def path_config(fp16: str, clip=PATH_C):
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
 
-    h, w = PATH_C[1:]
+    h, w = clip[1:]
     return PipelineConfig(**dict(node_widgets(), fp16=fp16), process_size=(w, h))
 
 
-def check_video(out, md, byte, tag: str) -> np.ndarray:
+def check_video(out, md, byte, tag: str, clip=PATH_C) -> np.ndarray:
     """A composed video on the card: the whole clip, integral in 0..255,
     the input bytes outside the dilated mask. Returns it as uint8."""
-    t, h, w = PATH_C
+    t, h, w = clip
     require(tuple(out.shape) == (t, h, w, 3), f"{tag}: output shape {tuple(out.shape)}")
     o = out.cpu().numpy()
     require(np.isfinite(o).all() and o.min() >= 0 and o.max() <= 255 and np.array_equal(o, np.floor(o)),
@@ -2313,6 +2324,224 @@ def path_m_run(ref_dir: str) -> dict:
     return dict(backend=backend, cards=torch.cuda.device_count(), meshes=summary, launches=launches)
 
 
+# path MH: path A's clip (24 frames at 1280x720, default widgets) on mesh
+# (1, 2): stages 1-3 whole on both ranks (path A's B1 map calls), the
+# feature stage H-split (each rank 6 of the 12 window rows: pixel rows
+# [0, 360) and [360, 720)); path A's kernels, B2's feature-propagation
+# launches in the row form (x[5,180,320,128], 96 rows a rank)
+PATH_MH = (24, 720, 1280)
+PATH_MH_NEED = ("corr_lookup_map", "deform_conv", "window_attention_tiled")
+
+
+def feature_peak(pipe, peaks: list):
+    """pipe's feature stage wrapped to append to `peaks` (the peak allocated
+    bytes of the run up to it, its own peak allocated bytes): the peak is
+    read, then reset, just before the stage. The run's peak is the larger
+    of the first and `max_memory_allocated()` after the run."""
+    stage = pipe.feature_propagation
+
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = stage(*a, **k)
+        torch.cuda.synchronize()
+        peaks.append((before, torch.cuda.max_memory_allocated()))
+        return out
+
+    pipe.feature_propagation = run
+
+
+def h_split_exchanges(pipe, args) -> dict:
+    """One more run of pipe with every halo exchange (`halo_rows`) and every
+    row gather (`gather_rows`: propagation's maps, the pooled tokens, the
+    composed rows) of the H split timed apart, synchronised on both sides:
+    their seconds, calls and the bytes their all_gathers and point-to-point
+    receives bring to the rank (a call's time includes its wait for the
+    other rank)."""
+    from comfyui_propainter_nodes_tpu_torch.parallel import spatial
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import Mesh
+
+    spent = {f"{k}_{m}": 0 for k in ("halo", "gather") for m in ("s", "calls", "bytes")}
+    inside = []
+    halo, gather, all_gather, send_recv = spatial.halo_rows, spatial.gather_rows, Mesh.all_gather, Mesh.send_recv
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inside.append(key)
+            try:
+                out = fn(*a, **k)
+            finally:
+                inside.pop()
+            torch.cuda.synchronize()
+            spent[key + "_s"] += time.perf_counter() - t0
+            spent[key + "_calls"] += 1
+            return out
+        return run
+
+    def counted(self, x, axis, dim=0):
+        out = all_gather(self, x, axis, dim)
+        if inside:
+            spent[inside[-1] + "_bytes"] += out.numel() * out.element_size()
+        return out
+
+    def received(self, sends, recv_rows, axis, like):
+        got = send_recv(self, sends, recv_rows, axis, like)
+        if inside:
+            spent[inside[-1] + "_bytes"] += sum(t.numel() * t.element_size() for t in got.values())
+        return got
+
+    spatial.halo_rows, spatial.gather_rows = timed(halo, "halo"), timed(gather, "gather")
+    Mesh.all_gather, Mesh.send_recv = counted, received
+    try:
+        pipe.process(*args)
+    finally:
+        spatial.halo_rows, spatial.gather_rows, Mesh.all_gather, Mesh.send_recv = halo, gather, all_gather, send_recv
+    spent["feature_propagation_s"] = pipe.stage_seconds["feature_propagation"]
+    return spent
+
+
+def path_mh_single(ref_dir: str) -> dict:
+    """Path MH's single-card reference: `Pipeline.process` on its clip with
+    no mesh, fp32 (written to ref_dir for the ranks) and bf16 after a
+    warm-up, each with its peak and its feature stage's peak."""
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
+    from comfyui_propainter_nodes_tpu_torch.utils import weights
+
+    params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+    args = path_inputs("cuda", PATH_MH)
+    out = {}
+    for fp16 in ("disable", "enable"):
+        pipe = Pipeline(*params, path_config(fp16, PATH_MH), device="cuda")
+        if fp16 == "enable":
+            pipe.process(*args)
+        peaks = []
+        feature_peak(pipe, peaks)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = pipe.process(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = max(peaks[0][0], torch.cuda.max_memory_allocated())
+        np.save(os.path.join(ref_dir, f"mh_{fp16}.npy"), check_video(video, args[2], args[3], f"path MH single card {fp16}", PATH_MH))
+        out[fp16] = dict(seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1])
+        log(f"  [path MH single card fp16={fp16}] {wall:.3f} s; peak {peak / 2**30:.3f} GiB, feature stage "
+            f"{peaks[0][1] / 2**30:.3f} GiB; stages (s) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in pipe.stage_seconds.items()))
+        del pipe, video
+    return out
+
+
+def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: str) -> None:
+    """One rank of path MH (a process of its own) on mesh (1, 2):
+    `Pipeline.process` on path A's clip in fp32, then in bf16 a warm-up, a
+    timed run and a run with the H split's exchanges timed apart
+    (`h_split_exchanges`); each timed run's launches (B2's by shape),
+    stage times, peak and feature-stage peak; every output checked
+    (`check_video`) and compared with the single card's of the same
+    dtype. Writes its results to ref_dir/mh_rank{rank}.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
+    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
+
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
+    try:
+        profiling.set_blocking(True)
+        params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+        mesh = make_mesh(model_parallel=2)
+        args = path_inputs(mesh.device, PATH_MH)
+        results = {}
+        for fp16 in ("disable", "enable"):
+            tag = f"path MH rank {rank} fp16={fp16}"
+            pipe = Pipeline(*params, path_config(fp16, PATH_MH), mesh=mesh)
+            if fp16 == "enable":
+                t0 = time.perf_counter()
+                pipe.process(*args)
+                log(f"  [{tag}] warm-up {time.perf_counter() - t0:.3f} s")
+            peaks = []
+            feature_peak(pipe, peaks)
+            dist.barrier()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe.process(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = max(peaks[0][0], torch.cuda.max_memory_allocated())  # stages 1-3, and the feature stage on
+            counts, b2_shapes = read_counters()
+            video = check_video(out, args[2], args[3], tag, PATH_MH)
+            if fp16 == "enable":
+                require_kernels(tag, counts, PATH_MH_NEED, [k for k, _, _ in counters() if k not in PATH_MH_NEED])
+            require(any("rows" in k for k in b2_shapes), f"{tag}: B2 never ran in its row form: {b2_shapes}")
+            results[fp16] = dict(
+                seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1],
+                launches=counts, b2_launches_by_shape=b2_shapes, seq=pipe._seq_selected(PATH_MH[1]),
+                vs_single=video_diff(video, np.load(os.path.join(ref_dir, f"mh_{fp16}.npy"))), device=str(mesh.device),
+            )
+            log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
+            if fp16 == "enable":
+                results["exchanges"] = h_split_exchanges(pipe, args)
+                log(f"  [{tag}] the H split's exchanges (an extra run, synchronised timers): {results['exchanges']}")
+            del pipe, out
+        with open(os.path.join(ref_dir, f"mh_rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def path_mh_run(ref_dir: str) -> dict:
+    """Path MH: the single-card reference (`path_mh_single`), then two ranks
+    spawned as path M's (`path_mh_rank`). Each rank's fp32 video is held
+    to the single card's within the card-against-host tolerance (and to
+    the input outside the dilated mask, in the rank); bf16 differing
+    bytes are logged; per-rank and single-card feature-stage peaks side
+    by side."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import backend_for
+
+    single = path_mh_single(ref_dir)
+    world = 2
+    backend = backend_for(world, "cuda")
+    t0 = time.perf_counter()
+    spawn_ranks(path_mh_rank, [(r, world, backend, os.path.join(ref_dir, "mh_rendezvous"), ref_dir) for r in range(world)])
+    log(f"  path MH: both ranks done in {time.perf_counter() - t0:.1f} s (process start and kernel load included)")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(ref_dir, f"mh_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    t = PATH_MH[0]
+    for fp16 in ("disable", "enable"):
+        for r, rk in enumerate(ranks):
+            v = rk[fp16]
+            require(not v["seq"], f"path MH rank {r}: the feature stage did not take the H split")
+            log(f"  [path MH {fp16}] rank {r}: {v['seconds']:.3f} s = {t / v['seconds']:.3f} frames/s; peak "
+                f"{v['peak_bytes'] / 2**30:.3f} GiB, feature stage {v['feature_peak_bytes'] / 2**30:.3f} GiB (single card "
+                f"{single[fp16]['peak_bytes'] / 2**30:.3f}, feature stage {single[fp16]['feature_peak_bytes'] / 2**30:.3f}); "
+                "stages (s) "
+                + ", ".join(f"{k} {s:.4f}" for k, s in v["stages"].items())
+                + f"; launches {v['launches']}; B2 by shape {v['b2_launches_by_shape']}; against the single card: {v['vs_single']}")
+            if fp16 == "disable":
+                require(within_tolerance(v["vs_single"]), f"path MH rank {r}: fp32 output differs from the single card's: {v['vs_single']}")
+    wall = max(rk["enable"]["seconds"] for rk in ranks)
+    log(f"  [path MH] bf16: {wall:.3f} s = {t / wall:.3f} frames/s (the slower rank); single card {single['enable']['seconds']:.3f} s")
+    # the kernels line's count: both ranks' timed bf16 runs
+    launches = {name: sum(rk["enable"]["launches"][name] for rk in ranks) for name, _, _ in counters()}
+    return dict(backend=backend, cards=torch.cuda.device_count(), seconds=wall, fps=t / wall, single_card=single,
+                exchanges=[rk.pop("exchanges") for rk in ranks], ranks=ranks, launches=launches,
+                b2_launches_by_shape=[rk["enable"]["b2_launches_by_shape"] for rk in ranks])
+
+
 KEEP = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a kernels row's numbers
 
 
@@ -2402,6 +2631,9 @@ def main() -> int:
         for tag, shape in B2_SHAPES.items():
             if dt == torch.bfloat16 or tag in B2_FP32:
                 res[("B2" + tag, key)] = check_deform_conv(dt, gen, shape)
+        for tag, (shape, rows) in B2_ROWS.items():
+            res[("B2" + tag, key)] = check_deform_conv(dt, gen, shape, rows)
+        torch.cuda.empty_cache()
         res[("B3e", key)] = check_window_attention(dt, gen, 7, occ360)
         res[("B3o", key)] = check_window_attention(dt, gen, 6, occ360)
         res[("B3eO", key)] = check_window_attention(dt, gen, 7, occ_o, 48, 126, "30x72")
@@ -2410,6 +2642,12 @@ def main() -> int:
         res[("B4o", key)] = check_window_attention_tiled(dt, gen, 6, occ720)
         res[("B4eS", key)] = check_window_attention_tiled(dt, gen, t_sel_s[0], occ_s, 1, t_win_s)
         res[("B4oS", key)] = check_window_attention_tiled(dt, gen, t_sel_s[1], occ_s, 1, t_win_s)
+        # path MH: each rank's 72 windows (6 of path A's 12 window rows) of
+        # its 5 windows of 13 frames, with that rank's occupancy
+        for r in range(2):
+            occ_r = occ720.reshape(5, 12, 12)[:, 6 * r : 6 * r + 6].reshape(-1).contiguous()
+            for tag, t_sel in (("B4eMH", 7), ("B4oMH", 6)):
+                res[(f"{tag}{r}", key)] = check_window_attention_tiled(dt, gen, t_sel, occ_r, 5, 13, 72, 405)
         # paths C and M: B1 on path C's one 108-pair call (bf16 maps take the
         # map blend past the lanes gate, fp32 maps the fp32 kernel) and on path
         # M (1, 2)'s 12-pair calls (lanes); B4 on path C's middle window group
@@ -2480,8 +2718,10 @@ def main() -> int:
             ref_dir,
         )
         path_m = path_m_run(ref_dir)
+        # path MH: path A's clip on path M's ranks, mesh (1, 2), the feature stage H-split
+        path_mh = path_mh_run(ref_dir)
     paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s, "path_h": path_h,
-             "path_c": path_c, "path_m": path_m}
+             "path_c": path_c, "path_m": path_m, "path_mh": path_mh}
     for path, expected in EARLIER_LAUNCHES.items():
         got = {k: v for k, v in paths[path]["launches"].items() if v}
         require(got == expected, f"{path}: launches {got}, expected {expected}")
@@ -2541,6 +2781,13 @@ def main() -> int:
             row["path_c_shapes"] = dict(subset(res[("B4eC", "bfloat16")], KEEP + ("b", "t", "t_sel", "n_win", "b3_ms",
                                                                                  "occupied_share")),
                                         **fp32_of(res[("B4eC", "float32")]))
+            # path MH's ranks, the even layers' t_sel (the odd in chip_smoke.json)
+            row["path_mh_shapes"] = {
+                f"rank {r}": dict(subset(res[(f"B4eMH{r}", "bfloat16")], KEEP + ("b", "t", "t_sel", "n_win", "b3_ms",
+                                                                              "occupied_share")),
+                                  **fp32_of(res[(f"B4eMH{r}", "float32")]))
+                for r in range(2)
+            }
         if rk == "B3e":  # path O's shapes, t_sel 7 (B3 at t_sel 6 in chip_smoke.json)
             o, o32 = res[("B3eO", "bfloat16")], res[("B3eO", "float32")]
             row["path_o_shapes"] = {k: o[k] for k in ("grid", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2556,6 +2803,12 @@ def main() -> int:
             row["path_c_shapes"] = {"x".join(map(str, B2_SHAPES[tag])): dict(subset(res[("B2" + tag, "bfloat16")], KEEP),
                                                                              **fp32_of(res[("B2" + tag, "float32")]))
                                     for tag in ("fcC", "fpC", "fpC4")}
+            # the row form at path MH's per-rank shapes
+            row["path_mh_shapes"] = {
+                "x".join(map(str, shape)) + f" rows {r0}-{r0 + ho}": dict(
+                    subset(res[("B2" + tag, "bfloat16")], KEEP), **fp32_of(res[("B2" + tag, "float32")]))
+                for tag, (shape, (r0, ho)) in B2_ROWS.items()
+            }
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}

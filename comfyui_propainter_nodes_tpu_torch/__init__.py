@@ -24,8 +24,9 @@ Multi-device inference (parallel/): `make_mesh` lays the ranks of a
 torch.distributed process group out as a (data, model) grid (NCCL where
 each rank has a card, gloo where ranks share one or run on the CPU);
 `Pipeline(..., mesh=)` splits the chunk loops and window groups over the
-data ranks and the transformer's frames over the model ranks (gathered
-K/V), and every rank returns the whole video. The nodes and streaming
+data ranks, and over the model ranks the transformer's frames (gathered
+K/V, below 512 rows) or the frames' rows (the spatial H split,
+parallel/spatial.py), and every rank returns the whole video. The nodes and streaming
 take no mesh. `parallel/sharding.py` holds the weights' rule table.
 
 Kernels (ops/cuda/, sources in csrc/), one for each of the JAX package's
@@ -33,7 +34,8 @@ seven Pallas kernels:
   B1 the RAFT correlation window lookup, both directions in one launch
      (corr_lookup.cu: the lanes blend, and the map-dtype blend of the
      JAX dispatcher's other branch);
-  B2 the modulated deformable 3x3 conv (deform_conv.cu);
+  B2 the modulated deformable 3x3 conv (deform_conv.cu), also on a row
+     slab of its output (`row0`, the H split's);
   B3 the occupancy-sparse window attention, single pass
      (window_attention.cu);
   B4 the segment-tiled window attention (window_attention_tiled.cu);

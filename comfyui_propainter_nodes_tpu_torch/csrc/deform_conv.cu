@@ -10,12 +10,14 @@
 // each of the 4 bilinear corners zero when it falls outside the image.
 //
 // Layout: x [N, H, W, Cin] (NHWC, channels contiguous), offset
-// [N, H, W, G, 9, 2], mask [N, H, W, G, 9], out [N, H, W, Cout], all in
-// the input type. The wrapper lays the weights out once per weight tensor:
-// fp32 [9 * Cin, Cout] (tap outer, channel inner) for the CUDA-core kernel,
-// bf16 [Np, 9, Kp] (Cout padded to Np = a multiple of 128, Cin to Kp = a
-// multiple of 64, zeros in the padding; K contiguous per output channel)
-// for the tensor-core kernel.
+// [N, Ho, W, G, 9, 2], mask [N, Ho, W, G, 9], out [N, Ho, W, Cout], all in
+// the input type. Output row y samples around input row row0 + y of x
+// (a row slab of the output, as the spatial H split runs it); row0 = 0
+// and Ho = H is the whole image. The wrapper lays the weights out once
+// per weight tensor: fp32 [9 * Cin, Cout] (tap outer, channel inner)
+// for the CUDA-core kernel, bf16 [Np, 9, Kp] (Cout padded to Np = a
+// multiple of 128, Cin to Kp = a multiple of 64, zeros in the padding; K
+// contiguous per output channel) for the tensor-core kernel.
 //
 // What bounds it on the H100: at the feature-propagation shape (x [5, 90,
 // 160, 128], Cout 128) one call is 2*72000*1152*128 = 21.2 GFLOP against
@@ -74,17 +76,18 @@ __global__ void __launch_bounds__(NT)
 deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ off,
                    const float* __restrict__ msk, const float* __restrict__ wt,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   int N, int H, int W, int Cin, int Cout, int G) {
+                   int N, int H, int W, int Cin, int Cout, int G, int Ho, int row0) {
   __shared__ float s_a[KC][BM + 1];
   __shared__ __align__(16) float s_b[KC][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;   // output channels tx*8 .. tx*8+7
   const int ty = tid >> 4;   // output pixels ty*4 .. ty*4+3
-  const long long M = (long long)N * H * W;
+  const long long M = (long long)N * Ho * W;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int HW = H * W;
+  const int HWo = Ho * W;
   const int cg = Cin / G;
 
   float acc[4][8];
@@ -107,10 +110,10 @@ deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ off,
         const int ci = c0 + c;
         float val = 0.0f;
         if (p < M && ci < Cin) {
-          const int n = (int)(p / HW);
-          const int rem = (int)(p - (long long)n * HW);
-          const int py = rem / W;
-          const int pxx = rem - py * W;
+          const int n = (int)(p / HWo);
+          const int rem = (int)(p - (long long)n * HWo);
+          const int py = row0 + rem / W;
+          const int pxx = rem - (rem / W) * W;
           const int g = ci / cg;
           const long long pg = p * G + g;
           const float dy = off[pg * 18 + 2 * k];
@@ -201,6 +204,7 @@ struct Args {
   bf16* out;
   long long M;
   int H, W, Cin, Cout, G, Kp;
+  int Ho, row0;  // output rows, and the input row of output row 0
 };
 
 // a gather unit's registers between its loads and its store: the four
@@ -274,6 +278,7 @@ __global__ void __launch_bounds__(NT, 2) deform_conv_mma_kernel(Args a) {
   const int n0 = blockIdx.y * BN;
   const int H = a.H, W = a.W, Cin = a.Cin, G = a.G;
   const int HW = H * W;
+  const int HWo = a.Ho * W;
   const int cg = Cin / G;
   const int cchunks = a.Kp / KC;  // chunks a tap
   const int n_chunks = 9 * cchunks;
@@ -281,10 +286,10 @@ __global__ void __launch_bounds__(NT, 2) deform_conv_mma_kernel(Args a) {
   for (int r = tid; r < BM; r += NT) {
     const long long p = m0 + r;
     if (p < a.M) {
-      const int n = (int)(p / HW);
-      const int rem = (int)(p - (long long)n * HW);
+      const int n = (int)(p / HWo);
+      const int rem = (int)(p - (long long)n * HWo);
       s_img[r] = a.x + (long long)n * HW * Cin;
-      s_py[r] = rem / W;
+      s_py[r] = a.row0 + rem / W;
       s_px[r] = rem - (rem / W) * W;
     } else {
       s_img[r] = a.x;
@@ -490,11 +495,13 @@ int launch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
+// out [N, Ho, W, Cout]: output row y at input row row0 + y (0 <= row0,
+// row0 + Ho <= H; the wrapper checks).
 extern "C" int propainter_deform_conv(
     const void* x, const void* off, const void* msk, const void* wt,
     const void* bias, void* out, int N, int H, int W, int Cin, int Cout,
-    int G, void* stream) {
-  const long long M = (long long)N * H * W;
+    int G, int Ho, int row0, void* stream) {
+  const long long M = (long long)N * Ho * W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (M > 0 && Cout > 0) {
@@ -502,23 +509,24 @@ extern "C" int propainter_deform_conv(
         reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(off),
         reinterpret_cast<const float*>(msk), reinterpret_cast<const float*>(wt),
         reinterpret_cast<const float*>(bias), reinterpret_cast<float*>(out),
-        N, H, W, Cin, Cout, G);
+        N, H, W, Cin, Cout, G, Ho, row0);
   }
   return (int)cudaGetLastError();
 }
 
 // bf16 on the tensor cores. wt: [Np, 9, Kp] bf16 (Np, Kp multiples of 128,
 // 64); bm: 64 or 32 pixels a block; vec: 1 if cg % 8 == 0 and x is 16-byte
-// aligned (corners as 16-byte vectors), else 0 (channel by channel).
+// aligned (corners as 16-byte vectors), else 0 (channel by channel);
+// Ho, row0 as for the fp32 kernel.
 extern "C" int propainter_deform_conv_mma(
     const void* x, const void* off, const void* msk, const void* wt,
     const void* bias, void* out, int N, int H, int W, int Cin, int Cout,
-    int G, int Kp, int bm, int vec, void* stream) {
+    int G, int Kp, int bm, int vec, int Ho, int row0, void* stream) {
   if ((bm != 32 && bm != 64) || Kp % tc::KC != 0 || Kp < Cin) return (int)cudaErrorInvalidValue;
   tc::Args a{reinterpret_cast<const bf16*>(x), reinterpret_cast<const bf16*>(off),
              reinterpret_cast<const bf16*>(msk), reinterpret_cast<const bf16*>(wt),
              reinterpret_cast<const bf16*>(bias), reinterpret_cast<bf16*>(out),
-             (long long)N * H * W, H, W, Cin, Cout, G, Kp};
+             (long long)N * Ho * W, H, W, Cin, Cout, G, Kp, Ho, row0};
   if (a.M == 0 || Cout == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bm == 64) return vec ? tc::launch<64, true>(a, s) : tc::launch<64, false>(a, s);

@@ -32,9 +32,11 @@ from .utils import profiling
 from .utils import weights as weights_zoo
 from .utils.image import resize_frames, ring_masks
 from .utils.metrics import RunRecorder
+from .utils.params import to_device
 
 _PIPELINE_CACHE: dict = {}
-_PARAM_CACHE: dict = {}
+_HOST_PARAMS: dict = {}  # (model, allow_random) -> upstream-layout CPU params
+_PARAM_CACHE: dict = {}  # (model, dtype, device, allow_random) -> params on the device
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -138,21 +140,29 @@ def _upload_u8(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _cached_params(model: str, allow_random: bool) -> dict:
-    key = (model, allow_random)
+def _cached_params(model: str, dtype: torch.dtype, device, allow_random: bool) -> dict:
+    """A model's params, loaded once and cast and moved once per (dtype,
+    device): the pipelines of every config on a device share them, as the
+    JAX package's device params are shared (nodes.py:161-187 there)."""
+    if (model, allow_random) not in _HOST_PARAMS:
+        _HOST_PARAMS[(model, allow_random)] = weights_zoo.get_params(model, allow_random=allow_random)
+    key = (model, dtype, str(device), allow_random)
     if key not in _PARAM_CACHE:
-        _PARAM_CACHE[key] = weights_zoo.get_params(model, allow_random=allow_random)
+        _PARAM_CACHE[key] = to_device(_HOST_PARAMS[(model, allow_random)], device, dtype)
     return _PARAM_CACHE[key]
 
 
 def get_pipeline(config: PipelineConfig, device, allow_random_weights: bool = False) -> Pipeline:
-    """Pipeline with weights loaded once, cached per (config, device)."""
+    """Pipeline cached per (config, device), on device params shared by
+    every config of the same dtypes (`_cached_params`)."""
     key = (config, str(device), allow_random_weights)
     if key not in _PIPELINE_CACHE:
+        rdt = torch.bfloat16 if config.raft_half else torch.float32
+        cdt = torch.bfloat16 if config.use_bf16 else torch.float32
         _PIPELINE_CACHE[key] = Pipeline(
-            _cached_params("raft", allow_random_weights),
-            _cached_params("flow_completion", allow_random_weights),
-            _cached_params("inpaint_generator", allow_random_weights),
+            _cached_params("raft", rdt, device, allow_random_weights),
+            _cached_params("flow_completion", cdt, device, allow_random_weights),
+            _cached_params("inpaint_generator", cdt, device, allow_random_weights),
             config,
             device,
         )

@@ -14,7 +14,13 @@ the token grids and a halo of the circularly padded K/V in place of the
 rolled copies. Under sequence parallelism (`seq`, parallel/sequence.py)
 the layer takes no kernel, as in the JAX package: each rank's queries
 attend over K/V segments all-gathered across the ranks, in stock torch
-ops (`_gathered_kv_attention`).
+ops (`_gathered_kv_attention`). Under the spatial H split (`split`, a
+`parallel/spatial.py::Partition`) each rank runs its own windows, its
+token rows of everything else, and fetches from the other ranks the
+rows its ops read past its edges: the rolled K/V's (circular), the
+pooled tokens (gathered), and those of the soft split's, soft comp's
+and the FFN's patches. Without it the same bodies run on one rank's
+whole grids (`Partition(None, None, fh)`, `RowSplit.whole`).
 
 SoftSplit is one strided conv; SoftComp and FusionFeedForward run in
 stride-phase space (fold/unfold composed with the linear layers become
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import Partition, RowSplit, token_rows
 from .conv import conv2d, layer_norm, linear
 from .cuda.window_attention import window_attention_dispatch
 from .cuda.window_attention_halo import window_attention_halo
@@ -69,18 +76,19 @@ def _phase_fold_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return conv2d(torch.cat([x, ones], dim=-1), kernel, padding=(dh - 1, dw - 1))
 
 
-def _interleave_phases(ph_canvas: torch.Tensor, c_out: int, output_size) -> torch.Tensor:
-    """[N, qh, qw, 9*c_out] -> cropped pixel canvas [N, H, W, c_out]."""
-    (sh, sw), (ph, pw) = _T2T["stride"], _T2T["padding"]
-    h, w = output_size
+def _interleave_phases(ph_canvas: torch.Tensor, c_out: int, w: int, r0: int, r1: int) -> torch.Tensor:
+    """[N, qh, qw, 9*c_out] -> the pixel canvas's rows [r0, r1) (row ph is
+    the output's first), cropped to the output's w columns: [N, r1 - r0,
+    w, c_out]."""
+    (sh, sw), (_, pw) = _T2T["stride"], _T2T["padding"]
     n, qh, qw, _ = ph_canvas.shape
     out = ph_canvas.reshape(n, qh, qw, sh, sw, c_out).permute(0, 1, 3, 2, 4, 5)
     out = out.reshape(n, qh * sh, qw * sw, c_out)
-    pad_h = max(0, ph + h - qh * sh)
+    pad_h = max(0, r1 - qh * sh)
     pad_w = max(0, pw + w - qw * sw)
     if pad_h or pad_w:
         out = F.pad(out, (0, 0, 0, pad_w, 0, pad_h))
-    return out[:, ph : ph + h, pw : pw + w, :]
+    return out[:, r0:r1, pw : pw + w, :]
 
 
 @functools.lru_cache(maxsize=32)
@@ -109,36 +117,75 @@ def _phase_mult(fh: int, fw: int, h: int, w: int) -> np.ndarray:
     return m.reshape(m.shape[0], m.shape[1], sh * sw).astype(np.float32)
 
 
-def soft_split(p: Params, pre: str, x: torch.Tensor) -> torch.Tensor:
+def soft_split(p: Params, pre: str, x: torch.Tensor, rows=None) -> torch.Tensor:
     """SoftSplit: [N, H, W, C] -> [N, f_h, f_w, hidden] (linear∘unfold as one
-    7x7 stride-3 conv; torch's (C, kh, kw)-major unfold order is OIHW)."""
+    7x7 stride-3 conv; torch's (C, kh, kw)-major unfold order is OIHW).
+    rows = (feature, token `RowSplit`s) under the H split, the whole grids
+    by default: x holds the rank's feature rows, the result is its token
+    rows (token row r reads feature rows [3r - 3, 3r + 4), zero outside
+    the image)."""
     w = p[pre + ".embedding.weight"]  # (hidden, C*49)
     c = w.shape[1] // 49
     kernel = w.reshape(w.shape[0], c, 7, 7)
-    return conv2d(x, kernel, p[pre + ".embedding.bias"], stride=_T2T["stride"], padding=_T2T["padding"])
+    bias = p[pre + ".embedding.bias"]
+    if rows is None:
+        rows = RowSplit.whole(x.shape[1]), RowSplit.whole(token_rows(x.shape[1]))
+    feat, tok = rows
+    (kh, _), (sh, _), (ph, pw) = _T2T["kernel"], _T2T["stride"], _T2T["padding"]
+    ext, start = feat.halo(x, ph, kh - sh - ph, 1)
+    if tok.lo == tok.hi:
+        return x.new_zeros((x.shape[0], 0, (x.shape[2] - 1) // sh + 1, w.shape[0]))
+    lo, hi = sh * tok.lo - ph, sh * (tok.hi - 1) + kh - ph  # the feature rows the rank's tokens read
+    a, b = max(lo, start), min(hi, start + ext.shape[1])
+    v = F.pad(ext[:, a - start : b - start], (0, 0, 0, 0, a - lo, hi - b))
+    return conv2d(v, kernel, bias, stride=_T2T["stride"], padding=(0, pw))
 
 
-def soft_comp(p: Params, pre: str, tokens: torch.Tensor, output_size) -> torch.Tensor:
-    """SoftComp: [N, f_h, f_w, hidden] -> [N, H, W, C] (+ 3x3 bias conv)."""
+def soft_comp(p: Params, pre: str, tokens: torch.Tensor, output_size, rows=None) -> torch.Tensor:
+    """SoftComp: [N, f_h, f_w, hidden] -> [N, H, W, C] (+ 3x3 bias conv).
+    rows = (token, feature `RowSplit`s) under the H split, the whole grids
+    by default: tokens holds the rank's token rows, the result is its
+    feature rows; a feature row's phase reads 3 token rows, and the bias
+    conv one feature row each side."""
     w = p[pre + ".embedding.weight"]  # (C*49, hidden)
     b = p[pre + ".embedding.bias"]
     c = b.shape[0] // 49
     kernel = _phase_kernel(w.t(), b, c, flip=True)
-    out = _interleave_phases(_phase_fold_conv(tokens, kernel), c, output_size)
-    return conv2d(out, p[pre + ".bias_conv.weight"], p[pre + ".bias_conv.bias"], padding=(1, 1))
+    if rows is None:
+        rows = RowSplit.whole(tokens.shape[1]), RowSplit.whole(output_size[0])
+    tok, feat = rows
+    ext, a = tok.halo(tokens, 2, 2, 1)
+    if feat.lo == feat.hi:
+        return tokens.new_zeros((tokens.shape[0], 0, output_size[1], c))
+    sh, ph = _T2T["stride"][0], _T2T["padding"][0]
+    # the canvas's feature rows [c0, c1) the bias conv reads; canvas row
+    # k of the phases of token rows [a, ..) is feature row sh * a + k - ph
+    c0, c1 = max(0, feat.lo - 1), min(feat.total, feat.hi + 1)
+    canvas = _interleave_phases(_phase_fold_conv(ext, kernel), c, output_size[1], c0 + ph - sh * a, c1 + ph - sh * a)
+    out = conv2d(canvas, p[pre + ".bias_conv.weight"], p[pre + ".bias_conv.bias"], padding=(1, 1))
+    return out[:, feat.lo - c0 : feat.hi - c0]
 
 
-def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size) -> torch.Tensor:
+def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size, rows=None) -> torch.Tensor:
     """FusionFeedForward in phase space: fold∘fc1 as a 3x3 token-grid conv,
     the fold normalisation as a static per-phase multiplier, exact GELU,
-    fc2∘unfold as a 3x3 VALID conv. x: [N, f_h, f_w, dim]."""
-    n, fh, fw, _ = x.shape
+    fc2∘unfold as a 3x3 VALID conv. x: [N, f_h, f_w, dim]. rows (the H
+    split's token `RowSplit`, the whole grid by default): x holds the
+    rank's token rows; an output row reads the 2 token rows each side of
+    it, and the multiplier is the whole grid's at the rows computed."""
+    if rows is None:
+        rows = RowSplit.whole(x.shape[1])
+    ext, q0 = rows.halo(x, 2, 2, 1)
+    if rows.lo == rows.hi:  # a rank without rows only takes part in the exchange
+        return x
+    x = ext
+    n, _, fw, _ = x.shape
     b1 = p[pre + ".fc1.0.bias"]
     c_mid = b1.shape[0] // 49
     k1 = _phase_kernel(p[pre + ".fc1.0.weight"].t(), b1, c_mid, flip=True)
     y = _phase_fold_conv(x, k1)
-    mult = torch.from_numpy(_phase_mult(fh, fw, *output_size)).to(y.device, y.dtype)
     qh, qw = y.shape[1], y.shape[2]
+    mult = torch.from_numpy(_phase_mult(rows.total, fw, *output_size)[q0 : q0 + qh]).to(y.device, y.dtype)
     y = y.reshape(n, qh, qw, 9, c_mid) * mult[..., None]
     y = F.gelu(y.reshape(n, qh, qw, 9 * c_mid))
 
@@ -150,7 +197,8 @@ def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size) -> to
     k2 = F.pad(k2, (0, 0, 0, sw * dw - kw, 0, sh * dh - kh))
     k2 = k2.reshape(c_mid, dh, sh, dw, sw, dim).permute(1, 3, 2, 4, 0, 5)
     k2 = k2.reshape(dh, dw, sh * sw * c_mid, dim).permute(3, 2, 0, 1)
-    return conv2d(y, k2, p[pre + ".fc2.1.bias"])
+    out = conv2d(y, k2, p[pre + ".fc2.1.bias"])
+    return out[:, rows.lo - q0 : rows.hi - q0]
 
 
 # ----------------------------------------------------------- window helpers
@@ -182,21 +230,21 @@ def _window_partition(x: torch.Tensor, window, n_head: int) -> torch.Tensor:
     return x.reshape(b, nh * nw, n_head, t, wh * ww, c // n_head)
 
 
-def _build_rolled(a: torch.Tensor, window, n_head: int) -> torch.Tensor:
+def _build_rolled(ap: torch.Tensor, window, n_head: int) -> torch.Tensor:
     """The 4 diagonally rolled copies of a [B, T, H, W, C] key grid,
     window-partitioned and kept at their out-of-window survivors:
     [B, nW, head, T, 148, ch]. Partition of each roll == a shifted-origin
-    partition of ONE circularly padded tensor."""
+    partition of ONE circularly padded tensor. ap: the grid with its
+    circular rows, (wh + 1) // 2 each side of H."""
     wh, ww = window
-    h, w = a.shape[2], a.shape[3]
     eh, ew = (wh + 1) // 2, (ww + 1) // 2
-    ap = torch.cat([a[:, :, -eh:], a, a[:, :, :eh]], dim=2)
+    h, w = ap.shape[2] - 2 * eh, ap.shape[3]
     ap = torch.cat([ap[:, :, :, -ew:], ap, ap[:, :, :, :ew]], dim=3)
     parts = []
     for s_y, s_x in [(-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)]:
         oy, ox = eh - s_y, ew - s_x
         parts.append(_window_partition(ap[:, :, oy : oy + h, ox : ox + w], window, n_head))
-    idx = torch.as_tensor(_valid_rolled_indices(tuple(window)), device=a.device)
+    idx = torch.as_tensor(_valid_rolled_indices(tuple(window)), device=ap.device)
     return torch.cat(parts, dim=4).index_select(4, idx)
 
 
@@ -235,7 +283,9 @@ def _gathered_kv_attention(q, k, v, pool_k, pool_v, occ, ti, tv, seq, window, n_
 
     k_sel, v_sel = global_sel(k), global_sel(v)
     wk_s, wv_s = _window_partition(k_sel, window, n_head), _window_partition(v_sel, window, n_head)
-    rk_s, rv_s = _build_rolled(k_sel, window, n_head), _build_rolled(v_sel, window, n_head)
+    eh = (wh + 1) // 2
+    rk_s, rv_s = (_build_rolled(RowSplit.whole(new_h).halo(a, eh, eh, 2, circular=True)[0], window, n_head)
+                  for a in (k_sel, v_sel))
     t_sel = len(ti)
     p_len = pool_k.shape[2] * pool_k.shape[3]
 
@@ -269,6 +319,20 @@ def _gathered_kv_attention(q, k, v, pool_k, pool_v, occ, ti, tv, seq, window, n_
     return out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, t, new_h, new_w, c)
 
 
+def _pooled_rows(x, pool_w, grid, pool, pool_size) -> torch.Tensor:
+    """The H split's pooled tokens [B*T, p_h, p_w, C], whole on every rank:
+    each rank pools the pool rows that start in its rows of the
+    window-padded token grid `grid` (the next 3 token rows from its
+    neighbour), and the rows are gathered (`pool`: the pool rows' split)."""
+    b, t, _, w, c = x.shape
+    ext, start = grid.halo(x, 0, pool_size[0] - 1, 2)
+    r0, r1 = pool_size[0] * pool.lo - start, pool_size[0] * pool.hi - start
+    mine = x.new_zeros((b * t, 0, w // pool_size[1], c))
+    if r0 < r1:  # the rows past r1 are fewer than a pool row: the conv drops them
+        mine = conv2d(ext[:, :, r0:].reshape(b * t, ext.shape[2] - r0, w, c), *pool_w, stride=pool_size, groups=c)
+    return pool.gather(mine, 1)
+
+
 def sparse_window_attention(
     p: Params,
     pre: str,
@@ -280,6 +344,7 @@ def sparse_window_attention(
     pool_size: tuple[int, int] = (4, 4),
     t_valid_mask: torch.Tensor | None = None,
     seq=None,
+    split=None,
 ) -> torch.Tensor:
     """SparseWindowAttention.forward.
 
@@ -291,12 +356,21 @@ def sparse_window_attention(
     seq = (mesh, axis): sequence parallelism (parallel/sequence.py). x is
     this rank's contiguous share of T; the occupied branch attends over
     key segments all-gathered across the axis (`_gathered_kv_attention`).
-    mask, t_ind and t_valid_mask are then the whole clip's (global T)."""
+    mask, t_ind and t_valid_mask are then the whole clip's (global T).
+
+    split (a `Partition`): the H split, the whole grid by default. x and
+    mask hold the rank's token rows; it attends its own windows (the last
+    window row's padding is the rank's), takes the circular rows of the
+    rolled K/V from its neighbours and the pooled tokens from every rank
+    (`_pooled_rows`)."""
     b, t, h, w, c = x.shape
     dev = x.device
     wh, ww = window_size
     ch = c // n_head
-    n_wh, n_ww = -(-h // wh), -(-w // ww)
+    if split is None:
+        split = Partition(None, None, h)
+    grid = split.padded_tokens()
+    n_wh, n_ww = grid.rows // wh, -(-w // ww)
     new_h, new_w = n_wh * wh, n_ww * ww
     if new_h != h or new_w != w:
         x = F.pad(x, (0, 0, 0, new_w - w, 0, new_h - h))
@@ -308,17 +382,17 @@ def sparse_window_attention(
     v = linear(p, pre + ".value", x)
 
     # pooled global tokens: depthwise 4x4 stride-4 conv, then key/value
-    pool_x = conv2d(
-        x.reshape(b * t, new_h, new_w, c), p[pre + ".pool_layer.weight"],
-        p[pre + ".pool_layer.bias"], stride=pool_size, groups=c,
-    )
+    pool_w = p[pre + ".pool_layer.weight"], p[pre + ".pool_layer.bias"]
+    pool_x = _pooled_rows(x, pool_w, grid, split.pool_rows(grid.total // pool_size[0]), pool_size)
     p_h, p_w = pool_x.shape[1], pool_x.shape[2]
     pool_x = pool_x.reshape(b, t, p_h, p_w, c)
 
     # occupancy: a window is occupied if the mask touches it in any local frame
     l_t = mask.shape[1]
-    occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
-    occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
+    occ = torch.zeros((b, 0), dtype=torch.bool, device=dev)  # a rank of the H split without rows has no window
+    if n_win:
+        occ = max_pool2d(mask.reshape(b * l_t, new_h, new_w, 1), window_size, window_size)
+        occ = occ.reshape(b, l_t, n_win).sum(dim=1) > 0
 
     if seq is not None:
         t_glob = t * seq[0].shape[seq[1]]
@@ -356,17 +430,23 @@ def sparse_window_attention(
     bias_sel = torch.where(tv.index_select(1, ti_t), zero, neg).float()
     bias_p = bias_sel.repeat_interleave(p_h * p_w, dim=1).contiguous()
 
+    # K and V at the t_ind frames with eh circular rows each side of H (the
+    # rolled copies' rows, and the halo kernel's): under the split, the
+    # rows past the rank's edges from its neighbours, K and V in one exchange
+    kv = grid.halo(torch.cat([k, v], dim=-1).index_select(1, ti_t), eh, eh, 2, circular=True)[0]
+    k_h, v_h = kv[..., :c], kv[..., c:]
+    if n_win == 0:
+        return x[:, :, :h, :w]
+
     # read at call time, as the JAX package does; like it, the halo form
     # takes every size (its blocks do not grow with the token grid)
     if os.environ.get("PROPAINTER_TPU_ATTN", "segmented") == "halo":
 
         def cpad(a):  # circular pad of the window-padded grid at the t_ind frames
-            a = a.index_select(1, ti_t)
-            a = torch.cat([a[:, :, -eh:], a, a[:, :, :eh]], dim=2)
             return torch.cat([a[:, :, :, -ew:], a, a[:, :, :, :ew]], dim=3).contiguous()
 
         out = window_attention_halo(
-            q.contiguous(), k.contiguous(), v.contiguous(), cpad(k), cpad(v), pk, pv,
+            q.contiguous(), k.contiguous(), v.contiguous(), cpad(k_h), cpad(v_h), pk, pv,
             occ.reshape(b, n_wh, n_ww).contiguous(), bias_w, bias_sel.contiguous(), bias_p,
             window_size=window_size, n_head=n_head,
         )
@@ -376,8 +456,8 @@ def sparse_window_attention(
     win_k = _window_partition(k, window_size, n_head)
     win_v = _window_partition(v, window_size, n_head)
     # rolled keys at the t_ind frames only
-    rk = _build_rolled(k.index_select(1, ti_t), window_size, n_head)
-    rv = _build_rolled(v.index_select(1, ti_t), window_size, n_head)
+    rk = _build_rolled(k_h, window_size, n_head)
+    rv = _build_rolled(v_h, window_size, n_head)
     n_rolled = rk.shape[4]
     bias_r = bias_sel.repeat_interleave(n_rolled, dim=1).contiguous()
 
@@ -398,31 +478,34 @@ def sparse_window_attention(
 # -------------------------------------------------------------- FFN + block
 
 
-def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None, seq=None):
-    """TemporalSparseTransformer. x: [B, T, f_h, f_w, C] tokens."""
+def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None, seq=None, split=None):
+    """TemporalSparseTransformer. x: [B, T, f_h, f_w, C] tokens (the rank's
+    token rows under the H split `split`)."""
     b, t, fh, fw, c = x.shape
     att = sparse_window_attention(
         p, pre + ".attention", layer_norm(p, pre + ".norm1", x), mask, t_ind,
-        t_valid_mask=t_valid_mask, seq=seq,
+        t_valid_mask=t_valid_mask, seq=seq, split=split,
     )
     x = x + att
     y = layer_norm(p, pre + ".norm2", x)
-    mlp = fusion_feed_forward(p, pre + ".mlp", y.reshape(b * t, fh, fw, c), fold_size)
+    rows = None if split is None else split.tokens()
+    mlp = fusion_feed_forward(p, pre + ".mlp", y.reshape(b * t, fh, fw, c), fold_size, rows)
     return x + mlp.reshape(b, t, fh, fw, c)
 
 
 def transformer_stack(
     p: Params, pre: str, x, fold_size, mask, depths: int = 8, t_dilation: int = 2,
-    t_valid_mask=None, seq=None, t_total: int | None = None,
+    t_valid_mask=None, seq=None, t_total: int | None = None, split=None,
 ):
     """TemporalSparseTransformerBlock: `depths` blocks, block i attends the
     temporal-dilation frame subset arange(i % t_dilation, T, t_dilation).
     seq / t_total: sequence parallelism (x is this rank's T share; the
-    frame subsets are of the global t_total frames)."""
+    frame subsets are of the global t_total frames). split: the H split's
+    `Partition` (x and mask hold the rank's token rows)."""
     t = t_total if t_total is not None else x.shape[1]
     for i in range(depths):
         x = transformer_block(
             p, f"{pre}.transformer.{i}", x, fold_size, mask,
-            np.arange(i % t_dilation, t, t_dilation), t_valid_mask, seq=seq,
+            np.arange(i % t_dilation, t, t_dilation), t_valid_mask, seq=seq, split=split,
         )
     return x

@@ -2,10 +2,13 @@
 
 Shapes (the JAX package's layout, `ops/deform_conv.py:184-188` there):
   x      [N, H, W, Cin]
-  offset [N, H, W, G, K, 2]  (dy, dx) per offset group per tap, K = 9
-  mask   [N, H, W, G, K]     modulation scalars (already sigmoided)
+  offset [N, Ho, W, G, K, 2] (dy, dx) per offset group per tap, K = 9
+  mask   [N, Ho, W, G, K]    modulation scalars (already sigmoided)
   weight [Cout, Cin, 3, 3]   upstream OIHW; bias [Cout] or None
-Returns [N, H, W, Cout] in x's dtype. Stride 1, dilation 1, padding 1.
+Returns [N, Ho, W, Cout] in x's dtype. Stride 1, dilation 1, padding 1.
+Output row y sits at input row row0 + y of x (`row0`, default 0): a row
+slab of the output over the whole input, as the spatial H split
+(parallel/spatial.py) runs it; Ho = H and row0 = 0 is the whole image.
 CPU tensors take the plain version. CUDA tensors take a kernel by dtype:
 bf16 the tensor-core kernel (samples rounded to bf16 before the product,
 as the JAX package's XLA path rounds them, fp32 accumulation), fp32 the
@@ -24,46 +27,51 @@ from . import _build
 KC = 64  # channels of the tensor-core kernel's K chunk (csrc/deform_conv.cu, tc::KC)
 BN = 128  # output channels of its block (tc::BN)
 launches = 0  # kernel launches since the last reset
-launch_shapes: collections.Counter = collections.Counter()  # launches by x's shape, reset with `launches`
+# launches by x's shape (and, for a row slab, its rows), reset with `launches`
+launch_shapes: collections.Counter = collections.Counter()
 
 # the weights laid out for the kernels, once per weight tensor:
 # (id, dtype) -> (weakref to the weight, its version, the laid-out copy)
 _LAYOUTS: dict = {}
 
 
-def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1):
-    """Port of the JAX package's `deform_conv2d_xla`, computed in fp32."""
+def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0):
+    """Port of the JAX package's `deform_conv2d_xla` for output rows
+    [row0, row0 + Ho), computed in fp32 (in float64 for float64 x: the JAX
+    function computes in x's dtype)."""
     n, h, w, cin = x.shape
+    ho = offset.shape[1]
     cout, _, kh, kw = weight.shape
     k = kh * kw
     g = offset.shape[3]
     cg = cin // g
     dev = x.device
-    xf = x.float()
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ft)
     gy, gx = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=dev),
-        torch.arange(w, dtype=torch.float32, device=dev),
+        torch.arange(row0, row0 + ho, dtype=ft, device=dev),
+        torch.arange(w, dtype=ft, device=dev),
         indexing="ij",
     )
     ky, kx = torch.meshgrid(
-        torch.arange(kh, dtype=torch.float32, device=dev) - padding,
-        torch.arange(kw, dtype=torch.float32, device=dev) - padding,
+        torch.arange(kh, dtype=ft, device=dev) - padding,
+        torch.arange(kw, dtype=ft, device=dev) - padding,
         indexing="ij",
     )
-    base_y = gy[:, :, None] + ky.reshape(-1)  # [H, W, K]
+    base_y = gy[:, :, None] + ky.reshape(-1)  # [Ho, W, K]
     base_x = gx[:, :, None] + kx.reshape(-1)
-    # [N, H, W, K, G]: flattening gives (pixel, K, G) like the weight layout
-    sy = (base_y[None, :, :, None, :] + offset[..., 0].float()).transpose(3, 4)
-    sx = (base_x[None, :, :, None, :] + offset[..., 1].float()).transpose(3, 4)
+    # [N, Ho, W, K, G]: flattening gives (pixel, K, G) like the weight layout
+    sy = (base_y[None, :, :, None, :] + offset[..., 0].to(ft)).transpose(3, 4)
+    sx = (base_x[None, :, :, None, :] + offset[..., 1].to(ft)).transpose(3, 4)
     xg = xf.reshape(n, h * w, g, cg)
 
     def tap(iy, ix, wgt):
         valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
         iyc = iy.clamp(0, h - 1).long()
         ixc = ix.clamp(0, w - 1).long()
-        idx = (iyc * w + ixc).reshape(n, h * w * k, g)
-        v = torch.gather(xg, 1, idx[..., None].expand(-1, -1, -1, cg))  # [N, HW*K, G, Cg]
-        wv = (wgt * valid.float()).reshape(n, h * w * k, g)
+        idx = (iyc * w + ixc).reshape(n, ho * w * k, g)
+        v = torch.gather(xg, 1, idx[..., None].expand(-1, -1, -1, cg))  # [N, HoW*K, G, Cg]
+        wv = (wgt * valid.to(ft)).reshape(n, ho * w * k, g)
         return v * wv[..., None]
 
     y0, x0 = torch.floor(sy), torch.floor(sx)
@@ -75,12 +83,12 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1):
         + tap(y0 + 1, x0, wy1 * wx0)
         + tap(y0 + 1, x0 + 1, wy1 * wx1)
     )
-    samp = samp * mask.float().transpose(3, 4).reshape(n, h * w * k, g)[..., None]
-    samp = samp.reshape(n * h * w, k * cin)
-    wmat = weight.float().permute(2, 3, 1, 0).reshape(k * cin, cout)
-    out = torch.matmul(samp, wmat).reshape(n, h, w, cout)
+    samp = samp * mask.to(ft).transpose(3, 4).reshape(n, ho * w * k, g)[..., None]
+    samp = samp.reshape(n * ho * w, k * cin)
+    wmat = weight.to(ft).permute(2, 3, 1, 0).reshape(k * cin, cout)
+    out = torch.matmul(samp, wmat).reshape(n, ho, w, cout)
     if bias is not None:
-        out = out + bias.float()
+        out = out + bias.to(ft)
     return out.to(x.dtype)
 
 
@@ -117,18 +125,20 @@ def block_rows(m: int, cout: int, device) -> int:
     return 64 if -(-m // 64) * -(-cout // BN) >= 2 * sms else 32
 
 
-def _check(x, offset, mask, weight, bias, padding):
+def _check(x, offset, mask, weight, bias, padding, row0):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"deform_conv2d: x must be fp32 or bf16, got {x.dtype}")
     n, h, w, cin = x.shape
     cout = weight.shape[0]
     if weight.shape != (cout, cin, 3, 3) or padding != 1:
         raise ValueError(f"deform_conv2d kernel takes 3x3 weights [Cout, {cin}, 3, 3], padding 1; got {tuple(weight.shape)}, {padding}")
-    if offset.dim() != 6 or offset.shape[:3] != (n, h, w) or offset.shape[4:] != (9, 2):
-        raise ValueError(f"offset must be [N, H, W, G, 9, 2], got {tuple(offset.shape)}")
-    g = offset.shape[3]
-    if cin % g or mask.shape != (n, h, w, g, 9):
-        raise ValueError(f"mask must be [N, H, W, {g}, 9] with Cin % G == 0, got {tuple(mask.shape)}")
+    if offset.dim() != 6 or offset.shape[0] != n or offset.shape[2] != w or offset.shape[4:] != (9, 2):
+        raise ValueError(f"offset must be [N, Ho, W, G, 9, 2], got {tuple(offset.shape)}")
+    ho, g = offset.shape[1], offset.shape[3]
+    if not 0 <= row0 <= h - ho:
+        raise ValueError(f"deform_conv2d: output rows [{row0}, {row0 + ho}) must lie within x's {h} rows")
+    if cin % g or mask.shape != (n, ho, w, g, 9):
+        raise ValueError(f"mask must be [N, Ho, W, {g}, 9] with Cin % G == 0, got {tuple(mask.shape)}")
     for name, t in (("x", x), ("offset", offset), ("mask", mask)):
         if t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"deform_conv2d: {name} must be contiguous {x.dtype} on {x.device}")
@@ -138,18 +148,19 @@ def _check(x, offset, mask, weight, bias, padding):
         raise ValueError(f"deform_conv2d: one image of x must hold < 2^31 elements, got {h * w * cin}")
 
 
-def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1):
+def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0):
     global launches
     if x.device.type == "cpu":
-        return deform_conv2d_plain(x, offset, mask, weight, bias, padding)
+        return deform_conv2d_plain(x, offset, mask, weight, bias, padding, row0)
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv2d: unsupported device {x.device}")
-    _check(x, offset, mask, weight, bias, padding)
+    _check(x, offset, mask, weight, bias, padding, row0)
     n, h, w, cin = x.shape
+    ho = offset.shape[1]
     cout = weight.shape[0]
     g = offset.shape[3]
     wmat = _cached_layout(weight, x.dtype)
-    out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
+    out = torch.empty((n, ho, w, cout), device=x.device, dtype=x.dtype)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
@@ -158,16 +169,16 @@ def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1):
         status = lib.propainter_deform_conv_mma(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, g, wmat.shape[2], block_rows(n * h * w, cout, x.device), int(vec), stream,
+            n, h, w, cin, cout, g, wmat.shape[2], block_rows(n * ho * w, cout, x.device), int(vec), ho, row0, stream,
         )
     else:
         b = None if bias is None else bias.float().contiguous()
         status = lib.propainter_deform_conv(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, g, stream,
+            n, h, w, cin, cout, g, ho, row0, stream,
         )
     _build.check(status, "deform_conv2d")
     launches += 1
-    launch_shapes[tuple(x.shape)] += 1
+    launch_shapes[tuple(x.shape) if ho == h else tuple(x.shape) + (f"rows{row0}-{row0 + ho}",)] += 1
     return out

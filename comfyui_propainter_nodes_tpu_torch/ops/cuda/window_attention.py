@@ -54,8 +54,9 @@ def window_attention_plain(
     bias_w, bias_r, bias_p, n_win_per_b: int,
 ):
     """Both branches for every window, selected by occupancy (the JAX
-    package's XLA form), in fp32. Windows go in chunks whose scores take
-    about 1 GiB, so the 1280x720 shapes fit."""
+    package's XLA form), in fp32 (float64 inputs in float64, as the XLA
+    form computes in the inputs' dtype). Windows go in chunks whose scores
+    take about 1 GiB, so the 1280x720 shapes fit."""
     nw, nh, t, wsz, ch = win_q.shape
     n_keys = t * wsz + rolled_k.shape[2] + pool_k.shape[2]
     step = max(1, int(2**30 // (nh * t * wsz * n_keys * 4 * 2)))
@@ -68,18 +69,19 @@ def _plain_windows(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, n_win_per_b: int, w0: int, w1: int,
 ):
-    """window_attention_plain for windows [w0, w1), fp32."""
+    """window_attention_plain for windows [w0, w1), fp32 (or float64)."""
     _, nh, t, wsz, ch = win_q.shape
     nw = w1 - w0
+    ft = torch.float64 if win_q.dtype == torch.float64 else torch.float32
     rows = torch.arange(w0, w1, device=win_q.device) // n_win_per_b  # batch row per window
     scale = 1.0 / math.sqrt(ch)
-    q = win_q[w0:w1].float()
-    k = win_k[w0:w1].float()
-    v = win_v[w0:w1].float()
+    q = win_q[w0:w1].to(ft)
+    k = win_k[w0:w1].to(ft)
+    v = win_v[w0:w1].to(ft)
     qa = q.reshape(nw, nh, t * wsz, ch)
-    k_all = torch.cat([k.reshape(nw, nh, t * wsz, ch), rolled_k[w0:w1].float(), pool_k[rows].float()], dim=2)
-    v_all = torch.cat([v.reshape(nw, nh, t * wsz, ch), rolled_v[w0:w1].float(), pool_v[rows].float()], dim=2)
-    bias = torch.cat([bias_w, bias_r, bias_p], dim=1).float()[rows][:, None, None, :]
+    k_all = torch.cat([k.reshape(nw, nh, t * wsz, ch), rolled_k[w0:w1].to(ft), pool_k[rows].to(ft)], dim=2)
+    v_all = torch.cat([v.reshape(nw, nh, t * wsz, ch), rolled_v[w0:w1].to(ft), pool_v[rows].to(ft)], dim=2)
+    bias = torch.cat([bias_w, bias_r, bias_p], dim=1).to(ft)[rows][:, None, None, :]
     att_a = torch.matmul(qa, k_all.transpose(-1, -2)) * scale + bias
     out_a = torch.matmul(torch.softmax(att_a, dim=-1), v_all).reshape(nw, nh, t, wsz, ch)
     att_b = torch.matmul(q, k.transpose(-1, -2)) * scale

@@ -59,20 +59,22 @@ def grid_sample(img: torch.Tensor, coords: torch.Tensor, mode: str = "bilinear")
     )
 
 
-def coords_grid(batch: int, h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """[N, H, W, 2] pixel coordinate grid, last dim = (x, y)."""
+def coords_grid(batch: int, h: int, w: int, dtype=torch.float32, device=None, row0: int = 0) -> torch.Tensor:
+    """[N, H, W, 2] pixel coordinate grid, last dim = (x, y); rows from row0."""
     gy, gx = torch.meshgrid(
-        torch.arange(h, dtype=dtype, device=device),
+        torch.arange(row0, row0 + h, dtype=dtype, device=device),
         torch.arange(w, dtype=dtype, device=device),
         indexing="ij",
     )
     return torch.stack([gx, gy], dim=-1)[None].expand(batch, h, w, 2)
 
 
-def flow_warp(x: torch.Tensor, flow: torch.Tensor, interpolation: str = "bilinear") -> torch.Tensor:
-    """Backward-warp x [N, H, W, C] by flow [N, H, W, 2] (dx, dy)."""
-    n, h, w, _ = x.shape
-    grid = coords_grid(1, h, w, flow.dtype, flow.device)
+def flow_warp(x: torch.Tensor, flow: torch.Tensor, interpolation: str = "bilinear", row0: int = 0) -> torch.Tensor:
+    """Backward-warp x [N, H, W, C] by flow [N, Ho, W, 2] (dx, dy): output
+    row y is x's row row0 + y moved by the flow (Ho = H and row0 = 0: the
+    whole image; the H split warps its rows out of the whole map)."""
+    n, h, w, _ = flow.shape
+    grid = coords_grid(1, h, w, flow.dtype, flow.device, row0)
     coords = (grid + flow).reshape(n, h * w, 2)
     return grid_sample(x, coords, mode=interpolation).reshape(n, h, w, x.shape[-1])
 

@@ -10,13 +10,16 @@ Counterpart of the JAX package's `parallel/mesh.py`:
              T, the attention's key/value segments all-gathered
              (`parallel/sequence.py`).
 Rank r sits at (r // model, r % model), as device r of the JAX mesh. The
-one collective is `Mesh.all_gather`, tiled along one tensor dim like
-`jax.lax.all_gather(..., tiled=True)`.
+collective is `Mesh.all_gather`, tiled along one tensor dim like
+`jax.lax.all_gather(..., tiled=True)`; the spatial H split's halos move
+point to point (`Mesh.send_recv`).
 
 Backend: NCCL when every rank has a card of its own, gloo when ranks
 share a card or run on the CPU (`backend_for`). Gloo all-gathers CUDA
-tensors itself (`torch.distributed.all_gather`); where a backend does
-not take a tensor, the collective raises.
+tensors itself (`torch.distributed.all_gather`) but sends and receives
+only host tensors, so `send_recv` passes a card's tensors through the
+host under gloo; where a backend does not take a tensor, the collective
+raises.
 """
 
 from __future__ import annotations
@@ -65,6 +68,34 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         return self.coords[axis]
+
+    def global_rank(self, axis: str, q: int) -> int:
+        """The process group rank of the rank at index q of `axis` that
+        shares this rank's other coordinate."""
+        mp = self.shape[MODEL_AXIS]
+        if axis == MODEL_AXIS:
+            return self.coords[DATA_AXIS] * mp + q
+        return q * mp + self.coords[MODEL_AXIS]
+
+    def send_recv(self, sends: dict, recv_rows: dict, axis: str, like: torch.Tensor) -> dict:
+        """Point to point along `axis`: sends[q] to the rank at index q, and
+        from each index q of recv_rows a tensor shaped like `like` with
+        recv_rows[q] = (dim, n) rows along dim; every transfer posted in
+        one batch, then waited on. Returns {q: received}."""
+        group = self.groups[axis]
+        stage = torch.device("cpu") if like.is_cuda and dist.get_backend(group) == "gloo" else like.device
+        ops, got = [], {}
+        for q, t in sends.items():
+            ops.append(dist.P2POp(dist.isend, t.to(stage).contiguous(), self.global_rank(axis, q), group))
+        for q, (dim, n) in recv_rows.items():
+            shape = list(like.shape)
+            shape[dim] = n
+            got[q] = torch.empty(shape, dtype=like.dtype, device=stage)
+            ops.append(dist.P2POp(dist.irecv, got[q], self.global_rank(axis, q), group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return {q: t.to(like.device) for q, t in got.items()}
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """Every rank's x along `axis`, concatenated along `dim` in rank

@@ -18,7 +18,8 @@ PROPAINTER_TPU_CLIP_PARALLEL=1 on one card): stages 1-3 pad their chunks
 to one length, batch them on a chunk axis with their real lengths and
 split it over the data ranks (`Pipeline._chunk_mapped`); the windows of
 each group split the same way; the model ranks split the transformer's
-T (`parallel/sequence.py`). Every rank returns the whole video.
+T below 512 rows (`parallel/sequence.py`), the frames' rows from 512
+(`parallel/spatial.py`). Every rank returns the whole video.
 
 With a crop (the node's mask bounding box, `nodes.py::_mask_crop_plan`)
 the feature stage decodes, composites and blends only that window: the
@@ -48,6 +49,7 @@ from ..models import propainter as pp
 from ..models import raft
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.sequence import sequence_sharding
+from ..parallel.spatial import Partition, spatial_sharding, token_rows
 from ..utils.image import extrapolate_frames
 from ..utils.params import to_device
 from ..utils.profiling import progress_report, stage_timer
@@ -80,9 +82,11 @@ def get_ref_index(mid_neighbor_id, neighbor_ids, video_length, ref_stride, ref_n
 
 def crop_decode_ok(hw: tuple[int, int], crop) -> bool:
     """Whether the feature stage decodes only the crop (the JAX node's
-    gate, stages.py:1646-1653): decoder_crop's halo block must fit inside
-    the frame; PROPAINTER_TPU_CROP_DECODE=0 (read at call time) turns it
-    off, and the full frames are decoded and then cropped."""
+    gate, stages.py:1646-1653, where the crop decoder's fixed-size halo
+    block must fit inside the frame; the port's block is clamped to the
+    frame, and it keeps the gate to decode what the JAX node decodes);
+    PROPAINTER_TPU_CROP_DECODE=0 (read at call time) turns it off, and
+    the full frames are decoded and then cropped."""
     halo = 8 * pp.DECODER_HALO4  # full-res rows of halo, both sides
     return (
         os.environ.get("PROPAINTER_TPU_CROP_DECODE", "1") == "1"
@@ -329,7 +333,8 @@ class Pipeline:
     (clip parallelism: on with more than one data rank, or under
     PROPAINTER_TPU_CLIP_PARALLEL=1 with no mesh, as one batched call) and
     each window group of stage 4; the model ranks split the transformer's
-    T (sequence parallelism, below 512 rows or under PROPAINTER_TPU_SEQ=1).
+    T (sequence parallelism, below 512 rows or under PROPAINTER_TPU_SEQ=1)
+    or the frames' rows (the spatial H split, from 512 rows).
     Every rank returns the whole video. The device is the mesh's."""
 
     def __init__(self, raft_params, flow_params, inpaint_params, config: PipelineConfig, device=None, mesh=None):
@@ -371,9 +376,9 @@ class Pipeline:
     def _seq_selected(self, h: int) -> bool:
         """How the feature stage uses more than one model rank: sequence
         parallelism (`parallel/sequence.py`) below 512 rows, where an H
-        split would leave too few token rows a rank, else the JAX
-        package's spatial H split (not ported: ROADMAP.md Queue A item
-        6b). PROPAINTER_TPU_SEQ=1 / 0 forces the choice."""
+        split would leave too few token rows a rank, else the spatial H
+        split (`parallel/spatial.py`), the JAX package's rule.
+        PROPAINTER_TPU_SEQ=1 / 0 (read at call time) forces the choice."""
         if self._mp() <= 1:
             return False
         env = os.environ.get("PROPAINTER_TPU_SEQ")
@@ -568,45 +573,69 @@ class Pipeline:
         data rank each rank runs its contiguous share of a group (padded
         by repeating its last window) and the composed windows are
         gathered (the JAX stage's, stages.py:945-963). With more than one
-        model rank the transformer runs sequence-parallel; the JAX
-        package's other form, the spatial H split at 512 rows or more,
-        is not ported and raises."""
-        cfg = self.config
+        model rank the transformer runs sequence-parallel, or, where
+        `_seq_selected` is False, the window forward H-split
+        (`parallel/spatial.py`): each model rank encodes, propagates,
+        decodes, composes and blends its rows of the frames (of the
+        crop), and the rows are gathered at the end."""
         dt = self.cdtype
-        dev = self.device
         t, hh, ww = updated_frames.shape[1], updated_frames.shape[2], updated_frames.shape[3]
-        if self._mp() > 1 and not self._seq_selected(hh):
-            raise NotImplementedError(
-                f"feature stage: {self._mp()} model ranks at {hh} rows take the spatial H split, which is "
-                "not ported (ROADMAP.md Queue A item 6b); PROPAINTER_TPU_SEQ=1 runs sequence parallelism"
-            )
-        sels, valids, starts, lts, refs, slot_valid, l_t_max, _ = _window_tables(cfg, t)
-        n_windows = sels.shape[0]
-        dp = self._dp()
+        tables = _window_tables(self.config, t)
+        _, _, starts, _, _, slot_valid, l_t_max, _ = tables
 
         def pad_t(a):  # zero frames after the end: window slices stay in range
             return _pad_t(a, a.shape[1] + l_t_max)
 
-        uf_p = pad_t(updated_frames.to(dt))
-        um_p = pad_t(updated_masks.to(dt))
-        md_p = pad_t(masks_dilated.to(dt))
-        ff_p = pad_t(pred_flows[0].to(dt))
-        fb_p = pad_t(pred_flows[1].to(dt))
+        frames = tuple(pad_t(a.to(dt)) for a in (updated_frames, updated_masks, masks_dilated, *pred_flows))
         orig_p = pad_t(original_frames.float()[None])[0]
+        # the rows this rank composes: all, or its own under the H split,
+        # gathered at the end (`out_rows`)
+        split = self._mp() > 1 and not self._seq_selected(hh)
+        rows, out_rows = (0, hh), None
+        if split:
+            out_rows = Partition(self.mesh, MODEL_AXIS, token_rows(hh // 4)).pixels(hh)
+            rows = (out_rows.lo, out_rows.hi)
         # the composite's inputs, cropped: the composite and blend run on the crop
-        md_c, orig_c, decode_crop = md_p[0], orig_p, None
+        md_p = frames[2]
+        md_c, orig_c, decode_crop = md_p[0, :, rows[0] : rows[1]], orig_p[:, rows[0] : rows[1]], None
         if crop is not None:
             y0, x0, ch, cw = crop
-            md_c = md_c[:, y0 : y0 + ch, x0 : x0 + cw]
-            orig_c = orig_c[:, y0 : y0 + ch, x0 : x0 + cw]
+            p0, p1 = min(max(rows[0], y0), y0 + ch), min(max(rows[1], y0), y0 + ch)  # the crop's rows composed here
+            md_c = md_p[0, :, p0:p1, x0 : x0 + cw]
+            orig_c = orig_p[:, p0:p1, x0 : x0 + cw]
+            if split:
+                out_rows = out_rows.clipped(y0, y0 + ch)
             if crop_decode_ok((hh, ww), crop):
                 decode_crop = crop
+        if self._mp() <= 1:
+            ctx = contextlib.nullcontext()
+        else:
+            ctx = spatial_sharding(self.mesh) if split else sequence_sharding(self.mesh)
+        with ctx:
+            imgs = self._feature_windows(tables, frames, orig_c, md_c, (hh, ww), t, crop, decode_crop, rows)
+        out = _blend_windows(imgs, starts, slot_valid, t, l_t_max)
+        return out if out_rows is None else out_rows.gather(out, 1)
+
+    def _feature_windows(self, tables, frames, orig_c, md_c, hw, t, crop, decode_crop, rows):
+        """The feature stage's composed windows [nW, l_t_max, rows, W, 3] (of
+        the crop, with one), in groups, each group's windows split over the
+        data ranks. tables: `_window_tables`; frames: the updated frames,
+        updated and dilated masks and both flows, zero-padded on T. Under
+        `spatial_sharding` the rows are this rank's (`rows`: its pixel
+        rows), the features its widened feature rows (`encode_features`)."""
+        dt = self.cdtype
+        dev = self.device
+        uf_p, um_p, md_p, ff_p, fb_p = frames
+        hh, ww = hw
         h4, w4 = hh // 4, ww // 4
+        sels, valids, starts, lts, refs, _, l_t_max, _ = tables
+        n_windows = sels.shape[0]
+        dp = self._dp()
         prm = self.inpaint_params
 
-        # per-frame work once per unique frame, whole on every rank (a
-        # gather of the features would move more than encoding them);
-        # windows gather from it
+        # per-frame work once per unique frame, on every rank (a gather of
+        # the features would move more than encoding them; the H split
+        # encodes the rank's rows); windows gather from it
         enc_all = pp.encode_features(prm, uf_p[0, :t], md_p[0, :t], um_p[0, :t])
         ds_ff_all = pp.downsample_flow(ff_p, h4, w4)[0]
         ds_fb_all = pp.downsample_flow(fb_p, h4, w4)[0]
@@ -636,24 +665,24 @@ class Pipeline:
                 crop=decode_crop,
             )
             if crop is not None and decode_crop is None:
-                pred = pred[:, :, y0 : y0 + ch, x0 : x0 + cw]
+                y0, x0, ch, cw = crop
+                p0, p1 = min(max(rows[0], y0), y0 + ch), min(max(rows[1], y0), y0 + ch)
+                pred = pred[:, :, p0 - rows[0] : p1 - rows[0], x0 : x0 + cw]
             # uint8 composite (propainter_inference.py:283-293)
             pred_byte = torch.floor((pred.float() + 1.0) / 2.0 * 255.0)
             binary = (md_c[gloc] * gvl).float()
             orig = torch.stack([orig_c[s : s + l_t_max] for s in gst])
             return (torch.floor(pred_byte * binary + orig * (1.0 - binary)),)
 
-        seq = sequence_sharding(self.mesh) if self._mp() > 1 else contextlib.nullcontext()
         group = _window_group_size(n_windows, dp)
         self._report("feature_propagation", 0, n_windows)
         imgs = []
-        with seq:
-            for g0 in range(0, n_windows, group):
-                grp = torch.arange(g0, min(n_windows, g0 + group))
-                (out,) = self._chunk_mapped(windows)(*self._pad_chunk_axis((grp,), dp))
-                imgs.append(out[: len(grp)])
-                self._report("feature_propagation", int(grp[-1]) + 1, n_windows)
-        return _blend_windows(torch.cat(imgs, dim=0), starts, slot_valid, t, l_t_max)
+        for g0 in range(0, n_windows, group):
+            grp = torch.arange(g0, min(n_windows, g0 + group))
+            (out,) = self._chunk_mapped(windows)(*self._pad_chunk_axis((grp,), dp))
+            imgs.append(out[: len(grp)])
+            self._report("feature_propagation", int(grp[-1]) + 1, n_windows)
+        return torch.cat(imgs, dim=0)
 
     def feature_window(self, frames, masks, upd_masks, flows, old, orig, blend, l_t: int, n_ref: int):
         """One sliding window of the feature stage, full frames: the

@@ -7,9 +7,11 @@ frames and gives the same bytes:
 
   * RAFT flows are independent per frame pair, so each is computed for
     exactly the pair range a completion chunk needs: above 640x480 in
-    sub-ranges of STREAM_FLOW_PAIRS pairs, each its own `compute_flow`
-    call, as the JAX driver calls it (`_flows_range`, streaming.py:164-197
-    there), so each call takes the JAX stage's RAFT blend;
+    sub-ranges of `stream_flow_pairs()` pairs (PROPAINTER_TPU_STREAM_FLOW_PAIRS,
+    default 24, read at call time as the JAX driver reads it), each its
+    own `compute_flow` call, as the JAX driver calls it (`_flows_range`,
+    streaming.py:164-197 there), so each call takes the JAX stage's RAFT
+    blend;
   * flow-completion and image-propagation chunks have ABSOLUTE bounds
     (`complete_chunk_plan`, `imgprop_chunk_plan`: multiples of the
     chunk length with fixed halos, propainter_inference.py:115-144,
@@ -30,6 +32,7 @@ crop plan of the inpaint node is not applied here.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Callable
 
 import numpy as np
@@ -39,7 +42,11 @@ from ..utils import image as image_utils
 from ..utils.profiling import stage_timer
 from .stages import Pipeline, _window_tables, complete_chunk_plan, full_fp32, imgprop_chunk_plan
 
-STREAM_FLOW_PAIRS = 24  # RAFT pairs a compute_flow call above 640x480
+
+def stream_flow_pairs() -> int:
+    """RAFT pairs a compute_flow call above 640x480:
+    PROPAINTER_TPU_STREAM_FLOW_PAIRS (read at call time), default 24."""
+    return int(os.environ.get("PROPAINTER_TPU_STREAM_FLOW_PAIRS", "24"))
 
 
 class _ChunkCache:
@@ -144,10 +151,10 @@ def _stream(pipe, fetch, fetch_mask, t, write, mask_dilates, flow_mask_dilates, 
     def _flows(lo: int, hi: int):
         """RAFT flows (f, b) of pairs [lo, hi) in the compute dtype: one
         `compute_flow` call, or above 640x480 one a sub-range of
-        STREAM_FLOW_PAIRS pairs. RAFT casts its frames to its parameters'
+        `stream_flow_pairs()` pairs. RAFT casts its frames to its parameters'
         dtype and completion its flows to the compute dtype: casting here
         changes no value."""
-        step = hi - lo if ph * pw <= 640 * 480 else STREAM_FLOW_PAIRS
+        step = hi - lo if ph * pw <= 640 * 480 else stream_flow_pairs()
         parts_f, parts_b = [], []
         for a in range(lo, hi, step):
             frames = gather("norm", a, min(hi, a + step) + 1, rdt)[None]

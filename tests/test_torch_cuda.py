@@ -155,6 +155,28 @@ def test_deform_conv_bf16_tiles(gen, monkeypatch, rows, cin, g, cout, aligned):
     assert b2._cached_layout(w, dt) is layout
 
 
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("row0,ho", [(0, 7), (5, 8), (12, 7)])
+def test_deform_conv_row_origin(gen, dt, tol, row0, ho):
+    """Output rows [row0, row0 + ho) of x's 19 (the spatial H split's
+    slab form): within tol of the plain version at the same origin, and
+    each output row bit for bit the whole image's at its row."""
+    x = torch.randn(2, 19, 21, 128, generator=gen, device="cuda").to(dt)
+    off = (torch.randn(2, 19, 21, 16, 9, 2, generator=gen, device="cuda") * 4).to(dt)
+    mask = torch.rand(2, 19, 21, 16, 9, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(128, 128, 3, 3, generator=gen, device="cuda") * 0.05).to(dt)
+    bias = torch.randn(128, generator=gen, device="cuda").to(dt)
+    rows = slice(row0, row0 + ho)
+    o, m = off[:, rows].contiguous(), mask[:, rows].contiguous()
+    before = b2.launches
+    out = b2.deform_conv2d(x, o, m, w, bias, row0=row0)
+    assert b2.launches == before + 1 and out.shape == (2, ho, 21, 128)
+    torch.testing.assert_close(out, b2.deform_conv2d_plain(x, o, m, w, bias, row0=row0), atol=tol, rtol=tol)
+    assert torch.equal(out, b2.deform_conv2d(x, off, mask, w, bias)[:, rows])
+    with pytest.raises(ValueError, match="within"):
+        b2.deform_conv2d(x, o, m, w, bias, row0=19 - ho + 1)
+
+
 def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ, pad_first=False):
     """Per-batch-row biases: t_ind = every other frame, the last frame of
     row 1 padded (with pad_first, its first frame, a t_ind frame, too)."""

@@ -27,6 +27,7 @@ from comfyui_propainter_nodes_tpu.models import raft as jraft
 from comfyui_propainter_nodes_tpu.ops import deform_conv as jdc
 from comfyui_propainter_nodes_tpu.ops.pallas import corr_lanes as jlanes
 from comfyui_propainter_nodes_tpu.pipeline import stages as jstages
+from comfyui_propainter_nodes_tpu.pipeline import streaming as jstreaming
 from comfyui_propainter_nodes_tpu.utils.weights import random_params
 from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
 from comfyui_propainter_nodes_tpu_torch.models import raft as traft
@@ -162,24 +163,72 @@ class Recording(ShapesOnly):
         return super().compute_flow(frames)
 
 
-def test_streaming_makes_the_jax_drivers_flow_calls():
+def test_streaming_makes_the_jax_drivers_flow_calls(monkeypatch):
     """40 frames at 720x480, subvideo_length 30 (completion chunks of pairs
     0-35 and 25-39): above 640x480 RAFT runs in sub-ranges of 24 pairs,
     each its own compute_flow call (25, 12 and 15 frames), as the JAX
     driver's `_flows_range` calls it; a 25-frame call at 720x480 takes
     the JAX stage's one-call lookup (24 pairs: the map blend in bf16),
     the whole 36-frame chunk would take its chunk-by-chunk one (lanes)."""
+    monkeypatch.delenv("PROPAINTER_TPU_STREAM_FLOW_PAIRS", raising=False)
     t, h, w = 40, 480, 720
     cfg = PipelineConfig(subvideo_length=30, raft_iter=1, process_size=(w, h))
     frames, masks = moving_box_clip(t, h, w)
     pipe = Recording(cfg)
     stream(pipe, frames, masks)
     expected = []
+    step = streaming.stream_flow_pairs()
     for s_f, e_f, _, _ in stages.complete_chunk_plan(cfg, t - 1):
-        expected += [min(e_f, a + streaming.STREAM_FLOW_PAIRS) - a + 1 for a in range(s_f, e_f, streaming.STREAM_FLOW_PAIRS)]
+        expected += [min(e_f, a + step) - a + 1 for a in range(s_f, e_f, step)]
     assert pipe.flow_calls == expected == [25, 12, 15]
     assert stages.jax_flow_lookup(cfg, 25, (h, w)) == "map"
     assert stages.jax_flow_lookup(cfg, 36, (h, w)) == "lanes"
+
+
+class JaxRecording:
+    """A stand-in for the JAX package's `Pipeline` in its streaming driver,
+    keeping only the shapes (zero flows, completion and image propagation
+    returning their inputs, a window returning the tail under it) and
+    recording the frame count of every `compute_flow` call."""
+
+    def __init__(self, config: JaxConfig):
+        self.config, self.cdtype, self.flow_calls = config, jnp.float32, []
+        self.raft_params, self.inpaint_params = {"fnet.conv1.weight": jnp.zeros(1)}, {}
+
+    def compute_flow(self, frames):
+        self.flow_calls.append(frames.shape[1])
+        z = jnp.zeros(frames.shape[:1] + (frames.shape[1] - 1,) + frames.shape[2:4] + (2,), jnp.float32)
+        return z, z
+
+    def complete_flow_chunk(self, ff, fb, mk, n, t_static):
+        return ff, fb
+
+    def image_prop_chunk(self, fr, mk, ff, fb, n, t_static):
+        return fr, mk
+
+    def feature_window_fn(self, l_t_max, ref_max, hw):
+        return lambda prm, uf, sm, su, ff, fb, old, orig, blend, l_t, n_ref: old
+
+    def _report(self, *args):
+        pass
+
+
+@pytest.mark.parametrize("pairs", [12, 30])
+def test_streaming_reads_the_flow_pairs_variable(monkeypatch, pairs):
+    """PROPAINTER_TPU_STREAM_FLOW_PAIRS at 12 and 30: the port's streaming
+    driver makes the JAX driver's compute_flow calls (frames a call, in
+    order) on the clip of the test above, both reading the variable."""
+    monkeypatch.setenv("PROPAINTER_TPU_STREAM_FLOW_PAIRS", str(pairs))
+    t, h, w = 40, 480, 720
+    frames, masks = moving_box_clip(t, h, w)
+    pipe = Recording(PipelineConfig(subvideo_length=30, raft_iter=1, process_size=(w, h)))
+    stream(pipe, frames, masks)
+    jpipe = JaxRecording(JaxConfig(subvideo_length=30, raft_iter=1, process_size=(w, h)))
+    jstreaming.process_streaming(
+        jpipe, lambda s, c: frames[s : s + c], lambda s, c: masks[s : s + c], t, lambda s, a: None, 4, 4
+    )
+    assert pipe.flow_calls == jpipe.flow_calls
+    assert max(pipe.flow_calls) == pairs + 1 and pipe.flow_calls != [25, 12, 15]
 
 
 def test_streaming_at_640x480_makes_one_call_a_chunk():

@@ -5,8 +5,12 @@ Same numpy inputs and the same seeded random weights (`random_params`,
 carried across by `from_jax_params`) on the CPU, in fp32. JAX runs its
 CPU paths (the Pallas kernels' XLA twins). Per-model tolerance: 1e-4 of
 the output's largest magnitude (fp32 reassociation through a few dozen
-layers and recurrent steps)."""
+layers and recurrent steps). The whole generator also in float64, at
+the JAX package's own spatial test case (tests/test_spatial.py), to
+1e-9 as that test pins it: the port's plain kernels follow float64
+inputs as the JAX XLA twins do."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -124,3 +128,18 @@ def test_inpaint_generator_forward():
     ref = jpp.inpaint_generator_forward(pj, *[jnp.asarray(a) for a in (masked, ff, fb, masks, upd)], 4)
     out = tpp.inpaint_generator_forward(pt, *[torch.from_numpy(a) for a in (masked, ff, fb, masks, upd)], 4)
     _close_rel(out, ref)
+
+
+def test_inpaint_generator_forward_float64():
+    """tests/test_spatial.py's case (b 1, l_t 4, 2 reference frames, 80x96,
+    seed 0) in float64: atol = rtol = 1e-9; measured: 1.6e-15 at most."""
+    import test_torch_spatial
+
+    raw = random_params("inpaint_generator")
+    arrays, l_t = test_torch_spatial.forward_inputs(80, 96, np.float64)
+    with jax.enable_x64(True):
+        jparams = {k: jnp.asarray(v, jnp.float64) for k, v in raw.items()}
+        ref = np.asarray(jpp.inpaint_generator_forward(jparams, *map(jnp.asarray, arrays), l_t))
+    params = {k: v.double() for k, v in from_jax_params(raw).items()}
+    out = tpp.inpaint_generator_forward(params, *(torch.from_numpy(a) for a in arrays), l_t).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-9, rtol=1e-9)

@@ -74,3 +74,23 @@ def test_node_without_card_raises(monkeypatch, node):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         node()
+
+
+def test_pipelines_of_two_configs_share_the_device_params():
+    """Two configs of one dtype on one device get pipelines of their own
+    on the same parameter storage (the JAX package uploads once per
+    model and dtype); the fp32 and bf16 configs do not share it."""
+    from comfyui_propainter_nodes_tpu_torch import nodes
+    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
+
+    a, b, c = (
+        nodes.get_pipeline(PipelineConfig(neighbor_length=n, fp16=fp16, process_size=(96, 64)), "cpu", True)
+        for n, fp16 in ((10, "enable"), (6, "enable"), (10, "disable"))
+    )
+    assert a is not b and a.config != b.config
+    for model in ("raft_params", "flow_params", "inpaint_params"):
+        pa, pb, pc = getattr(a, model), getattr(b, model), getattr(c, model)
+        assert pa.keys() == pb.keys() == pc.keys()
+        for k, v in pa.items():
+            assert v.dtype == torch.bfloat16 and v.data_ptr() == pb[k].data_ptr(), (model, k)
+            assert pc[k].dtype == torch.float32 and pc[k].data_ptr() != v.data_ptr(), (model, k)

@@ -207,14 +207,15 @@ def test_sequence_parallel_transformer_4_ranks(tmp_path):
         np.testing.assert_allclose(out.numpy(), single.numpy(), atol=2e-5, rtol=1e-4)
 
 
-def test_model_ranks_at_512_rows_raise_without_the_sequence_switch(monkeypatch):
-    """mp > 1 at 512 rows or more is the JAX package's spatial H split,
-    not ported: the feature stage raises before any work, and
-    PROPAINTER_TPU_SEQ=1 selects sequence parallelism there."""
+def test_model_ranks_choose_the_h_split_from_512_rows(monkeypatch):
+    """mp > 1 at 512 rows or more is the spatial H split (the JAX package's
+    rule), below it sequence parallelism; PROPAINTER_TPU_SEQ=1 / 0 forces
+    the choice. The split itself runs in tests/test_torch_spatial.py."""
     pipe = Pipeline({}, {}, {}, PipelineConfig(**widgets(80), process_size=(16, 512)), mesh=tmesh.Mesh((1, 2), 0, "cpu"))
-    z = torch.zeros(1, 4, 512, 16, 1)
-    with pytest.raises(NotImplementedError, match="6b"):
-        pipe.feature_propagation(z.expand(1, 4, 512, 16, 3), z, z, (z[:, 1:], z[:, 1:]), z[0].expand(4, 512, 16, 3))
     assert not pipe._seq_selected(512) and pipe._seq_selected(511)
     monkeypatch.setenv("PROPAINTER_TPU_SEQ", "1")
     assert pipe._seq_selected(512)
+    monkeypatch.setenv("PROPAINTER_TPU_SEQ", "0")
+    assert not pipe._seq_selected(511)
+    one = Pipeline({}, {}, {}, PipelineConfig(**widgets(80), process_size=(16, 512)), mesh=tmesh.Mesh((2, 1), 0, "cpu"))
+    assert not one._seq_selected(511)  # one model rank: neither form

@@ -20,14 +20,15 @@ import torch.multiprocessing as mp
 COLLECTIVE_TIMEOUT_S = 60
 
 
-def make_inputs(seed: int, t: int, h: int, w: int):
+def make_inputs(seed: int, t: int, h: int, w: int, box=(16, 32, 20, 44)):
     """tests/test_sharding.py's clip: frames [1, T, H, W, 3] in [-1, 1],
-    the box mask [1, T, H, W, 1] at rows 16:32, cols 20:44, original
-    frames [T, H, W, 3] in [0, 255), numpy float32."""
+    the box mask [1, T, H, W, 1] at rows box[0]:box[1], cols box[2]:box[3]
+    (16:32, 20:44), original frames [T, H, W, 3] in [0, 255), numpy
+    float32."""
     rng = np.random.default_rng(seed)
     frames = rng.uniform(-1, 1, (1, t, h, w, 3)).astype(np.float32)
     masks = np.zeros((1, t, h, w, 1), np.float32)
-    masks[:, :, 16:32, 20:44] = 1.0
+    masks[:, :, box[0] : box[1], box[2] : box[3]] = 1.0
     orig = rng.uniform(0, 255, (t, h, w, 3)).astype(np.float32)
     return frames, masks, orig
 
@@ -73,10 +74,12 @@ class Ranks:
         return [torch.load(os.path.join(self.dir, f"rank{r}.pt")) for r in range(len(self.procs))]
 
 
-def pipeline_program(model_parallel: int, env: dict, widgets: dict, seed: int, t: int, h: int, w: int) -> dict:
-    """One rank of `Pipeline.process` on `make_inputs(seed, t, h, w)` with
-    a mesh of the world's ranks (model_parallel of them on the model
-    axis), CPU, random weights, fp32."""
+def pipeline_program(
+    model_parallel: int, env: dict, widgets: dict, seed: int, t: int, h: int, w: int, box=(16, 32, 20, 44), crop=None,
+) -> dict:
+    """One rank of `Pipeline.process` on `make_inputs(seed, t, h, w, box)`
+    (with `crop`) with a mesh of the world's ranks (model_parallel of them
+    on the model axis), CPU, random weights, fp32."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
     from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
     from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
@@ -86,8 +89,8 @@ def pipeline_program(model_parallel: int, env: dict, widgets: dict, seed: int, t
     mesh = make_mesh(model_parallel=model_parallel, device="cpu")
     params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
     pipe = Pipeline(*params, PipelineConfig(**widgets, process_size=(w, h)), mesh=mesh)
-    frames, masks, orig = (torch.from_numpy(a) for a in make_inputs(seed, t, h, w))
-    out = pipe.process(frames, masks, masks, orig)
+    frames, masks, orig = (torch.from_numpy(a) for a in make_inputs(seed, t, h, w, box))
+    out = pipe.process(frames, masks, masks, orig, crop)
     return dict(out=out, shape=dict(mesh.shape), coords=dict(mesh.coords), clip_parallel=pipe._clip_parallel(),
                 seq=pipe._seq_selected(h))
 
@@ -100,3 +103,27 @@ def transformer_program(params: dict, tokens, fold_size, mask, tv) -> torch.Tens
 
     mesh = make_mesh(model_parallel=dist.get_world_size(), device="cpu")
     return sequence_parallel_transformer(params, "transformers", tokens, fold_size, mask, mesh, t_valid_mask=tv)
+
+
+def spatial_program(params: dict, args: tuple, num_local_frames: int, env: dict) -> torch.Tensor:
+    """One rank of `spatial_parallel_window_predict` over all the world's
+    ranks on the model axis (with the variables `env`): the whole
+    predicted local frames."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
+    from comfyui_propainter_nodes_tpu_torch.parallel.spatial import spatial_parallel_window_predict
+
+    os.environ.update(env)
+    mesh = make_mesh(model_parallel=dist.get_world_size(), device="cpu")
+    return spatial_parallel_window_predict(params, mesh, num_local_frames)(*args)
+
+
+def halo_program(x: torch.Tensor, bounds: list, cases: list) -> list:
+    """One rank's `halo_rows` (for each (above, below, circular) of cases)
+    and `gather_rows` of its rows `bounds[rank]` of x along dim 1."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from comfyui_propainter_nodes_tpu_torch.parallel.spatial import RowSplit
+
+    mesh = make_mesh(model_parallel=dist.get_world_size(), device="cpu")
+    rows = RowSplit(mesh, MODEL_AXIS, bounds, x.shape[1])
+    mine = x[:, rows.lo : rows.hi]
+    return [rows.halo(mine, a, b, 1, circ) for a, b, circ in cases] + [rows.gather(mine, 1)]
