@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises; the exit code is then nonzero):
+Phases (any failure raises; the exit code is then nonzero). First the
+three models' seeded random weights are written as `.jax.npz` caches in a
+temporary directory named by PROPAINTER_TPU_WEIGHTS, so that every
+weights lookup of the run takes the cache and nothing is downloaded.
   1. build the CUDA kernels (csrc/*.cu, sm_90a); print the build time and,
      for each kernel, its registers, spills and static shared memory
      (ptxas) and its count of tensor-core HMMA instructions (cuobjdump
@@ -38,6 +41,13 @@ Phases (any failure raises; the exit code is then nonzero):
        x[4,45,80,256], x[8,90,160,128] and x[4,90,160,128], and B4 at
        path C's middle window group (8 windows of 19 frames, t_sel 10
        and 9, 36 token windows a row, its occupancy);
+     then the gradients (fp32) at path T's shapes: B2 at x[2,60,108,128],
+     B3 and B4 at a layer's attention (2 clips x 16 windows of 16 frames,
+     t_sel 8, path T's occupancy), B5 on the same 20x36 token grid: each
+     Function's output has a grad_fn, its input gradients are within 1e-4
+     of the plain version's largest, and its backward (the plain
+     version's forward and backward) is timed beside, for B3/B4, SDPA's
+     forward and backward on the same inputs;
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
@@ -88,7 +98,19 @@ Phases (any failure raises; the exit code is then nonzero):
      (on (1, 2) once more with the gathers and the gathered-KV
      attention timed apart);
      every rank's output is the whole video, integral and the input
-     outside its dilated mask;
+     outside its dilated mask (the fp32 legs of paths C, M and MH at
+     FP32_RAFT_ITER RAFT iterations, a depth cut);
+     then path MH (path A's clip on mesh (1, 2), the H split), and path T:
+     the training step (training/train_step.py) on 2 clips of 10 local +
+     6 reference frames at 432x240 (ProPainter's training recipe), flows
+     from the port's compute_flow and complete_flow, fp32, AdamW: the
+     first step against the same step with the plain versions of B2 and
+     B3/B4 (loss rtol 1e-5, gradients 1e-4 of their largest), 5 timed
+     steps (B2 and B4 in each, nothing else; forward / backward / update
+     split; peak), one more with the plain versions' backward timed
+     apart; then on mesh (1, 2), two ranks on one card, its first step
+     held to the single card's (loss rtol 2e-5; two weights within atol
+     1e-5, rtol 1e-4) and its second timed;
   4. print the card's name and power limit, a `kernels` JSON line, and
      the result JSON as the last line.
 Needs a CUDA card; exits nonzero without one. Details land in
@@ -551,17 +573,23 @@ def attention_biases(b, t, t_sel, per_key):
     return [bias_w] + [torch.where(sel, 0.0, -1e9).repeat_interleave(n, 1).float().contiguous() for n in per_key]
 
 
-def sdpa_library(qs, k_all, v_all, bias, occ, wsz):
+def sdpa_library(qs, k_all, v_all, bias, occ, wsz, grad=False):
     """The same function as ONE library call: SDPA over each window's
     [window | rolled (or halo) | pooled] keys with an additive mask
     (block-diagonal per frame for clean windows). qs [W, head, QT, ch],
-    k_all/v_all [W, head, L, ch], bias [W, L]."""
+    k_all/v_all [W, head, L, ch], bias [W, L]. grad: the call's forward
+    and backward (the gradients of q, k and v for a seeded output
+    gradient)."""
     qt = qs.shape[2]
     fid = torch.arange(qt, device="cuda") // wsz
     clean = torch.full((qt, k_all.shape[2]), -1e9, device="cuda")
     clean[:, :qt] = torch.where(fid[:, None] == fid[None, :], 0.0, -1e9)
     amask = torch.where(occ[:, None, None], bias[:, None, :], clean[None]).to(qs.dtype)[:, None]
-    return lambda: F.scaled_dot_product_attention(qs, k_all, v_all, attn_mask=amask)
+    if not grad:
+        return lambda: F.scaled_dot_product_attention(qs, k_all, v_all, attn_mask=amask)
+    leaves = [a.detach().requires_grad_() for a in (qs, k_all, v_all)]
+    gout = torch.randn(qs.shape, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(qs.dtype)
+    return lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves, attn_mask=amask), leaves, gout)
 
 
 def attention_bound(dt, nh, qt, wsz, ch, rl, pl_len, occ, n_win):
@@ -594,14 +622,14 @@ def attention_inputs(dt, gen, n_win, t_sel, pl_per, occ, b=5, t=13):
     return arrays + [occ] + attention_biases(b, t, t_sel, (148, pl_per))
 
 
-def attention_library(args, n_win):
+def attention_library(args, n_win, grad=False):
     q, k, v, rk, rv, pk, pv, occ, bias_w, bias_r, bias_p = args
     nw, nh, t, wsz, ch = q.shape
     qt = t * wsz
     k_all = torch.cat([k.reshape(nw, nh, qt, ch), rk, pk.repeat_interleave(n_win, 0)], 2)
     v_all = torch.cat([v.reshape(nw, nh, qt, ch), rv, pv.repeat_interleave(n_win, 0)], 2)
     bias = torch.cat([bias_w, bias_r, bias_p], 1).repeat_interleave(n_win, 0)
-    return sdpa_library(q.reshape(nw, nh, qt, ch), k_all, v_all, bias, occ, wsz)
+    return sdpa_library(q.reshape(nw, nh, qt, ch), k_all, v_all, bias, occ, wsz, grad)
 
 
 def check_window_attention(dt, gen, t_sel, occ, n_win=36, pl_per=91, grid="30x54"):
@@ -671,21 +699,19 @@ def check_window_attention_tiled(dt, gen, t_sel, occ, b=5, t=13, n_win=144, pl_p
                 n_win=n_win)
 
 
-def check_window_attention_halo(dt, gen, grid, occ):
-    """B5 at a window-padded token grid [5, 13, Hp, Wp, 512], t_sel 7."""
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as mod
-
-    b, t, t_sel, c, nh = 5, 13, 7, 512, 4
+def halo_inputs(dt, gen, b, t, t_sel, grid, occ):
+    """B5's inputs on a window-padded token grid [b, t, Hp, Wp, 512], 4
+    heads, t_ind every other frame from frame 0, t_sel of them, pooled keys
+    (Hp / 4) x (Wp / 4) a frame, occ [b * windows]."""
+    c, nh = 512, 4
     hp, wp = grid
-    wh, ww = 5, 9
-    nwh, nww = hp // wh, wp // ww
     pl_per = (hp // 4) * (wp // 4)
 
     def rnd(*s):
         return torch.randn(*s, generator=gen, device="cuda").to(dt)
 
     q, k, v = rnd(b, t, hp, wp, c), rnd(b, t, hp, wp, c), rnd(b, t, hp, wp, c)
-    ti = torch.arange(0, t, 2, device="cuda")
+    ti = torch.arange(0, 2 * t_sel, 2, device="cuda")
 
     def cpad(a):
         a = a.index_select(1, ti)
@@ -694,8 +720,20 @@ def check_window_attention_halo(dt, gen, grid, occ):
 
     pk, pv = rnd(b, nh, t_sel * pl_per, c // nh), rnd(b, nh, t_sel * pl_per, c // nh)
     bias_w, bias_hv, bias_p = attention_biases(b, t, t_sel, (1, pl_per))
-    occ3 = occ.reshape(b, nwh, nww)
-    args = (q, k, v, cpad(k), cpad(v), pk, pv, occ3, bias_w, bias_hv, bias_p)
+    return (q, k, v, cpad(k), cpad(v), pk, pv, occ.reshape(b, hp // 5, wp // 9), bias_w, bias_hv, bias_p)
+
+
+def check_window_attention_halo(dt, gen, grid, occ):
+    """B5 at a window-padded token grid [5, 13, Hp, Wp, 512], t_sel 7."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as mod
+
+    b, t, t_sel, nh = 5, 13, 7, 4
+    hp, wp = grid
+    wh, ww = 5, 9
+    nwh, nww = hp // wh, wp // ww
+    pl_per = (hp // 4) * (wp // 4)
+    args = halo_inputs(dt, gen, b, t, t_sel, grid, occ)
+    q, k, v, _, _, pk, pv, occ3, bias_w, bias_hv, bias_p = args
     kw = dict(window_size=(wh, ww), n_head=nh)
     out = mod.window_attention_halo(*args, **kw)
     torch.cuda.synchronize()
@@ -1710,7 +1748,7 @@ def tree_cm_rank(rank: int, tree: str, rendezvous: str, out: str) -> None:
                             timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
     try:
         profiling.set_blocking(True)
-        params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+        params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
         mesh = make_mesh(model_parallel=1)
         pipe = Pipeline(*params, path_config("enable"), mesh=mesh)
         with open(out, "w") as f:
@@ -1989,11 +2027,22 @@ def path_inputs(device, clip=PATH_C):
     return fnorm[None], fm[None], md[None], byte
 
 
+# RAFT's iterations (its unrolled depth) in the fp32 legs of paths C, M and
+# MH, which hold the ranks against the single card: cut from the default
+# 20 to buy path T's time (fp32 RAFT took most of those legs' 217 s)
+FP32_RAFT_ITER = 2
+
+
 def path_config(fp16: str, clip=PATH_C):
+    """Default widgets at the clip's size; fp32 (fp16="disable") at
+    FP32_RAFT_ITER RAFT iterations."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
 
     h, w = clip[1:]
-    return PipelineConfig(**dict(node_widgets(), fp16=fp16), process_size=(w, h))
+    widgets = dict(node_widgets(), fp16=fp16)
+    if fp16 == "disable":
+        widgets["raft_iter"] = FP32_RAFT_ITER
+    return PipelineConfig(**widgets, process_size=(w, h))
 
 
 def check_video(out, md, byte, tag: str, clip=PATH_C) -> np.ndarray:
@@ -2204,7 +2253,7 @@ def path_m_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: s
                             timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
     try:
         profiling.set_blocking(True)
-        params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+        params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
         results = {}
         for shape, need in PATH_M_MESHES.items():
             mesh = make_mesh(model_parallel=shape[1])
@@ -2410,7 +2459,7 @@ def path_mh_single(ref_dir: str) -> dict:
     from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
     from comfyui_propainter_nodes_tpu_torch.utils import weights
 
-    params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+    params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
     args = path_inputs("cuda", PATH_MH)
     out = {}
     for fp16 in ("disable", "enable"):
@@ -2457,7 +2506,7 @@ def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: 
                             timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
     try:
         profiling.set_blocking(True)
-        params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+        params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
         mesh = make_mesh(model_parallel=2)
         args = path_inputs(mesh.device, PATH_MH)
         results = {}
@@ -2542,6 +2591,413 @@ def path_mh_run(ref_dir: str) -> dict:
                 b2_launches_by_shape=[rk["enable"]["b2_launches_by_shape"] for rk in ranks])
 
 
+# ------------------------------------------------------------------ path T
+
+# path T: the training step (training/train_step.py) at ProPainter's
+# published training recipe (sczhou/ProPainter configs/train_propainter.json:
+# 432x240 frames, num_local_frames 10, num_ref_frames 6), a batch of 2
+# clips, the InpaintGenerator at full width in fp32 with random weights,
+# AdamW. Its attention inputs (16 frames, t_sel 8, 4 heads) give the JAX
+# size estimate 21.5e6: B4 on the single card; the (1, 2) ranks' 2 heads
+# give 10.7e6, under 12e6: B3 there
+PATH_T = dict(clips=2, local=10, ref=6, h=240, w=432)
+PATH_T_STEPS = 5
+PATH_T_NEED = ("deform_conv", "window_attention_tiled")
+PATH_T_RANK_NEED = ("deform_conv", "window_attention")
+# the weights the ranks' first step is held to (JAX's own test's check)
+PATH_T_CHECKED = {"transformers.transformer.0.attention.query.weight": 0, "transformers.transformer.0.mlp.fc2.1.weight": 1}
+
+
+def path_t_clip():
+    """(frames, h, w) of path T's clips laid end to end in one synthetic clip."""
+    c = PATH_T
+    return c["clips"] * (c["local"] + c["ref"]), c["h"], c["w"]
+
+
+def path_t_occupancy():
+    """Path T's occupied token windows: each clip's local frames' dilated
+    masks on the 20x36 token grid (16 windows a clip)."""
+    c = PATH_T
+    md = path_inputs("cuda", path_t_clip())[2][0, ..., 0]
+    t_clip = c["local"] + c["ref"]
+    return torch.cat([occupied(token_pool(md[i * t_clip : i * t_clip + c["local"]])) for i in range(c["clips"])])
+
+
+def check_grad(tag, fn, plain, args, n_diff: int, kw: dict, gen, sdpa=None) -> dict:
+    """A kernel's Function (fp32, grad mode on) against its plain version
+    on args: the output has a grad_fn and equals the plain output; each
+    gradient of the first n_diff inputs for a seeded output gradient is
+    within 1e-4 of the plain version's largest. Timed: the Function's
+    forward (the kernel) and backward (the plain version's forward and
+    backward), and `sdpa()` (SDPA's forward and backward on the same
+    inputs) where given."""
+    leaves = [a.detach().requires_grad_() for a in args[:n_diff]]
+    rest = args[n_diff:]
+    out = fn(*leaves, *rest, **kw)
+    require(out.grad_fn is not None, f"{tag}: the kernel's output has no grad_fn")
+    gout = torch.randn(out.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+    ref_leaves = [a.detach().requires_grad_() for a in args[:n_diff]]
+    ref = plain(*ref_leaves, *rest, **kw)
+    want = torch.autograd.grad(ref, ref_leaves, gout)
+    out_err, out_rel = rel_err(out.detach(), ref.detach())
+    errs = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30) for g, w in zip(got, want)]
+    log(f"  {tag} fp32 gradients: output max_abs_err {out_err:.3e} rel {out_rel:.3e}; each input's gradient against "
+        f"the plain version's, max |d| / max |g|: " + ", ".join(f"{e:.2e}" for e in errs) + " (tol 1e-4)")
+    require(out_rel <= 1e-4 and max(errs) <= 1e-4, f"{tag}: the Function's gradients disagree with the plain version's")
+    del ref, want, ref_leaves
+    res = dict(max_abs_err=out_err, max_rel_grad_err=max(errs),
+               forward_ms=time_ms(lambda: fn(*leaves, *rest, **kw), reps=5, warmup=1, batch=1),
+               backward_ms=time_ms(lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True), reps=5,
+                                   warmup=1, batch=1))
+    if sdpa is not None:
+        res["sdpa_fwd_bwd_ms"] = time_ms(sdpa, reps=5, warmup=1, batch=1)
+    log(f"    forward (kernel) {res['forward_ms']:.4f} ms, backward (plain forward + backward) {res['backward_ms']:.4f} ms"
+        + (f"; SDPA forward + backward on the same inputs {res['sdpa_fwd_bwd_ms']:.4f} ms" if sdpa else ""))
+    return res
+
+
+def path_t_grad_checks(gen) -> dict:
+    """Phase 2's gradients, fp32, at path T's shapes: B2 at a feature
+    propagation step (x [2, 60, 108, 128]), B3 and B4 at a transformer
+    layer's attention (2 clips x 16 windows of 16 frames, t_sel 8, with
+    path T's occupancy) and B5 on the same token grid (20x36)."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as wa
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
+
+    c = PATH_T
+    b, t = c["clips"], c["local"] + c["ref"]
+    occ = path_t_occupancy()
+    n_win = occ.numel() // b
+    log(f"  path T's token windows: {int(occ.sum())}/{occ.numel()} occupied ({n_win} a clip)")
+    res = {}
+    args = deform_inputs(torch.float32, gen, (b, c["h"] // 4, c["w"] // 4, 128))
+    res["B2"] = check_grad(f"B2 deform_conv x[{b},{c['h'] // 4},{c['w'] // 4},128]", b2.deform_conv2d,
+                           b2.deform_conv2d_plain, args, 5, {}, gen)
+    args = attention_inputs(torch.float32, gen, n_win, t // 2, 45, occ, b, t)
+    require(wa.uses_tiled(args[0], args[3], args[5]), "path T's attention inputs must pass the size estimate")
+    sdpa = attention_library(args, n_win, grad=True)
+    kw = dict(n_win_per_b=n_win)
+    for key, fn, plain in (("B3", wa.window_attention, wa.window_attention_plain),
+                           ("B4", wa.window_attention_tiled, wa.window_attention_tiled_plain)):
+        res[key] = check_grad(f"{key} at path T's attention", fn, plain, args, 7, kw, gen, sdpa)
+    args = halo_inputs(torch.float32, gen, b, t, t // 2, (20, 36), occ)
+    res["B5"] = check_grad("B5 on path T's token grid", b5.window_attention_halo, b5.window_attention_halo_plain,
+                           args, 7, dict(window_size=(5, 9), n_head=4), gen)
+    return res
+
+
+def path_t_batch() -> dict:
+    """Path T's batch on the card: frames [2, 16, 240, 432, 3] in [-1, 1]
+    and masks (dilated, as the node prepares them) of the synthetic clip,
+    clip i its frames 16i..16i+15 (10 local, then 6 reference); flows
+    [2, 9, 240, 432, 2] of each clip's local frames from the port's own
+    `compute_flow` and `complete_flow` at default widgets under inference
+    mode (B1, B2), cast to fp32 and cloned out of it."""
+    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
+
+    c = PATH_T
+    t_clip = c["local"] + c["ref"]
+    clip = path_t_clip()
+    fnorm, fm, md, _ = path_inputs("cuda", clip)
+    pipe = get_pipeline(path_config("enable", clip), torch.device("cuda"), True)
+    flows = []
+    with torch.inference_mode():
+        for i in range(c["clips"]):
+            s = i * t_clip
+            flows.append(pipe.complete_flow(pipe.compute_flow(fnorm[:, s : s + c["local"]]), fm[:, s : s + c["local"]]))
+
+    def clips(a):  # [1, clips * t_clip, ...] -> [clips, t_clip, ...]
+        return a.reshape(c["clips"], t_clip, *a.shape[2:]).clone()
+
+    return {"frames": clips(fnorm), "masks": clips(md), "flows_f": torch.cat([f for f, _ in flows]).float().clone(),
+            "flows_b": torch.cat([f for _, f in flows]).float().clone()}
+
+
+def plain_attention(*args, n_win_per_b):
+    """`window_attention_dispatch` with the plain versions."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as wa
+
+    plain = wa.window_attention_tiled_plain if wa.uses_tiled(args[0], args[3], args[5]) else wa.window_attention_plain
+    return plain(*args, n_win_per_b)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The generator's wrapped kernels (B2, and B3/B4 through the
+    dispatcher) replaced by their plain versions for the block, by
+    patching the attributes the model calls."""
+    from comfyui_propainter_nodes_tpu_torch.models import propainter as pp
+    from comfyui_propainter_nodes_tpu_torch.ops import attention as att
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
+
+    saved = pp.deform_conv2d, att.window_attention_dispatch
+    pp.deform_conv2d, att.window_attention_dispatch = b2.deform_conv2d_plain, plain_attention
+    try:
+        yield
+    finally:
+        pp.deform_conv2d, att.window_attention_dispatch = saved
+
+
+@contextlib.contextmanager
+def twins_backward_timed(spent: dict):
+    """Every `TwinGrad` backward (the plain versions' forward and backward)
+    synchronised on both sides and timed into spent["s"] / spent["calls"]."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _grad
+
+    orig = _grad.TwinGrad.backward
+
+    def timed(ctx, grad):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(ctx, grad)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    _grad.TwinGrad.backward = staticmethod(timed)
+    try:
+        yield spent
+    finally:
+        _grad.TwinGrad.backward = staticmethod(orig)
+
+
+def split_of(summary: dict) -> dict:
+    return {k: v["seconds"] for k, v in summary.items() if k.startswith("train_")}
+
+
+def path_t_run(ref_dir: str) -> dict:
+    """Path T on the single card: the batch (`path_t_batch`, written to
+    ref_dir for the ranks); the first step with the plain versions of the
+    kernels (`plain_kernels`) from one copy of the weights, and with the
+    kernels from another (the warm-up): loss within rtol 1e-5, each param's
+    gradient within 1e-4 of its largest entry; its loss and the checked
+    weights after it written to ref_dir; then PATH_T_STEPS timed steps
+    (launch counters reset before each: B2 and B4 in every step, nothing
+    else), their forward / backward / update split (blocking stage
+    timers), the peak, and one more step with the twins' backward timed
+    apart. Every loss and param finite."""
+    from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state, make_train_step
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
+
+    c = PATH_T
+    tag = f"path T {c['clips']} clips of {c['local']} + {c['ref']} frames {c['w']}x{c['h']}"
+    t0 = time.perf_counter()
+    batch = path_t_batch()
+    log(f"  [{tag}] batch and its flows in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items()))
+    torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(ref_dir, "path_t_batch.pt"))
+    params = weights.get_params("inpaint_generator", allow_download=False, allow_random=True)
+    step = make_train_step(None, c["local"])
+
+    def plain_step(deterministic: bool):
+        """The first step with the plain versions: (loss, gradients)."""
+        state = init_state(params)
+        reset_counters()
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            with plain_kernels():
+                state, loss = step(state, batch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts, _ = read_counters()
+        require(not any(counts.values()), f"{tag}: a kernel launched in the plain reference step: {counts}")
+        return loss, {k: p.grad for k, p in state.params.items()}
+
+    twin_loss, twin_grads = plain_step(False)
+    # the same step with torch's deterministic algorithms: how far rounding
+    # alone moves the gradients (the floor the kernels' step is read against)
+    det_grads = plain_step(True)[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(params)
+    t0 = time.perf_counter()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    first_loss = loss.item()
+    loss_rel = abs(loss.item() - twin_loss.item()) / abs(twin_loss.item())
+    # Each gradient within 1e-4 of its own largest entry, but for two kinds
+    # of param, held to the largest gradient of all: the key biases, whose
+    # gradient is zero in exact arithmetic (softmax ignores a constant
+    # added to all of a query's logits), and the deformable alignment's
+    # (its offset net and B2's weights), which reach the loss through
+    # bilinear sampling: a rounding change in the forward moves samples
+    # across cell edges, where the gradient jumps
+    gmax = max(g.abs().max().item() for g in twin_grads.values())
+
+    def errs(grads):
+        return {k: (grads[k] - twin_grads[k]).abs().max().item()
+                / max(gmax if k.endswith(".attention.key.bias") or ".deform_align." in k
+                      else twin_grads[k].abs().max().item(), 1e-30) for k in twin_grads}
+
+    grad_errs = errs({k: p.grad for k, p in state.params.items()})
+    floor = errs(det_grads)
+    worst = max(grad_errs, key=grad_errs.get)
+    own = {k: (p.grad - twin_grads[k]).abs().max().item() / max(twin_grads[k].abs().max().item(), 1e-30)
+           for k, p in state.params.items() if k.endswith(".attention.key.bias") or ".deform_align." in k}
+    log(f"  [{tag}] first step (warm-up, {warm:.3f} s): loss {loss.item():.7f}, with the plain versions "
+        f"{twin_loss.item():.7f} (rel {loss_rel:.2e}, tol 1e-5); gradients, max |d| / max |g| (tol 1e-4; the key "
+        f"biases and the deformable alignment against the largest gradient, {gmax:.3e}): worst {grad_errs[worst]:.2e} "
+        f"({worst}), next " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(grad_errs.items(), key=lambda kv: -kv[1])[1:4])
+        + f"; the plain step with deterministic algorithms against it: worst {max(floor.values()):.2e} "
+        f"({max(floor, key=floor.get)}); the tensors held to the largest gradient, against their own: worst "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(own.items(), key=lambda kv: -kv[1])[:3]))
+    require(loss_rel <= 1e-5, f"{tag}: the first step's loss differs from the plain versions' step")
+    require(grad_errs[worst] <= 1e-4, f"{tag}: {worst}'s gradient differs from the plain versions' step")
+    del twin_grads, det_grads
+    torch.save({"loss": first_loss, "params": {k: state.params[k].detach().cpu() for k in PATH_T_CHECKED},
+                "grads": {k: state.params[k].grad.cpu() for k in PATH_T_CHECKED}},
+               os.path.join(ref_dir, "path_t_single.pt"))
+    profiling.reset()
+    walls, losses, per_step = [], [], []
+    for _ in range(PATH_T_STEPS):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts, b2_shapes = read_counters()
+        require_kernels(tag, counts, PATH_T_NEED, [k for k, _, _ in counters() if k not in PATH_T_NEED])
+        per_step.append(counts)
+    split = {k: v / PATH_T_STEPS for k, v in split_of(profiling.summary()).items()}
+    peak = torch.cuda.max_memory_allocated()
+    twins = {"s": 0.0, "calls": 0}
+    profiling.reset()
+    with twins_backward_timed(twins):
+        state, loss = step(state, batch)
+    twins["backward_s"] = split_of(profiling.summary())["train_backward"]
+    finite = all(math.isfinite(x) for x in losses) and all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    require(finite, f"{tag}: a loss or a param is not finite")
+    med = statistics.median(walls)
+    log(f"  [{tag}] {PATH_T_STEPS} timed steps (s): " + ", ".join(f"{w:.4f}" for w in walls) + f"; median {med:.4f} s = "
+        f"{c['clips'] / med:.3f} clips/s = {c['clips'] * (c['local'] + c['ref']) / med:.2f} frames/s; a step's mean "
+        "split (blocking timers): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB (first and timed steps); losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + f"; launches a step {per_step[0]}; B2 by x shape {b2_shapes}")
+    log(f"  [{tag}] one more step, the twins' backward timed apart: {twins['calls']} calls, {twins['s']:.4f} s of the "
+        f"backward's {twins['backward_s']:.4f} s")
+    require(all(p == per_step[0] for p in per_step), f"{tag}: the launches differ between steps: {per_step}")
+    launches = {k: sum(p[k] for p in per_step) for k in per_step[0]}
+    return dict(clips=c["clips"], frames_per_clip=c["local"] + c["ref"], size=f"{c['w']}x{c['h']}",
+                step_seconds=walls, median_step_s=med, clips_per_s=c["clips"] / med,
+                frames_per_s=c["clips"] * (c["local"] + c["ref"]) / med, split_s=split, peak_bytes=peak,
+                losses=losses, first_step=dict(loss=first_loss, plain_loss=twin_loss.item(), loss_rel=loss_rel,
+                                               worst_grad=worst, worst_grad_err=grad_errs[worst], seconds=warm,
+                                               deterministic_plain_worst_err=max(floor.values()),
+                                               own_scale_errs=own),
+                twins_backward=twins, launches=launches, launches_per_step=per_step[0], b2_launches_by_shape=b2_shapes)
+
+
+def path_t_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: str) -> None:
+    """One rank of path T on mesh (1, 2) (a process of its own): path T's
+    batch and initial weights, the step tensor-parallel over the two
+    ranks; the first step held to the single card's: the loss (rtol 2e-5),
+    the PATH_T_CHECKED weights' gradients, gathered (within 1e-4 of their
+    largest), and the weights after the step within atol 1e-5, rtol 1e-4
+    (JAX's bounds) wherever the single card's gradient is past 1e-7 (ten
+    times AdamW's eps; below it the first update lr g / (|g| + eps) turns
+    with the gradient's rounding: those components are counted apart, and
+    at most 1e-4 of them may fall outside); the second step timed. Writes its results to ref_dir/t_rank{rank}.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state, make_train_step
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
+
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
+    try:
+        profiling.set_blocking(True)
+        mesh = make_mesh(model_parallel=2)
+        batch = {k: v.to(mesh.device) for k, v in torch.load(os.path.join(ref_dir, "path_t_batch.pt")).items()}
+        single = torch.load(os.path.join(ref_dir, "path_t_single.pt"))
+        state = init_state(weights.get_params("inpaint_generator", allow_download=False, allow_random=True), mesh)
+        step = make_train_step(mesh, PATH_T["local"])
+        results = {}
+        for i in range(2):
+            reset_counters()
+            profiling.reset()
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, _ = read_counters()
+            r = dict(seconds=wall, loss=loss.item(), launches=counts, split_s=split_of(profiling.summary()),
+                     peak_bytes=torch.cuda.max_memory_allocated(), device=str(mesh.device))
+            if i == 0:
+                r["loss_rel"] = abs(loss.item() - single["loss"]) / abs(single["loss"])
+                r["weights"] = {}
+                for k, dim in PATH_T_CHECKED.items():
+                    got = mesh.all_gather(state.params[k].detach(), MODEL_AXIS, dim=dim).cpu()
+                    grad = mesh.all_gather(state.params[k].grad, MODEL_AXIS, dim=dim).cpu()
+                    ref, gref = single["params"][k], single["grads"][k]
+                    excess = (got - ref).abs() - (1e-5 + 1e-4 * ref.abs())  # <= 0 within JAX's bounds
+                    # AdamW's first update is lr g / (|g| + 1e-8): about +-lr where |g| is past
+                    # 10 eps, but turning with the gradient's rounding where it is smaller
+                    turning = gref.abs() <= 1e-7
+                    r["weights"][k] = dict(
+                        worst_excess=excess[~turning].max().item(), components=got.numel(),
+                        small_grad_components=int(turning.sum()), small_grad_over=int((excess[turning] > 0).sum()),
+                        small_grad_worst_excess=excess[turning].max().item() if turning.any() else None,
+                        small_grad_over_largest_grad=gref[turning & (excess > 0)].abs().max().item()
+                        if bool((turning & (excess > 0)).any()) else None,
+                        grad_rel_err=(grad - gref).abs().max().item() / gref.abs().max().item(),
+                        grad_max=gref.abs().max().item())
+            results[f"step{i + 1}"] = r
+            log(f"  [path T rank {rank} mesh (1, 2) step {i + 1}] {wall:.3f} s, loss {loss.item():.7f}; launches {counts}")
+        with open(os.path.join(ref_dir, f"t_rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def path_t_ranks_run(ref_dir: str, single: dict) -> dict:
+    """Path T on mesh (1, 2): two ranks spawned as path M's (`path_t_rank`),
+    both held to the single card's first step; the second step's wall is
+    the slower rank's."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import backend_for
+
+    world = 2
+    backend = backend_for(world, "cuda")
+    t0 = time.perf_counter()
+    spawn_ranks(path_t_rank, [(r, world, backend, os.path.join(ref_dir, "t_rendezvous"), ref_dir) for r in range(world)])
+    log(f"  path T ranks: both done in {time.perf_counter() - t0:.1f} s (process start and kernel load included)")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(ref_dir, f"t_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, rk in enumerate(ranks):
+        first, second = rk["step1"], rk["step2"]
+        log(f"  [path T mesh (1, 2) rank {r}] first step: loss rel to the single card {first['loss_rel']:.2e} (tol 2e-5), "
+            f"the checked weights {first['weights']}; second step {second['seconds']:.4f} s, "
+            f"split {second['split_s']}, peak {second['peak_bytes'] / 2**30:.3f} GiB")
+        require(first["loss_rel"] <= 2e-5, f"path T rank {r}: the first step's loss differs from the single card's")
+        require(all(v["worst_excess"] <= 0 and v["grad_rel_err"] <= 1e-4 and v["small_grad_over"] <= 1e-4 * v["components"]
+                    for v in first["weights"].values()),
+                f"path T rank {r}: the weights or gradients of the first step differ from the single card's")
+        for st in (first, second):
+            require_kernels(f"path T rank {r}", st["launches"], PATH_T_RANK_NEED,
+                            [k for k, _, _ in counters() if k not in PATH_T_RANK_NEED])
+    wall = max(rk["step2"]["seconds"] for rk in ranks)
+    c = PATH_T
+    log(f"  [path T mesh (1, 2)] the second step {wall:.4f} s = {c['clips'] / wall:.3f} clips/s (the slower rank); "
+        f"single card {single['median_step_s']:.4f} s")
+    launches = {name: sum(rk[s]["launches"][name] for rk in ranks for s in ("step1", "step2")) for name, _, _ in counters()}
+    return dict(backend=backend, cards=torch.cuda.device_count(), seconds=wall, clips_per_s=c["clips"] / wall,
+                ranks=ranks, launches=launches)
+
+
 KEEP = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a kernels row's numbers
 
 
@@ -2551,6 +3007,26 @@ def subset(r: dict, keys) -> dict:
 
 def fp32_of(r: dict) -> dict:
     return dict(max_abs_err_fp32=r["max_abs_err"], ms_fp32=r["ms"])
+
+
+def weights_cache() -> tempfile.TemporaryDirectory:
+    """The three models' seeded random weights written as the `.jax.npz`
+    cache files `get_params` reads first, in a temporary directory named by
+    PROPAINTER_TPU_WEIGHTS (the ranks inherit it), and each loaded from
+    there once (no random fallback allowed): every node, pipeline and rank
+    of the run takes the cache branch, and nothing is downloaded."""
+    from comfyui_propainter_nodes_tpu_torch.utils import checkpoint, weights
+
+    d = tempfile.TemporaryDirectory(prefix="propainter_weights_")
+    t0 = time.perf_counter()
+    for model, fname in weights.MODEL_FILES.items():
+        checkpoint.save_params(weights.random_params(model), os.path.join(d.name, os.path.splitext(fname)[0] + ".jax.npz"))
+    os.environ["PROPAINTER_TPU_WEIGHTS"] = d.name
+    weights._PARAM_CACHE.clear()
+    for model in weights.MODEL_FILES:
+        weights.get_params(model, allow_download=False)
+    log(f"  random weights written as .jax.npz caches and loaded from them in {time.perf_counter() - t0:.2f} s")
+    return d
 
 
 def main() -> int:
@@ -2568,6 +3044,7 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
         return fc_plan()
     t_start = time.perf_counter()
+    weights_dir = weights_cache()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
     from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
@@ -2662,6 +3139,8 @@ def main() -> int:
         cw = check_corr_window(dt, gen)
         res[("B6", key)], res[("B7", key)] = cw["B6"], cw["B7"]
         torch.cuda.empty_cache()
+    grads = path_t_grad_checks(gen)
+    torch.cuda.empty_cache()
 
     log("phase 3: ProPainterInpaint and ProPainterOutpaint, 24 frames, default widgets, random weights")
     # the JAX dispatcher's lookup gate: the lanes blend for the main path's
@@ -2720,8 +3199,12 @@ def main() -> int:
         path_m = path_m_run(ref_dir)
         # path MH: path A's clip on path M's ranks, mesh (1, 2), the feature stage H-split
         path_mh = path_mh_run(ref_dir)
+        # path T: the training step, on the single card, then on mesh (1, 2)
+        torch.cuda.empty_cache()
+        path_t = path_t_run(ref_dir)
+        path_t_ranks = path_t_ranks_run(ref_dir, path_t)
     paths = {"main": main_run, "path_a": path_a, "path_b": path_b, "path_o": path_o, "path_s": path_s, "path_h": path_h,
-             "path_c": path_c, "path_m": path_m, "path_mh": path_mh}
+             "path_c": path_c, "path_m": path_m, "path_mh": path_mh, "path_t": path_t, "path_t_ranks": path_t_ranks}
     for path, expected in EARLIER_LAUNCHES.items():
         got = {k: v for k, v in paths[path]["launches"].items() if v}
         require(got == expected, f"{path}: launches {got}, expected {expected}")
@@ -2732,6 +3215,9 @@ def main() -> int:
     log(smi)
     pkg = "comfyui_propainter_nodes_tpu_torch"
     pallas = "comfyui_propainter_nodes_tpu/ops/pallas"
+    # the wrapped kernels' gradients at path T's shapes (fp32)
+    grad_rows = {"deform_conv": "B2", "window_attention": "B3", "window_attention_tiled": "B4",
+                 "window_attention_halo": "B5"}
     rows = [  # name, source, replaces, result key, path whose run counts its launches
         ("corr_lookup", "corr_lookup.cu", "corr_lanes.py:55", "B1", main_run),
         ("corr_lookup_map", "corr_lookup.cu", "corr_lanes.py:55", "B1map", path_a),
@@ -2754,6 +3240,8 @@ def main() -> int:
             "max_abs_err_fp32": f32 and f32["max_abs_err"], "ms_fp32": f32 and f32["ms"],
             "launches_by_path": {p: v["launches"][name_k] for p, v in paths.items()},
         }
+        if name_k in grad_rows:  # fp32, path T's shapes: the Function's forward and backward, SDPA's
+            row["path_t_gradients"] = grads[grad_rows[name_k]]
         if rk.startswith("B1"):
             row["blend"] = r["blend"]
             row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]
@@ -2815,7 +3303,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "resources": resources,
                    "streaming_vs_in_memory": streaming, "forced_forms_1080p": forced,
-                   "node": paths}, f, indent=1)
+                   "gradients_path_t": grads, "node": paths}, f, indent=1)
+    weights_dir.cleanup()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

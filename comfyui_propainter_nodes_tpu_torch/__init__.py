@@ -29,6 +29,14 @@ K/V, below 512 rows) or the frames' rows (the spatial H split,
 parallel/spatial.py), and every rank returns the whole video. The nodes and streaming
 take no mesh. `parallel/sharding.py` holds the weights' rule table.
 
+Training (training/): `make_train_step` fine-tunes the InpaintGenerator
+on the reconstruction losses with AdamW, data parallel over clips and
+tensor parallel over the transformer's width on a mesh; the kernels it
+runs (B2, B3/B4, B5) are differentiable through their plain versions
+(ops/cuda/_grad.py). Weights (utils/weights.py, utils/checkpoint.py):
+the upstream checkpoints, downloaded and checksummed, converted once into
+the `.jax.npz` cache the JAX package also reads, or seeded random ones.
+
 Kernels (ops/cuda/, sources in csrc/), one for each of the JAX package's
 seven Pallas kernels:
   B1 the RAFT correlation window lookup, both directions in one launch
@@ -43,7 +51,9 @@ seven Pallas kernels:
   B6 the four-level padded-map correlation lookup and B7 its one-level
      form (corr_window.cu).
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-PyTorch version for CPU tensors.
+PyTorch version for CPU tensors; under grad mode B2-B5 launch inside a
+`torch.autograd.Function` whose backward is the plain version's, and B1,
+B6 and B7 raise.
 """
 
 from .nodes import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS

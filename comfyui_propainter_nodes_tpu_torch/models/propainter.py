@@ -1,4 +1,4 @@
-"""ProPainter InpaintGenerator (inference).
+"""ProPainter InpaintGenerator (inference, and the training step's forward).
 
 Port of the JAX package's `models/propainter.py` (main path): the
 encoder with grouped fusion, image propagation (warp-fill, no weights)
@@ -26,7 +26,11 @@ sequence-parallel over the mesh's model axis. Under
 `encode_features` returns, and `inpaint_generator_from_features` takes,
 this rank's feature rows widened by PROP_HALO4 (the flows and masks stay
 whole), each step of feature propagation gathers its map over H, and the
-forward returns the rank's pixel rows (of the crop, with one).
+forward returns the rank's pixel rows (of the crop, with one). Under
+`parallel/sharding.py::tensor_sharding` (the training step's) the
+transformer runs tensor-parallel on the rank's shards. Every op is
+differentiable: the kernels B2 and B3/B4/B5 take their gradients from
+their plain versions (ops/cuda/_grad.py).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ..ops.pool import max_pool2d
 from ..ops.resize import resize_2x_window, resize_bilinear, resize_nearest
 from ..ops.warp import flow_warp
 from ..parallel.sequence import sequence_active, sequence_parallel_transformer
+from ..parallel.sharding import tensor_active
 from ..parallel.spatial import ENC_HALO4, PROP_HALO4, Partition, RowSplit, spatial_active, token_rows
 
 Params = Mapping[str, torch.Tensor]
@@ -452,7 +457,7 @@ def inpaint_generator_from_features(
     else:
         trans_feat = transformer_stack(
             p, "transformers", trans_feat, (h, w), mask_pool_l[:, :, tok.lo : tok.hi], t_valid_mask=t_valid_mask,
-            split=part,
+            split=part, tp=tensor_active(),
         )
     trans_feat = soft_comp(p, "sc", trans_feat.reshape(b * t, fh, fw, HIDDEN), (h, w), (tok, feat))
     enc_feat = enc_feat + trans_feat.reshape(b, t, feat.rows, w, CHANNEL)

@@ -35,7 +35,6 @@ from .utils.metrics import RunRecorder
 from .utils.params import to_device
 
 _PIPELINE_CACHE: dict = {}
-_HOST_PARAMS: dict = {}  # (model, allow_random) -> upstream-layout CPU params
 _PARAM_CACHE: dict = {}  # (model, dtype, device, allow_random) -> params on the device
 
 
@@ -143,12 +142,14 @@ def _upload_u8(a: np.ndarray, device) -> torch.Tensor:
 def _cached_params(model: str, dtype: torch.dtype, device, allow_random: bool) -> dict:
     """A model's params, loaded once and cast and moved once per (dtype,
     device): the pipelines of every config on a device share them, as the
-    JAX package's device params are shared (nodes.py:161-187 there)."""
-    if (model, allow_random) not in _HOST_PARAMS:
-        _HOST_PARAMS[(model, allow_random)] = weights_zoo.get_params(model, allow_random=allow_random)
+    JAX package's device params are shared (nodes.py:161-187 there). The
+    host copy is `get_params`' in-process cache; a run that asks for
+    random weights (`_allow_random_weights`, tests and benchmarks) takes a
+    local cache or checkpoint where one exists and never downloads."""
     key = (model, dtype, str(device), allow_random)
     if key not in _PARAM_CACHE:
-        _PARAM_CACHE[key] = to_device(_HOST_PARAMS[(model, allow_random)], device, dtype)
+        host = weights_zoo.get_params(model, allow_download=not allow_random, allow_random=allow_random)
+        _PARAM_CACHE[key] = to_device(host, device, dtype)
     return _PARAM_CACHE[key]
 
 

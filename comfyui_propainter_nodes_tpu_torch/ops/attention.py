@@ -20,7 +20,13 @@ token rows of everything else, and fetches from the other ranks the
 rows its ops read past its edges: the rolled K/V's (circular), the
 pooled tokens (gathered), and those of the soft split's, soft comp's
 and the FFN's patches. Without it the same bodies run on one rank's
-whole grids (`Partition(None, None, fh)`, `RowSplit.whole`).
+whole grids (`Partition(None, None, fh)`, `RowSplit.whole`). Under
+tensor parallelism (`tp`, the training step's: parallel/sharding.py)
+each rank runs its heads of q/k/v and its share of the FFN's hidden
+channels on `shard_params` shards; the attention's proj and the FFN's
+fc2 sum the ranks' partial products (`reduce_from`) and add their whole
+bias after, and `copy_to` stands in front of q/k/v, the pooled tokens'
+key/value and fc1.
 
 SoftSplit is one strided conv; SoftComp and FusionFeedForward run in
 stride-phase space (fold/unfold composed with the linear layers become
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import copy_to, reduce_from
 from ..parallel.spatial import Partition, RowSplit, token_rows
 from .conv import conv2d, layer_norm, linear
 from .cuda.window_attention import window_attention_dispatch
@@ -166,15 +173,19 @@ def soft_comp(p: Params, pre: str, tokens: torch.Tensor, output_size, rows=None)
     return out[:, feat.lo - c0 : feat.hi - c0]
 
 
-def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size, rows=None) -> torch.Tensor:
+def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size, rows=None, tp=None) -> torch.Tensor:
     """FusionFeedForward in phase space: fold∘fc1 as a 3x3 token-grid conv,
     the fold normalisation as a static per-phase multiplier, exact GELU,
     fc2∘unfold as a 3x3 VALID conv. x: [N, f_h, f_w, dim]. rows (the H
     split's token `RowSplit`, the whole grid by default): x holds the
     rank's token rows; an output row reads the 2 token rows each side of
-    it, and the multiplier is the whole grid's at the rows computed."""
+    it, and the multiplier is the whole grid's at the rows computed.
+    tp = (mesh, axis): fc1 column parallel, fc2 row parallel (the hidden
+    channels are whole 49-position groups, so the fold is rank-local)."""
     if rows is None:
         rows = RowSplit.whole(x.shape[1])
+    if tp is not None:
+        x = copy_to(x, *tp)
     ext, q0 = rows.halo(x, 2, 2, 1)
     if rows.lo == rows.hi:  # a rank without rows only takes part in the exchange
         return x
@@ -197,8 +208,11 @@ def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size, rows=
     k2 = F.pad(k2, (0, 0, 0, sw * dw - kw, 0, sh * dh - kh))
     k2 = k2.reshape(c_mid, dh, sh, dw, sw, dim).permute(1, 3, 2, 4, 0, 5)
     k2 = k2.reshape(dh, dw, sh * sw * c_mid, dim).permute(3, 2, 0, 1)
-    out = conv2d(y, k2, p[pre + ".fc2.1.bias"])
-    return out[:, rows.lo - q0 : rows.hi - q0]
+    b2 = p[pre + ".fc2.1.bias"]
+    out = conv2d(y, k2, None if tp is not None else b2)[:, rows.lo - q0 : rows.hi - q0]
+    if tp is not None:
+        out = reduce_from(out, *tp) + b2.to(out.dtype)
+    return out
 
 
 # ----------------------------------------------------------- window helpers
@@ -333,6 +347,15 @@ def _pooled_rows(x, pool_w, grid, pool, pool_size) -> torch.Tensor:
     return pool.gather(mine, 1)
 
 
+def _proj(p: Params, name: str, x: torch.Tensor, tp) -> torch.Tensor:
+    """The output projection; row parallel under tp: the rank's partial
+    product summed over the ranks, then the whole bias."""
+    if tp is None:
+        return linear(p, name, x)
+    y = reduce_from(F.linear(x, p[name + ".weight"].to(x.dtype)), *tp)
+    return y + p[name + ".bias"].to(x.dtype)
+
+
 def sparse_window_attention(
     p: Params,
     pre: str,
@@ -345,6 +368,7 @@ def sparse_window_attention(
     t_valid_mask: torch.Tensor | None = None,
     seq=None,
     split=None,
+    tp=None,
 ) -> torch.Tensor:
     """SparseWindowAttention.forward.
 
@@ -362,7 +386,12 @@ def sparse_window_attention(
     mask hold the rank's token rows; it attends its own windows (the last
     window row's padding is the rank's), takes the circular rows of the
     rolled K/V from its neighbours and the pooled tokens from every rank
-    (`_pooled_rows`)."""
+    (`_pooled_rows`).
+
+    tp = (mesh, axis): tensor parallelism (the training step's), on the
+    whole grid: q/k/v hold the rank's heads (n_head is the whole count;
+    the rank runs n_head * its q channels / C of them), the pooled
+    tokens are whole, proj is row parallel."""
     b, t, h, w, c = x.shape
     dev = x.device
     wh, ww = window_size
@@ -377,15 +406,20 @@ def sparse_window_attention(
         mask = F.pad(mask, (0, 0, 0, new_w - w, 0, new_h - h))
     n_win = n_wh * n_ww
 
-    q = linear(p, pre + ".query", x)
-    k = linear(p, pre + ".key", x)
-    v = linear(p, pre + ".value", x)
+    xq = x if tp is None else copy_to(x, *tp)
+    q = linear(p, pre + ".query", xq)
+    k = linear(p, pre + ".key", xq)
+    v = linear(p, pre + ".value", xq)
+    cq = q.shape[-1]  # the rank's channels of q/k/v: C, or its heads' under tp
+    heads = n_head * cq // c
 
     # pooled global tokens: depthwise 4x4 stride-4 conv, then key/value
     pool_w = p[pre + ".pool_layer.weight"], p[pre + ".pool_layer.bias"]
     pool_x = _pooled_rows(x, pool_w, grid, split.pool_rows(grid.total // pool_size[0]), pool_size)
     p_h, p_w = pool_x.shape[1], pool_x.shape[2]
     pool_x = pool_x.reshape(b, t, p_h, p_w, c)
+    if tp is not None:
+        pool_x = copy_to(pool_x, *tp)
 
     # occupancy: a window is occupied if the mask touches it in any local frame
     l_t = mask.shape[1]
@@ -402,9 +436,9 @@ def sparse_window_attention(
             tv = t_valid_mask.to(dev).reshape(-1, t_glob).expand(b, t_glob)
         out = _gathered_kv_attention(
             q, k, v, linear(p, pre + ".key", pool_x), linear(p, pre + ".value", pool_x), occ, ti, tv, seq,
-            window_size, n_head,
+            window_size, heads,
         )
-        return linear(p, pre + ".proj", out[:, :, :h, :w])
+        return _proj(p, pre + ".proj", out[:, :, :h, :w], tp)
 
     ti = np.arange(t) if t_ind is None else np.asarray(t_ind)
     ti_t = torch.as_tensor(ti, device=dev)
@@ -412,8 +446,8 @@ def sparse_window_attention(
     eh, ew = (wh + 1) // 2, (ww + 1) // 2
 
     def heads_of(a):  # [B, T, ph, pw, C] -> [B, head, T_sel*ph*pw, ch]
-        a = a.reshape(b, t, p_h * p_w, n_head, ch).permute(0, 3, 1, 2, 4)
-        return a.index_select(2, ti_t).reshape(b, n_head, t_sel * p_h * p_w, ch).contiguous()
+        a = a.reshape(b, t, p_h * p_w, heads, ch).permute(0, 3, 1, 2, 4)
+        return a.index_select(2, ti_t).reshape(b, heads, t_sel * p_h * p_w, ch).contiguous()
 
     pk = heads_of(linear(p, pre + ".key", pool_x))
     pv = heads_of(linear(p, pre + ".value", pool_x))
@@ -434,7 +468,7 @@ def sparse_window_attention(
     # rolled copies' rows, and the halo kernel's): under the split, the
     # rows past the rank's edges from its neighbours, K and V in one exchange
     kv = grid.halo(torch.cat([k, v], dim=-1).index_select(1, ti_t), eh, eh, 2, circular=True)[0]
-    k_h, v_h = kv[..., :c], kv[..., c:]
+    k_h, v_h = kv[..., :cq], kv[..., cq:]
     if n_win == 0:
         return x[:, :, :h, :w]
 
@@ -448,64 +482,69 @@ def sparse_window_attention(
         out = window_attention_halo(
             q.contiguous(), k.contiguous(), v.contiguous(), cpad(k_h), cpad(v_h), pk, pv,
             occ.reshape(b, n_wh, n_ww).contiguous(), bias_w, bias_sel.contiguous(), bias_p,
-            window_size=window_size, n_head=n_head,
+            window_size=window_size, n_head=heads,
         )
-        return linear(p, pre + ".proj", out[:, :, :h, :w])
+        return _proj(p, pre + ".proj", out[:, :, :h, :w], tp)
 
-    win_q = _window_partition(q, window_size, n_head)
-    win_k = _window_partition(k, window_size, n_head)
-    win_v = _window_partition(v, window_size, n_head)
+    win_q = _window_partition(q, window_size, heads)
+    win_k = _window_partition(k, window_size, heads)
+    win_v = _window_partition(v, window_size, heads)
     # rolled keys at the t_ind frames only
-    rk = _build_rolled(k_h, window_size, n_head)
-    rv = _build_rolled(v_h, window_size, n_head)
+    rk = _build_rolled(k_h, window_size, heads)
+    rv = _build_rolled(v_h, window_size, heads)
     n_rolled = rk.shape[4]
     bias_r = bias_sel.repeat_interleave(n_rolled, dim=1).contiguous()
 
     out = window_attention_dispatch(
-        win_q.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
-        win_k.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
-        win_v.reshape(b * n_win, n_head, t, wh * ww, ch).contiguous(),
-        rk.reshape(b * n_win, n_head, t_sel * n_rolled, ch).contiguous(),
-        rv.reshape(b * n_win, n_head, t_sel * n_rolled, ch).contiguous(),
+        win_q.reshape(b * n_win, heads, t, wh * ww, ch).contiguous(),
+        win_k.reshape(b * n_win, heads, t, wh * ww, ch).contiguous(),
+        win_v.reshape(b * n_win, heads, t, wh * ww, ch).contiguous(),
+        rk.reshape(b * n_win, heads, t_sel * n_rolled, ch).contiguous(),
+        rv.reshape(b * n_win, heads, t_sel * n_rolled, ch).contiguous(),
         pk, pv, occ.reshape(b * n_win).contiguous(), bias_w, bias_r, bias_p,
         n_win_per_b=n_win,
     )
-    out = out.reshape(b, n_wh, n_ww, n_head, t, wh, ww, ch)
-    out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, t, new_h, new_w, c)
-    return linear(p, pre + ".proj", out[:, :, :h, :w])
+    out = out.reshape(b, n_wh, n_ww, heads, t, wh, ww, ch)
+    out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, t, new_h, new_w, cq)
+    return _proj(p, pre + ".proj", out[:, :, :h, :w], tp)
 
 
 # -------------------------------------------------------------- FFN + block
 
 
-def transformer_block(p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None, seq=None, split=None):
+def transformer_block(
+    p: Params, pre: str, x, fold_size, mask, t_ind, t_valid_mask=None, seq=None, split=None, tp=None,
+):
     """TemporalSparseTransformer. x: [B, T, f_h, f_w, C] tokens (the rank's
-    token rows under the H split `split`)."""
+    token rows under the H split `split`); tp: tensor parallelism."""
     b, t, fh, fw, c = x.shape
     att = sparse_window_attention(
         p, pre + ".attention", layer_norm(p, pre + ".norm1", x), mask, t_ind,
-        t_valid_mask=t_valid_mask, seq=seq, split=split,
+        t_valid_mask=t_valid_mask, seq=seq, split=split, tp=tp,
     )
     x = x + att
     y = layer_norm(p, pre + ".norm2", x)
     rows = None if split is None else split.tokens()
-    mlp = fusion_feed_forward(p, pre + ".mlp", y.reshape(b * t, fh, fw, c), fold_size, rows)
+    mlp = fusion_feed_forward(p, pre + ".mlp", y.reshape(b * t, fh, fw, c), fold_size, rows, tp)
     return x + mlp.reshape(b, t, fh, fw, c)
 
 
 def transformer_stack(
     p: Params, pre: str, x, fold_size, mask, depths: int = 8, t_dilation: int = 2,
-    t_valid_mask=None, seq=None, t_total: int | None = None, split=None,
+    t_valid_mask=None, seq=None, t_total: int | None = None, split=None, tp=None,
 ):
     """TemporalSparseTransformerBlock: `depths` blocks, block i attends the
     temporal-dilation frame subset arange(i % t_dilation, T, t_dilation).
     seq / t_total: sequence parallelism (x is this rank's T share; the
     frame subsets are of the global t_total frames). split: the H split's
-    `Partition` (x and mask hold the rank's token rows)."""
+    `Partition` (x and mask hold the rank's token rows). tp: tensor
+    parallelism (`sparse_window_attention`), not combined with the others."""
+    if tp is not None and (seq is not None or not (split is None or split.whole)):
+        raise ValueError("transformer_stack: tensor parallelism runs without the sequence or the spatial split")
     t = t_total if t_total is not None else x.shape[1]
     for i in range(depths):
         x = transformer_block(
             p, f"{pre}.transformer.{i}", x, fold_size, mask,
-            np.arange(i % t_dilation, t, t_dilation), t_valid_mask, seq=seq, split=split,
+            np.arange(i % t_dilation, t, t_dilation), t_valid_mask, seq=seq, split=split, tp=tp,
         )
     return x

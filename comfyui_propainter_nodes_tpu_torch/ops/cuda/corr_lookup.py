@@ -14,7 +14,9 @@ Two blends, the two lookups of the JAX package's RAFT dispatcher:
   "map"    fractions rounded to the maps' dtype and every product and
            sum of the blend rounded to it (`lookup_corr`, `raft.py:249`
            there). In fp32 the two are the same arithmetic.
-CPU tensors take the plain version; CUDA tensors take the kernel.
+CPU tensors take the plain version; CUDA tensors take the kernel, which
+has no backward: under grad mode with an input that requires grad it
+raises (RAFT is not trained, in this package or the JAX one).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._grad import forward_only
 
 RADIUS = 4
 WIN = 2 * RADIUS + 1
@@ -104,6 +107,7 @@ def corr_lookup(pyramid: list[torch.Tensor], coords: torch.Tensor, pyramid_b=Non
         return corr_lookup_plain(pyramid, coords, pyramid_b, blend)
     if coords.device.type != "cuda":
         raise ValueError(f"corr_lookup: unsupported device {coords.device}")
+    forward_only("corr_lookup", coords, *pyramid, *(pyramid_b or ()))
     if blend not in BLENDS:
         raise ValueError(f"corr_lookup: blend must be one of {BLENDS}, got {blend!r}")
     _check([pyramid] if pyramid_b is None else [pyramid, pyramid_b], coords)

@@ -15,7 +15,8 @@ is four loads and six flops. Both kernels stage a block's windows in
 shared memory, each element loaded once (32 pixels a block for one
 level, 24 for four), and write four outputs a thread as one 16-byte
 store (csrc/corr_window.cu). CPU tensors take the plain versions; CUDA
-tensors take the kernels.
+tensors take the kernels, which have no backward: under grad mode with
+an input that requires grad they raise.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._grad import forward_only
 
 WIN = 10  # window rows/cols fetched per pixel (2 * radius + 2)
 TAPS = 9
@@ -86,6 +88,7 @@ def corr_window_lookup(corr_pad, sy, sx, fy, fx) -> torch.Tensor:
     global launches
     if not _device_ok(corr_pad, "corr_window_lookup"):
         return corr_window_lookup_plain(corr_pad, sy, sx, fy, fx)
+    forward_only("corr_window_lookup", corr_pad, fy, fx)
     m, hp, wp = corr_pad.shape
     _check_maps([corr_pad], m, sy.device)
     sy, sx, fy, fx = _starts_and_fracs(sy, sx, fy, fx, (m,))
@@ -106,6 +109,7 @@ def corr_window_lookup4(pyramid, sy, sx, fy, fx) -> torch.Tensor:
         raise ValueError(f"corr_window_lookup4 needs 4 levels, got {len(pyramid)}")
     if not _device_ok(pyramid[0], "corr_window_lookup4"):
         return corr_window_lookup4_plain(pyramid, sy, sx, fy, fx)
+    forward_only("corr_window_lookup4", *pyramid, fy, fx)
     m = pyramid[0].shape[0]
     _check_maps(pyramid, m, sy.device)
     sy, sx, fy, fx = _starts_and_fracs(sy, sx, fy, fx, (4, m))

@@ -12,7 +12,10 @@ slab of the output over the whole input, as the spatial H split
 CPU tensors take the plain version. CUDA tensors take a kernel by dtype:
 bf16 the tensor-core kernel (samples rounded to bf16 before the product,
 as the JAX package's XLA path rounds them, fp32 accumulation), fp32 the
-CUDA-core kernel (exact); any other dtype raises.
+CUDA-core kernel (exact); any other dtype raises. Under grad mode, with
+x, offset, mask, weight or bias requiring grad, the fp32 kernel runs
+inside `_grad.TwinGrad`: the backward is the plain version's (bf16
+raises there).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import weakref
 import torch
 
 from . import _build
+from ._grad import twin_grad, wants_grad
 
 KC = 64  # channels of the tensor-core kernel's K chunk (csrc/deform_conv.cu, tc::KC)
 BN = 128  # output channels of its block (tc::BN)
@@ -149,11 +153,18 @@ def _check(x, offset, mask, weight, bias, padding, row0):
 
 
 def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0):
-    global launches
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, padding, row0)
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv2d: unsupported device {x.device}")
+    inputs = (x, offset, mask, weight, bias)
+    if wants_grad(*inputs):
+        return twin_grad("deform_conv2d", _launch, deform_conv2d_plain, 5, inputs, padding=padding, row0=row0)
+    return _launch(*inputs, padding=padding, row0=row0)
+
+
+def _launch(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0):
+    global launches
     _check(x, offset, mask, weight, bias, padding, row0)
     n, h, w, cin = x.shape
     ho = offset.shape[1]

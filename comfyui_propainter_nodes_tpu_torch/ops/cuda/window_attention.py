@@ -24,7 +24,9 @@ Signature (the JAX package's `window_attention_pallas`):
 Returns [W, head, T, wsz, ch] in win_q's dtype. Occupied windows attend
 over [window | rolled | pooled] keys; clean windows attend within each
 frame's own wsz keys. CPU tensors take the plain version; CUDA tensors
-take the kernel.
+take the kernel. Under grad mode, with one of the seven q/k/v, rolled and
+pooled inputs requiring grad, the fp32 kernel runs inside
+`_grad.TwinGrad`: the backward is the plain version's (bf16 raises there).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._grad import twin_grad, wants_grad
 
 NEG = -1e9
 SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
@@ -133,12 +136,22 @@ def window_attention(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, *, n_win_per_b: int,
 ):
-    global launches
     args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
     if win_q.device.type == "cpu":
         return window_attention_plain(*args, n_win_per_b)
     if win_q.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {win_q.device}")
+    if wants_grad(*args[:7]):
+        return twin_grad("window_attention", _launch, window_attention_plain, 7, args, n_win_per_b=n_win_per_b)
+    return _launch(*args, n_win_per_b=n_win_per_b)
+
+
+def _launch(
+    win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+    bias_w, bias_r, bias_p, *, n_win_per_b: int,
+):
+    global launches
+    args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
     _check(args, n_win_per_b)
     if win_q.dtype == torch.bfloat16:
         check_mma("window_attention", win_q.shape[-1], args[:7])
@@ -212,12 +225,24 @@ def window_attention_tiled(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, *, n_win_per_b: int,
 ):
-    global launches_tiled
     args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
     if win_q.device.type == "cpu":
         return window_attention_tiled_plain(*args, n_win_per_b)
     if win_q.device.type != "cuda":
         raise ValueError(f"window_attention_tiled: unsupported device {win_q.device}")
+    if wants_grad(*args[:7]):
+        return twin_grad(
+            "window_attention_tiled", _launch_tiled, window_attention_tiled_plain, 7, args, n_win_per_b=n_win_per_b
+        )
+    return _launch_tiled(*args, n_win_per_b=n_win_per_b)
+
+
+def _launch_tiled(
+    win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
+    bias_w, bias_r, bias_p, *, n_win_per_b: int,
+):
+    global launches_tiled
+    args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
     _check(args, n_win_per_b)
     bf16 = win_q.dtype == torch.bfloat16
     if bf16:

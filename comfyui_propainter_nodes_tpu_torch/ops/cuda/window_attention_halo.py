@@ -22,7 +22,9 @@ windows and walks only the survivor positions (`halo_survivors`). bf16
 inputs run on the tensor cores (csrc/flash_mma.cuh; head width a
 multiple of 16, else ValueError), fp32 inputs on the CUDA cores
 (csrc/flash_tile.cuh). CPU tensors take the plain version; CUDA tensors
-take the kernel.
+take the kernel. Under grad mode, with one of the seven q/k/v, halo and
+pooled inputs requiring grad, the fp32 kernel runs inside
+`_grad.TwinGrad`: the backward is the plain version's (bf16 raises there).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._grad import twin_grad, wants_grad
 from .window_attention import check_mma, window_attention_plain
 
 NEG = -1e9
@@ -151,12 +154,21 @@ def _check(q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p, 
 def window_attention_halo(
     q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p, *, window_size, n_head: int,
 ):
-    global launches
     args = (q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p)
     if q.device.type == "cpu":
         return window_attention_halo_plain(*args, window_size=window_size, n_head=n_head)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention_halo: unsupported device {q.device}")
+    if wants_grad(*args[:7]):
+        return twin_grad(
+            "window_attention_halo", _launch, window_attention_halo_plain, 7, args, window_size=window_size, n_head=n_head
+        )
+    return _launch(*args, window_size=window_size, n_head=n_head)
+
+
+def _launch(q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p, *, window_size, n_head: int):
+    global launches
+    args = (q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p)
     _check(*args, window_size, n_head)
     if q.dtype == torch.bfloat16:
         check_mma("window_attention_halo", q.shape[-1] // n_head, args[:7])

@@ -8,15 +8,18 @@ Counterpart of the JAX package's `parallel/mesh.py`:
              (`pipeline/stages.py::Pipeline._chunk_mapped`);
   * "model": sequence parallelism of the transformer: tokens split over
              T, the attention's key/value segments all-gathered
-             (`parallel/sequence.py`).
+             (`parallel/sequence.py`), or the frames' rows
+             (`parallel/spatial.py`); in training, the transformer's
+             width (tensor parallelism, `parallel/sharding.py`).
 Rank r sits at (r // model, r % model), as device r of the JAX mesh. The
-collective is `Mesh.all_gather`, tiled along one tensor dim like
-`jax.lax.all_gather(..., tiled=True)`; the spatial H split's halos move
-point to point (`Mesh.send_recv`).
+collectives are `Mesh.all_gather`, tiled along one tensor dim like
+`jax.lax.all_gather(..., tiled=True)`, and `Mesh.all_reduce`, a sum (the
+training step's tensor-parallel products, loss sums and gradients); the
+spatial H split's halos move point to point (`Mesh.send_recv`).
 
 Backend: NCCL when every rank has a card of its own, gloo when ranks
-share a card or run on the CPU (`backend_for`). Gloo all-gathers CUDA
-tensors itself (`torch.distributed.all_gather`) but sends and receives
+share a card or run on the CPU (`backend_for`). Gloo all-gathers and
+all-reduces CUDA tensors itself but sends and receives
 only host tensors, so `send_recv` passes a card's tensors through the
 host under gloo; where a backend does not take a tensor, the collective
 raises.
@@ -96,6 +99,15 @@ class Mesh:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         return {q: t.to(like.device) for q, t in got.items()}
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of every rank's x along `axis`, as a new tensor (x is
+        left as it is)."""
+        if self.shape[axis] == 1:
+            return x
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=self.groups[axis])
+        return out
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """Every rank's x along `axis`, concatenated along `dim` in rank

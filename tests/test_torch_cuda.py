@@ -413,3 +413,116 @@ def test_wrappers_check_their_inputs(gen):
         b2.deform_conv2d(x, off.transpose(1, 2), mask, w)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         b2.deform_conv2d(x.half(), off.half(), mask.half(), w.half())
+
+
+# ----------------------------------------------------------- gradients
+
+
+def _grads(fn, inputs, grad_out):
+    """fn(*inputs) and the gradients of <fn, grad_out> for the inputs."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, grad_out)
+
+
+def _assert_grads_match(got, want):
+    """Each gradient within 1e-4 of the twin's largest entry (fp32, TF32 off)."""
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 21, 64, 16, 40), (1, 16, 24, 128, 16, 128)])
+def test_deform_conv_gradients_match_the_twin(gen, shape):
+    """B2 under grad mode: the kernel's output, with a grad_fn, and the
+    gradients of x, offset, mask, weight and bias from the plain version's
+    backward (`TwinGrad`), against the plain version's forward and backward."""
+    n, h, w, cin, g, cout = shape
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda")
+    off = torch.randn(n, h, w, g, 9, 2, generator=gen, device="cuda") * 2 + 0.3
+    mask = torch.rand(n, h, w, g, 9, generator=gen, device="cuda")
+    wt = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") * 0.05
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    gout = torch.randn(n, h, w, cout, generator=gen, device="cuda")
+    before = b2.launches
+    out, got = _grads(b2.deform_conv2d, (x, off, mask, wt, bias), gout)
+    assert b2.launches == before + 1 and out.grad_fn is not None
+    ref, want = _grads(b2.deform_conv2d_plain, (x, off, mask, wt, bias), gout)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    _assert_grads_match(got, want)
+    with pytest.raises(ValueError, match="fp32"):
+        b2.deform_conv2d(x.bfloat16(), off.bfloat16(), mask.bfloat16(), wt.bfloat16().requires_grad_(), bias.bfloat16())
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("dims", [(2, 3, 2, 5, 64, 148, 91), (1, 4, 4, 8, 128, 148, 45)])
+def test_window_attention_gradients_match_the_twin(gen, tiled, dims):
+    """B3 and B4 under grad mode: a grad_fn, and the seven q/k/v, rolled and
+    pooled gradients against the plain version's; one kernel launch."""
+    b, nwb, nh, t, ch, rl, pl = dims
+    full = _attention_args(gen, torch.float32, b, nwb, nh, t, 45, ch, rl, pl, ([True, False] * nwb * b)[: b * nwb])
+    fn = b3.window_attention_tiled if tiled else b3.window_attention
+    plain = b3.window_attention_tiled_plain if tiled else b3.window_attention_plain
+    gout = torch.randn(full[0].shape, generator=gen, device="cuda")
+    before = (b3.launches, b3.launches_tiled)
+    out, got = _grads(lambda *a: fn(*a, *full[7:], n_win_per_b=nwb), full[:7], gout)
+    assert (b3.launches, b3.launches_tiled) == (before[0] + (not tiled), before[1] + tiled)
+    assert out.grad_fn is not None
+    ref, want = _grads(lambda *a: plain(*a, *full[7:], nwb), full[:7], gout)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    _assert_grads_match(got, want)
+
+
+@pytest.mark.parametrize("ch,occ", [(64, "mixed"), (128, "occupied")])
+def test_window_attention_halo_gradients_match_the_twin(gen, ch, occ):
+    args, nh = _halo_args(gen, torch.float32, ch, _OCC[occ] * 2, pad_first=False)
+    gout = torch.randn(args[0].shape, generator=gen, device="cuda")
+    before = b5.launches
+    out, got = _grads(lambda *a: b5.window_attention_halo(*a, *args[7:], window_size=(5, 9), n_head=nh), args[:7], gout)
+    assert b5.launches == before + 1 and out.grad_fn is not None
+    ref, want = _grads(lambda *a: b5.window_attention_halo_plain(*a, *args[7:], window_size=(5, 9), n_head=nh),
+                       args[:7], gout)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    _assert_grads_match(got, want)
+
+
+def test_deform_conv_weight_relaid_after_an_optimizer_step(gen):
+    """B2 lays its weights out once per tensor (`_cached_layout`); an
+    optimizer step writes the weight in place, so the second forward must
+    use the new values."""
+    x = torch.randn(1, 12, 20, 64, generator=gen, device="cuda")
+    off = torch.randn(1, 12, 20, 16, 9, 2, generator=gen, device="cuda") + 0.3
+    mask = torch.rand(1, 12, 20, 16, 9, generator=gen, device="cuda")
+    wt = (torch.randn(32, 64, 3, 3, generator=gen, device="cuda") * 0.05).requires_grad_()
+    bias = torch.zeros(32, device="cuda", requires_grad=True)
+    opt = torch.optim.AdamW([wt, bias], lr=1e-2)
+    for _ in range(2):
+        opt.zero_grad()
+        out = b2.deform_conv2d(x, off, mask, wt, bias)
+        torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, wt, bias), atol=1e-4, rtol=1e-4)
+        out.square().sum().backward()
+        opt.step()
+    with torch.no_grad():
+        torch.testing.assert_close(b2.deform_conv2d(x, off, mask, wt, bias),
+                                   b2.deform_conv2d_plain(x, off, mask, wt, bias), atol=1e-4, rtol=1e-4)
+
+
+def test_forward_only_kernels_refuse_gradients(gen):
+    """B1, B6 and B7 have no backward: under grad mode with an input that
+    requires grad they raise; under no_grad they launch."""
+    f1 = torch.randn(1, 9, 12, 32, generator=gen, device="cuda")
+    fwd, bwd = build_corr_pyramids(f1, f1)
+    coords = torch.rand(2, 9, 12, 2, generator=gen, device="cuda") * 8
+    leaf = [m.clone().requires_grad_() for m in fwd]
+    with pytest.raises(ValueError, match="no backward"):
+        b1.corr_lookup(leaf, coords, bwd)
+    with torch.no_grad():
+        b1.corr_lookup(leaf, coords, bwd)
+    maps = [torch.randn(5, 30, 30, generator=gen, device="cuda").requires_grad_() for _ in range(4)]
+    s = torch.zeros(4, 5, dtype=torch.int32, device="cuda")
+    f = torch.rand(4, 5, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="no backward"):
+        b67.corr_window_lookup4(maps, s, s, f, f)
+    with pytest.raises(ValueError, match="no backward"):
+        b67.corr_window_lookup(maps[0], s[0], s[0], f[0], f[0])
+    with torch.inference_mode():
+        b67.corr_window_lookup(maps[0], s[0], s[0], f[0], f[0])

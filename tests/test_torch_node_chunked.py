@@ -41,12 +41,12 @@ def test_single_card_clip_parallel_process_matches_jax(monkeypatch):
     widgets = dict(ref_stride=4, neighbor_length=4, subvideo_length=6, raft_iter=1, fp16="disable", process_size=(64, 48))
     frames, masks, orig = make_inputs(1, 16, 48, 64)
     models = ("raft", "flow_completion", "inpaint_generator")
-    pipe = Pipeline(*(weights.get_params(m, allow_random=True) for m in models), PipelineConfig(**widgets), device="cpu")
+    pipe = Pipeline(*(weights.get_params(m, allow_download=False, allow_random=True) for m in models), PipelineConfig(**widgets), device="cpu")
     args = [torch.from_numpy(a) for a in (frames, masks, masks, orig)]
     in_turn = pipe.process(*args).numpy()
     monkeypatch.setenv("PROPAINTER_TPU_CLIP_PARALLEL", "1")
     assert pipe._clip_parallel() and pipe._dp() == 1
     np.testing.assert_array_equal(pipe.process(*args).numpy(), in_turn)
-    jax_pipe = JaxPipeline(*(jax_weights.get_params(m, allow_random=True) for m in models), JaxConfig(**widgets))
+    jax_pipe = JaxPipeline(*(jax_weights.get_params(m, allow_download=False, allow_random=True) for m in models), JaxConfig(**widgets))
     ref = np.asarray(jax_pipe.process(*(jnp.asarray(a) for a in (frames, masks, masks, orig))))
     assert np.abs(in_turn - ref).max() <= 1.0

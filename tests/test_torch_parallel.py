@@ -55,14 +55,14 @@ def widgets(subvideo_length: int) -> dict:
 
 
 def jax_process(seed: int, wd: dict, mesh=None) -> np.ndarray:
-    params = [jax_weights.get_params(m, allow_random=True) for m in MODELS]
+    params = [jax_weights.get_params(m, allow_download=False, allow_random=True) for m in MODELS]
     frames, masks, orig = (jnp.asarray(a) for a in make_inputs(seed, T, H, W))
     pipe = JaxPipeline(*params, JaxConfig(**wd, process_size=(W, H)), mesh=mesh)
     return np.asarray(pipe.process(frames, masks, masks, orig))
 
 
 def port_process(seed: int, wd: dict) -> np.ndarray:
-    params = [weights.get_params(m, allow_random=True) for m in MODELS]
+    params = [weights.get_params(m, allow_download=False, allow_random=True) for m in MODELS]
     frames, masks, orig = (torch.from_numpy(a) for a in make_inputs(seed, T, H, W))
     pipe = Pipeline(*params, PipelineConfig(**wd, process_size=(W, H)), device="cpu")
     return pipe.process(frames, masks, masks, orig).numpy()

@@ -140,7 +140,7 @@ def test_split_forward_equals_single_process(tmp_path, monkeypatch, h, w, n, att
     (PROPAINTER_TPU_ATTN=halo, its circular K/V rows from the
     neighbours): every rank's gathered output is the single-process
     port's within 1e-9 in float64."""
-    params = {k: v.double() for k, v in weights.get_params("inpaint_generator", allow_random=True).items()}
+    params = {k: v.double() for k, v in weights.get_params("inpaint_generator", allow_download=False, allow_random=True).items()}
     arrays, l_t = forward_inputs(h, w, np.float64)
     args = tuple(torch.from_numpy(a) for a in arrays)
     ranks = Ranks(spatial_program, n, tmp_path, params, args, l_t, {"PROPAINTER_TPU_ATTN": attn})
@@ -173,7 +173,7 @@ def jax_512():
         os.environ.update(ENV)
         os.environ.pop("PROPAINTER_TPU_SEQ", None)
         try:
-            params = [jax_weights.get_params(m, allow_random=True) for m in MODELS]
+            params = [jax_weights.get_params(m, allow_download=False, allow_random=True) for m in MODELS]
             frames, masks, orig = (jnp.asarray(a) for a in make_inputs(3, T, H, W, BOX))
             mesh = jmesh.make_mesh(n, model_parallel=2)
             pipe = JaxPipeline(*params, JaxConfig(**WIDGETS, process_size=(W, H)), mesh=mesh)
@@ -198,7 +198,7 @@ def test_pipeline_h_split_at_512_rows(tmp_path, monkeypatch, jax_512, shape, cro
     ranks = Ranks(pipeline_program, n, tmp_path, shape[1], ENV, WIDGETS, 3, T, H, W, BOX, crop)
     for k, v in ENV.items():
         monkeypatch.setenv(k, v)
-    params = [weights.get_params(m, allow_random=True) for m in MODELS]
+    params = [weights.get_params(m, allow_download=False, allow_random=True) for m in MODELS]
     frames, masks, orig = (torch.from_numpy(a) for a in make_inputs(3, T, H, W, BOX))
     single = Pipeline(*params, PipelineConfig(**WIDGETS, process_size=(W, H)), device="cpu")
     single = single.process(frames, masks, masks, orig, crop).numpy()

@@ -47,9 +47,9 @@ def moving_box_clip(t: int, h: int, w: int):
 
 def port_pipeline(t_cfg: dict, h: int, w: int) -> Pipeline:
     return Pipeline(
-        weights.get_params("raft", allow_random=True),
-        weights.get_params("flow_completion", allow_random=True),
-        weights.get_params("inpaint_generator", allow_random=True),
+        weights.get_params("raft", allow_download=False, allow_random=True),
+        weights.get_params("flow_completion", allow_download=False, allow_random=True),
+        weights.get_params("inpaint_generator", allow_download=False, allow_random=True),
         PipelineConfig(**t_cfg, process_size=(w, h)),
         device="cpu",
     )
@@ -120,9 +120,9 @@ def test_streaming_matches_jax(runs):
     """Within one uint8 level of the JAX package's in-memory run, which
     tests/test_streaming.py holds equal to its own streaming run."""
     jpipe = JaxPipeline(
-        jax_weights.get_params("raft", allow_random=True),
-        jax_weights.get_params("flow_completion", allow_random=True),
-        jax_weights.get_params("inpaint_generator", allow_random=True),
+        jax_weights.get_params("raft", allow_download=False, allow_random=True),
+        jax_weights.get_params("flow_completion", allow_download=False, allow_random=True),
+        jax_weights.get_params("inpaint_generator", allow_download=False, allow_random=True),
         JaxConfig(**WIDGETS, process_size=(W, H)),
     )
     fnorm, byte = jax_image.prepare_frames(jnp.asarray(runs["frames"]), W, H)

@@ -87,7 +87,7 @@ def pipeline_program(
 
     os.environ.update(env)
     mesh = make_mesh(model_parallel=model_parallel, device="cpu")
-    params = [weights.get_params(m, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
+    params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
     pipe = Pipeline(*params, PipelineConfig(**widgets, process_size=(w, h)), mesh=mesh)
     frames, masks, orig = (torch.from_numpy(a) for a in make_inputs(seed, t, h, w, box))
     out = pipe.process(frames, masks, masks, orig, crop)
@@ -127,3 +127,23 @@ def halo_program(x: torch.Tensor, bounds: list, cases: list) -> list:
     rows = RowSplit(mesh, MODEL_AXIS, bounds, x.shape[1])
     mine = x[:, rows.lo : rows.hi]
     return [rows.halo(mine, a, b, 1, circ) for a, b, circ in cases] + [rows.gather(mine, 1)]
+
+
+def train_program(model_parallel: int, raw: dict, batch: dict, num_local_frames: int, steps: int) -> dict:
+    """One rank of the port's training step (`make_train_step` on a mesh of
+    the world's ranks, model_parallel of them on the model axis, CPU) from
+    the JAX-layout params raw, `steps` steps on the whole batch (numpy):
+    each step's loss and the rank's params after the last."""
+    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
+    from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state, make_train_step
+    from comfyui_propainter_nodes_tpu_torch.utils.params import from_jax_params
+
+    mesh = make_mesh(model_parallel=model_parallel, device="cpu")
+    state = init_state(from_jax_params(raw), mesh)
+    step = make_train_step(mesh, num_local_frames)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    return dict(losses=losses, params={k: v.detach() for k, v in state.params.items()}, shape=dict(mesh.shape),
+                coords=dict(mesh.coords))
