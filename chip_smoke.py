@@ -10,7 +10,8 @@ weights lookup of the run takes the cache and nothing is downloaded.
      for each kernel, its registers, spills and static shared memory
      (ptxas) and its count of tensor-core HMMA instructions (cuobjdump
      -sass); the three bf16 attention kernels and the four instances of
-     the bf16 deformable conv kernel must have some;
+     the bf16 deformable conv kernel must have some, and the four of the
+     fp32 attention loop (B3's and B4's, 16- and 4-byte copies) no spills;
   2. hold each kernel against its plain PyTorch version in fp32 (TF32 off)
      and bf16, and time kernel, plain version and, where one exists, the
      one PyTorch call that computes the same function (B3 and B5 also
@@ -119,7 +120,10 @@ chiprun_out/ (ptxas log, profiles, chip_smoke.json).
     python3 chip_smoke.py --tree DIR
 
 times only B1 as RAFT calls it, B2 at its six shapes and the attention
-kernels B3 and B5 at their phase-2 shapes and inputs, all bf16, and the
+kernels B3 and B5 at their phase-2 shapes and inputs, all bf16, B3 in
+fp32 at the main path's and path O's phase-2 shapes and B4 in fp32 at
+path A's, S's and C's (each held against its plain version), path T's
+training step (five after a warm-up, fp32), and the
 node on each of the three paths and the outpaint node on path O (a
 warm-up, five timed runs on the host clock with the median of each
 stage, and a profiled run for the device-to-host copy's time; null for
@@ -139,6 +143,14 @@ timers; one JSON line); run parent, change, change, parent in one call.
 
 builds B7 with 16, 32, 64 and 96 pixels a block and times each, in bf16
 and fp32, at its phase-2 shape (one JSON line).
+
+    python3 chip_smoke.py --f32-splits
+
+times B4's fp32 loop at path A's, S's, C's and path MH rank 0's phase-2
+shapes with 512 and 1024 keys a split and one split a window, each held
+against its plain version, beside B3 on the same inputs, and runs path
+T's first step at each split against the plain versions' step (one JSON
+line).
 
     python3 chip_smoke.py --fc-plan
 
@@ -1646,6 +1658,51 @@ def site_times(gen) -> dict:
     return times
 
 
+def tree_f32_times(gen) -> dict:
+    """fp32 times for `--tree`: B3 at the main path's and path O's phase-2
+    shapes, B4 at path A's, S's and C's, each held against its plain
+    version (rel 1e-4) first."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
+
+    b3, b4 = attention_f32_shapes()
+    times = {}
+    for tag in ("B3e", "B3o", "B3eO", "B3oO", "B4e", "B4o", "B4eS", "B4oS", "B4eC", "B4oC"):
+        if tag in b3:
+            (t_sel, occ, n_win, pl_per, _), b, t = b3[tag], 5, 13
+            fn, plain = mod.window_attention, mod.window_attention_plain
+        else:
+            t_sel, occ, b, t, n_win, pl_per = b4[tag]
+            fn, plain = mod.window_attention_tiled, mod.window_attention_tiled_plain
+        args = attention_inputs(torch.float32, gen, n_win, t_sel, pl_per, occ, b, t)
+        _, rel = rel_err(fn(*args, n_win_per_b=n_win), plain(*args, n_win))
+        require(rel <= 1e-4, f"{tag} fp32 disagrees with its plain version: rel {rel:.3e}")
+        times[f"{tag}_fp32"] = time_ms(lambda: fn(*args, n_win_per_b=n_win))
+        del args
+        torch.cuda.empty_cache()
+    return times
+
+
+def tree_path_t_steps() -> list:
+    """Path T's training step (fp32) for `--tree`: host-clock seconds of
+    PATH_T_STEPS synchronised steps after a warm-up step."""
+    from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state, make_train_step
+    from comfyui_propainter_nodes_tpu_torch.utils import weights
+
+    batch = path_t_batch()
+    state = init_state(weights.get_params("inpaint_generator", allow_download=False, allow_random=True))
+    step = make_train_step(None, PATH_T["local"])
+    walls = []
+    for _ in range(PATH_T_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    del state, batch
+    torch.cuda.empty_cache()
+    return walls[1:]
+
+
 def dtoh_ms(run) -> float:
     """Device time of the device-to-host copies of one `run`, profiled."""
     from torch.profiler import ProfilerActivity, profile
@@ -1658,7 +1715,9 @@ def dtoh_ms(run) -> float:
 
 
 def tree_times(tree: str) -> int:
-    """`--tree DIR`: B1, B2, B3 and B5 bf16 times, and node wall times
+    """`--tree DIR`: B1, B2, B3 and B5 bf16 times, B3 and B4 fp32 times
+    (`tree_f32_times`), path T's step times (`tree_path_t_steps`), and node
+    wall times
     and device-to-host copy times on each path of the port package in DIR
     (the outpaint node's path O null where DIR has no such node)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -1681,7 +1740,9 @@ def tree_times(tree: str) -> int:
         "B3_t_sel6": check_window_attention(dt, gen, 6, occ360)["ms"],
         "B5_30x54": check_window_attention_halo(dt, gen, (30, 54), occ360)["ms"],
         "B5_60x108": check_window_attention_halo(dt, gen, (60, 108), occ720)["ms"],
+        **tree_f32_times(gen),
     }
+    path_t = tree_path_t_steps()
     walls, dtoh, stages = {}, {}, {}
     for path, h, w, switched in (("main_s", 360, 640, False), ("path_a_s", 720, 1280, False),
                                  ("path_b_s", 360, 640, True), ("path_o_s", 360, 640, False)):
@@ -1708,7 +1769,7 @@ def tree_times(tree: str) -> int:
         walls[path] = runs[1:]
         stages[path] = {k: statistics.median(s[k] for s in per_stage[1:]) for k in per_stage[-1]}
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, **walls,
-                      "dtoh_ms": dtoh, "stage_medians_s": stages}))
+                      "dtoh_ms": dtoh, "stage_medians_s": stages, "path_t_step_s": path_t}))
     return 0
 
 
@@ -2004,6 +2065,103 @@ def b7_tiles() -> int:
         del maps, out, ref
         torch.cuda.empty_cache()
     print(json.dumps({"b7_tiles": result, "nvidia_smi": nvidia_smi()}))
+    return 0
+
+
+F32_LOOP_KERNELS = ("window_attention_f32_kernel", "window_attention_split_f32_kernel")  # B3's, B4's (csrc/flash_f32.cuh)
+F32_SPLITS = (512, 1024, None)  # `--f32-splits`: keys a split of B4's fp32 loop; None: one split a window
+
+
+def attention_f32_shapes():
+    """The fp32 shapes of B3 and B4 that phase 2 times, by result tag, as
+    the arguments after (dtype, gen) of check_window_attention (the main
+    path's 30x54 grid, path O's 30x72) and check_window_attention_tiled
+    (path A's 5 windows of 13 frames, path S's one window of 19, path C's
+    middle group, path MH rank 0's 72 windows); the even and the odd
+    layers' t_sel."""
+    occ360, occ720, occ_o = clip_occupancy(360, 640), clip_occupancy(720, 1280), ring_occupancy()
+    occ_s = stream_occupancy(PATH_S)
+    t_win_s, t_sel_s, _ = stream_window(PATH_S[0])
+    t_win_c, t_sel_c, _ = stream_window(PATH_C[0])
+    b_c, occ_c = group_occupancy(PATH_C)
+    occ_mh = occ720.reshape(5, 12, 12)[:, :6].reshape(-1).contiguous()
+    b3 = {"B3e": (7, occ360, 36, 91, "30x54"), "B3o": (6, occ360, 36, 91, "30x54"),
+          "B3eO": (7, occ_o, 48, 126, "30x72"), "B3oO": (6, occ_o, 48, 126, "30x72")}
+    b4 = {"B4e": (7, occ720, 5, 13, 144, 405), "B4o": (6, occ720, 5, 13, 144, 405),
+          "B4eS": (t_sel_s[0], occ_s, 1, t_win_s, 144, 405), "B4oS": (t_sel_s[1], occ_s, 1, t_win_s, 144, 405),
+          "B4eC": (t_sel_c[0], occ_c, b_c, t_win_c, 36, 91),
+          "B4oC": (t_sel_c[1], occ_c, b_c, t_win_c, 36, 91), "B4eMH0": (7, occ_mh, 5, 13, 72, 405),
+          "B4oMH0": (6, occ_mh, 5, 13, 72, 405)}
+    return b3, b4
+
+
+def f32_splits() -> int:
+    """`--f32-splits`: B4's fp32 loop at path A's, S's, C's and path MH
+    rank 0's phase-2 shapes with SPLIT_KEYS 512, 1024 and one split a
+    window (ops/cuda/window_attention.py), each held against the plain
+    version (rel 1e-4) and timed, in turns (each split twice, in rising
+    then falling order); B3 on the same inputs; path T's first step at
+    each split against the plain versions' (`path_t_first_step`, not
+    gated); the fp32 loop kernels' registers and spills (ptxas). Prints
+    one JSON line."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_path = _build.build()
+    resources = {k: r for k, r in kernel_resources(_build.build_log, lib_path).items() if k.startswith(F32_LOOP_KERNELS)}
+    log(f"  fp32 loop kernels: {resources}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, shapes = attention_f32_shapes()
+    saved, result = mod.SPLIT_KEYS, {}
+    try:
+        for tag, shape in shapes.items():
+            t_sel, occ, b, t, n_win, pl_per = shape
+            args = attention_inputs(torch.float32, gen, n_win, t_sel, pl_per, occ, b, t)
+            ref = mod.window_attention_tiled_plain(*args, n_win)
+
+            def run(keys):
+                mod.SPLIT_KEYS = keys or 1 << 30
+                return mod.window_attention_tiled(*args, n_win_per_b=n_win)
+
+            for keys in F32_SPLITS:
+                out = run(keys)
+                torch.cuda.synchronize()
+                _, rel = rel_err(out, ref)
+                require(rel <= 1e-4, f"B4 fp32 at {tag} in splits of {keys} keys: rel {rel:.3e}")
+            ms = {keys: [] for keys in F32_SPLITS}
+            for keys in F32_SPLITS + F32_SPLITS[::-1]:
+                ms[keys].append(time_ms(lambda: run(keys)))
+            b3_ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
+            result[tag] = dict(ms={str(k or "one"): v for k, v in ms.items()}, b3_ms=b3_ms, t_sel=t_sel, b=b, t=t,
+                               n_win=n_win, occupied=int(occ.sum()))
+            log(f"  {tag}: " + ", ".join(f"{k or 'one'} keys {v[0]:.4f} / {v[1]:.4f} ms" for k, v in ms.items())
+                + f"; B3 {b3_ms:.4f}")
+            del args, ref
+            torch.cuda.empty_cache()
+        # path T's first step at each split (B4 runs 8 times in it): its
+        # worst gradient's distance to the plain versions' step (tol 1e-4)
+        from comfyui_propainter_nodes_tpu_torch.training.train_step import make_train_step
+        from comfyui_propainter_nodes_tpu_torch.utils import weights
+
+        weights_dir = weights_cache()
+        batch = path_t_batch()
+        params = weights.get_params("inpaint_generator", allow_download=False, allow_random=True)
+        step = make_train_step(None, PATH_T["local"])
+        path_t = {}
+        for keys in F32_SPLITS:
+            mod.SPLIT_KEYS = keys or 1 << 30
+            first = path_t_first_step(f"path T, B4 fp32 in splits of {keys or 'one a window'}", batch, params, step)
+            path_t[str(keys or "one")] = dict(worst=first["worst"], worst_err=first["grad_errs"][first["worst"]],
+                                              loss_rel=first["loss_rel"], floor=first["floor"])
+            del first
+            torch.cuda.empty_cache()
+        weights_dir.cleanup()
+    finally:
+        mod.SPLIT_KEYS = saved
+    print(json.dumps({"b4_fp32_ms_by_split": result, "path_t_first_step_by_split": path_t, "resources": resources,
+                      "nvidia_smi": nvidia_smi()}))
     return 0
 
 
@@ -2768,29 +2926,15 @@ def split_of(summary: dict) -> dict:
     return {k: v["seconds"] for k, v in summary.items() if k.startswith("train_")}
 
 
-def path_t_run(ref_dir: str) -> dict:
-    """Path T on the single card: the batch (`path_t_batch`, written to
-    ref_dir for the ranks); the first step with the plain versions of the
-    kernels (`plain_kernels`) from one copy of the weights, and with the
-    kernels from another (the warm-up): loss within rtol 1e-5, each param's
-    gradient within 1e-4 of its largest entry; its loss and the checked
-    weights after it written to ref_dir; then PATH_T_STEPS timed steps
-    (launch counters reset before each: B2 and B4 in every step, nothing
-    else), their forward / backward / update split (blocking stage
-    timers), the peak, and one more step with the twins' backward timed
-    apart. Every loss and param finite."""
-    from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state, make_train_step
-    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
-
-    c = PATH_T
-    tag = f"path T {c['clips']} clips of {c['local']} + {c['ref']} frames {c['w']}x{c['h']}"
-    t0 = time.perf_counter()
-    batch = path_t_batch()
-    log(f"  [{tag}] batch and its flows in {time.perf_counter() - t0:.2f} s: "
-        + ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items()))
-    torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(ref_dir, "path_t_batch.pt"))
-    params = weights.get_params("inpaint_generator", allow_download=False, allow_random=True)
-    step = make_train_step(None, c["local"])
+def path_t_first_step(tag: str, batch: dict, params: dict, step) -> dict:
+    """Path T's first step with the plain versions of the kernels
+    (`plain_kernels`), again with torch's deterministic algorithms, and
+    with the kernels (the warm-up), each from a fresh state of params:
+    the kernels' state after it, its loss, the loss's relative distance
+    to the plain step's, each param's gradient distance (`grad_errs`, max
+    |d| over the largest entry; the key biases and the deformable
+    alignment over the largest gradient of all) and the worst, logged."""
+    from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state
 
     def plain_step(deterministic: bool):
         """The first step with the plain versions: (loss, gradients)."""
@@ -2845,9 +2989,37 @@ def path_t_run(ref_dir: str) -> dict:
         + f"; the plain step with deterministic algorithms against it: worst {max(floor.values()):.2e} "
         f"({max(floor, key=floor.get)}); the tensors held to the largest gradient, against their own: worst "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(own.items(), key=lambda kv: -kv[1])[:3]))
+    return dict(state=state, loss=first_loss, plain_loss=twin_loss.item(), loss_rel=loss_rel, grad_errs=grad_errs,
+                worst=worst, floor=max(floor.values()), own=own, seconds=warm)
+
+
+def path_t_run(ref_dir: str) -> dict:
+    """Path T on the single card: the batch (`path_t_batch`, written to
+    ref_dir for the ranks); the first step with the plain versions of the
+    kernels (`plain_kernels`) from one copy of the weights, and with the
+    kernels from another (the warm-up): loss within rtol 1e-5, each param's
+    gradient within 1e-4 of its largest entry; its loss and the checked
+    weights after it written to ref_dir; then PATH_T_STEPS timed steps
+    (launch counters reset before each: B2 and B4 in every step, nothing
+    else), their forward / backward / update split (blocking stage
+    timers), the peak, and one more step with the twins' backward timed
+    apart. Every loss and param finite."""
+    from comfyui_propainter_nodes_tpu_torch.training.train_step import make_train_step
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
+
+    c = PATH_T
+    tag = f"path T {c['clips']} clips of {c['local']} + {c['ref']} frames {c['w']}x{c['h']}"
+    t0 = time.perf_counter()
+    batch = path_t_batch()
+    log(f"  [{tag}] batch and its flows in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items()))
+    torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(ref_dir, "path_t_batch.pt"))
+    params = weights.get_params("inpaint_generator", allow_download=False, allow_random=True)
+    step = make_train_step(None, c["local"])
+    first = path_t_first_step(tag, batch, params, step)
+    state, first_loss, loss_rel, grad_errs, worst = (first[k] for k in ("state", "loss", "loss_rel", "grad_errs", "worst"))
     require(loss_rel <= 1e-5, f"{tag}: the first step's loss differs from the plain versions' step")
     require(grad_errs[worst] <= 1e-4, f"{tag}: {worst}'s gradient differs from the plain versions' step")
-    del twin_grads, det_grads
     torch.save({"loss": first_loss, "params": {k: state.params[k].detach().cpu() for k in PATH_T_CHECKED},
                 "grads": {k: state.params[k].grad.cpu() for k in PATH_T_CHECKED}},
                os.path.join(ref_dir, "path_t_single.pt"))
@@ -2886,10 +3058,10 @@ def path_t_run(ref_dir: str) -> dict:
     return dict(clips=c["clips"], frames_per_clip=c["local"] + c["ref"], size=f"{c['w']}x{c['h']}",
                 step_seconds=walls, median_step_s=med, clips_per_s=c["clips"] / med,
                 frames_per_s=c["clips"] * (c["local"] + c["ref"]) / med, split_s=split, peak_bytes=peak,
-                losses=losses, first_step=dict(loss=first_loss, plain_loss=twin_loss.item(), loss_rel=loss_rel,
-                                               worst_grad=worst, worst_grad_err=grad_errs[worst], seconds=warm,
-                                               deterministic_plain_worst_err=max(floor.values()),
-                                               own_scale_errs=own),
+                losses=losses, first_step=dict(loss=first_loss, plain_loss=first["plain_loss"], loss_rel=loss_rel,
+                                               worst_grad=worst, worst_grad_err=grad_errs[worst],
+                                               seconds=first["seconds"], deterministic_plain_worst_err=first["floor"],
+                                               own_scale_errs=first["own"]),
                 twins_backward=twins, launches=launches, launches_per_step=per_step[0], b2_launches_by_shape=b2_shapes)
 
 
@@ -3043,6 +3215,8 @@ def main() -> int:
         return b7_tiles()
     if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
         return fc_plan()
+    if len(sys.argv) == 2 and sys.argv[1] == "--f32-splits":
+        return f32_splits()
     t_start = time.perf_counter()
     weights_dir = weights_cache()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
@@ -3070,6 +3244,11 @@ def main() -> int:
     mma_kernels += [f"deform_conv_mma_kernel<{rows},{vec}>" for rows in (64, 32) for vec in (1, 0)]
     for kname in mma_kernels:
         require(resources[kname]["hmma"] > 0, f"{kname} has no tensor-core instruction in its SASS")
+    # B3's and B4's fp32 loop (csrc/flash_f32.cuh), 16-byte (<1>) and 4-byte (<0>) copies: no spills
+    f32_kernels = [f"{k}<{vec}>" for k in F32_LOOP_KERNELS for vec in (1, 0)]
+    for kname in f32_kernels:
+        r = resources[kname]
+        require(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{kname} spills: {r}")
 
     log("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3228,6 +3407,10 @@ def main() -> int:
         ("corr_window4", "corr_window.cu", "corr_lookup.py:91", "B6", path_b),
         ("corr_window", "corr_window.cu", "corr_lookup.py:42", "B7", main_run),
     ]
+    # B3's and B4's fp32 kernel and the phase-2 shapes of its fp32 numbers
+    f32_rows = {"window_attention": (F32_LOOP_KERNELS[0], ("B3e", "B3o", "B3eO", "B3oO")),
+                "window_attention_tiled": (F32_LOOP_KERNELS[1], ("B4e", "B4o", "B4eS", "B4oS", "B4eC", "B4oC",
+                                                                 "B4eMH0", "B4oMH0", "B4eMH1", "B4oMH1"))}
     kernels = []
     for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
@@ -3242,6 +3425,13 @@ def main() -> int:
         }
         if name_k in grad_rows:  # fp32, path T's shapes: the Function's forward and backward, SDPA's
             row["path_t_gradients"] = grads[grad_rows[name_k]]
+        if name_k in f32_rows:  # the fp32 loop (csrc/flash_f32.cuh): its kernels and its numbers at fp32 shapes
+            kn, shapes = f32_rows[name_k]
+            row["fp32_loop"] = dict(
+                source=f"{pkg}/csrc/flash_f32.cuh",
+                kernels={f"{kn}<{vec}>": subset(resources[f"{kn}<{vec}>"], ("registers", "spill_stores", "spill_loads"))
+                         for vec in (1, 0)},
+                **{tag: subset(res[(tag, "float32")], KEEP) for tag in shapes})
         if rk.startswith("B1"):
             row["blend"] = r["blend"]
             row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]

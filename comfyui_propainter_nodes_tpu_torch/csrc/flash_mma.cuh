@@ -1,8 +1,9 @@
 // The bf16 flash-attention tile loop on the tensor cores, shared by the
 // single-pass (window_attention.cu), segment-tiled
 // (window_attention_tiled.cu) and halo (window_attention_halo.cu) window
-// attention kernels. fp32 inputs run the CUDA-core loop of flash_tile.cuh;
-// both loops take the same key decoders.
+// attention kernels. fp32 inputs run the CUDA-core loops of flash_f32.cuh
+// (single-pass and segment-tiled) and flash_tile.cuh (halo); all three
+// loops take the same key decoders.
 //
 // A block of NT = 128 threads (four warps) owns BQ = 64 query rows of one
 // (window, head), 16 rows to a warp. Keys arrive in tiles of BK = 64:

@@ -1,7 +1,9 @@
-// The flash-attention tile loop on the CUDA cores: the fp32 inputs of the
-// single-pass (window_attention.cu), segment-tiled
-// (window_attention_tiled.cu) and halo (window_attention_halo.cu)
-// kernels, whose bf16 inputs run the tensor-core loop of flash_mma.cuh.
+// The earlier flash-attention tile loop on the CUDA cores: the fp32 inputs
+// of the halo kernel (window_attention_halo.cu), whose bf16 inputs run the
+// tensor-core loop of flash_mma.cuh. The single-pass and segment-tiled
+// kernels' fp32 inputs run flash_f32.cuh. The key decoders and row
+// functions below (FrameKeys, clean_range, WindowRows) serve all three
+// loops.
 //
 // A block of NT = 128 threads owns BQ = 32 query rows of one (window,
 // head), four threads to a row. The query tile sits in shared memory in

@@ -29,15 +29,19 @@
 // P·V as bf16 `mma.sync` tiles with fp32 accumulation and 64-key K/V tiles
 // double-buffered by `cp.async`, which puts the occupied windows' products
 // on the tensor cores and overlaps each tile's loads with the previous
-// tile's math. fp32 inputs (`fp16: disable`) take the CUDA-core loop
-// (flash_tile.cuh) with the same decoder, one block per 32-query tile:
-// TF32 tensor cores would not hold fp32's tolerance. Clean windows decode
+// tile's math. fp32 inputs (`fp16: disable`, training) take the CUDA-core
+// loop (flash_f32.cuh) with the same decoder, one block of 128 threads per
+// 64-query tile: register blocks of S and O fed by float4 shared loads,
+// 32-key K/V tiles double-buffered by `cp.async` (16-byte copies where
+// ch % 4 == 0 and every tensor is 16-byte aligned, 4-byte copies
+// otherwise: any ch <= 128); TF32 tensor cores would not hold fp32's
+// tolerance. Clean windows decode
 // only the frames their query tile touches (at most 3 at wsz 45 and 64
 // queries), each key's frame masking the rows of other frames. Biases are
 // added as given (-1e9, not -inf), exactly like the reference.
 
+#include "flash_f32.cuh"
 #include "flash_mma.cuh"
-#include "flash_tile.cuh"
 
 namespace {
 
@@ -110,32 +114,33 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_m
                       flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
-// fp32: the CUDA-core loop, one block per (32 queries, head, window)
-__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_kernel(Args a) {
+// fp32: the CUDA-core loop, one block per (64 queries, head, window);
+// VEC: 16-byte copies (ch % 4 == 0, every tensor 16-byte aligned)
+template <bool VEC>
+__global__ void __launch_bounds__(ff32::NT, ff32::MIN_BLOCKS) window_attention_f32_kernel(Args a) {
   using T = float;
-  __shared__ flash::Smem<T> sm;
-  const int q0 = blockIdx.x * flash::BQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.x * ff32::BQ;
   const int h = blockIdx.y;
   const int w = blockIdx.z;
-  const int nq = min(flash::BQ, a.QT - q0);
-  const int r = threadIdx.x >> 2;
   const long long wh = (long long)w * a.n_head + h;
   const long long wo = wh * a.QT * a.ch;
-  flash::load_q(sm, nq, a.ch, flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch});
-  flash::Row st;
-  flash::init(st);
-  if (a.occ[w] != 0) {
-    flash::attend(sm, st, 0, a.QT + a.RL + a.PL, segment_keys<T>(a, wh, w / a.n_win_per_b, h), a.ch,
-                  a.scale, -1);
-  } else {
-    int klo, khi;
-    flash::clean_range(q0, nq, a.QT, a.wsz, klo, khi);
-    const T* wk = static_cast<const T*>(a.wk) + wo;
-    const T* wv = static_cast<const T*>(a.wv) + wo;
-    flash::attend(sm, st, klo, khi, flash::FrameKeys<T>{wk, wv, a.ch, a.wsz}, a.ch, a.scale,
-                  (q0 + r) / a.wsz);
-  }
-  if (r < nq) flash::store_row(st, static_cast<T*>(a.out) + wo + (long long)(q0 + r) * a.ch, a.ch);
+  ff32::attend_window<VEC>(smem, q0, a.QT, a.wsz, a.ch, a.scale, a.occ[w] != 0, a.QT + a.RL + a.PL,
+                           segment_keys<T>(a, wh, w / a.n_win_per_b, h),
+                           flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                           flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
+                           flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
+}
+
+template <bool VEC>
+cudaError_t launch_f32(const Args& a, int n_win, cudaStream_t s) {
+  const size_t smem = ff32::smem_bytes(a.ch);
+  const cudaError_t e = cudaFuncSetAttribute(window_attention_f32_kernel<VEC>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((a.QT + ff32::BQ - 1) / ff32::BQ), (unsigned)a.n_head, (unsigned)n_win);
+  window_attention_f32_kernel<VEC><<<grid, ff32::NT, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -146,7 +151,7 @@ extern "C" int propainter_window_attention(
     const void* bw, const void* br, const void* bp, void* out, int n_win,
     int n_head, int QT, int RL, int PL, int ch, int n_win_per_b, int wsz,
     float scale, int is_bf16, void* stream) {
-  if (ch <= 0 || ch > flash::CHM || (is_bf16 && ch % 16 != 0)) return (int)cudaErrorInvalidValue;
+  if (ch <= 0 || ch > ff32::CHM || (is_bf16 && ch % 16 != 0)) return (int)cudaErrorInvalidValue;
   if (n_win <= 0 || QT <= 0) return (int)cudaGetLastError();
   const Args a{q, wk, wv, rk, rv, pk, pv, static_cast<const int*>(occ),
                static_cast<const float*>(bw), static_cast<const float*>(br),
@@ -159,9 +164,8 @@ extern "C" int propainter_window_attention(
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((unsigned)((QT + fmma::BQ - 1) / fmma::BQ), (unsigned)n_head, (unsigned)n_win);
     window_attention_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
-  } else {
-    const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, (unsigned)n_win);
-    window_attention_kernel<<<grid, flash::NT, 0, s>>>(a);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const bool vec = ch % 4 == 0 && ff32::aligned16({q, wk, wv, rk, rv, pk, pv, out});
+  return (int)(vec ? launch_f32<true>(a, n_win, s) : launch_f32<false>(a, n_win, s));
 }

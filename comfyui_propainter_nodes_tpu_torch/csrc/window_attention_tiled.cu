@@ -28,10 +28,10 @@
 // each block finishes its rows itself: on the H100 one split ran faster
 // than splits of 512, 1024 or 2048 keys, whose fp32 partials and combine
 // cost more than the shorter blocks saved. fp32 inputs take the CUDA-core
-// loop (flash_tile.cuh, 32-query tiles; TF32 would not hold fp32's
-// tolerance) in splits of split_keys keys, each writing its rows' partial
-// (m, l, O) to a workspace, and a combine pass weights each split by
-// exp(m_split - m) and normalises. A split whose keys all carry -1e9
+// loop (flash_f32.cuh: 64-query tiles, 32-key tiles by `cp.async`; TF32
+// would not hold fp32's tolerance) in splits of split_keys keys, each
+// writing its rows' partial (m, l, O) to a workspace (PartRows), and a
+// combine pass weights each split by exp(m_split - m) and normalises. A split whose keys all carry -1e9
 // (padding, invalid frames) has m near -1e9 and p near 1, and that weight
 // makes it vanish, exactly as the running max makes such a tile vanish on
 // the TPU. Only occupied windows get workspace slots (the wrapper lists
@@ -40,8 +40,8 @@
 // first in the grid, so the clean windows' short blocks fill the card
 // while the last long ones finish.
 
+#include "flash_f32.cuh"
 #include "flash_mma.cuh"
-#include "flash_tile.cuh"
 
 namespace {
 
@@ -159,49 +159,68 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_s
                       flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
-// fp32: the CUDA-core loop, one block per (32 queries, head, role); every
-// split goes through the workspace
-__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_split_kernel(Args a) {
+// The fp32 split epilogue: each row's partial (m, l, O) to the workspace,
+// unnormalised; row0 is the workspace row of the tile's first query
+template <bool VEC>
+struct PartRows {
+  const Args& a;
+  long long row0;
+  __device__ __forceinline__ void operator()(const ff32::Rows& r) const {
+#pragma unroll
+    for (int i = 0; i < ff32::RO; ++i) {
+      if (r.r0 + i >= r.nq) continue;
+      const long long row = row0 + r.r0 + i;
+      if (r.cg == 0) {
+        a.part_m[row] = r.m[i];
+        a.part_l[row] = r.l[i];
+      }
+#pragma unroll
+      for (int k = 0; k < ff32::NC; ++k) {
+        const int c = 4 * r.cg + 64 * k;
+        if (c < r.ch) ff32::store4<VEC>(a.part_o + row * r.ch, c, r.ch, r.o[i][k]);
+      }
+    }
+  }
+};
+
+// fp32: the CUDA-core loop, one block per (64 queries, head, role); every
+// split goes through the workspace; VEC: 16-byte copies (ch % 4 == 0,
+// every tensor 16-byte aligned)
+template <bool VEC>
+__global__ void __launch_bounds__(ff32::NT, ff32::MIN_BLOCKS) window_attention_split_f32_kernel(Args a) {
   using T = float;
-  __shared__ flash::Smem<T> sm;
+  extern __shared__ __align__(16) unsigned char smem[];
   Role r;
   if (!role(a, r)) return;
-  const int q0 = blockIdx.x * flash::BQ;
+  const int q0 = blockIdx.x * ff32::BQ;
   const int h = blockIdx.y;
-  const int nq = min(flash::BQ, a.QT - q0);
-  const int rr = threadIdx.x >> 2;
   const long long wh = (long long)r.w * a.n_head + h;
   const long long wo = wh * a.QT * a.ch;
-  flash::load_q(sm, nq, a.ch, flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch});
-  flash::Row st;
-  flash::init(st);
-
+  const int nq = min(ff32::BQ, a.QT - q0);
+  const flash::WindowRows<const T*> q_row{static_cast<const T*>(a.q) + wo, q0, a.ch};
   if (r.slot < 0) {  // clean: only the frames this query tile touches
     int klo, khi;
     flash::clean_range(q0, nq, a.QT, a.wsz, klo, khi);
-    flash::attend(sm, st, klo, khi,
-                  flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
-                  a.ch, a.scale, (q0 + rr) / a.wsz);
-    if (rr < nq) flash::store_row(st, static_cast<T*>(a.out) + wo + (long long)(q0 + rr) * a.ch, a.ch);
+    const flash::WindowRows<T*> out_row{static_cast<T*>(a.out) + wo, q0, a.ch};
+    ff32::attend<VEC>(smem, nq, a.ch, a.scale, klo, khi,
+                      flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                      q_row, ff32::StoreRows<VEC, flash::WindowRows<T*>>{out_row}, q0, a.wsz);
     return;
   }
-
   const int k0 = r.sp * a.split_keys;
-  flash::attend(sm, st, k0, min(a.QT + a.RLp + a.PLp, k0 + a.split_keys),
-                tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h), a.ch, a.scale, -1);
-  if (rr < nq) {
-    const long long row = part_row(a, r, h, q0 + rr);
-    if ((threadIdx.x & 3) == 0) {
-      a.part_m[row] = st.m;
-      a.part_l[row] = st.l;
-    }
-    const int l4 = threadIdx.x & 3;
-#pragma unroll
-    for (int j = 0; j < flash::CHM / 4; ++j) {
-      const int c = l4 + 4 * j;
-      if (c < a.ch) a.part_o[row * a.ch + c] = st.o[j];
-    }
-  }
+  ff32::attend<VEC>(smem, nq, a.ch, a.scale, k0, min(a.QT + a.RLp + a.PLp, k0 + a.split_keys),
+                    tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h), q_row, PartRows<VEC>{a, part_row(a, r, h, q0)}, q0, 0);
+}
+
+template <bool VEC>
+cudaError_t launch_split_f32(const Args& a, unsigned nz, cudaStream_t s) {
+  const size_t smem = ff32::smem_bytes(a.ch);
+  const cudaError_t e = cudaFuncSetAttribute(window_attention_split_f32_kernel<VEC>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((a.QT + ff32::BQ - 1) / ff32::BQ), (unsigned)a.n_head, nz);
+  window_attention_split_f32_kernel<VEC><<<grid, ff32::NT, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 // one thread per (occupied slot, head, query, channel): merge the splits
@@ -220,7 +239,7 @@ __global__ void __launch_bounds__(256) window_attention_combine_kernel(Args a, l
   float l = 0.0f, o = 0.0f;
   for (int s = 0; s < a.n_split; ++s) {
     const long long rs = first + (long long)s * a.QT;
-    const float wgt = expf(a.part_m[rs] - mx);  // m in base e, as flash_tile.cuh keeps it
+    const float wgt = expf(a.part_m[rs] - mx);  // m in base e, as flash_f32.cuh keeps it
     l += a.part_l[rs] * wgt;
     o += a.part_o[rs * a.ch + c] * wgt;
   }
@@ -237,7 +256,7 @@ extern "C" int propainter_window_attention_tiled(
     int n_win, int n_occ, int n_head, int QT, int RL, int RLp, int PL, int PLp, int ch,
     int n_win_per_b, int wsz, int n_split, int split_keys, float scale, int is_bf16,
     void* stream) {
-  if (ch > flash::CHM || ch <= 0 || split_keys <= 0 || n_split <= 0 ||
+  if (ch > ff32::CHM || ch <= 0 || split_keys <= 0 || n_split <= 0 ||
       (is_bf16 && (ch % 16 != 0 || n_split != 1)))
     return (int)cudaErrorInvalidValue;
   if (n_win <= 0 || QT <= 0) return (int)cudaGetLastError();
@@ -256,9 +275,8 @@ extern "C" int propainter_window_attention_tiled(
     window_attention_split_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
     return (int)cudaGetLastError();
   }
-  const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, nz);
-  window_attention_split_kernel<<<grid, flash::NT, 0, s>>>(a);
-  const cudaError_t e = cudaGetLastError();
+  const bool vec = ch % 4 == 0 && ff32::aligned16({q, wk, wv, rk, rv, pk, pv, out, part_o});
+  const cudaError_t e = vec ? launch_split_f32<true>(a, nz, s) : launch_split_f32<false>(a, nz, s);
   if (e != cudaSuccess || n_occ == 0) return (int)e;
   const long long total = (long long)n_occ * n_head * QT * ch;
   window_attention_combine_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(a, total);

@@ -13,7 +13,9 @@ On the H100 both are bound by operations in occupied windows and by
 bytes in clean ones. Both run bf16 inputs on the tensor cores
 (csrc/flash_mma.cuh; head width a multiple of 16 and 16-byte aligned
 tensors, else ValueError) and fp32 inputs on the CUDA cores
-(csrc/flash_tile.cuh); csrc/ has the designs.
+(csrc/flash_f32.cuh; any head width up to 128: 16-byte copies when it is a
+multiple of 4 and every tensor starts on a 16-byte boundary, 4-byte
+copies otherwise, the launcher's choice); csrc/ has the designs.
 
 Signature (the JAX package's `window_attention_pallas`):
   win_q, win_k, win_v  [W, head, T, wsz, ch]   W = B * n_win_per_b
@@ -41,10 +43,15 @@ from ._grad import twin_grad, wants_grad
 
 NEG = -1e9
 SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
-# keys per split of an occupied window in the tiled kernel's fp32 loop;
+# keys per split of an occupied window in the tiled kernel's fp32 loop.
 # bf16 runs one split a window, which needs no workspace and no combine
-# and ran faster on the H100 than splits of 512, 1024 or 2048 keys
-# (PERF.md)
+# and ran faster on the H100 than splits of 512, 1024 or 2048 keys. In
+# fp32 one split a window was 2-5% faster than 512 keys a split at paths
+# A, S, C and MH (`chip_smoke.py --f32-splits`), but a split's running
+# sums add one term a key, and over thousands of keys the terms below
+# half an ulp of the sum drop out: with 512-key splits the training
+# step's gradients stay within 1e-4 of the plain versions' step, with one
+# split or 1024 keys they do not (PERF.md)
 SPLIT_KEYS = 2 * SEG_TILE
 TILED_ESTIMATE = 12e6  # the JAX dispatcher's threshold
 MAX_GRID_Z = 65535

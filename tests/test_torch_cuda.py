@@ -296,6 +296,50 @@ def test_window_attention_dispatch(gen):
     assert (b3.launches, b3.launches_tiled) == (single + 1, tiled + 1)
 
 
+def _shifted(t):
+    """A copy of t that starts 4 bytes past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("kernel,split", [("single", None), ("tiled", 64), ("tiled", "default")])
+@pytest.mark.parametrize("ch", [40, 64, 128])
+@pytest.mark.parametrize("occ", list(_OCC))
+def test_window_attention_f32_loop(gen, monkeypatch, kernel, split, ch, occ):
+    """B3 and B4 in fp32 on the CUDA-core loop (csrc/flash_f32.cuh: 64-query
+    tiles, 32-key tiles): QT = 225 is ragged for both tiles; 148 rolled and
+    91 pooled keys a frame (B3) or 405 pooled (B4), so key tiles straddle
+    every segment end; batch row 1's first t_ind frame padded; B4 in
+    splits of 64 keys (splits of padding keys only) or SPLIT_KEYS; 1e-4."""
+    if split == 64:
+        monkeypatch.setattr(b3, "SPLIT_KEYS", 64)
+    pl_per = 405 if kernel == "tiled" else 91
+    full = _attention_args(gen, torch.float32, 2, 3, 2, 5, 45, ch, 148, pl_per, _OCC[occ], pad_first=True)
+    fn, plain = ((b3.window_attention_tiled, b3.window_attention_tiled_plain) if kernel == "tiled"
+                 else (b3.window_attention, b3.window_attention_plain))
+    before = b3.launches + b3.launches_tiled
+    out = fn(*full, n_win_per_b=3)
+    assert b3.launches + b3.launches_tiled == before + 1
+    torch.testing.assert_close(out, plain(*full, 3), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["single", "tiled"])
+@pytest.mark.parametrize("ch,shift", [(40, True), (128, True), (30, False), (36, False)])
+def test_window_attention_f32_unaligned(gen, kernel, ch, shift):
+    """fp32 takes what the 16-byte copies cannot: a tensor off a 16-byte
+    boundary (q or pooled V shifted by 4 bytes), or a head width that is
+    not a multiple of 4 (30), go through the 4-byte copies; 36 is a
+    multiple of 4 whose row pitch differs from 8k + 4. All within 1e-4."""
+    full = _attention_args(gen, torch.float32, 2, 3, 2, 5, 45, ch, 148, 91, _OCC["mixed"], pad_first=True)
+    if shift:
+        full[0], full[6] = _shifted(full[0]), _shifted(full[6])
+        assert full[0].data_ptr() % 16 and full[6].data_ptr() % 16
+    fn, plain = ((b3.window_attention_tiled, b3.window_attention_tiled_plain) if kernel == "tiled"
+                 else (b3.window_attention, b3.window_attention_plain))
+    torch.testing.assert_close(fn(*full, n_win_per_b=3), plain(*full, 3), atol=1e-4, rtol=1e-4)
+
+
 def _halo_args(gen, dt, ch, occ, pad_first):
     """A window-padded 10x27 grid of 2 batch rows, 5 frames (QT = 225),
     t_ind = frames 0, 2, 4, 2 heads of width ch; occ [2, 2, 3]."""

@@ -1,10 +1,12 @@
-"""The tile schedule of the tensor-core attention loop (csrc/flash_mma.cuh),
-modelled in torch on the CPU.
+"""The tile schedules of the attention loops, modelled in torch on the CPU:
+the tensor-core loop (csrc/flash_mma.cuh, bf16) and the fp32 CUDA-core
+loop of the single-pass kernel (csrc/flash_f32.cuh).
 
 The model walks what the CUDA kernels walk: 64-query tiles, the decoder's
-key order in 64-key tiles (a tile may straddle segment ends; the ragged
-tail is absent), an online softmax whose running max starts at -1e30, P
-rounded to bf16 before P·V where the kernel does it, fp32 accumulation.
+key order in key tiles (64 keys in the bf16 loop, 32 in the fp32 one; a
+tile may straddle segment ends; the ragged tail is absent), an online
+softmax whose running max starts at -1e30, P rounded to bf16 before P·V
+where the kernel does it, fp32 accumulation.
 Clean windows decode only the frames a query tile touches and mask keys of
 other frames. The halo kernel's key order walks only the survivor
 positions of each t_ind frame. Inputs are made from a seeded numpy
@@ -23,34 +25,36 @@ from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as
 
 torch.set_num_threads(1)
 
-BQ = BK = 64  # the kernel's query and key tiles
+BQ = BK = 64  # the bf16 loop's query and key tiles
+F32_BQ, F32_BK = 64, 32  # the fp32 loop's
 
 
-def _tile_rows(q, k, v, bias, key_frame, row_frame, round_p):
+def _tile_rows(q, k, v, bias, key_frame, row_frame, round_p, bk=BK):
     """One query tile [nq, ch] over a key sequence [L, ch], key tile by key
-    tile, as the kernel's loop; fp32."""
+    tile (bk keys), as the kernel's loop; fp32, base e."""
     scale = q.shape[1] ** -0.5
     m = torch.full((q.shape[0], 1), -1e30)
     l = torch.zeros((q.shape[0], 1))
     o = torch.zeros_like(q)
-    for k0 in range(0, k.shape[0], BK):
-        s = q @ k[k0 : k0 + BK].T * scale + bias[None, k0 : k0 + BK]
+    for k0 in range(0, k.shape[0], bk):
+        s = q @ k[k0 : k0 + bk].T * scale + bias[None, k0 : k0 + bk]
         if row_frame is not None:
-            s = torch.where(row_frame[:, None] == key_frame[None, k0 : k0 + BK], s, -torch.inf)
+            s = torch.where(row_frame[:, None] == key_frame[None, k0 : k0 + bk], s, -torch.inf)
         m_new = torch.maximum(m, s.max(1, keepdim=True).values)
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(1, keepdim=True)
         if round_p:
             p = p.bfloat16().float()
-        o = o * alpha + p @ v[k0 : k0 + BK]
+        o = o * alpha + p @ v[k0 : k0 + bk]
         m = m_new
     return o / l
 
 
 def flash_model(win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p,
-                n_win_per_b, round_p=False):
-    """window_attention as the single-pass kernel tiles it; fp32 out."""
+                n_win_per_b, round_p=False, bq=BQ, bk=BK):
+    """window_attention as the single-pass kernel tiles it (bq-query and
+    bk-key tiles); fp32 out."""
     nw, nh, t, wsz, ch = win_q.shape
     qt = t * wsz
     f = lambda a: a.float()  # noqa: E731
@@ -60,20 +64,20 @@ def flash_model(win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bi
         for h in range(nh):
             q = f(win_q[w, h]).reshape(qt, ch)
             wk, wv = f(win_k[w, h]).reshape(qt, ch), f(win_v[w, h]).reshape(qt, ch)
-            for q0 in range(0, qt, BQ):
-                nq = min(BQ, qt - q0)
+            for q0 in range(0, qt, bq):
+                nq = min(bq, qt - q0)
                 if occ[w]:
                     k = torch.cat([wk, f(rolled_k[w, h]), f(pool_k[b, h])])
                     v = torch.cat([wv, f(rolled_v[w, h]), f(pool_v[b, h])])
                     bias = torch.cat([bias_w[b], bias_r[b], bias_p[b]]).float()
-                    out[w, h, q0 : q0 + nq] = _tile_rows(q[q0 : q0 + nq], k, v, bias, None, None, round_p)
+                    out[w, h, q0 : q0 + nq] = _tile_rows(q[q0 : q0 + nq], k, v, bias, None, None, round_p, bk)
                 else:  # the frames this query tile touches
                     klo = q0 // wsz * wsz
                     khi = min(qt, ((q0 + nq - 1) // wsz + 1) * wsz)
                     frames = torch.arange(qt) // wsz
                     out[w, h, q0 : q0 + nq] = _tile_rows(
                         q[q0 : q0 + nq], wk[klo:khi], wv[klo:khi], torch.zeros(khi - klo),
-                        frames[klo:khi], frames[q0 : q0 + nq], round_p,
+                        frames[klo:khi], frames[q0 : q0 + nq], round_p, bk,
                     )
     return out.reshape(nw, nh, t, wsz, ch)
 
@@ -103,14 +107,16 @@ def _inputs(rng, occ, b=2, nwb=2, nh=2, t=5, wsz=45, ch=16, rl_per=37, pl_per=23
 _OCC = {"mixed": [True, False, False, True], "clean": [False] * 4, "occupied": [True] * 4}
 
 
-def test_inputs_put_the_edges_in_play():
-    """The shapes do what _inputs says: ragged tiles, straddled segment
-    ends, a clean query tile over three frames, an all -1e9 first tile."""
+@pytest.mark.parametrize("bq,bk", [(BQ, BK), (F32_BQ, F32_BK)])
+def test_inputs_put_the_edges_in_play(bq, bk):
+    """The shapes do what _inputs says for both loops' tiles: ragged tiles,
+    straddled segment ends, a clean query tile over three frames, an all
+    -1e9 first tile."""
     args, _ = _inputs(np.random.default_rng(0), _OCC["mixed"])
     qt, rl, pl_len = 5 * 45, args[3].shape[2], args[5].shape[2]
-    assert qt % BQ and qt % BK and (qt + rl) % BK and (qt + rl + pl_len) % BK
-    assert len({q // 45 for q in range(128, 192)}) == 3
-    assert (args[8][1, :BK] == -1e9).all()
+    assert qt % bq and qt % bk and (qt + rl) % bk and (qt + rl + pl_len) % bk
+    assert len({q // 45 for q in range(2 * bq, 3 * bq)}) == 3
+    assert (args[8][1, :bk] == -1e9).all()
 
 
 @pytest.mark.parametrize("occ", list(_OCC))
@@ -120,6 +126,32 @@ def test_schedule_matches_plain_fp32(occ):
     ta = [torch.from_numpy(a) for a in args]
     ref = b3.window_attention_plain(*ta, nwb)
     np.testing.assert_allclose(flash_model(*ta, nwb).numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("ch", [40, 64, 128])
+@pytest.mark.parametrize("occ", list(_OCC))
+def test_f32_schedule_matches_plain(occ, ch):
+    """The fp32 loop's schedule (64-query tiles, 32-key tiles, base e, P
+    unrounded) is the plain attention, 1e-5, at head widths 40, 64 and
+    128."""
+    args, nwb = _inputs(np.random.default_rng(5), _OCC[occ], ch=ch)
+    ta = [torch.from_numpy(a) for a in args]
+    ref = b3.window_attention_plain(*ta, nwb)
+    out = flash_model(*ta, nwb, bq=F32_BQ, bk=F32_BK)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("ch", [40, 128])
+def test_f32_schedule_matches_pallas_single(ch):
+    """The fp32 loop's schedule against the JAX package's
+    window_attention_pallas on fp32 inputs (its single-pass kernel at
+    these sizes) in interpret mode: both fp32 throughout, so 1e-5."""
+    args, nwb = _inputs(np.random.default_rng(6), _OCC["mixed"], ch=ch)
+    with pltpu.force_tpu_interpret_mode():
+        ref = window_attention_pallas(*[jnp.asarray(a) for a in args], n_win_per_b=nwb)
+    assert ref.dtype == jnp.float32
+    out = flash_model(*[torch.from_numpy(a) for a in args], nwb, bq=F32_BQ, bk=F32_BK)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
 def _bf16(args):

@@ -12,10 +12,12 @@ query tile touches.
     64-key tiles, one split a window, m in base 2 (log2 e folded into the
     scale and the bias), P rounded to bf16 before P·V where the kernel
     does it;
-  * fp32, the CUDA-core loop (csrc/flash_tile.cuh): 32-query tiles,
-    16-key tiles, m in base e, splits of SPLIT_KEYS keys, or of fewer in
-    the tests so that splits of padding keys only, and a first split all
-    -1e9, come up.
+  * fp32, the CUDA-core loop B4 runs (csrc/flash_f32.cuh): 64-query
+    tiles, 32-key tiles, m in base e, splits of SPLIT_KEYS keys, or of
+    fewer in the tests so that splits of padding keys only, and a first
+    split all -1e9, come up;
+  * the earlier fp32 loop (csrc/flash_tile.cuh, which the halo kernel
+    still runs): 32-query tiles, 16-key tiles, base e, the same splits.
 Inputs come from a seeded numpy generator.
 """
 
@@ -33,7 +35,7 @@ torch.set_num_threads(1)
 
 LOG2E = 1.4426950408889634
 # (query tile, key tile, m in base 2) of each loop
-LOOPS = {"mma": (64, 64, True), "tile": (32, 16, False)}
+LOOPS = {"mma": (64, 64, True), "f32": (64, 32, False), "tile": (32, 16, False)}
 
 
 def _tiles(q, k, v, bias, k0, k1, loop, round_p, key_frame=None, row_frame=None):
@@ -138,8 +140,9 @@ def _inputs(rng, occ, ch, b=2, nwb=2, nh=2, t=5, wsz=45, rl_per=37, pl_per=23):
 _OCC = {"mixed": [True, False, False, True], "clean": [False] * 4, "occupied": [True] * 4}
 # (loop, keys a split) of the kernel's bf16 and fp32 schedules, and fp32
 # with short splits: 64 keys (splits of padding keys only, a first split
-# all -1e9) and 192
-_SCHEDULES = {"bf16": ("mma", None), "fp32": ("tile", b4.SPLIT_KEYS), "fp32_64": ("tile", 64),
+# all -1e9) and 192; "f32*" the loop B4 runs, "fp32*" the earlier one
+_SCHEDULES = {"bf16": ("mma", None), "f32": ("f32", b4.SPLIT_KEYS), "f32_64": ("f32", 64),
+              "f32_192": ("f32", 192), "fp32": ("tile", b4.SPLIT_KEYS), "fp32_64": ("tile", 64),
               "fp32_192": ("tile", 192)}
 
 
@@ -171,6 +174,19 @@ def test_split_schedule_matches_plain_fp32(occ, schedule, ch):
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("schedule", ["f32", "f32_64", "f32_192"])
+@pytest.mark.parametrize("occ", list(_OCC))
+def test_f32_split_schedule_head_width_40(occ, schedule):
+    """The fp32 loop takes any head width up to 128 (bf16 needs a multiple
+    of 16): at ch 40 its schedules and the combine are the plain attention
+    over the padded keys, 1e-5."""
+    args, nwb = _inputs(np.random.default_rng(1), _OCC[occ], 40)
+    ta = [torch.from_numpy(a) for a in args]
+    ref = b4.window_attention_tiled_plain(*ta, nwb)
+    out = split_model(*ta, nwb, *_SCHEDULES[schedule])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("ch", [64, 128])
 @pytest.mark.parametrize("occ", ["mixed", "occupied"])
 def test_split_schedule_bf16_matches_pallas_tiled(monkeypatch, occ, ch):
@@ -187,3 +203,19 @@ def test_split_schedule_bf16_matches_pallas_tiled(monkeypatch, occ, ch):
     bf = [torch.from_numpy(a).bfloat16().float() if i < 7 else torch.from_numpy(a) for i, a in enumerate(args)]
     out = split_model(*bf, nwb, *_SCHEDULES["bf16"], round_p=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("ch", [40, 128])
+@pytest.mark.parametrize("occ", ["mixed", "occupied"])
+def test_split_schedule_f32_matches_pallas_tiled(monkeypatch, occ, ch):
+    """The fp32 schedule B4 runs (flash_f32.cuh's tiles, SPLIT_KEYS keys a
+    split, base-e combine) against the JAX package's window_attention_pallas
+    on fp32 inputs forced to its tiled kernel (interpret mode, SEG_TILE 256
+    as the port's): both fp32 throughout, so 1e-5."""
+    args, nwb = _inputs(np.random.default_rng(4), _OCC[occ], ch)
+    monkeypatch.setattr(jwa, "_window_attention_single", jwa._window_attention_tiled)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jwa.window_attention_pallas(*[jnp.asarray(a) for a in args], n_win_per_b=nwb)
+    assert ref.dtype == jnp.float32
+    out = split_model(*[torch.from_numpy(a) for a in args], nwb, *_SCHEDULES["f32"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
