@@ -10,8 +10,9 @@ weights lookup of the run takes the cache and nothing is downloaded.
      for each kernel, its registers, spills and static shared memory
      (ptxas) and its count of tensor-core HMMA instructions (cuobjdump
      -sass); the three bf16 attention kernels and the four instances of
-     the bf16 deformable conv kernel must have some, and the four of the
-     fp32 attention loop (B3's and B4's, 16- and 4-byte copies) no spills;
+     the bf16 deformable conv kernel must have some, and the six of the
+     fp32 attention loop (B3's, B4's and B5's, 16- and 4-byte copies) and
+     the two of the fp32 deformable conv kernel no spills;
   2. hold each kernel against its plain PyTorch version in fp32 (TF32 off)
      and bf16, and time kernel, plain version and, where one exists, the
      one PyTorch call that computes the same function (B3 and B5 also
@@ -22,9 +23,11 @@ weights lookup of the run takes the cache and nothing is downloaded.
        (`corr_lookup_map_kernel`, path A's), both blends at the main
        path's M = 165600 and at path A's per-call shape (3 pairs of
        90x160), and the lanes blend (fp32 too) at the outpaint canvas's
-       call (23 pairs of 45x96); B2 at the node's two shapes at 640x360
-       and on the 768x360 outpaint canvas and, in bf16, at 1280x720 too,
-       bf16 also with each pixel tile (64 and 32 pixels a block); B3 also
+       call (23 pairs of 45x96); B2 at the node's two shapes at 640x360,
+       1280x720 and on the 768x360 outpaint canvas and at path T's
+       x[2,60,108,128], bf16 also with each pixel tile (64 and 32 pixels a
+       block), fp32 with each tap split (1, 3, 9; each also held against
+       the plain version, and two calls bit-equal); B3 also
        at the outpaint canvas's shapes (30x72 token grid, the ring's
        occupancy);
        B4 (segment-tiled attention) at the 1280x720 shapes, path A's
@@ -119,10 +122,12 @@ chiprun_out/ (ptxas log, profiles, chip_smoke.json).
 
     python3 chip_smoke.py --tree DIR
 
-times only B1 as RAFT calls it, B2 at its six shapes and the attention
-kernels B3 and B5 at their phase-2 shapes and inputs, all bf16, B3 in
-fp32 at the main path's and path O's phase-2 shapes and B4 in fp32 at
-path A's, S's and C's (each held against its plain version), path T's
+times only B1 as RAFT calls it, B2 at its phase-2 shapes and the
+attention kernels B3 and B5 at their phase-2 shapes and inputs, all
+bf16; in fp32 B2 at the main path's, path O's and path T's shapes and
+in the row form at path MH's rank 0, B5 at both token grids, B3 at the
+main path's and path O's phase-2 shapes and B4 at path A's, S's and
+C's (each held against its plain version), path T's
 training step (five after a warm-up, fp32), and the
 node on each of the three paths and the outpaint node on path O (a
 warm-up, five timed runs on the host clock with the median of each
@@ -143,6 +148,14 @@ timers; one JSON line); run parent, change, change, parent in one call.
 
 builds B7 with 16, 32, 64 and 96 pixels a block and times each, in bf16
 and fp32, at its phase-2 shape (one JSON line).
+
+    python3 chip_smoke.py --b2-f32-tiles
+
+builds B2's fp32 kernel with each pair of threads a block and blocks an
+SM in B2_F32_TILES, with its registers and spills, and times each at
+every tap split, at every fp32 phase-2 shape and the row form at path
+MH's rank 0, in turns (each held against its plain version; one JSON
+line).
 
     python3 chip_smoke.py --f32-splits
 
@@ -498,14 +511,16 @@ PATH_M_RAFT_CALL = (12, 45, 80)
 # on the 768x360 outpaint canvas; path S's feature propagation, one window a
 # call (x [1, ...]); path H's completion and feature propagation at 1920x1080;
 # path C's batched completion (2 chunks, both directions) and window groups
-# of 8 and 4 at 640x360 (path M (2, 1)'s: fc and fpC4)
+# of 8 and 4 at 640x360 (path M (2, 1)'s: fc and fpC4); path T's feature
+# propagation (2 clips of 10 local frames at 432x240)
 B2_SHAPES = {
     "fp": (5, 90, 160, 128), "fc": (2, 45, 80, 256), "fp720": (5, 180, 320, 128), "fc720": (2, 90, 160, 256),
     "fpO": (5, 90, 192, 128), "fcO": (2, 45, 96, 256), "fpS": (1, 180, 320, 128),
     "fcH": (2, 135, 240, 256), "fpH": (1, 270, 480, 128),
-    "fcC": (4, 45, 80, 256), "fpC": (8, 90, 160, 128), "fpC4": (4, 90, 160, 128),
+    "fcC": (4, 45, 80, 256), "fpC": (8, 90, 160, 128), "fpC4": (4, 90, 160, 128), "fpT": (2, 60, 108, 128),
 }
-B2_FP32 = ("fp", "fc", "fpO", "fcO", "fcC", "fpC", "fpC4")  # the shapes a path also runs in fp32
+# the shapes a path also runs in fp32 (fp720 and fc720: path MH's single card)
+B2_FP32 = ("fp", "fc", "fp720", "fc720", "fpO", "fcO", "fcC", "fpC", "fpC4", "fpT")
 # B2's row form at path MH's per-rank shapes (both dtypes): x [5, 180, 320,
 # 128] whole, each rank's 96 output rows (its 90 widened by 6, clamped)
 B2_ROWS = {"fpMH0": ((5, 180, 320, 128), (0, 96)), "fpMH1": ((5, 180, 320, 128), (84, 96))}
@@ -525,10 +540,27 @@ def deform_inputs(dt, gen, shape, rows=None):
     return x, off, mask, wt, bias
 
 
+def b2_case(tag: str):
+    """x's shape and (row0, Ho) (None: the whole image) of a B2 tag."""
+    return B2_ROWS[tag] if tag in B2_ROWS else (B2_SHAPES[tag], None)
+
+
+def deform_bound(shape, m: int, cout: int, dt) -> tuple[float, str]:
+    """B2's bound for x's shape and m output pixels: its operations, and x,
+    the offsets and mask (16 groups), the output, weights and bias each
+    moved once."""
+    n, h, w, cin = shape
+    esz = torch.finfo(dt).bits // 8
+    nbytes = (n * h * w * cin + m * 16 * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
+    return bound_ms(2.0 * m * 9 * cin * cout, nbytes, dt)
+
+
 def check_deform_conv(dt, gen, shape, rows=None):
     """B2 against its plain version; bf16 is also timed with each pixel
-    tile of the tensor-core kernel (64 and 32 pixels a block). rows =
-    (row0, Ho): the row form, Ho output rows from x's row row0."""
+    tile of the tensor-core kernel (64 and 32 pixels a block), fp32 with
+    each tap split of the CUDA-core kernel (1, 3 and 9 blocks over the
+    taps), each held against the plain version first. rows = (row0, Ho):
+    the row form, Ho output rows from x's row row0."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as mod
 
     args = deform_inputs(dt, gen, shape, rows)
@@ -542,10 +574,9 @@ def check_deform_conv(dt, gen, shape, rows=None):
     form = "" if rows is None else f" rows [{row0}, {row0 + rows[1]})"
     log(f"  B2 deform_conv {str(dt)[6:]} x{list(shape)}{form}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel {tol})")
     require(rel <= tol, "deform_conv2d disagrees with its plain version")
-    del ref
     n, h, w, cin = shape
     ho = h if rows is None else rows[1]
-    tiles = {}
+    tiles, splits = {}, {}
     if dt == torch.bfloat16:
         chosen = mod.block_rows(n * ho * w, cout, x.device)
         pick = mod.block_rows
@@ -555,20 +586,35 @@ def check_deform_conv(dt, gen, shape, rows=None):
                 tiles[bm] = time_ms(lambda: mod.deform_conv2d(*args, row0=row0))
         finally:
             mod.block_rows = pick
+    else:
+        chosen = mod.tap_splits(n * ho * w, cout, x.device)
+        pick = mod.tap_splits
+        try:
+            for sp in mod.TAP_SPLITS:
+                mod.tap_splits = lambda m, c, d, sp=sp: sp  # noqa: E731
+                once = mod.deform_conv2d(*args, row0=row0)
+                _, r = rel_err(once, ref)
+                require(r <= tol, f"deform_conv2d fp32 in {sp} tap splits disagrees with its plain version: rel {r:.3e}")
+                require(torch.equal(once, mod.deform_conv2d(*args, row0=row0)), f"B2 fp32 in {sp} tap splits: two calls differ")
+                splits[sp] = time_ms(lambda: mod.deform_conv2d(*args, row0=row0))
+        finally:
+            mod.tap_splits = pick
+    del ref
     ms = time_ms(lambda: mod.deform_conv2d(*args, row0=row0))
     ms_single = time_ms(lambda: mod.deform_conv2d(*args, row0=row0), batch=1)
     plain_ms = time_ms(lambda: mod.deform_conv2d_plain(*args, row0=row0), reps=5, warmup=1, batch=1)
-    m = n * ho * w
-    esz = x.element_size()
-    nbytes = (n * h * w * cin + m * 16 * 27 + m * cout) * esz + 9 * cin * cout * esz + cout * esz
-    bound, by = bound_ms(2.0 * m * 9 * cin * cout, nbytes, dt)
-    log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by})  "
-        "library_ms null"
-        + (f"; by pixel tile: 64 {tiles[64]:.4f}, 32 {tiles[32]:.4f} (the wrapper picks {chosen})" if tiles else ""))
+    bound, by = deform_bound(shape, n * ho * w, cout, dt)
+    log(f"    ms {ms:.4f} (one call a sample {ms_single:.4f})  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by}, "
+        f"{100 * bound / ms:.1f}% of it)  library_ms null"
+        + (f"; by pixel tile: 64 {tiles[64]:.4f}, 32 {tiles[32]:.4f} (the wrapper picks {chosen})" if tiles else "")
+        + (f"; by tap split: " + ", ".join(f"{sp} {v:.4f}" for sp, v in splits.items())
+           + f" (the wrapper picks {chosen})" if splits else ""))
     res = dict(max_abs_err=err, ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                library_ms=None)
     if tiles:
         res.update(ms_tile64=tiles[64], ms_tile32=tiles[32], tile=chosen)
+    if splits:
+        res.update(ms_by_tap_split={str(sp): v for sp, v in splits.items()}, tap_split=chosen)
     return res
 
 
@@ -1659,13 +1705,33 @@ def site_times(gen) -> dict:
 
 
 def tree_f32_times(gen) -> dict:
-    """fp32 times for `--tree`: B3 at the main path's and path O's phase-2
-    shapes, B4 at path A's, S's and C's, each held against its plain
-    version (rel 1e-4) first."""
+    """fp32 times for `--tree`: B2 at the main path's, path O's and path
+    T's shapes and in the row form at path MH's rank 0, B5 at both token
+    grids, B3 at the main path's and path O's phase-2 shapes, B4 at path
+    A's, S's and C's, each held against its plain version (rel 1e-4)
+    first."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
 
-    b3, b4 = attention_f32_shapes()
     times = {}
+    for tag in ("fp", "fc", "fpO", "fcO", "fpT", "fpMH0"):
+        shape, rows = b2_case(tag)
+        row0 = 0 if rows is None else rows[0]
+        args = deform_inputs(torch.float32, gen, shape, rows)
+        _, rel = rel_err(b2.deform_conv2d(*args, row0=row0), b2.deform_conv2d_plain(*args, row0=row0))
+        require(rel <= 1e-4, f"B2 {tag} fp32 disagrees with its plain version: rel {rel:.3e}")
+        times[f"B2_{tag}_fp32"] = time_ms(lambda: b2.deform_conv2d(*args, row0=row0))
+        del args
+    for grid, occ in (((30, 54), clip_occupancy(360, 640)), ((60, 108), clip_occupancy(720, 1280))):
+        args = halo_inputs(torch.float32, gen, 5, 13, 7, grid, occ)
+        kw = dict(window_size=(5, 9), n_head=4)
+        _, rel = rel_err(b5.window_attention_halo(*args, **kw), b5.window_attention_halo_plain(*args, **kw))
+        require(rel <= 1e-4, f"B5 {grid} fp32 disagrees with its plain version: rel {rel:.3e}")
+        times[f"B5_{grid[0]}x{grid[1]}_fp32"] = time_ms(lambda: b5.window_attention_halo(*args, **kw))
+        del args
+        torch.cuda.empty_cache()
+    b3, b4 = attention_f32_shapes()
     for tag in ("B3e", "B3o", "B3eO", "B3oO", "B4e", "B4o", "B4eS", "B4oS", "B4eC", "B4oC"):
         if tag in b3:
             (t_sel, occ, n_win, pl_per, _), b, t = b3[tag], 5, 13
@@ -1715,7 +1781,7 @@ def dtoh_ms(run) -> float:
 
 
 def tree_times(tree: str) -> int:
-    """`--tree DIR`: B1, B2, B3 and B5 bf16 times, B3 and B4 fp32 times
+    """`--tree DIR`: B1, B2, B3 and B5 bf16 times, B2-B5 fp32 times
     (`tree_f32_times`), path T's step times (`tree_path_t_steps`), and node
     wall times
     and device-to-host copy times on each path of the port package in DIR
@@ -2068,7 +2134,98 @@ def b7_tiles() -> int:
     return 0
 
 
-F32_LOOP_KERNELS = ("window_attention_f32_kernel", "window_attention_split_f32_kernel")  # B3's, B4's (csrc/flash_f32.cuh)
+# (threads a block, blocks an SM) of B2's fp32 kernel that `--b2-f32-tiles` builds; the first is the source's
+B2_F32_TILES = ((128, 2), (128, 3), (256, 1))
+
+
+def b2_f32_tiles() -> int:
+    """`--b2-f32-tiles`: B2's fp32 kernel (csrc/deform_conv.cu) built with
+    each (threads a block, blocks an SM) of B2_F32_TILES (a copy of the
+    source with `f32::NT` and `f32::MIN_BLOCKS` set, under
+    build/b2_f32_tiles/), each run through the wrapper at each tap split,
+    held against the plain version (rel 1e-4) and timed at every fp32
+    phase-2 shape (B2_FP32) and the row form at path MH's rank 0, in turns
+    (each variant twice, in listed then reversed order). Prints one JSON
+    line."""
+    import ctypes
+    import types
+
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = os.path.join(HERE, "build", "b2_f32_tiles")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_build.CSRC, "deform_conv.cu")) as f:
+        source = f.read()
+    consts = ("constexpr int NT = {};", "constexpr int MIN_BLOCKS = {};")
+    nt0, mb0 = B2_F32_TILES[0]
+    for c, v in zip(consts, (nt0, mb0)):
+        require(source.count(c.format(v)) == 1, f"csrc/deform_conv.cu must define `{c.format(v)}` once")
+    libs, procs = {}, {}
+    for nt, mb in B2_F32_TILES:
+        src = os.path.join(out_dir, f"deform_conv_{nt}_{mb}.cu")
+        with open(src, "w") as f:
+            f.write(source.replace(consts[0].format(nt0), consts[0].format(nt))
+                    .replace(consts[1].format(mb0), consts[1].format(mb)))
+        libs[(nt, mb)] = os.path.join(out_dir, f"libdeform_conv_{nt}_{mb}.so")
+        procs[(nt, mb)] = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+             "-I", _build.CSRC, "-Xptxas", "-v", src, "-o", libs[(nt, mb)]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns, variant_regs = {}, {}
+    for v, proc in procs.items():
+        ptxas = proc.communicate()[0]
+        require(proc.returncode == 0, f"nvcc failed for {v}:\n{ptxas}")
+        variant_regs[v] = {k: subset(r, ("registers", "spill_stores", "spill_loads"))
+                           for k, r in kernel_resources(ptxas, libs[v]).items() if k.startswith(B2_F32_KERNEL)}
+        log(f"  {v[0]} threads, {v[1]} blocks an SM: {variant_regs[v]}")
+        fn = ctypes.CDLL(libs[v]).propainter_deform_conv
+        fn.argtypes, fn.restype = _build._SIGNATURES["propainter_deform_conv"], ctypes.c_int
+        fns[v] = types.SimpleNamespace(propainter_deform_conv=fn)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    library, splits_rule = _build.library, mod.tap_splits
+    try:
+        for tag in B2_FP32 + ("fpMH0",):
+            shape, rows = b2_case(tag)
+            row0 = 0 if rows is None else rows[0]
+            args = deform_inputs(torch.float32, gen, shape, rows)
+            ref = mod.deform_conv2d_plain(*args, row0=row0)
+            chosen = splits_rule(ref.shape[0] * ref.shape[1] * ref.shape[2], ref.shape[3], ref.device)
+
+            def run(v, sp):
+                _build.library = lambda v=v: fns[v]  # noqa: E731
+                mod.tap_splits = lambda m, c, d, sp=sp: sp  # noqa: E731
+                return mod.deform_conv2d(*args, row0=row0)
+
+            for v in B2_F32_TILES:
+                for sp in mod.TAP_SPLITS:
+                    _, rel = rel_err(run(v, sp), ref)
+                    require(rel <= 1e-4, f"B2 fp32 {v} in {sp} tap splits at {tag}: rel {rel:.3e}")
+            ms = {(v, sp): [] for v in B2_F32_TILES for sp in mod.TAP_SPLITS}
+            for v in B2_F32_TILES + B2_F32_TILES[::-1]:
+                for sp in mod.TAP_SPLITS:
+                    ms[(v, sp)].append(time_ms(lambda: run(v, sp)))
+            bound, _ = deform_bound(shape, ref.shape[0] * ref.shape[1] * ref.shape[2], ref.shape[3], torch.float32)
+            result[tag] = dict(shape=shape, rows=rows, bound_ms=bound, tap_split=chosen,
+                               ms={f"{v[0]}x{v[1]} split {sp}": t for (v, sp), t in ms.items()})
+            log(f"  {tag} x{list(shape)}" + ("" if rows is None else f" rows {rows}") + f" (bound {bound:.4f} ms, "
+                f"the wrapper splits {chosen}): "
+                + "; ".join(f"{v[0]}x{v[1]} split {sp} {t[0]:.4f} / {t[1]:.4f}" for (v, sp), t in ms.items()))
+            del args, ref
+            torch.cuda.empty_cache()
+    finally:
+        _build.library, mod.tap_splits = library, splits_rule
+    print(json.dumps({"b2_f32_tiles": result, "variant_registers": {f"{v[0]}x{v[1]}": r for v, r in variant_regs.items()},
+                      "nvidia_smi": nvidia_smi()}))
+    return 0
+
+
+# B3's, B4's and B5's fp32 kernels (csrc/flash_f32.cuh)
+F32_LOOP_KERNELS = ("window_attention_f32_kernel", "window_attention_split_f32_kernel", "window_attention_halo_f32_kernel")
+B2_F32_KERNEL = "deform_conv_kernel"  # B2's fp32 kernel (csrc/deform_conv.cu)
 F32_SPLITS = (512, 1024, None)  # `--f32-splits`: keys a split of B4's fp32 loop; None: one split a window
 
 
@@ -3213,6 +3370,8 @@ def main() -> int:
         return tree_cm(sys.argv[2])
     if len(sys.argv) == 2 and sys.argv[1] == "--b7-tiles":
         return b7_tiles()
+    if len(sys.argv) == 2 and sys.argv[1] == "--b2-f32-tiles":
+        return b2_f32_tiles()
     if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
         return fc_plan()
     if len(sys.argv) == 2 and sys.argv[1] == "--f32-splits":
@@ -3244,8 +3403,9 @@ def main() -> int:
     mma_kernels += [f"deform_conv_mma_kernel<{rows},{vec}>" for rows in (64, 32) for vec in (1, 0)]
     for kname in mma_kernels:
         require(resources[kname]["hmma"] > 0, f"{kname} has no tensor-core instruction in its SASS")
-    # B3's and B4's fp32 loop (csrc/flash_f32.cuh), 16-byte (<1>) and 4-byte (<0>) copies: no spills
-    f32_kernels = [f"{k}<{vec}>" for k in F32_LOOP_KERNELS for vec in (1, 0)]
+    # the fp32 loop of B3, B4 and B5 (csrc/flash_f32.cuh), 16-byte (<1>) and 4-byte (<0>) copies, and
+    # B2's fp32 kernel, 16-byte (<1>) and per-channel (<0>) corners: no spills
+    f32_kernels = [f"{k}<{vec}>" for k in F32_LOOP_KERNELS + (B2_F32_KERNEL,) for vec in (1, 0)]
     for kname in f32_kernels:
         r = resources[kname]
         require(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{kname} spills: {r}")
@@ -3407,10 +3567,14 @@ def main() -> int:
         ("corr_window4", "corr_window.cu", "corr_lookup.py:91", "B6", path_b),
         ("corr_window", "corr_window.cu", "corr_lookup.py:42", "B7", main_run),
     ]
-    # B3's and B4's fp32 kernel and the phase-2 shapes of its fp32 numbers
-    f32_rows = {"window_attention": (F32_LOOP_KERNELS[0], ("B3e", "B3o", "B3eO", "B3oO")),
-                "window_attention_tiled": (F32_LOOP_KERNELS[1], ("B4e", "B4o", "B4eS", "B4oS", "B4eC", "B4oC",
-                                                                 "B4eMH0", "B4oMH0", "B4eMH1", "B4oMH1"))}
+    # each kernel's fp32 kernel, its source and the phase-2 shapes of its fp32 numbers
+    loop = f"{pkg}/csrc/flash_f32.cuh"
+    f32_rows = {"window_attention": (F32_LOOP_KERNELS[0], loop, ("B3e", "B3o", "B3eO", "B3oO")),
+                "window_attention_tiled": (F32_LOOP_KERNELS[1], loop, ("B4e", "B4o", "B4eS", "B4oS", "B4eC", "B4oC",
+                                                                       "B4eMH0", "B4oMH0", "B4eMH1", "B4oMH1")),
+                "window_attention_halo": (F32_LOOP_KERNELS[2], loop, ("B5s", "B5l")),
+                "deform_conv": (B2_F32_KERNEL, f"{pkg}/csrc/deform_conv.cu",
+                                tuple("B2" + t for t in B2_FP32 + tuple(B2_ROWS)))}
     kernels = []
     for name_k, src, repl, rk, run in rows:
         r = res[(rk, "bfloat16")]
@@ -3425,13 +3589,15 @@ def main() -> int:
         }
         if name_k in grad_rows:  # fp32, path T's shapes: the Function's forward and backward, SDPA's
             row["path_t_gradients"] = grads[grad_rows[name_k]]
-        if name_k in f32_rows:  # the fp32 loop (csrc/flash_f32.cuh): its kernels and its numbers at fp32 shapes
-            kn, shapes = f32_rows[name_k]
-            row["fp32_loop"] = dict(
-                source=f"{pkg}/csrc/flash_f32.cuh",
+        if name_k in f32_rows:  # the fp32 kernels: their registers and spills and their numbers at fp32 shapes
+            kn, src32, shapes = f32_rows[name_k]
+            row["fp32"] = dict(
+                source=src32,
                 kernels={f"{kn}<{vec}>": subset(resources[f"{kn}<{vec}>"], ("registers", "spill_stores", "spill_loads"))
                          for vec in (1, 0)},
-                **{tag: subset(res[(tag, "float32")], KEEP) for tag in shapes})
+                **{tag: dict(subset(res[(tag, "float32")], KEEP),
+                             **{k: v for k, v in res[(tag, "float32")].items() if k in ("ms_by_tap_split", "tap_split")})
+                   for tag in shapes})
         if rk.startswith("B1"):
             row["blend"] = r["blend"]
             row["ms_path_a_call"] = res[({"B1": "B1_720", "B1map": "B1map_720"}[rk], "bfloat16")]["ms"]

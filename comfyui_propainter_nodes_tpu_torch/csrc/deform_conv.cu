@@ -14,10 +14,11 @@
 // the input type. Output row y samples around input row row0 + y of x
 // (a row slab of the output, as the spatial H split runs it); row0 = 0
 // and Ho = H is the whole image. The wrapper lays the weights out once
-// per weight tensor: fp32 [9 * Cin, Cout] (tap outer, channel inner)
-// for the CUDA-core kernel, bf16 [Np, 9, Kp] (Cout padded to Np = a
-// multiple of 128, Cin to Kp = a multiple of 64, zeros in the padding; K
-// contiguous per output channel) for the tensor-core kernel.
+// per weight tensor, Cout padded to Np = a multiple of 128 and zeros in
+// the padding: fp32 [9, Kp, Np] (Cin padded to Kp = a multiple of 16;
+// output channels contiguous) for the CUDA-core kernel, bf16 [Np, 9, Kp]
+// (Kp a multiple of 64; K contiguous per output channel) for the
+// tensor-core kernel.
 //
 // What bounds it on the H100: at the feature-propagation shape (x [5, 90,
 // 160, 128], Cout 128) one call is 2*72000*1152*128 = 21.2 GFLOP against
@@ -33,10 +34,50 @@
 // where S (the masked bilinear samples) is built tile by tile in shared
 // memory and never reaches device memory.
 //
-// fp32 (`deform_conv_kernel`, the exact reference path): a block owns 64
-// pixels x 128 output channels and walks K in chunks of one tap x 32
-// channels, one channel a thread-iteration, each thread accumulating a
-// 4 x 8 register tile with fp32 FMAs on the CUDA cores.
+// fp32 (`deform_conv_kernel<VEC>`, fp32 FFMAs on the CUDA cores: TF32
+// would not hold fp32's tolerance). Its bound is operations (2 * M * 9 *
+// Cin * Cout at 67 TFLOP/s). An SM issues 128 FFMA lanes a clock, but
+// its shared memory returns 32 floats a clock to the threads, broadcast
+// or not, so the product needs about 4 FFMAs a float loaded. The design:
+//   * a block of NT = 128 threads owns BM = 64 pixels x BN = 128 output
+//     channels, each thread a register tile of 8 pixels x 8 channels: per
+//     K step two float4 loads of A and two of B (16 floats) feed 64
+//     FFMAs, 4 a float. A is stored K-major ([k][pixel]), so a thread's
+//     pixels are two float4 loads (pixels 4ty .. 4ty + 3 and 32 + 4ty ..),
+//     and B row-major ([k][channel]; channels 4tx .. and 64 + 4tx ..), so
+//     each quarter warp reads 128 contiguous bytes of B.
+//   * K is walked in chunks of one tap x KC = 16 channels. A gather unit
+//     is (pixel, tap, 4-channel slice), two a thread: it reads its
+//     group's (dy, dx) and mask once, computes the floor, the weights and
+//     the validity once, loads the four corners as 16-byte NHWC vectors
+//     (VEC: cg % 4 == 0 and x 16-byte aligned; otherwise it computes each
+//     channel's sample on its own), blends them in the plain version's
+//     corner order and multiplies by the mask. Four lanes take a pixel's
+//     four slices (64 contiguous bytes a corner); their stores to A are
+//     swizzled (pixel column ^ 8 * slice), so a warp's 32 stores hit 32
+//     banks and a thread's 4 pixels stay one aligned float4.
+//   * one barrier a chunk, and no load that waits on another: a unit's
+//     offset pair and mask are loaded two chunks ahead and its corners one
+//     chunk ahead (at positions computed from those offsets), both in
+//     flight under the current chunk's products; the corners are blended
+//     and stored after them. The weight slice arrives by `cp.async` into
+//     the other of two buffers. 24 KB of shared memory a block;
+//     MIN_BLOCKS = 2 blocks an SM leave up to 255 registers a thread
+//     (ptxas: 209 for <1>, 157 for <0>, no spills).
+//   * where the pixel tiles would give fewer than three blocks for every
+//     two SMs (`tap_splits` in ops/cuda/deform_conv.py), each tap runs in
+//     a block of its own (grid z, 9 splits; the kernel also takes 3): each
+//     writes its partial sums to a workspace [splits, M, Cout], and
+//     `deform_conv_reduce_kernel` adds them in split order, then the
+//     bias. No atomics: two calls on the same inputs give the same bits.
+// Measured on an NVIDIA H100 80GB HBM3, 700.00 W (`chip_smoke.py
+// --b2-f32-tiles`): with the corners loaded in the same chunk as their
+// offsets (the first form), the kernel at 3 blocks an SM (168 registers)
+// took 0.885 ms at x[5,90,160,128] and 1.99 ms in path MH's row form;
+// at 2 blocks, 4 blocks (spilling 156-180 bytes) and with 256 threads
+// it was slower. The kept form spills at 3 blocks an SM and takes 0.85
+// ms and 1.71 ms at 2 (256 threads x 1 block: within 2%), 37% and 40%
+// of the bound there.
 //
 // bf16 (`deform_conv_mma_kernel`, on the tensor cores): a block of 8
 // warps owns BM pixels (64, or 32 where 64 would leave SMs idle) x 128
@@ -65,122 +106,322 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+// ------------------------------------------------ both kernels
+
+// the bilinear sample position of output pixel (py, px), tap (ki, kj),
+// offset (dy, dx): the top-left corner (clamped to a few pixels outside,
+// where every corner reads zero) and the fractions
+struct Pos {
+  int iy, ix;
+  float wy, wx;
+};
+
+__device__ __forceinline__ Pos position(int py, int px, int ki, int kj, float dy, float dx, int H, int W) {
+  const float sy = (float)(py + ki - 1) + dy;
+  const float sx = (float)(px + kj - 1) + dx;
+  const float y0 = floorf(sy), x0 = floorf(sx);
+  Pos p;
+  p.wy = sy - y0;
+  p.wx = sx - x0;
+  p.iy = (int)fminf(fmaxf(y0, -4.0f), (float)H + 4.0f);
+  p.ix = (int)fminf(fmaxf(x0, -4.0f), (float)W + 4.0f);
+  return p;
+}
+
+__device__ __forceinline__ bool inside(int iy, int ix, int H, int W) {
+  return (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W;
+}
+
+// corners summed in the plain version's order, then the mask
+__device__ __forceinline__ float blend(float v00, float v01, float v10, float v11, float wy, float wx, float mk) {
+  const float gy = 1.0f - wy, gx = 1.0f - wx;
+  return (v00 * (gy * gx) + v01 * (gy * wx) + v10 * (wy * gx) + v11 * (wy * wx)) * mk;
+}
+
 // ------------------------------------------------ fp32, CUDA cores
 
-constexpr int BM = 64;    // output pixels per block
-constexpr int BN = 128;   // output channels per block
-constexpr int KC = 32;    // input channels per K chunk (one tap)
-constexpr int NT = 256;   // threads per block
+namespace f32 {
 
-__global__ void __launch_bounds__(NT)
-deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ off,
-                   const float* __restrict__ msk, const float* __restrict__ wt,
-                   const float* __restrict__ bias, float* __restrict__ out,
-                   int N, int H, int W, int Cin, int Cout, int G, int Ho, int row0) {
-  __shared__ float s_a[KC][BM + 1];
-  __shared__ __align__(16) float s_b[KC][BN];
+constexpr int NT = 128;                  // threads: 16 along the output channels x NT / 16 along the pixels
+constexpr int MIN_BLOCKS = 2;            // blocks an SM asked of the compiler: at most 255 registers a thread
+constexpr int BM = NT / 2;               // output pixels per block, 8 a thread
+constexpr int BN = 128;                  // output channels per block, 8 a thread
+constexpr int KC = 16;                   // channels of one K chunk (one tap)
+constexpr int SLICES = KC / 4;           // 4-channel gather slices of a chunk row
+constexpr int UNITS = BM * SLICES / NT;  // gather units a thread
+constexpr int UROWS = NT / SLICES;       // pixels between a thread's units
+
+struct Args {
+  const float* x;
+  const float* off;
+  const float* msk;
+  const float* wt;    // [9, Kp, Np]
+  const float* bias;  // [Cout], or nullptr (and always with a tap split)
+  float* out;         // [M, Cout]; with a tap split the workspace [splits, M, Cout]
+  long long M;
+  int H, W, Cin, Cout, G, Kp, Np;
+  int Ho, row0;  // output rows, and the input row of output row 0
+  int taps;      // taps a block: 9 / splits
+};
+
+// a gather unit's registers between its loads and its store: the four
+// corners' 4 channels (vector path) or the 4 finished samples (per channel)
+template <bool VEC>
+struct Unit;
+template <>
+struct Unit<true> {
+  float4 v[4];
+  float wy, wx, mk;
+};
+template <>
+struct Unit<false> {
+  float val[4];
+};
+
+// a vector unit's offset pair and mask, loaded a chunk before its corners
+struct OffMask {
+  float dy, dx, mk;
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) deform_conv_kernel(Args a) {
+  __shared__ __align__(16) float sa[2][KC][BM];  // samples, K-major, pixel columns swizzled
+  __shared__ __align__(16) float sb[2][KC][BN];  // the weight slice
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;   // output channels tx*8 .. tx*8+7
-  const int ty = tid >> 4;   // output pixels ty*4 .. ty*4+3
-  const long long M = (long long)N * Ho * W;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int HW = H * W;
-  const int HWo = Ho * W;
+  const int k0 = blockIdx.z * a.taps;
+  const int H = a.H, W = a.W, Cin = a.Cin, G = a.G;
   const int cg = Cin / G;
+  const int cpt = a.Kp / KC;  // chunks a tap
+  const int n_chunks = a.taps * cpt;
 
-  float acc[4][8];
+  // this thread's gather units: slice `sl` of pixels row_u + i * UROWS
+  const int sl = tid % SLICES;
+  const int row_u = tid / SLICES;
+  const float* img[UNITS];
+  int py[UNITS], px[UNITS];  // py -1: past M
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < UNITS; ++i) {
+    const long long p = m0 + row_u + i * UROWS;
+    img[i] = a.x;
+    py[i] = -1;
+    px[i] = 0;
+    if (p < a.M) {
+      const int HWo = a.Ho * W;
+      const int n = (int)(p / HWo);
+      const int rem = (int)(p - (long long)n * HWo);
+      img[i] = a.x + (long long)n * H * W * Cin;
+      py[i] = a.row0 + rem / W;
+      px[i] = rem - (rem / W) * W;
+    }
+  }
+
+  // chunk c's offset pairs and masks into registers (vector path; the
+  // per-channel path reads its own in `gather`)
+  auto fetch = [&](int c, OffMask (&o)[UNITS]) {
+    if constexpr (VEC) {
+      const int kt = c / cpt;
+      const int k = k0 + kt;
+      const int ci0 = (c - kt * cpt) * KC + sl * 4;
+#pragma unroll
+      for (int i = 0; i < UNITS; ++i) {
+        o[i].dy = o[i].dx = o[i].mk = 0.0f;
+        if (py[i] >= 0 && ci0 < Cin) {
+          const long long pg = (m0 + row_u + i * UROWS) * G + ci0 / cg;
+          const float* op = a.off + (pg * 9 + k) * 2;
+          o[i].dy = __ldg(op);
+          o[i].dx = __ldg(op + 1);
+          o[i].mk = __ldg(a.msk + pg * 9 + k);
+        }
+      }
+    }
+  };
+
+  // chunk c's corner loads into registers, at the positions of its
+  // offsets o (vector path); the per-channel path finishes its samples
+  auto gather = [&](int c, const OffMask (&o)[UNITS], Unit<VEC> (&u)[UNITS]) {
+    const int kt = c / cpt;
+    const int k = k0 + kt;
+    const int ci0 = (c - kt * cpt) * KC + sl * 4;
+    const int ki = k / 3, kj = k - (k / 3) * 3;
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const bool live = py[i] >= 0;
+      if constexpr (VEC) {
+        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        u[i].v[0] = u[i].v[1] = u[i].v[2] = u[i].v[3] = zero;
+        u[i].wy = u[i].wx = u[i].mk = 0.0f;
+        if (live && ci0 < Cin) {
+          const Pos s = position(py[i], px[i], ki, kj, o[i].dy, o[i].dx, H, W);
+          u[i].wy = s.wy;
+          u[i].wx = s.wx;
+          u[i].mk = o[i].mk;
+          const float* xb = img[i] + ci0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int iy = s.iy + (q >> 1), ix = s.ix + (q & 1);
+            if (inside(iy, ix, H, W)) u[i].v[q] = __ldg(reinterpret_cast<const float4*>(xb + (iy * W + ix) * Cin));
+          }
+        }
+      } else {
+        const long long p = m0 + row_u + i * UROWS;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ci = ci0 + e;
+          float val = 0.0f;
+          if (live && ci < Cin) {
+            const long long pg = p * G + ci / cg;
+            const float* op = a.off + (pg * 9 + k) * 2;
+            const Pos s = position(py[i], px[i], ki, kj, __ldg(op), __ldg(op + 1), H, W);
+            const float* xb = img[i] + ci;
+            float v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int iy = s.iy + (q >> 1), ix = s.ix + (q & 1);
+              v[q] = inside(iy, ix, H, W) ? __ldg(xb + (iy * W + ix) * Cin) : 0.0f;
+            }
+            val = blend(v[0], v[1], v[2], v[3], s.wy, s.wx, __ldg(a.msk + pg * 9 + k));
+          }
+          u[i].val[e] = val;
+        }
+      }
+    }
+  };
+
+  // the units' samples into A buffer `buf`: channel row sl * 4 + e, pixel
+  // column row ^ 8 * sl (the four slices of 8 pixels on 32 banks)
+  auto store = [&](int buf, const Unit<VEC> (&u)[UNITS]) {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      float val[4];
+      if constexpr (VEC) {
+        const float4* v = u[i].v;
+        val[0] = blend(v[0].x, v[1].x, v[2].x, v[3].x, u[i].wy, u[i].wx, u[i].mk);
+        val[1] = blend(v[0].y, v[1].y, v[2].y, v[3].y, u[i].wy, u[i].wx, u[i].mk);
+        val[2] = blend(v[0].z, v[1].z, v[2].z, v[3].z, u[i].wy, u[i].wx, u[i].mk);
+        val[3] = blend(v[0].w, v[1].w, v[2].w, v[3].w, u[i].wy, u[i].wx, u[i].mk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) val[e] = u[i].val[e];
+      }
+      const int col = (row_u + i * UROWS) ^ (sl << 3);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[buf][sl * 4 + e][col] = val[e];
+    }
+  };
+
+  // chunk c's weight slice [KC][BN] into B buffer `buf`
+  auto stage_b = [&](int c, int buf) {
+    const int kt = c / cpt;
+    const float* src = a.wt + ((long long)(k0 + kt) * a.Kp + (c - kt * cpt) * KC) * a.Np + n0;
+#pragma unroll
+    for (int i = 0; i < KC * BN / 4 / NT; ++i) {
+      const int idx = tid + i * NT;
+      const int row = idx / (BN / 4);
+      const int col = (idx - row * (BN / 4)) * 4;
+      fmma::cp_async16(fmma::smem_u32(&sb[buf][row][col]), src + (long long)row * a.Np + col, 16);
+    }
+    fmma::cp_commit();
+  };
+
+  const int tx = tid & 15;  // output channels 4tx .. 4tx + 3 and BN/2 + 4tx ..
+  const int ty = tid >> 4;  // output pixels 4ty .. 4ty + 3 and BM/2 + 4ty ..
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k = 0; k < 9; ++k) {
-    const int ki = k / 3;
-    const int kj = k - ki * 3;
-    for (int c0 = 0; c0 < Cin; c0 += KC) {
-      // gather: 64 pixels x 32 channels of masked bilinear samples
-#pragma unroll
-      for (int rep = 0; rep < (BM * KC) / NT; ++rep) {
-        const int idx = tid + rep * NT;
-        const int c = idx % KC;
-        const int px = idx / KC;
-        const long long p = m0 + px;
-        const int ci = c0 + c;
-        float val = 0.0f;
-        if (p < M && ci < Cin) {
-          const int n = (int)(p / HWo);
-          const int rem = (int)(p - (long long)n * HWo);
-          const int py = row0 + rem / W;
-          const int pxx = rem - (rem / W) * W;
-          const int g = ci / cg;
-          const long long pg = p * G + g;
-          const float dy = off[pg * 18 + 2 * k];
-          const float dx = off[pg * 18 + 2 * k + 1];
-          const float mk = msk[pg * 9 + k];
-          const float sy = (float)(py + ki - 1) + dy;
-          const float sx = (float)(pxx + kj - 1) + dx;
-          const float y0 = floorf(sy);
-          const float x0 = floorf(sx);
-          const float wy1 = sy - y0, wx1 = sx - x0;
-          const float wy0 = 1.0f - wy1, wx0 = 1.0f - wx1;
-          const int iy = (int)fminf(fmaxf(y0, -4.0f), (float)H + 4.0f);
-          const int ix = (int)fminf(fmaxf(x0, -4.0f), (float)W + 4.0f);
-          const float* xb = x + (long long)n * HW * Cin + ci;
-          const bool y0ok = iy >= 0 && iy < H;
-          const bool y1ok = iy + 1 >= 0 && iy + 1 < H;
-          const bool x0ok = ix >= 0 && ix < W;
-          const bool x1ok = ix + 1 >= 0 && ix + 1 < W;
-          float v = 0.0f;
-          if (y0ok && x0ok) v += xb[((long long)iy * W + ix) * Cin] * (wy0 * wx0);
-          if (y0ok && x1ok) v += xb[((long long)iy * W + ix + 1) * Cin] * (wy0 * wx1);
-          if (y1ok && x0ok) v += xb[((long long)(iy + 1) * W + ix) * Cin] * (wy1 * wx0);
-          if (y1ok && x1ok) v += xb[((long long)(iy + 1) * W + ix + 1) * Cin] * (wy1 * wx1);
-          val = v * mk;
-        }
-        s_a[c][px] = val;
-      }
-      // weight slice [KC, BN] of the [9*Cin, Cout] matrix
-#pragma unroll
-      for (int rep = 0; rep < (KC * BN) / NT; ++rep) {
-        const int idx = tid + rep * NT;
-        const int co = idx % BN;
-        const int c = idx / BN;
-        const int ci = c0 + c;
-        float wv = 0.0f;
-        if (ci < Cin && n0 + co < Cout) wv = wt[((long long)k * Cin + ci) * Cout + n0 + co];
-        s_b[c][co] = wv;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < KC; ++c) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = s_a[c][ty * 4 + i];
-        const float4 b0 = *reinterpret_cast<const float4*>(&s_b[c][tx * 8]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&s_b[c][tx * 8 + 4]);
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-      }
-      __syncthreads();
+  Unit<VEC> u[UNITS];
+  OffMask o[UNITS];
+  fetch(0, o);
+  gather(0, o, u);
+  stage_b(0, 0);
+  store(0, u);
+  if (n_chunks > 1) fetch(1, o);
+
+  // One barrier a chunk. At the top of chunk c: this thread's weight
+  // copies of chunk c have landed, and after the barrier everyone's
+  // samples and copies have, and no warp still reads the buffers that
+  // chunk c+1 reuses (last read by chunk c-1). The corner loads of chunk
+  // c+1 and the offset loads of chunk c+2 are in flight under chunk c's
+  // products, so no load waits on another within a chunk.
+  for (int c = 0; c < n_chunks; ++c) {
+    fmma::cp_wait<0>();
+    __syncthreads();
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) {
+      stage_b(c + 1, buf ^ 1);
+      gather(c + 1, o, u);
+      if (c + 2 < n_chunks) fetch(c + 2, o);
     }
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const int sw = (kk >> 2) << 3;
+      const float4 a0 = *reinterpret_cast<const float4*>(&sa[buf][kk][(4 * ty) ^ sw]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&sa[buf][kk][(BM / 2 + 4 * ty) ^ sw]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&sb[buf][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&sb[buf][kk][BN / 2 + 4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (c + 1 < n_chunks) store(buf ^ 1, u);
   }
 
+  // epilogue: bias, rows of 4 channels as float4 where Cout % 4 == 0
+  const int Cout = a.Cout;
+  float* ob = a.out + (long long)blockIdx.z * a.M * Cout;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long p = m0 + ty * 4 + i;
-    if (p >= M) continue;
+  for (int jh = 0; jh < 2; ++jh) {
+    const int co = n0 + jh * (BN / 2) + 4 * tx;
+    if (co >= Cout) continue;
+    float b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (a.bias != nullptr) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int co = n0 + tx * 8 + j;
-      if (co < Cout) out[p * Cout + co] = acc[i][j] + (bias != nullptr ? bias[co] : 0.0f);
+      for (int j = 0; j < 4; ++j)
+        if (co + j < Cout) b[j] = a.bias[co + j];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long p = m0 + (i >> 2) * (BM / 2) + 4 * ty + (i & 3);
+      if (p >= a.M) continue;
+      float* dst = ob + p * Cout + co;
+      if ((Cout & 3) == 0) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[i][4 * jh] + b[0], acc[i][4 * jh + 1] + b[1],
+                                                      acc[i][4 * jh + 2] + b[2], acc[i][4 * jh + 3] + b[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (co + j < Cout) dst[j] = acc[i][4 * jh + j] + b[j];
+      }
     }
   }
 }
+
+// out = (partial 0 + partial 1 + ...) + bias, in split order
+__global__ void deform_conv_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ bias,
+                                          float* __restrict__ out, long long MC, int Cout, int splits) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < MC; i += (long long)gridDim.x * blockDim.x) {
+    float s = ws[i];
+    for (int sp = 1; sp < splits; ++sp) s += ws[sp * MC + i];
+    out[i] = s + (bias != nullptr ? bias[i % Cout] : 0.0f);
+  }
+}
+
+template <bool VEC>
+int launch(const Args& a, int splits, cudaStream_t s) {
+  const dim3 grid((unsigned)((a.M + BM - 1) / BM), (unsigned)(a.Np / BN), (unsigned)splits);
+  deform_conv_kernel<VEC><<<grid, NT, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
 
 // ------------------------------------------------ bf16, tensor cores
 
@@ -221,30 +462,6 @@ struct Unit<false> {
   float val[8];
 };
 
-// the bilinear sample position of output pixel (py, px), tap (ki, kj),
-// offset (dy, dx): the top-left corner (clamped to a few pixels outside,
-// where every corner reads zero) and the fractions
-struct Pos {
-  int iy, ix;
-  float wy, wx;
-};
-
-__device__ __forceinline__ Pos position(int py, int px, int ki, int kj, float dy, float dx, int H, int W) {
-  const float sy = (float)(py + ki - 1) + dy;
-  const float sx = (float)(px + kj - 1) + dx;
-  const float y0 = floorf(sy), x0 = floorf(sx);
-  Pos p;
-  p.wy = sy - y0;
-  p.wx = sx - x0;
-  p.iy = (int)fminf(fmaxf(y0, -4.0f), (float)H + 4.0f);
-  p.ix = (int)fminf(fmaxf(x0, -4.0f), (float)W + 4.0f);
-  return p;
-}
-
-__device__ __forceinline__ bool inside(int iy, int ix, int H, int W) {
-  return (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W;
-}
-
 // eight bf16 of a 16-byte vector as fp32 (exact: a bf16 is the top half
 // of its fp32)
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
@@ -254,12 +471,6 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
     f[2 * j] = __uint_as_float(w[j] << 16);
     f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
   }
-}
-
-// corners summed in the plain version's order, then the mask
-__device__ __forceinline__ float blend(float v00, float v01, float v10, float v11, float wy, float wx, float mk) {
-  const float gy = 1.0f - wy, gx = 1.0f - wx;
-  return (v00 * (gy * gx) + v01 * (gy * wx) + v10 * (wy * gx) + v11 * (wy * wx)) * mk;
 }
 
 template <int BM, bool VEC>
@@ -495,22 +706,34 @@ int launch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// out [N, Ho, W, Cout]: output row y at input row row0 + y (0 <= row0,
-// row0 + Ho <= H; the wrapper checks).
+// fp32 on the CUDA cores. wt: [9, Kp, Np] fp32 (Kp, Np multiples of 16,
+// 128); splits: 1, 3 or 9 blocks over the taps (3 or 9: ws holds [splits,
+// M, Cout] floats); vec: 1 if cg % 4 == 0 and x is 16-byte aligned
+// (corners as 16-byte vectors), else 0 (channel by channel); out [N, Ho,
+// W, Cout]: output row y at input row row0 + y (0 <= row0, row0 + Ho <=
+// H; the wrapper checks).
 extern "C" int propainter_deform_conv(
     const void* x, const void* off, const void* msk, const void* wt,
-    const void* bias, void* out, int N, int H, int W, int Cin, int Cout,
-    int G, int Ho, int row0, void* stream) {
+    const void* bias, void* out, void* ws, int N, int H, int W, int Cin,
+    int Cout, int G, int Kp, int Np, int splits, int vec, int Ho, int row0,
+    void* stream) {
+  if ((splits != 1 && splits != 3 && splits != 9) || (splits > 1 && ws == nullptr) || Kp % f32::KC != 0 ||
+      Kp < Cin || Np % f32::BN != 0 || Np < Cout)
+    return (int)cudaErrorInvalidValue;
   const long long M = (long long)N * Ho * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
+  if (M == 0 || Cout == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (M > 0 && Cout > 0) {
-    deform_conv_kernel<<<grid, NT, 0, s>>>(
-        reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(off),
-        reinterpret_cast<const float*>(msk), reinterpret_cast<const float*>(wt),
-        reinterpret_cast<const float*>(bias), reinterpret_cast<float*>(out),
-        N, H, W, Cin, Cout, G, Ho, row0);
-  }
+  const float* b = reinterpret_cast<const float*>(bias);
+  f32::Args a{reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(off),
+              reinterpret_cast<const float*>(msk), reinterpret_cast<const float*>(wt),
+              splits == 1 ? b : nullptr, reinterpret_cast<float*>(splits == 1 ? out : ws),
+              M, H, W, Cin, Cout, G, Kp, Np, Ho, row0, 9 / splits};
+  const int e = vec ? f32::launch<true>(a, splits, s) : f32::launch<false>(a, splits, s);
+  if (e != 0 || splits == 1) return e;
+  const long long MC = M * Cout;
+  const unsigned blocks = (unsigned)((MC + 255) / 256);
+  f32::deform_conv_reduce_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float*>(ws), b,
+                                                         reinterpret_cast<float*>(out), MC, Cout, splits);
   return (int)cudaGetLastError();
 }
 

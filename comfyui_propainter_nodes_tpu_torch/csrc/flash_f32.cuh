@@ -1,16 +1,16 @@
 // The fp32 flash-attention loop on the CUDA cores, for the fp32 inputs of
-// the single-pass (window_attention.cu) and segment-tiled
-// (window_attention_tiled.cu) window attention kernels. bf16 inputs run
-// the tensor-core loop of flash_mma.cuh; the halo kernel's fp32 inputs
-// still run flash_tile.cuh. All three loops take the same key decoders.
+// the single-pass (window_attention.cu), segment-tiled
+// (window_attention_tiled.cu) and halo (window_attention_halo.cu) window
+// attention kernels. bf16 inputs run the tensor-core loop of
+// flash_mma.cuh; both loops take the key decoders of window_keys.cuh.
 //
 // What bounds it: occupied windows are operations (4 * rows * keys * ch
 // flops), done as fp32 FFMAs: TF32 tensor cores would not hold fp32's
 // tolerance. An SM issues 128 FFMA lanes a clock but its shared memory
 // returns 32 floats a clock to the threads (128 bytes, broadcast or not),
 // so the loop needs about 4 FFMAs for each float a thread loads, as a
-// register-blocked SGEMM does; the earlier loop (flash_tile.cuh) did
-// fewer than one.
+// register-blocked SGEMM does; the earlier loop (32-query, 16-key tiles,
+// one output row to four threads) did fewer than one.
 //
 // A block of NT = 128 threads (four warps) owns BQ = 64 query rows of one
 // (window, head), WR = 16 rows to a warp. Keys arrive in tiles of BK = 32.
@@ -59,7 +59,7 @@
 // slower at every shape. A 64-key tile needs 178 KB a block: one block
 // and four warps an SM.
 //
-// Conventions of a decoded key (as flash_tile.cuh):
+// Conventions of a decoded key (window_keys.cuh):
 //   * bias == -INFINITY: the key is absent (ragged tile tail), p = 0;
 //   * k == nullptr: a padding key with a zero row (score = bias);
 //   * frame >= 0 with frame_wsz > 0: the key counts only for rows of the
@@ -75,7 +75,7 @@
 
 #include <initializer_list>
 
-#include "flash_tile.cuh"  // FrameKeys, WindowRows, clean_range
+#include "window_keys.cuh"  // FrameKeys, WindowRows, clean_range
 #include "mma_prims.cuh"   // smem_u32, cp_async16, cp_commit, cp_wait
 
 namespace ff32 {
@@ -429,7 +429,7 @@ __device__ __forceinline__ void attend_window(unsigned char* smem, int q0, int Q
     attend<VEC>(smem, nq, ch, scale, 0, n_keys, occ_keys, q_row, out, q0, 0);
   } else {
     int klo, khi;
-    flash::clean_range(q0, nq, QT, wsz, klo, khi);
+    wkeys::clean_range(q0, nq, QT, wsz, klo, khi);
     attend<VEC>(smem, nq, ch, scale, klo, khi, clean_keys, q_row, out, q0, wsz);
   }
 }

@@ -1,9 +1,8 @@
 // The bf16 flash-attention tile loop on the tensor cores, shared by the
 // single-pass (window_attention.cu), segment-tiled
 // (window_attention_tiled.cu) and halo (window_attention_halo.cu) window
-// attention kernels. fp32 inputs run the CUDA-core loops of flash_f32.cuh
-// (single-pass and segment-tiled) and flash_tile.cuh (halo); all three
-// loops take the same key decoders.
+// attention kernels. Their fp32 inputs run the CUDA-core loop of
+// flash_f32.cuh; both loops take the key decoders of window_keys.cuh.
 //
 // A block of NT = 128 threads (four warps) owns BQ = 64 query rows of one
 // (window, head), 16 rows to a warp. Keys arrive in tiles of BK = 64:
@@ -32,7 +31,7 @@
 // Shared rows are padded by 8 elements: a row stride of an odd number of
 // 16-byte units puts the 8 rows of each `ldmatrix` phase on distinct banks.
 //
-// Conventions of a decoded key (as flash_tile.cuh):
+// Conventions of a decoded key (window_keys.cuh):
 //   * bias == -INFINITY: the key is absent (ragged tile tail), p = 0;
 //   * k == nullptr: a padding key with a zero row (score = bias);
 //   * frame >= 0 with frame_wsz > 0: the key counts only for rows of the
@@ -52,7 +51,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_tile.cuh"  // FrameKeys, WindowRows, clean_range
+#include "window_keys.cuh"  // FrameKeys, WindowRows, clean_range
 #include "mma_prims.cuh"   // smem_u32, cp_async16, ldsm_x4, mma, pack_bf16
 
 namespace fmma {
@@ -299,7 +298,7 @@ __device__ __forceinline__ void attend_window(unsigned char* smem, int q0, int Q
     attend(smem, nq, ch, scale, 0, n_keys, occ_keys, q_row, out, q0, 0);
   } else {
     int klo, khi;
-    flash::clean_range(q0, nq, QT, wsz, klo, khi);
+    wkeys::clean_range(q0, nq, QT, wsz, klo, khi);
     attend(smem, nq, ch, scale, klo, khi, clean_keys, q_row, out, q0, wsz);
   }
 }

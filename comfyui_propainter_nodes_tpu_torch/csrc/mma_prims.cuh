@@ -1,6 +1,7 @@
-// The tensor-core and async-copy primitives of the bf16 kernels (sm_90a):
-// the attention loop (flash_mma.cuh) and the deformable conv's implicit
-// GEMM (deform_conv.cu). Plain inline PTX, no state.
+// The tensor-core and async-copy primitives of the kernels (sm_90a): the
+// attention loops (flash_mma.cuh; flash_f32.cuh copies only) and the
+// deformable conv's implicit GEMMs (deform_conv.cu). Plain inline PTX, no
+// state.
 
 #pragma once
 

@@ -109,9 +109,9 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_m
   const long long wo = wh * a.QT * a.ch;
   fmma::attend_window(smem, q0, a.QT, a.wsz, a.ch, a.scale, a.occ[w] != 0, a.QT + a.RL + a.PL,
                       segment_keys<T>(a, wh, w / a.n_win_per_b, h),
-                      flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
-                      flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
-                      flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
+                      wkeys::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                      wkeys::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
+                      wkeys::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
 // fp32: the CUDA-core loop, one block per (64 queries, head, window);
@@ -127,9 +127,9 @@ __global__ void __launch_bounds__(ff32::NT, ff32::MIN_BLOCKS) window_attention_f
   const long long wo = wh * a.QT * a.ch;
   ff32::attend_window<VEC>(smem, q0, a.QT, a.wsz, a.ch, a.scale, a.occ[w] != 0, a.QT + a.RL + a.PL,
                            segment_keys<T>(a, wh, w / a.n_win_per_b, h),
-                           flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
-                           flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
-                           flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
+                           wkeys::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                           wkeys::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
+                           wkeys::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
 template <bool VEC>

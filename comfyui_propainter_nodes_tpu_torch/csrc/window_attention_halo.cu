@@ -38,12 +38,19 @@
 // tensor-core loop (flash_mma.cuh: 64-query blocks, `mma.sync` bf16 tiles
 // for Q·Kᵀ and P·V, 64-key K/V tiles double-buffered by `cp.async`), which
 // puts the occupied windows' products on the tensor cores; fp32 inputs
-// take the CUDA-core loop (flash_tile.cuh, 32-query blocks). The pooled
-// keys stream through the same tiles (the TPU's 1024-key DMA chunks and
-// their -1e9 padding exist only to bound its VMEM blocks).
+// take the CUDA-core loop of B3 and B4 (flash_f32.cuh: 64-query blocks of
+// 128 threads, register blocks of S and O fed by float4 shared loads,
+// 32-key K/V tiles double-buffered by `cp.async`, 16-byte copies where ch
+// % 4 == 0 and every tensor is 16-byte aligned, 4-byte copies otherwise).
+// Both loops run the same decoders. A clean window passes a null bias:
+// its keys then carry their frame, which the fp32 loop holds against each
+// query row's frame, so a 64-query tile that spans three frames attends
+// within each. The pooled keys stream through the same tiles (the TPU's
+// 1024-key DMA chunks and their -1e9 padding exist only to bound its VMEM
+// blocks).
 
+#include "flash_f32.cuh"
 #include "flash_mma.cuh"
-#include "flash_tile.cuh"
 
 namespace {
 
@@ -213,26 +220,26 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_h
                       w.keys, w.clean, w.rows, w.out);
 }
 
-// fp32: the CUDA-core loop, one block per (32 queries, head, window)
-__global__ void __launch_bounds__(flash::NT, flash::MIN_BLOCKS) window_attention_halo_kernel(Args a) {
+// fp32: the CUDA-core loop, one block per (64 queries, head, window);
+// VEC: 16-byte copies (ch % 4 == 0, every tensor 16-byte aligned)
+template <bool VEC>
+__global__ void __launch_bounds__(ff32::NT, ff32::MIN_BLOCKS) window_attention_halo_f32_kernel(Args a) {
   using T = float;
-  __shared__ flash::Smem<T> sm;
-  const int q0 = blockIdx.x * flash::BQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.x * ff32::BQ;
   const Window<T> w = window<T>(a, q0);
-  const int nq = min(flash::BQ, w.QT - q0);
-  const int ch = a.C / a.n_head;
-  const int r = threadIdx.x >> 2;
-  flash::load_q(sm, nq, ch, w.rows);
-  flash::Row st;
-  flash::init(st);
-  if (w.occupied) {
-    flash::attend(sm, st, 0, w.keys.QT + w.keys.HL + a.PL, w.keys, ch, a.scale, -1);
-  } else {  // clean: only the frames this query tile touches
-    int klo, khi;
-    flash::clean_range(q0, nq, w.QT, w.wsz, klo, khi);
-    flash::attend(sm, st, klo, khi, w.clean, ch, a.scale, (q0 + r) / w.wsz);
-  }
-  if (r < nq) flash::store_row(st, w.out(r), ch);
+  ff32::attend_window<VEC>(smem, q0, w.QT, w.wsz, a.C / a.n_head, a.scale, w.occupied,
+                           w.keys.QT + w.keys.HL + a.PL, w.keys, w.clean, w.rows, w.out);
+}
+
+template <bool VEC>
+cudaError_t launch_f32(const Args& a, const dim3& grid, cudaStream_t s) {
+  const size_t smem = ff32::smem_bytes(a.C / a.n_head);
+  const cudaError_t e = cudaFuncSetAttribute(window_attention_halo_f32_kernel<VEC>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  window_attention_halo_f32_kernel<VEC><<<grid, ff32::NT, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -243,7 +250,7 @@ extern "C" int propainter_window_attention_halo(
     const void* surv, void* out, int B, int T_, int T_sel, int Hp, int Wp, int C, int n_head,
     int wh, int ww, int PL, int n_surv, float scale, int is_bf16, void* stream) {
   const int eh = (wh + 1) / 2, ew = (ww + 1) / 2;
-  if (n_head <= 0 || C % n_head != 0 || C / n_head > flash::CHM || Hp % wh != 0 || Wp % ww != 0 ||
+  if (n_head <= 0 || C % n_head != 0 || C / n_head > ff32::CHM || Hp % wh != 0 || Wp % ww != 0 ||
       (is_bf16 && (C / n_head) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const int nwh = Hp / wh, nww = Wp / ww;
@@ -261,9 +268,9 @@ extern "C" int propainter_window_attention_halo(
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((unsigned)((QT + fmma::BQ - 1) / fmma::BQ), (unsigned)n_head, (unsigned)(B * nwh * nww));
     window_attention_halo_mma_kernel<<<grid, fmma::NT, smem, s>>>(a);
-  } else {
-    const dim3 grid((unsigned)((QT + flash::BQ - 1) / flash::BQ), (unsigned)n_head, (unsigned)(B * nwh * nww));
-    window_attention_halo_kernel<<<grid, flash::NT, 0, s>>>(a);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((QT + ff32::BQ - 1) / ff32::BQ), (unsigned)n_head, (unsigned)(B * nwh * nww));
+  const bool vec = (C / n_head) % 4 == 0 && ff32::aligned16({q, k, v, kh, vh, pk, pv, out});
+  return (int)(vec ? launch_f32<true>(a, grid, s) : launch_f32<false>(a, grid, s));
 }

@@ -154,9 +154,9 @@ __global__ void __launch_bounds__(fmma::NT, fmma::MIN_BLOCKS) window_attention_s
   const long long wo = wh * a.QT * a.ch;
   fmma::attend_window(smem, q0, a.QT, a.wsz, a.ch, a.scale, r.slot >= 0, a.QT + a.RLp + a.PLp,
                       tiled_keys<T>(a, wh, r.w / a.n_win_per_b, h),
-                      flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
-                      flash::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
-                      flash::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
+                      wkeys::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                      wkeys::WindowRows<const T*>{static_cast<const T*>(a.q) + wo, q0, a.ch},
+                      wkeys::WindowRows<T*>{static_cast<T*>(a.out) + wo, q0, a.ch});
 }
 
 // The fp32 split epilogue: each row's partial (m, l, O) to the workspace,
@@ -197,14 +197,14 @@ __global__ void __launch_bounds__(ff32::NT, ff32::MIN_BLOCKS) window_attention_s
   const long long wh = (long long)r.w * a.n_head + h;
   const long long wo = wh * a.QT * a.ch;
   const int nq = min(ff32::BQ, a.QT - q0);
-  const flash::WindowRows<const T*> q_row{static_cast<const T*>(a.q) + wo, q0, a.ch};
+  const wkeys::WindowRows<const T*> q_row{static_cast<const T*>(a.q) + wo, q0, a.ch};
   if (r.slot < 0) {  // clean: only the frames this query tile touches
     int klo, khi;
-    flash::clean_range(q0, nq, a.QT, a.wsz, klo, khi);
-    const flash::WindowRows<T*> out_row{static_cast<T*>(a.out) + wo, q0, a.ch};
+    wkeys::clean_range(q0, nq, a.QT, a.wsz, klo, khi);
+    const wkeys::WindowRows<T*> out_row{static_cast<T*>(a.out) + wo, q0, a.ch};
     ff32::attend<VEC>(smem, nq, a.ch, a.scale, klo, khi,
-                      flash::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
-                      q_row, ff32::StoreRows<VEC, flash::WindowRows<T*>>{out_row}, q0, a.wsz);
+                      wkeys::FrameKeys<T>{static_cast<const T*>(a.wk) + wo, static_cast<const T*>(a.wv) + wo, a.ch, a.wsz},
+                      q_row, ff32::StoreRows<VEC, wkeys::WindowRows<T*>>{out_row}, q0, a.wsz);
     return;
   }
   const int k0 = r.sp * a.split_keys;

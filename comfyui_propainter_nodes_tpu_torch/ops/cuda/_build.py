@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "propainter_corr_lookup": [_P] * 8 + [_I] * 8 + [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _P],
-    "propainter_deform_conv": [_P] * 6 + [_I] * 8 + [_P],
+    "propainter_deform_conv": [_P] * 7 + [_I] * 12 + [_P],
     "propainter_deform_conv_mma": [_P] * 6 + [_I] * 11 + [_P],
     "propainter_window_attention": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "propainter_window_attention_tiled": [_P] * 16 + [_I] * 13 + [ctypes.c_float, _I, _P],

@@ -12,7 +12,9 @@ slab of the output over the whole input, as the spatial H split
 CPU tensors take the plain version. CUDA tensors take a kernel by dtype:
 bf16 the tensor-core kernel (samples rounded to bf16 before the product,
 as the JAX package's XLA path rounds them, fp32 accumulation), fp32 the
-CUDA-core kernel (exact); any other dtype raises. Under grad mode, with
+CUDA-core kernel (fp32 FFMAs; where its pixel tiles would leave SMs
+idle, each tap runs in a block of its own and a second kernel adds the
+partial sums in tap order: `tap_splits`); any other dtype raises. Under grad mode, with
 x, offset, mask, weight or bias requiring grad, the fp32 kernel runs
 inside `_grad.TwinGrad`: the backward is the plain version's (bf16
 raises there).
@@ -29,7 +31,10 @@ from . import _build
 from ._grad import twin_grad, wants_grad
 
 KC = 64  # channels of the tensor-core kernel's K chunk (csrc/deform_conv.cu, tc::KC)
-BN = 128  # output channels of its block (tc::BN)
+BN = 128  # output channels of its block (tc::BN, f32::BN)
+F32_KC = 16  # channels of the CUDA-core kernel's K chunk (f32::KC)
+F32_BM = 64  # pixels of its block (f32::BM)
+TAP_SPLITS = (1, 3, 9)  # blocks over the 9 taps the CUDA-core kernel takes (`tap_splits` picks 1 or 9)
 launches = 0  # kernel launches since the last reset
 # launches by x's shape (and, for a row slab, its rows), reset with `launches`
 launch_shapes: collections.Counter = collections.Counter()
@@ -97,14 +102,17 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1, ro
 
 
 def weight_layout(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """[Cout, Cin, 3, 3] -> the kernel's layout: fp32 [9*Cin, Cout] (tap
-    outer, channel inner); bf16 [Np, 9, Kp], K contiguous per output
-    channel, Cout padded to a multiple of BN and Cin to one of KC with
-    zeros."""
+    """[Cout, Cin, 3, 3] -> the kernel's layout, Cout padded to a multiple
+    of BN with zeros: fp32 [9, Kp, Np] (Cin padded to a multiple of
+    F32_KC, output channels contiguous); bf16 [Np, 9, Kp] (Cin padded to a
+    multiple of KC), K contiguous per output channel."""
     cout, cin = weight.shape[:2]
+    np_ = -(-cout // BN) * BN
     if dtype == torch.float32:
-        return weight.float().permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
-    np_, kp = -(-cout // BN) * BN, -(-cin // KC) * KC
+        out = weight.new_zeros((9, -(-cin // F32_KC) * F32_KC, np_), dtype=torch.float32)
+        out[:, :cin, :cout] = weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
+        return out
+    kp = -(-cin // KC) * KC
     out = weight.new_zeros((np_, 9, kp), dtype=torch.bfloat16)
     out[:cout, :, :cin] = weight.permute(0, 2, 3, 1).reshape(cout, 9, cin)
     return out
@@ -127,6 +135,19 @@ def block_rows(m: int, cout: int, device) -> int:
     blocks would not give every SM two blocks; then 32."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 64 if -(-m // 64) * -(-cout // BN) >= 2 * sms else 32
+
+
+def tap_splits(m: int, cout: int, device) -> int:
+    """Blocks over the taps of the CUDA-core kernel: 1, unless its pixel
+    tiles give fewer than three blocks for every two SMs; then 9, a tap a
+    block. On an NVIDIA H100 80GB HBM3 at 700 W (`chip_smoke.py
+    --b2-f32-tiles`), 9 splits took 0.179 ms against 0.213 unsplit at
+    x[2,45,80,256] (113 tiles on 132 SMs) and 0.225 against 0.322 at
+    x[2,45,96,256] (135), and no split was fastest from 203 tiles up;
+    3 splits lost to one or the other at every measured shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-m // F32_BM) * -(-cout // BN)
+    return 1 if 2 * tiles >= 3 * sms else TAP_SPLITS[-1]
 
 
 def _check(x, offset, mask, weight, bias, padding, row0):
@@ -184,10 +205,13 @@ def _launch(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0)
         )
     else:
         b = None if bias is None else bias.float().contiguous()
+        splits = tap_splits(n * ho * w, cout, x.device)
+        ws = torch.empty((splits, n * ho * w, cout), device=x.device) if splits > 1 else None
+        vec = (cin // g) % 4 == 0 and x.data_ptr() % 16 == 0
         status = lib.propainter_deform_conv(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
-            None if b is None else b.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, g, ho, row0, stream,
+            None if b is None else b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            n, h, w, cin, cout, g, wmat.shape[1], wmat.shape[2], splits, int(vec), ho, row0, stream,
         )
     _build.check(status, "deform_conv2d")
     launches += 1

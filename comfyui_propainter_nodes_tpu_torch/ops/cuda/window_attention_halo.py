@@ -21,7 +21,8 @@ partition pass, no rolled copies), reads halo rows only for occupied
 windows and walks only the survivor positions (`halo_survivors`). bf16
 inputs run on the tensor cores (csrc/flash_mma.cuh; head width a
 multiple of 16, else ValueError), fp32 inputs on the CUDA cores
-(csrc/flash_tile.cuh). CPU tensors take the plain version; CUDA tensors
+(csrc/flash_f32.cuh, B3's and B4's fp32 loop; any head width up to
+128). CPU tensors take the plain version; CUDA tensors
 take the kernel. Under grad mode, with one of the seven q/k/v, halo and
 pooled inputs requiring grad, the fp32 kernel runs inside
 `_grad.TwinGrad`: the backward is the plain version's (bf16 raises there).

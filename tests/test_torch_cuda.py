@@ -177,6 +177,51 @@ def test_deform_conv_row_origin(gen, dt, tol, row0, ho):
         b2.deform_conv2d(x, o, m, w, bias, row0=19 - ho + 1)
 
 
+@pytest.mark.parametrize("splits", b2.TAP_SPLITS)
+@pytest.mark.parametrize("cin,g,cout", [(128, 16, 128), (256, 16, 136), (48, 4, 40), (40, 10, 20), (24, 4, 18)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_deform_conv_f32_tiles(gen, monkeypatch, splits, cin, g, cout, aligned):
+    """The fp32 CUDA-core kernel at each tap split the wrapper can pick:
+    cg 8 and 16, cg 12 and 4 (16-byte corners), cg 6 (channel by channel),
+    Cout over two 128-channel blocks (136) and not a multiple of 4 (18),
+    Cin not a multiple of the 16-channel chunk, x off a 16-byte boundary
+    (corners then channel by channel), M = 561 no multiple of the
+    64-pixel tile; within 1e-4 of the plain version, two calls bit-equal,
+    the weight layout made once per weight tensor."""
+    monkeypatch.setattr(b2, "tap_splits", lambda m, c, d: splits)
+    x = torch.randn(3, 11, 17, cin, generator=gen, device="cuda")
+    if not aligned:
+        x = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape).copy_(x)
+    off = torch.randn(3, 11, 17, g, 9, 2, generator=gen, device="cuda") * 6
+    mask = torch.rand(3, 11, 17, g, 9, generator=gen, device="cuda")
+    w = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") * 0.05
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    before = b2.launches
+    out = b2.deform_conv2d(x, off, mask, w, bias)
+    assert b2.launches == before + 1
+    layout = b2._cached_layout(w, torch.float32)
+    torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w, bias), atol=1e-4, rtol=1e-4)
+    assert torch.equal(b2.deform_conv2d(x, off, mask, w, bias), out)
+    assert b2._cached_layout(w, torch.float32) is layout
+
+
+@pytest.mark.parametrize("splits", b2.TAP_SPLITS)
+def test_deform_conv_f32_row_form(gen, monkeypatch, splits):
+    """The fp32 kernel's row form (output rows 5-13 of 19) at each tap
+    split: within 1e-4 of the plain version at the same origin, and bit
+    for bit the whole image's rows at the same split."""
+    monkeypatch.setattr(b2, "tap_splits", lambda m, c, d: splits)
+    x = torch.randn(2, 19, 21, 128, generator=gen, device="cuda")
+    off = torch.randn(2, 19, 21, 16, 9, 2, generator=gen, device="cuda") * 4
+    mask = torch.rand(2, 19, 21, 16, 9, generator=gen, device="cuda")
+    w = torch.randn(128, 128, 3, 3, generator=gen, device="cuda") * 0.05
+    bias = torch.randn(128, generator=gen, device="cuda")
+    o, m = off[:, 5:13].contiguous(), mask[:, 5:13].contiguous()
+    out = b2.deform_conv2d(x, o, m, w, bias, row0=5)
+    torch.testing.assert_close(out, b2.deform_conv2d_plain(x, o, m, w, bias, row0=5), atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, b2.deform_conv2d(x, off, mask, w, bias)[:, 5:13])
+
+
 def _attention_args(gen, dt, b, nwb, nh, t, wsz, ch, rl_per, pl_per, occ, pad_first=False):
     """Per-batch-row biases: t_ind = every other frame, the last frame of
     row 1 padded (with pad_first, its first frame, a t_ind frame, too)."""
@@ -386,6 +431,26 @@ def test_window_attention_halo_matches_plain(gen, dt, tol, ch, occ):
     assert b5.launches == before + 1
     ref = b5.window_attention_halo_plain(*args, window_size=(5, 9), n_head=nh)
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("ch", [40, 64, 128])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("occ", ["mixed", "clean"])
+def test_window_attention_halo_f32_loop(gen, ch, aligned, occ):
+    """B5's fp32 inputs on the fp32 loop (csrc/flash_f32.cuh) at head
+    widths 40, 64 and 128, its tensors 16-byte aligned (16-byte copies)
+    or q and the pooled keys 4 bytes past (4-byte copies); with clean
+    windows, whose 64-query tiles span three frames (QT = 225): within
+    1e-4 of the plain version."""
+    args, nh = _halo_args(gen, torch.float32, ch, _OCC[occ] * 2, pad_first=True)
+    if not aligned:
+        args = (_shifted(args[0]),) + args[1:5] + (_shifted(args[5]),) + args[6:]
+        assert args[0].data_ptr() % 16 and args[5].data_ptr() % 16
+    before = b5.launches
+    out = b5.window_attention_halo(*args, window_size=(5, 9), n_head=nh)
+    assert b5.launches == before + 1
+    ref = b5.window_attention_halo_plain(*args, window_size=(5, 9), n_head=nh)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

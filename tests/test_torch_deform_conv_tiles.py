@@ -1,6 +1,7 @@
-"""The numerics and chunking of the bf16 deformable conv kernel
-(csrc/deform_conv.cu, `deform_conv_mma_kernel`), modelled in torch on the
-CPU.
+"""The numerics and chunking of the deformable conv kernels
+(csrc/deform_conv.cu), modelled in torch on the CPU: the bf16 kernel
+(`deform_conv_mma_kernel`) and, at the end of the file, the fp32 kernel
+(`deform_conv_kernel`).
 
 The kernel is an implicit GEMM: the reduction over K = 9 taps x Cin is
 walked in chunks of one tap x 64 channels of the weights laid out by
@@ -164,7 +165,9 @@ def test_weight_layout_is_cached_per_tensor():
     assert torch.count_nonzero(laid[40:]) == 0 and torch.count_nonzero(laid[:, :, 48:]) == 0
     assert b2._cached_layout(w, torch.bfloat16) is laid
     f32 = b2._cached_layout(w, torch.float32)
-    assert f32.shape == (9 * 48, 40) and torch.equal(f32, w.float().permute(2, 3, 1, 0).reshape(9 * 48, 40))
+    assert f32.shape == (9, 48, 128) and f32.dtype == torch.float32
+    assert torch.equal(f32[:, :, :40], w.float().permute(2, 3, 1, 0).reshape(9, 48, 40))
+    assert torch.count_nonzero(f32[:, :, 40:]) == 0
     w.mul_(2)
     again = b2._cached_layout(w, torch.bfloat16)
     assert again is not laid and torch.equal(again[:40, :, :48], w.permute(0, 2, 3, 1).reshape(40, 9, 48))
@@ -172,3 +175,159 @@ def test_weight_layout_is_cached_per_tensor():
     del w, laid, again, f32
     gc.collect()
     assert key not in b2._LAYOUTS
+
+
+# ------------------------------------------------------------ fp32 kernel
+#
+# The CUDA-core kernel walks K in chunks of one tap x F32_KC (16) channels
+# of the fp32 layout [9, Kp, Np] (`weight_layout`: zeros past Cin and
+# Cout). A gather unit is (pixel, tap, 4-channel slice): where cg % 4 == 0
+# the slice lies in one offset group and one sample position serves its
+# four channels; otherwise each channel takes its own group's position.
+# Corners are blended in the plain version's order, then multiplied by the
+# mask. With a tap split of s blocks, block z sums taps 9z/s .. 9(z+1)/s - 1
+# chunk by chunk into its own partial sums; a second kernel adds the
+# partials in split order and then the bias.
+
+UNIT = 4  # channels of the fp32 kernel's gather unit
+
+
+def f32_kernel_model(x, offset, mask, weight, bias=None, splits=1, row0=0):
+    """deform_conv2d as the CUDA-core kernel schedules it, in x's dtype
+    (fp32, or float64 for the same schedule without fp32's rounding)."""
+    n, h, w, cin = x.shape
+    ho, g = offset.shape[1], offset.shape[3]
+    cout = weight.shape[0]
+    cg = cin // g
+    dt = x.dtype
+    wl = b2.weight_layout(weight, torch.float32).to(dt)
+    kp, np_ = wl.shape[1:]
+    assert kp % b2.F32_KC == 0 and np_ % b2.BN == 0 and kp >= cin and np_ >= cout
+    m = n * ho * w
+    xf = x.reshape(n, h * w, cin)
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + ho, dtype=dt), torch.arange(w, dtype=dt), indexing="ij")
+
+    def samples(k, grp, c0, c1):
+        """[m, c1 - c0]: channels c0 .. c1 - 1 at group grp's position for tap k"""
+        ki, kj = divmod(k, 3)
+        sy = (ys + (ki - 1))[None] + offset[:, :, :, grp, k, 0]
+        sx = (xs + (kj - 1))[None] + offset[:, :, :, grp, k, 1]
+        y0, x0 = torch.floor(sy), torch.floor(sx)
+        wy, wx = sy - y0, sx - x0
+        iy, ix = y0.clamp(-4, h + 4).long(), x0.clamp(-4, w + 4).long()
+
+        def corner(qy, qx):
+            yy, xx = iy + qy, ix + qx
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).reshape(n, ho * w, 1)
+            v = torch.gather(xf[:, :, c0:c1], 1, idx.expand(-1, -1, c1 - c0))
+            return v * ok.reshape(n, ho * w, 1)
+
+        gy, gx = 1.0 - wy, 1.0 - wx
+        f = lambda t: t.reshape(n, ho * w, 1)  # noqa: E731
+        s = (corner(0, 0) * f(gy * gx) + corner(0, 1) * f(gy * wx) + corner(1, 0) * f(wy * gx)
+             + corner(1, 1) * f(wy * wx)) * f(mask[:, :, :, grp, k])
+        return s.reshape(m, c1 - c0)
+
+    taps = 9 // splits
+    partials = []
+    for z in range(splits):
+        acc = torch.zeros(m, np_, dtype=dt)
+        for k in range(z * taps, (z + 1) * taps):
+            for c0 in range(0, kp, b2.F32_KC):  # one chunk: its samples, then its products
+                a = torch.zeros(m, b2.F32_KC, dtype=dt)
+                for u0 in range(c0, min(c0 + b2.F32_KC, cin), UNIT):
+                    u1 = min(u0 + UNIT, cin)
+                    if cg % UNIT == 0:  # one position for the unit
+                        assert u0 // cg == (u1 - 1) // cg
+                        a[:, u0 - c0 : u1 - c0] = samples(k, u0 // cg, u0, u1)
+                    else:
+                        for ci in range(u0, u1):
+                            a[:, ci - c0 : ci - c0 + 1] = samples(k, ci // cg, ci, ci + 1)
+                acc = acc + a @ wl[k, c0 : c0 + b2.F32_KC]
+        partials.append(acc)
+    out = partials[0]
+    for p in partials[1:]:  # the reduce kernel's order
+        out = out + p
+    out = out[:, :cout]
+    if bias is not None:
+        out = out + bias.to(dt)
+    return out.reshape(n, ho, w, cout)
+
+
+# (N, H, W, Cin, G, Cout, row0, Ho): cg 8 and 16 as at the call sites;
+# ragged cg 6 (channel by channel) with Cin 24 and cg 4 with Cin 40 (no
+# multiples of the 16-channel chunk); Cout 136 over two 128-channel blocks
+# and 40, 20 within one; M = N * Ho * W no multiple of the 64-pixel tile;
+# a row slab (rows 3-9)
+_F32_SHAPES = [(2, 9, 12, 64, 8, 32, 0, 9), (1, 9, 12, 128, 8, 136, 0, 9), (2, 7, 11, 24, 4, 40, 0, 7),
+               (1, 7, 11, 40, 10, 20, 0, 7), (2, 13, 11, 64, 4, 40, 3, 6)]
+
+
+def _f32_inputs(shape, dt=torch.float32):
+    n, h, w, cin, g, cout, row0, ho = shape
+    x, off, mask, wgt, bias = _inputs(np.random.default_rng(cin + g + cout), n, h, w, cin, g, cout)
+    off, mask = off[:, row0 : row0 + ho], mask[:, row0 : row0 + ho]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dt) for a in (x, off, mask, wgt, bias)], row0
+
+
+@pytest.mark.parametrize("splits", b2.TAP_SPLITS)
+@pytest.mark.parametrize("shape", _F32_SHAPES)
+def test_f32_model_is_the_plain_conv(shape, splits):
+    """Each tap split of the fp32 schedule is the plain version: within
+    1e-5 (relative to the largest output) in fp32, where the chunks and
+    the partial sums change only the summation order, and within 1e-12
+    in float64."""
+    args, row0 = _f32_inputs(shape)
+    assert (args[1].abs() > 6).any()
+    out = f32_kernel_model(*args, splits=splits, row0=row0)
+    assert out.dtype == torch.float32
+    assert _rel(out, b2.deform_conv2d_plain(*args, row0=row0)) < 1e-5
+    args64 = [t.double() for t in args]
+    out64 = f32_kernel_model(*args64, splits=splits, row0=row0)
+    ref64 = b2.deform_conv2d_plain(*args64, row0=row0)
+    assert ref64.dtype == torch.float64
+    assert float((out64 - ref64).abs().max() / ref64.abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("shape", [s for s in _F32_SHAPES if s[6] == 0])
+def test_f32_model_matches_jax_xla(shape):
+    """The fp32 schedule, one split and a split of 9, against the JAX
+    package's `deform_conv2d_xla` in fp32 (both fp32 throughout): 1e-5
+    relative to the largest output."""
+    args, _ = _f32_inputs(shape)
+    ja = [jnp.asarray(t.numpy()) for t in args]
+    ref = deform_conv2d_xla(ja[0], ja[1], ja[2], jnp.transpose(ja[3], (2, 3, 1, 0)), ja[4])
+    assert ref.dtype == jnp.float32
+    ref = torch.from_numpy(np.array(ref))
+    for splits in (1, 9):
+        assert _rel(f32_kernel_model(*args, splits=splits), ref) < 1e-5
+
+
+@pytest.mark.parametrize("cin,g,vector", [(128, 16, True), (256, 16, True), (40, 10, True), (48, 4, True),
+                                          (24, 4, False), (40, 8, False)])
+def test_f32_gather_units(cin, g, vector):
+    """Every 4-channel unit of a 16-channel chunk lies in one offset group
+    exactly where the kernel gathers 16-byte corner vectors (cg a multiple
+    of 4: the call sites' cg 8 and 16, cg 4 and 12); with cg 6 or 5 some
+    unit spans two groups and the kernel samples channel by channel. Cin
+    pads to whole chunks."""
+    cg = cin // g
+    kp = b2.weight_layout(torch.zeros(8, cin, 3, 3), torch.float32).shape[1]
+    assert kp == -(-cin // b2.F32_KC) * b2.F32_KC
+    units = [{ci // cg for ci in range(u, min(u + UNIT, cin))} for u in range(0, cin, UNIT)]
+    assert all(len(gs) == 1 for gs in units) == vector == (cg % UNIT == 0)
+
+
+def test_tap_splits_rule(monkeypatch):
+    """On a 132-SM card: no split where the 64-pixel tiles give three
+    blocks for every two SMs (the main path's feature propagation, path
+    T's, path C's x[4,45,80,256], the 720p shapes, the row form), a tap a
+    block at the flow completion's x[2,45,80,256] and path O's
+    x[2,45,96,256] and at small test shapes."""
+    import types
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: types.SimpleNamespace(multi_processor_count=132))
+    picks = {m: b2.tap_splits(m, 128, "cuda") for m in (5 * 90 * 160, 2 * 45 * 80, 2 * 45 * 96, 2 * 60 * 108,
+                                                        4 * 45 * 80, 2 * 90 * 160, 5 * 96 * 320, 2 * 13 * 21)}
+    assert picks == {72000: 1, 7200: 9, 8640: 9, 12960: 1, 14400: 1, 28800: 1, 153600: 1, 546: 9}

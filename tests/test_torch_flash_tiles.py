@@ -1,6 +1,6 @@
 """The tile schedules of the attention loops, modelled in torch on the CPU:
 the tensor-core loop (csrc/flash_mma.cuh, bf16) and the fp32 CUDA-core
-loop of the single-pass kernel (csrc/flash_f32.cuh).
+loop (csrc/flash_f32.cuh) of the single-pass and halo kernels.
 
 The model walks what the CUDA kernels walk: 64-query tiles, the decoder's
 key order in key tiles (64 keys in the bf16 loop, 32 in the fp32 one; a
@@ -185,12 +185,12 @@ def test_schedule_bf16_matches_pallas_single():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32), atol=3e-2, rtol=3e-2)
 
 
-def _halo_inputs(rng, occ, pad_first):
+def _halo_inputs(rng, occ, pad_first, t=4, ch=16):
     """Two batch rows of a window-padded 10x18 grid (2x2 windows of 5x9),
-    4 frames, t_ind = frames 0 and 2, 2 heads of width 16."""
-    b, t, hp, wp, nh, ch = 2, 4, 10, 18, 2, 16
+    t frames, t_ind = every other frame from frame 0, 2 heads of width ch."""
+    b, hp, wp, nh = 2, 10, 18, 2
     c = nh * ch
-    ti = np.array([0, 2])
+    ti = np.arange(0, t, 2)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     q, k, v = r(b, t, hp, wp, c), r(b, t, hp, wp, c), r(b, t, hp, wp, c)
 
@@ -199,7 +199,7 @@ def _halo_inputs(rng, occ, pad_first):
         a = np.concatenate([a[:, :, -3:], a, a[:, :, :3]], 2)
         return np.ascontiguousarray(np.concatenate([a[:, :, :, -5:], a, a[:, :, :, :5]], 3))
 
-    pk, pv = r(b, nh, 2 * 10, ch), r(b, nh, 2 * 10, ch)
+    pk, pv = r(b, nh, len(ti) * 10, ch), r(b, nh, len(ti) * 10, ch)
     tv = np.ones((b, t), bool)
     tv[1, -1] = False
     if pad_first:
@@ -220,6 +220,13 @@ def test_halo_survivor_order_matches_plain(occ, pad_first):
     plain version over all 209 halo positions: 1e-6 in fp32 (a skipped
     position's weight is an exact 0)."""
     args, nh = _halo_inputs(np.random.default_rng(4), occ, pad_first)
+    out, ref = _halo_model(args, nh, BQ, BK)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def _halo_model(args, nh, bq, bk):
+    """The halo kernel's key order tiled in bq-query and bk-key tiles, and
+    the plain version over all 209 halo positions."""
     q, k, v, khalo, vhalo, pk, pv, occ_t, bias_w, bias_hv, bias_p = args
     ws = (5, 9)
     b, t, hp, wp, c = q.shape
@@ -231,7 +238,22 @@ def test_halo_survivor_order_matches_plain(occ, pad_first):
     halo_v = b5._halo_windows(vhalo, ws, nh)[:, :, idx]
     bias_h = b5._halo_bias(bias_hv, ws).reshape(b, -1)[:, idx]
     out = flash_model(b5._windows(q, ws, nh), b5._windows(k, ws, nh), b5._windows(v, ws, nh), halo_k, halo_v,
-                      pk, pv, occ_t.reshape(-1), bias_w, bias_h, bias_p, 4)
+                      pk, pv, occ_t.reshape(-1), bias_w, bias_h, bias_p, 4, bq=bq, bk=bk)
     out = out.reshape(b, 2, 2, nh, t, 5, 9, c // nh).permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, t, hp, wp, c)
-    ref = b5.window_attention_halo_plain(*args, window_size=ws, n_head=nh)
+    return out, b5.window_attention_halo_plain(*args, window_size=ws, n_head=nh)
+
+
+@pytest.mark.parametrize("ch", [40, 64])
+@pytest.mark.parametrize("occ,pad_first", [([True, False, False, True, False, True, False, False], False),
+                                           ([True] * 8, True)])
+def test_halo_survivor_order_f32_tiles_matches_plain(occ, pad_first, ch):
+    """(d) The halo kernel's fp32 inputs on the fp32 loop: the same key
+    order in its 64-query and 32-key tiles, 5 frames (QT = 225, t_ind 0,
+    2, 4), so a clean window's query tile [128, 192) spans frames 2-4
+    and takes each key of those frames for its own frame's rows only,
+    against the plain version over all 209 halo positions: 1e-6 in fp32,
+    at head widths 40 and 64."""
+    assert len({q // 45 for q in range(2 * F32_BQ, 3 * F32_BQ)}) == 3
+    args, nh = _halo_inputs(np.random.default_rng(8), occ, pad_first, t=5, ch=ch)
+    out, ref = _halo_model(args, nh, F32_BQ, F32_BK)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=1e-6)

@@ -12,12 +12,11 @@ query tile touches.
     64-key tiles, one split a window, m in base 2 (log2 e folded into the
     scale and the bias), P rounded to bf16 before P·V where the kernel
     does it;
-  * fp32, the CUDA-core loop B4 runs (csrc/flash_f32.cuh): 64-query
-    tiles, 32-key tiles, m in base e, splits of SPLIT_KEYS keys, or of
-    fewer in the tests so that splits of padding keys only, and a first
-    split all -1e9, come up;
-  * the earlier fp32 loop (csrc/flash_tile.cuh, which the halo kernel
-    still runs): 32-query tiles, 16-key tiles, base e, the same splits.
+  * fp32, the CUDA-core loop of B3, B4 and B5 (csrc/flash_f32.cuh):
+    64-query tiles, 32-key tiles, m in base e; B4's splits of SPLIT_KEYS
+    keys, or of fewer in the tests so that splits of padding keys only,
+    and a first split all -1e9, come up; one split a window (B3's and
+    B5's single pass); one and three key tiles a split.
 Inputs come from a seeded numpy generator.
 """
 
@@ -35,7 +34,7 @@ torch.set_num_threads(1)
 
 LOG2E = 1.4426950408889634
 # (query tile, key tile, m in base 2) of each loop
-LOOPS = {"mma": (64, 64, True), "f32": (64, 32, False), "tile": (32, 16, False)}
+LOOPS = {"mma": (64, 64, True), "f32": (64, 32, False)}
 
 
 def _tiles(q, k, v, bias, k0, k1, loop, round_p, key_frame=None, row_frame=None):
@@ -140,10 +139,13 @@ def _inputs(rng, occ, ch, b=2, nwb=2, nh=2, t=5, wsz=45, rl_per=37, pl_per=23):
 _OCC = {"mixed": [True, False, False, True], "clean": [False] * 4, "occupied": [True] * 4}
 # (loop, keys a split) of the kernel's bf16 and fp32 schedules, and fp32
 # with short splits: 64 keys (splits of padding keys only, a first split
-# all -1e9) and 192; "f32*" the loop B4 runs, "fp32*" the earlier one
+# all -1e9) and 192. The "fp32*" cases, which held the earlier fp32 loop
+# (32-query, 16-key tiles) to the same splits, now hold the fp32 loop over
+# the padded keys in one split a window ("fp32", as B3 and B5 walk theirs)
+# and in splits of one and three key tiles ("fp32_64", "fp32_192")
 _SCHEDULES = {"bf16": ("mma", None), "f32": ("f32", b4.SPLIT_KEYS), "f32_64": ("f32", 64),
-              "f32_192": ("f32", 192), "fp32": ("tile", b4.SPLIT_KEYS), "fp32_64": ("tile", 64),
-              "fp32_192": ("tile", 192)}
+              "f32_192": ("f32", 192), "fp32": ("f32", None), "fp32_64": ("f32", 32),
+              "fp32_192": ("f32", 96)}
 
 
 def test_inputs_put_the_edges_in_play():
