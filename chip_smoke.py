@@ -172,10 +172,21 @@ chunk at 1920x1080 in every combination of the directions (batched or
 in turn), the encoder (whole or temporal chunks) and its rows (full or
 slabs), at path S's largest chunk and path A's in the port's plan and in
 turn, and RAFT's forms on 25 frames at 1920x1080 (one JSON line).
+
+    python3 chip_smoke.py --span-cost
+
+measures the span record's cost with tracing off (utils/profiling.py):
+microseconds a span, a stage timer and a kernel launch's count and
+range check, also under a CPU profiler, `trace_us` against a CPU and
+CUDA profiler's trace, and on one call of each
+benchmark cell's node (24 frames at 640x360, inpaint in fp32, outpaint
+in bf16) its ring records and kernel launches a clip and their cost off,
+and untraced against traced (blocking) clips in turns (one JSON line).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.util
 import json
@@ -366,13 +377,15 @@ def check_corr_lookup(dt, gen, blend="lanes", shape=(23, 45, 80)):
     the lanes blend (fp32, one rounding) or the map-dtype blend (each step
     rounded to bf16), for one RAFT call of `shape` = (pairs, H8, W8)."""
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as mod
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
     fwd, bwd, coords = corr_lookup_inputs(dt, gen, *shape)
-    counter = "launches_map" if blend == "map" and dt == torch.bfloat16 else "launches"
-    before = getattr(mod, counter)
+    counter = "corr_lookup_map" if blend == "map" and dt == torch.bfloat16 else "corr_lookup"
+    before = profiling.counters().get(counter, 0)
     out = mod.corr_lookup(fwd, coords, bwd, blend=blend)
     torch.cuda.synchronize()
-    require(getattr(mod, counter) == before + 1, f"corr_lookup blend={blend} did not count its launch on {counter}")
+    require(profiling.counters().get(counter, 0) == before + 1,
+            f"corr_lookup blend={blend} did not count its launch on {counter}")
     ref = mod.corr_lookup_plain(fwd, coords, bwd, blend=blend)
     err, rel = rel_err(out, ref)
     # the same products and sums, each rounded as in the plain version:
@@ -958,22 +971,9 @@ WIDGETS = dict(
 )
 
 
-def counters():
-    """(kernel row, wrapper module, counter attribute) of every kernel."""
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import (
-        corr_lookup, corr_window, deform_conv, window_attention, window_attention_halo,
-    )
-
-    return [
-        ("corr_lookup", corr_lookup, "launches"),
-        ("corr_lookup_map", corr_lookup, "launches_map"),
-        ("deform_conv", deform_conv, "launches"),
-        ("window_attention", window_attention, "launches"),
-        ("window_attention_tiled", window_attention, "launches_tiled"),
-        ("window_attention_halo", window_attention_halo, "launches"),
-        ("corr_window4", corr_window, "launches4"),
-        ("corr_window", corr_window, "launches"),
-    ]
+# every kernel's launch counter (utils/profiling.py::kernel), by its row's name
+KERNELS = ("corr_lookup", "corr_lookup_map", "deform_conv", "window_attention", "window_attention_tiled",
+           "window_attention_halo", "corr_window4", "corr_window")
 
 
 # each counter's kernel as the profiler names it on the node's bf16 paths
@@ -1103,8 +1103,10 @@ def outpaint_run(need, forbid):
     return summary
 
 
-# the port's stage timers' profiler ranges (utils/profiling.py::stage_timer)
+# the port's profiler ranges (utils/profiling.py): the stage timers', and
+# the spans' and kernel launches' by their prefixes
 STAGE_RANGES = {"compute_flow", "complete_flow", "image_propagation", "feature_propagation", "stream_prep", "stream_write"}
+RANGE_PREFIXES = ("node.", "raft.", "feature.", "kernel.")
 
 
 def _device_rows(prof):
@@ -1115,8 +1117,8 @@ def _device_rows(prof):
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue  # host ops: their device time is their kernels'
-        if getattr(e, "is_user_annotation", False) or e.key in STAGE_RANGES:
-            continue  # a stage timer's range: its device span holds kernels counted on their own
+        if getattr(e, "is_user_annotation", False) or e.key in STAGE_RANGES or e.key.startswith(RANGE_PREFIXES):
+            continue  # a range of the port's: its device span holds kernels counted on their own
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
@@ -1325,20 +1327,24 @@ def streaming_pipeline(h: int, w: int):
     return get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
 
 
-def reset_counters():
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
+_COUNTER_BASE: dict = {}  # the program's counters at the last `reset_counters`
 
-    for _, mod, attr in counters():
-        setattr(mod, attr, 0)
-    deform_conv.launch_shapes.clear()
+
+def reset_counters():
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+    _COUNTER_BASE.clear()
+    _COUNTER_BASE.update(profiling.counters())
 
 
 def read_counters():
-    """(launches by kernel, B2's launches by x shape)."""
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv
+    """(launches by kernel, B2's launches by x shape) since `reset_counters`."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda.deform_conv import SHAPE_COUNTER
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
-    return ({name: getattr(mod, attr) for name, mod, attr in counters()},
-            {"x".join(map(str, s)): c for s, c in deform_conv.launch_shapes.items()})
+    since = {k: v - _COUNTER_BASE.get(k, 0) for k, v in profiling.counters().items()}
+    return ({name: since.get(name, 0) for name in KERNELS},
+            {k[len(SHAPE_COUNTER):]: c for k, c in since.items() if k.startswith(SHAPE_COUNTER) and c})
 
 
 def require_kernels(tag, counts, need, forbid):
@@ -1373,12 +1379,12 @@ def path_s_run(need, forbid):
         base_bytes = torch.cuda.memory_allocated()
         stage_peaks = {}
         with VideoSource(fpath) as frames, VideoSource(mpath) as masks:
-            profiling.reset()
+            profiling.reset_stages()
             blk = stream_clip(pipe, frames, masks, t, out, tag, stage_peaks)
             stages = profiling.summary()
             profiling.set_blocking(False)
             try:
-                profiling.reset()
+                profiling.reset_stages()
                 reset_counters()
                 run = stream_clip(pipe, frames, masks, t, out, tag)
                 counts, b2_shapes = read_counters()
@@ -1494,7 +1500,7 @@ def path_h_run(need, forbid):
         fpath, mpath = write_clip_npy(tmp, t, h, w)
         base_bytes = torch.cuda.memory_allocated()
         with VideoSource(fpath) as frames, VideoSource(mpath) as masks:
-            profiling.reset()
+            profiling.reset_stages()
             record_forms(pipe, forms)
             try:
                 reset_counters()
@@ -1639,7 +1645,6 @@ def stream_vs_memory(fp16: str) -> dict:
     streaming's calls of at most 26 pairs take the lanes blend)."""
     from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
     from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup
     from comfyui_propainter_nodes_tpu_torch.pipeline.streaming import process_streaming
     from comfyui_propainter_nodes_tpu_torch.utils import image as image_utils
 
@@ -1651,14 +1656,15 @@ def stream_vs_memory(fp16: str) -> dict:
     pipe = get_pipeline(cfg, torch.device("cuda"), True)
 
     def blends():
-        return dict(lanes=corr_lookup.launches, map=corr_lookup.launches_map)
+        counts = read_counters()[0]
+        return dict(lanes=counts["corr_lookup"], map=counts["corr_lookup_map"])
 
-    corr_lookup.launches = corr_lookup.launches_map = 0
+    reset_counters()
     fnorm, byte = image_utils.prepare_frames(torch.from_numpy(frames).cuda(), w, h)
     fm, md = image_utils.prepare_masks(torch.from_numpy(masks).cuda(), w, h, fm_dil, md_dil)
     mem = pipe.process(fnorm[None], fm[None], md[None], byte).cpu().numpy()
     mem_blends = blends()
-    corr_lookup.launches = corr_lookup.launches_map = 0
+    reset_counters()
     out = np.full((t, h, w, 3), -1.0, np.float32)
 
     def write(start, arr):
@@ -2596,7 +2602,7 @@ def path_m_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: s
                 counts, _ = read_counters()
                 video = check_video(out, args[2], args[3], tag)
                 if fp16 == "enable":  # the default widgets (fp32 maps take B1's one fp32 kernel)
-                    require_kernels(tag, counts, need, [k for k, _, _ in counters() if k not in need])
+                    require_kernels(tag, counts, need, [k for k in KERNELS if k not in need])
                 log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
                 results[f"{shape[0]}x{shape[1]} {fp16}"] = dict(
                     seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=torch.cuda.max_memory_allocated(),
@@ -2684,7 +2690,7 @@ def path_m_run(ref_dir: str) -> dict:
         summary[key] = dict(seconds=wall, fps=PATH_C[0] / wall, peak_bytes_summed=pair_peak, ranks=per)
     # the kernels line's count: both ranks' timed bf16 runs on both meshes
     launches = {name: sum(v["launches"][name] for rk in ranks for k, v in rk.items() if k.endswith("enable"))
-                for name, _, _ in counters()}
+                for name in KERNELS}
     return dict(backend=backend, cards=torch.cuda.device_count(), meshes=summary, launches=launches)
 
 
@@ -2847,7 +2853,7 @@ def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: 
             counts, b2_shapes = read_counters()
             video = check_video(out, args[2], args[3], tag, PATH_MH)
             if fp16 == "enable":
-                require_kernels(tag, counts, PATH_MH_NEED, [k for k, _, _ in counters() if k not in PATH_MH_NEED])
+                require_kernels(tag, counts, PATH_MH_NEED, [k for k in KERNELS if k not in PATH_MH_NEED])
             require(any("rows" in k for k in b2_shapes), f"{tag}: B2 never ran in its row form: {b2_shapes}")
             results[fp16] = dict(
                 seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1],
@@ -2900,7 +2906,7 @@ def path_mh_run(ref_dir: str) -> dict:
     wall = max(rk["enable"]["seconds"] for rk in ranks)
     log(f"  [path MH] bf16: {wall:.3f} s = {t / wall:.3f} frames/s (the slower rank); single card {single['enable']['seconds']:.3f} s")
     # the kernels line's count: both ranks' timed bf16 runs
-    launches = {name: sum(rk["enable"]["launches"][name] for rk in ranks) for name, _, _ in counters()}
+    launches = {name: sum(rk["enable"]["launches"][name] for rk in ranks) for name in KERNELS}
     return dict(backend=backend, cards=torch.cuda.device_count(), seconds=wall, fps=t / wall, single_card=single,
                 exchanges=[rk.pop("exchanges") for rk in ranks], ranks=ranks, launches=launches,
                 b2_launches_by_shape=[rk["enable"]["b2_launches_by_shape"] for rk in ranks])
@@ -3180,7 +3186,7 @@ def path_t_run(ref_dir: str) -> dict:
     torch.save({"loss": first_loss, "params": {k: state.params[k].detach().cpu() for k in PATH_T_CHECKED},
                 "grads": {k: state.params[k].grad.cpu() for k in PATH_T_CHECKED}},
                os.path.join(ref_dir, "path_t_single.pt"))
-    profiling.reset()
+    profiling.reset_stages()
     walls, losses, per_step = [], [], []
     for _ in range(PATH_T_STEPS):
         reset_counters()
@@ -3191,12 +3197,12 @@ def path_t_run(ref_dir: str) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts, b2_shapes = read_counters()
-        require_kernels(tag, counts, PATH_T_NEED, [k for k, _, _ in counters() if k not in PATH_T_NEED])
+        require_kernels(tag, counts, PATH_T_NEED, [k for k in KERNELS if k not in PATH_T_NEED])
         per_step.append(counts)
     split = {k: v / PATH_T_STEPS for k, v in split_of(profiling.summary()).items()}
     peak = torch.cuda.max_memory_allocated()
     twins = {"s": 0.0, "calls": 0}
-    profiling.reset()
+    profiling.reset_stages()
     with twins_backward_timed(twins):
         state, loss = step(state, batch)
     twins["backward_s"] = split_of(profiling.summary())["train_backward"]
@@ -3253,7 +3259,7 @@ def path_t_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: s
         results = {}
         for i in range(2):
             reset_counters()
-            profiling.reset()
+            profiling.reset_stages()
             dist.barrier()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3317,12 +3323,12 @@ def path_t_ranks_run(ref_dir: str, single: dict) -> dict:
                 f"path T rank {r}: the weights or gradients of the first step differ from the single card's")
         for st in (first, second):
             require_kernels(f"path T rank {r}", st["launches"], PATH_T_RANK_NEED,
-                            [k for k, _, _ in counters() if k not in PATH_T_RANK_NEED])
+                            [k for k in KERNELS if k not in PATH_T_RANK_NEED])
     wall = max(rk["step2"]["seconds"] for rk in ranks)
     c = PATH_T
     log(f"  [path T mesh (1, 2)] the second step {wall:.4f} s = {c['clips'] / wall:.3f} clips/s (the slower rank); "
         f"single card {single['median_step_s']:.4f} s")
-    launches = {name: sum(rk[s]["launches"][name] for rk in ranks for s in ("step1", "step2")) for name, _, _ in counters()}
+    launches = {name: sum(rk[s]["launches"][name] for rk in ranks for s in ("step1", "step2")) for name in KERNELS}
     return dict(backend=backend, cards=torch.cuda.device_count(), seconds=wall, clips_per_s=c["clips"] / wall,
                 ranks=ranks, launches=launches)
 
@@ -3358,6 +3364,118 @@ def weights_cache() -> tempfile.TemporaryDirectory:
     return d
 
 
+SPAN_COST_N = 20000  # spans or launches a sample of `--span-cost`
+SPAN_COST_REPS = 7
+# `--span-cost`'s node calls: (node, fp16) of the benchmark's two cells, 24 frames at 640x360
+SPAN_COST_CELLS = {"inpaint-360p-fp32.object": ("inpaint", "disable"), "outpaint-360p.sides": ("outpaint", "enable")}
+SPAN_COST_PAIRS = {"inpaint-360p-fp32.object": 4, "outpaint-360p.sides": 12}  # untraced / traced clips in turns
+
+
+def span_cost() -> int:
+    """`--span-cost`: the span record's cost with tracing off (no
+    profiler recording, no blocking): microseconds a span (one ring
+    record), a stage timer and a kernel launch's `profiling.kernel` (its
+    count and its range check), each the median of SPAN_COST_REPS loops of
+    SPAN_COST_N; the same under a CPU profiler; `trace_us` against a CPU
+    and CUDA profiler's trace of 20 spans; then a warm-up and one
+    call of each benchmark cell's node: its ring records and kernel
+    launches a clip, its wall, and what the record costs it off; then
+    SPAN_COST_PAIRS pairs of an untraced and a traced (blocking) clip, in
+    turns."""
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint, ProPainterOutpaint
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
+
+    weights_dir = weights_cache()
+    profiling.set_blocking(False)
+
+    def per_call_us(make):
+        samples = []
+        for _ in range(SPAN_COST_REPS):
+            profiling.reset()
+            t0 = time.perf_counter_ns()
+            for _ in range(SPAN_COST_N):
+                with make("node.prepare"):
+                    pass
+            samples.append((time.perf_counter_ns() - t0) / SPAN_COST_N / 1e3)
+        profiling.reset()
+        return statistics.median(samples)
+
+    kinds = {"span": profiling.span, "stage_timer": profiling.stage_timer, "kernel": profiling.kernel}
+    off = {k: per_call_us(f) for k, f in kinds.items()}
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = {k: per_call_us(f) for k, f in kinds.items()}
+    log(f"  tracing off, us a call: {off}; under a CPU profiler: {on}")
+    # trace_us against a CPU and CUDA profiler's trace: each span's ends
+    # beside its range's, in microseconds
+    x = torch.randn(1 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            with profiling.span("node.upload"):
+                (x * 2).sum().item()
+    path = os.path.join(tempfile.mkdtemp(prefix="span-cost-"), "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1e3
+    theirs = sorted((e["ts"] + base_us, e["ts"] + e["dur"] + base_us) for e in trace["traceEvents"]
+                    if e.get("cat") == "user_annotation" and e.get("name") == "node.upload")
+    mine = sorted((profiling.trace_us(r.start_ns), profiling.trace_us(r.end_ns)) for r in profiling.spans())
+    require(len(mine) == len(theirs) == 20, f"trace_us: {len(mine)} spans, {len(theirs)} ranges")
+    offsets = [m - t for pair in zip(mine, theirs) for m, t in zip(*pair)]
+    trace_offset_us = dict(min=min(offsets), max=max(offsets), base_time_ns="baseTimeNanoseconds" in trace)
+    log(f"  trace_us less the profiler's range, us: {trace_offset_us}")
+    profiling.reset()
+    frames_u8, masks_u8 = synthetic_clip(24, 360, 640)
+    image, mask = torch.from_numpy(frames_u8).float() / 255.0, torch.from_numpy(masks_u8).float() / 255.0
+    cells = {}
+    for cell, (kind, fp16) in SPAN_COST_CELLS.items():
+        w = dict(WIDGETS, fp16=fp16, width=640, height=360)
+        if kind == "inpaint":
+            node = ProPainterInpaint()
+            run = lambda: node.propainter_inpainting(image, mask, **w)  # noqa: E731
+        else:
+            node = ProPainterOutpaint()
+            run = lambda: node.propainter_outpainting(image, width_scale=1.2, height_scale=1.0, **w)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        profiling.reset()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        records = len(profiling.spans())
+        stages = sum(r["calls"] for r in profiling.summary().values())
+        launches = sum(v for k, v in profiling.counters().items() if k in KERNELS)
+        cost_ms = ((records - stages) * off["span"] + stages * off["stage_timer"] + launches * off["kernel"]) / 1e3
+        cells[cell] = dict(wall_s=wall, ring_records=records, stage_timers=stages, kernel_launches=launches,
+                           launches_by_kernel={k: v for k, v in profiling.counters().items() if k in KERNELS},
+                           spans_by_name=dict(collections.Counter(r.name for r in profiling.spans())),
+                           off_cost_ms=cost_ms, off_cost_share=cost_ms / 1e3 / wall)
+        log(f"  [{cell}] wall {wall:.4f} s; {records} ring records ({stages} stage timers), {launches} kernel "
+            f"launches: {cost_ms:.4f} ms a clip off, {100 * cost_ms / 1e3 / wall:.4f}% of the clip")
+        # traced (blocking spans, as the benchmark's traced window) against
+        # untraced, in turns, each clip's wall to its last synchronise
+        walls = {False: [], True: []}
+        for _ in range(SPAN_COST_PAIRS[cell]):
+            for traced in (False, True):
+                profiling.set_blocking(traced)
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls[traced].append(time.perf_counter() - t0)
+        profiling.set_blocking(False)
+        pairs = [b - a for a, b in zip(walls[False], walls[True])]
+        cells[cell].update(untraced_walls_s=walls[False], traced_walls_s=walls[True],
+                           traced_less_untraced_median_ms=1e3 * statistics.median(pairs))
+        log(f"  [{cell}] untraced median {statistics.median(walls[False]):.4f} s, traced median "
+            f"{statistics.median(walls[True]):.4f} s; traced less untraced, median of pairs, "
+            f"{1e3 * statistics.median(pairs):.1f} ms")
+    weights_dir.cleanup()
+    print(json.dumps(dict(card=nvidia_smi(), torch=torch.__version__, us_off=off, us_under_cpu_profiler=on,
+                          trace_offset_us=trace_offset_us, cells=cells)), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3376,6 +3494,8 @@ def main() -> int:
         return fc_plan()
     if len(sys.argv) == 2 and sys.argv[1] == "--f32-splits":
         return f32_splits()
+    if len(sys.argv) == 2 and sys.argv[1] == "--span-cost":
+        return span_cost()
     t_start = time.perf_counter()
     weights_dir = weights_cache()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build

@@ -31,6 +31,12 @@ forward returns the rank's pixel rows (of the crop, with one). Under
 transformer runs tensor-parallel on the rank's shards. Every op is
 differentiable: the kernels B2 and B3/B4/B5 take their gradients from
 their plain versions (ops/cuda/_grad.py).
+
+Spans (utils/profiling.py), one a call: "feature.encode"
+(`encode_features`), and in `inpaint_generator_from_features`
+"feature.propagate" (the deformable alignment, B2), "feature.transformer"
+(soft split, the transformer blocks on B3/B4/B5, soft comp) and
+"feature.decode".
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..ops.warp import flow_warp
 from ..parallel.sequence import sequence_active, sequence_parallel_transformer
 from ..parallel.sharding import tensor_active
 from ..parallel.spatial import ENC_HALO4, PROP_HALO4, Partition, RowSplit, spatial_active, token_rows
+from ..utils.profiling import span
 
 Params = Mapping[str, torch.Tensor]
 
@@ -368,17 +375,18 @@ def encode_features(p: Params, masked_frames, masks_in, masks_updated):
     rank's feature rows widened by PROP_HALO4: the frames' pixel rows with
     ENC_HALO4 feature rows of halo more (clamped to the frame, so the
     convs pad where the image ends) are encoded and the halo trimmed."""
-    n, h, w, _ = masked_frames.shape
-    h4 = h // 4
-    x = torch.cat([masked_frames, masks_in, masks_updated], dim=-1)
-    a, b = _partition(h4).features(h4).widened(PROP_HALO4)
-    if a == b:
-        return x.new_zeros((n, 0, w // 4, CHANNEL))
-    ea, eb = max(0, a - ENC_HALO4), min(h4, b + ENC_HALO4)
-    x = x[:, 4 * ea : 4 * eb]
-    return _frame_chunks(
-        lambda v: encoder(p, v)[:, a - ea : b - ea], x, (eb - ea) * (w // 4) * 512 * x.element_size(), ENCODE_BYTES
-    )
+    with span("feature.encode"):
+        n, h, w, _ = masked_frames.shape
+        h4 = h // 4
+        x = torch.cat([masked_frames, masks_in, masks_updated], dim=-1)
+        a, b = _partition(h4).features(h4).widened(PROP_HALO4)
+        if a == b:
+            return x.new_zeros((n, 0, w // 4, CHANNEL))
+        ea, eb = max(0, a - ENC_HALO4), min(h4, b + ENC_HALO4)
+        x = x[:, 4 * ea : 4 * eb]
+        return _frame_chunks(
+            lambda v: encoder(p, v)[:, a - ea : b - ea], x, (eb - ea) * (w // 4) * 512 * x.element_size(), ENCODE_BYTES
+        )
 
 
 def downsample_flow(flows, h: int, w: int):
@@ -437,42 +445,45 @@ def inpaint_generator_from_features(
     feat = part.features(h)
     a, wb = feat.widened(PROP_HALO4)
     local_feat, ref_feat = enc_feat[:, :l_t], enc_feat[:, l_t:, feat.lo - a : feat.hi - a]
-    prop_mask_in = torch.cat([ds_mask_in_local, ds_mask_updated_local], dim=-1)[:, :, a:wb]
-    local_feat = bidirectional_propagation_feature(
-        p, local_feat, ds_flows_f, ds_flows_b, prop_mask_in, t_valid=l_t_valid, feat=feat
-    )
+    with span("feature.propagate"):
+        prop_mask_in = torch.cat([ds_mask_in_local, ds_mask_updated_local], dim=-1)[:, :, a:wb]
+        local_feat = bidirectional_propagation_feature(
+            p, local_feat, ds_flows_f, ds_flows_b, prop_mask_in, t_valid=l_t_valid, feat=feat
+        )
     enc_feat = torch.cat([local_feat, ref_feat], dim=1)
     t_valid_mask = _t_valid_mask(b, t, l_t, l_t_valid, ref_valid, enc_feat.device)
 
-    tok = part.tokens()
-    trans_feat = soft_split(p, "ss", enc_feat.reshape(b * t, feat.rows, w, CHANNEL), (feat, tok))
-    fh, fw = trans_feat.shape[1], trans_feat.shape[2]
-    trans_feat = trans_feat.reshape(b, t, fh, fw, HIDDEN)
-    seq = sequence_active()
-    if seq is not None:
-        # the feature stage's sequence-parallel form: T split over the mesh axis
-        trans_feat = sequence_parallel_transformer(
-            p, "transformers", trans_feat, (h, w), mask_pool_l, seq[0], t_valid_mask=t_valid_mask, axis=seq[1],
-        )
-    else:
-        trans_feat = transformer_stack(
-            p, "transformers", trans_feat, (h, w), mask_pool_l[:, :, tok.lo : tok.hi], t_valid_mask=t_valid_mask,
-            split=part, tp=tensor_active(),
-        )
-    trans_feat = soft_comp(p, "sc", trans_feat.reshape(b * t, fh, fw, HIDDEN), (h, w), (tok, feat))
-    enc_feat = enc_feat + trans_feat.reshape(b, t, feat.rows, w, CHANNEL)
-    local = enc_feat[:, :l_t].reshape(b * l_t, feat.rows, w, CHANNEL)
-    if part.whole:
-        if crop is None:
-            return torch.tanh(decoder(p, local)).reshape(b, l_t, ori_h, ori_w, 3)
-        y0, x0, ch, cw = crop
-        return torch.tanh(decoder_crop(p, local, y0, x0, ch, cw)).reshape(b, l_t, ch, cw, 3)
-    y0, x0, ch, cw = (0, 0, ori_h, ori_w) if crop is None else crop
-    pix = part.pixels(ori_h)
-    r0, r1 = min(max(pix.lo, y0), y0 + ch), min(max(pix.hi, y0), y0 + ch)  # the rank's rows of the crop
-    x, start = feat.halo(local, DECODER_HALO4, DECODER_HALO4, 1)
-    out = decode_rows(p, x, start, h, w, r0, r1, x0, x0 + cw)
-    return torch.tanh(out).reshape(b, l_t, r1 - r0, cw, 3)
+    with span("feature.transformer"):
+        tok = part.tokens()
+        trans_feat = soft_split(p, "ss", enc_feat.reshape(b * t, feat.rows, w, CHANNEL), (feat, tok))
+        fh, fw = trans_feat.shape[1], trans_feat.shape[2]
+        trans_feat = trans_feat.reshape(b, t, fh, fw, HIDDEN)
+        seq = sequence_active()
+        if seq is not None:
+            # the feature stage's sequence-parallel form: T split over the mesh axis
+            trans_feat = sequence_parallel_transformer(
+                p, "transformers", trans_feat, (h, w), mask_pool_l, seq[0], t_valid_mask=t_valid_mask, axis=seq[1],
+            )
+        else:
+            trans_feat = transformer_stack(
+                p, "transformers", trans_feat, (h, w), mask_pool_l[:, :, tok.lo : tok.hi], t_valid_mask=t_valid_mask,
+                split=part, tp=tensor_active(),
+            )
+        trans_feat = soft_comp(p, "sc", trans_feat.reshape(b * t, fh, fw, HIDDEN), (h, w), (tok, feat))
+        enc_feat = enc_feat + trans_feat.reshape(b, t, feat.rows, w, CHANNEL)
+    with span("feature.decode"):
+        local = enc_feat[:, :l_t].reshape(b * l_t, feat.rows, w, CHANNEL)
+        if part.whole:
+            if crop is None:
+                return torch.tanh(decoder(p, local)).reshape(b, l_t, ori_h, ori_w, 3)
+            y0, x0, ch, cw = crop
+            return torch.tanh(decoder_crop(p, local, y0, x0, ch, cw)).reshape(b, l_t, ch, cw, 3)
+        y0, x0, ch, cw = (0, 0, ori_h, ori_w) if crop is None else crop
+        pix = part.pixels(ori_h)
+        r0, r1 = min(max(pix.lo, y0), y0 + ch), min(max(pix.hi, y0), y0 + ch)  # the rank's rows of the crop
+        x, start = feat.halo(local, DECODER_HALO4, DECODER_HALO4, 1)
+        out = decode_rows(p, x, start, h, w, r0, r1, x0, x0 + cw)
+        return torch.tanh(out).reshape(b, l_t, r1 - r0, cw, 3)
 
 
 def inpaint_generator_forward(

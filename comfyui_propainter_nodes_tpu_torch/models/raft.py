@@ -18,6 +18,9 @@ lookup takes the padded-map window kernel (ops/cuda/corr_window.py),
 the JAX package's padded `lookup_corr` branch.
 Compute dtype follows the params (bf16 under fp16="enable"); coords,
 convex upsampling and the returned flows stay fp32.
+Each call is two spans (utils/profiling.py): "raft.encode" (fnet, cnet
+and the pyramids) and "raft.refine" (the update loop and convex
+upsampling, `_refine`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..ops.cuda.corr_lookup import corr_lookup
 from ..ops.cuda.corr_window import corr_window_lookup4
 from ..ops.patches import unfold
 from ..ops.warp import coords_grid
+from ..utils.profiling import span
 
 Params = Mapping[str, torch.Tensor]
 
@@ -296,17 +300,18 @@ def _refine(params: Params, cnet, lookup, h8: int, w8: int, iters: int):
     """The update loop and convex upsampling, shared by both forms:
     cnet [M, H8, W8, 256] context features in the order of the lookup's
     batch -> flows [M, 8*H8, 8*W8, 2] fp32."""
-    cdt = cnet.dtype
-    net = torch.tanh(cnet[..., :HDIM])
-    inp = torch.relu(cnet[..., HDIM:])
-    coords0 = coords_grid(cnet.shape[0], h8, w8, device=cnet.device)
-    coords1 = coords0.clone()
-    for _ in range(iters):
-        corr = lookup(coords1)
-        flow = coords1 - coords0
-        net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
-        coords1 = coords1 + delta.float()
-    return convex_upsample(coords1 - coords0, _upsample_mask(params, net).float())
+    with span("raft.refine"):
+        cdt = cnet.dtype
+        net = torch.tanh(cnet[..., :HDIM])
+        inp = torch.relu(cnet[..., HDIM:])
+        coords0 = coords_grid(cnet.shape[0], h8, w8, device=cnet.device)
+        coords1 = coords0.clone()
+        for _ in range(iters):
+            corr = lookup(coords1)
+            flow = coords1 - coords0
+            net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
+            coords1 = coords1 + delta.float()
+        return convex_upsample(coords1 - coords0, _upsample_mask(params, net).float())
 
 
 def _lookup_fn(mode: str, fmap1, fmap2, bidirectional: bool):
@@ -333,10 +338,11 @@ def raft_forward(params: Params, image1, image2, iters: int = 20, blend: str | N
     cdt = params["fnet.conv1.weight"].dtype
     n, h, w, _ = image1.shape
     h8, w8 = h // 8, w // 8
-    fmaps = basic_encoder(params, "fnet", torch.cat([image1, image2]).to(cdt), norm="instance")
-    lookup = _lookup_fn(blend or forward_lookup_mode(), fmaps[:n], fmaps[n:], bidirectional=False)
-    del fmaps
-    cnet = basic_encoder(params, "cnet", image1.to(cdt), norm="batch")
+    with span("raft.encode"):
+        fmaps = basic_encoder(params, "fnet", torch.cat([image1, image2]).to(cdt), norm="instance")
+        lookup = _lookup_fn(blend or forward_lookup_mode(), fmaps[:n], fmaps[n:], bidirectional=False)
+        del fmaps
+        cnet = basic_encoder(params, "cnet", image1.to(cdt), norm="batch")
     return _refine(params, cnet, lookup, h8, w8, iters)
 
 
@@ -371,22 +377,22 @@ def raft_bi_forward(params: Params, frames, iters: int = 20, blend: str | None =
     b, t, h, w, c = frames.shape
     n = b * (t - 1)
     cdt = params["fnet.conv1.weight"].dtype
-    flat = frames.reshape(b * t, h, w, c).to(cdt)
-
-    fmaps = basic_encoder(params, "fnet", flat, norm="instance")
-    cnet_all = basic_encoder(params, "cnet", flat, norm="batch")
     h8, w8 = h // 8, w // 8
+    with span("raft.encode"):
+        flat = frames.reshape(b * t, h, w, c).to(cdt)
+        fmaps = basic_encoder(params, "fnet", flat, norm="instance")
+        cnet_all = basic_encoder(params, "cnet", flat, norm="batch")
 
-    fm = fmaps.reshape(b, t, h8, w8, -1)
-    f1 = fm[:, :-1].reshape(n, h8, w8, -1)
-    f2 = fm[:, 1:].reshape(n, h8, w8, -1)
-    # both directions in one launch, in the maps' dtype
-    lookup = _lookup_fn(blend or lookup_mode(n, h8, w8, cdt), f1, f2, bidirectional=True)
-    del fmaps, fm, f1, f2
+        fm = fmaps.reshape(b, t, h8, w8, -1)
+        f1 = fm[:, :-1].reshape(n, h8, w8, -1)
+        f2 = fm[:, 1:].reshape(n, h8, w8, -1)
+        # both directions in one launch, in the maps' dtype
+        lookup = _lookup_fn(blend or lookup_mode(n, h8, w8, cdt), f1, f2, bidirectional=True)
+        del fmaps, fm, f1, f2
 
-    # context order matches the lookup batch: [fwd image1 ++ bwd image1]
-    cn = cnet_all.reshape(b, t, h8, w8, -1)
-    cnet = torch.cat([cn[:, :-1], cn[:, 1:]], dim=0).reshape(2 * n, h8, w8, -1)
+        # context order matches the lookup batch: [fwd image1 ++ bwd image1]
+        cn = cnet_all.reshape(b, t, h8, w8, -1)
+        cnet = torch.cat([cn[:, :-1], cn[:, 1:]], dim=0).reshape(2 * n, h8, w8, -1)
     flows = _refine(params, cnet, lookup, h8, w8, iters)
     return (
         flows[:n].reshape(b, t - 1, h, w, 2),

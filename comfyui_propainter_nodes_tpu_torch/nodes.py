@@ -15,7 +15,12 @@ the masks outside them itself.
 Each run reports its stages' progress (`utils/profiling.py::NodeProgress`:
 ComfyUI's progress bar, tqdm or stderr) and leaves a run record
 (`utils/metrics.py::last_run`, and a JSON line in the file that
-PROPAINTER_TPU_METRICS names).
+PROPAINTER_TPU_METRICS names). Its host phases are spans
+(`utils/profiling.py::span`): the root "node.inpaint" / "node.outpaint";
+"node.prepare" before the pipeline ("node.to_bytes", "node.resize",
+"node.crop_plan" (inpaint), "node.upload" with the normalisation and the
+dilations); "node.finish" after it ("node.fetch", "node.paste" with the
+masks).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from .utils import weights as weights_zoo
 from .utils.image import resize_frames, ring_masks
 from .utils.metrics import RunRecorder
 from .utils.params import to_device
+from .utils.profiling import span
 
 _PIPELINE_CACHE: dict = {}
 _PARAM_CACHE: dict = {}  # (model, dtype, device, allow_random) -> params on the device
@@ -79,7 +85,7 @@ def _mask_crop_plan(masks_bin: np.ndarray, ph: int, pw: int, pad: int) -> tuple[
     if not rows.any():
         return 0, 0, min(32, ph), min(32, pw)
 
-    def span(flags, size):
+    def extent(flags, size):
         a = int(flags.argmax())
         b = size - int(flags[::-1].argmax())
         a = max(0, a - pad)
@@ -87,17 +93,17 @@ def _mask_crop_plan(masks_bin: np.ndarray, ph: int, pw: int, pad: int) -> tuple[
         length = min(size, -(-(b - a) // 32) * 32)
         return min(a, size - length), length
 
-    y0, ch = span(rows, ph)
-    x0, cw = span(cols, pw)
+    y0, ch = extent(rows, ph)
+    x0, cw = extent(cols, pw)
     if ch * cw >= 0.7 * ph * pw:
         return 0, 0, ph, pw
     return y0, x0, ch, cw
 
 
 def _paste(full: np.ndarray, crop, window: torch.Tensor) -> torch.Tensor:
-    """full [T, H, W(, C)] float32 with `window` (a device tensor) fetched
-    and written over it at the crop. NumPy on the host: a zero array's
-    pages stay unwritten outside the crop."""
+    """full [T, H, W(, C)] float32 with `window` (a tensor, fetched where
+    it is on the device) written over it at the crop. NumPy on the host: a
+    zero array's pages stay unwritten outside the crop."""
     y0, x0, ch, cw = crop
     full[:, y0 : y0 + ch, x0 : x0 + cw] = window.cpu().numpy()
     return torch.from_numpy(full)
@@ -229,16 +235,6 @@ class ProPainterInpaint:
         _allow_random_weights: bool = False,
     ):
         """Perform inpainting on images input using the ProPainter pipeline."""
-        frames = _to_numpy(image)
-        if frames.dtype != np.uint8:
-            frames = frames.astype(np.float32, copy=False)
-        masks = _to_numpy(mask)
-        if masks.dtype != np.uint8:
-            masks = masks.astype(np.float32, copy=False)
-        if masks.ndim == 2:
-            masks = masks[None]
-        check_inputs(frames, masks)
-
         pw, ph = ImageConfig(width, height, mask_dilates, flow_mask_dilates).process_size
         config = PipelineConfig(
             ref_stride=ref_stride,
@@ -248,50 +244,72 @@ class ProPainterInpaint:
             fp16=fp16,
             process_size=(pw, ph),
         )
-        t = frames.shape[0]
-        frames_u8 = _to_u8(frames)
-        masks_u8 = _to_u8(masks)
-        if masks_u8.shape[0] == 1:
-            masks_u8 = np.broadcast_to(masks_u8, (t,) + masks_u8.shape[1:])
+        t = len(image)
         pad = max(flow_mask_dilates, mask_dilates) + 1
         dev = self.device
+        with span("node.inpaint"), RunRecorder("inpaint", config, t):
+            with span("node.prepare"):
+                with span("node.to_bytes"):
+                    frames = _to_numpy(image)
+                    if frames.dtype != np.uint8:
+                        frames = frames.astype(np.float32, copy=False)
+                    masks = _to_numpy(mask)
+                    if masks.dtype != np.uint8:
+                        masks = masks.astype(np.float32, copy=False)
+                    if masks.ndim == 2:
+                        masks = masks[None]
+                    check_inputs(frames, masks)
+                    frames_u8 = _to_u8(frames)
+                    masks_u8 = _to_u8(masks)
+                    if masks_u8.shape[0] == 1:
+                        masks_u8 = np.broadcast_to(masks_u8, (t,) + masks_u8.shape[1:])
+                # host resize (PIL bicubic, as the reference); on-device otherwise
+                with span("node.resize"):
+                    frames_r = _host_resize_u8(frames_u8, pw, ph)
+                    masks_r = _host_resize_u8(masks_u8, pw, ph)
+                on_host = frames_r is not None and masks_r is not None
+                with span("node.crop_plan"):
+                    if on_host:
+                        masks_bin = masks_r != 0
+                        crop = _mask_crop_plan(masks_bin, ph, pw, pad)
+                    else:
+                        # the plan from the input-resolution mask's nearest projection,
+                        # with a 4 px margin for the bicubic resize's spill
+                        h_in, w_in = masks_u8.shape[1], masks_u8.shape[2]
+                        iy = np.minimum((np.arange(ph) * h_in / ph).astype(int), h_in - 1)
+                        ix = np.minimum((np.arange(pw) * w_in / pw).astype(int), w_in - 1)
+                        crop = _mask_crop_plan((masks_u8 != 0)[:, iy][:, :, ix], ph, pw, pad + 4)
+                with span("node.upload"):
+                    if on_host:
+                        byte = _upload_u8(frames_r, dev).float()
+                        base = _upload_u8(masks_bin, dev).float()
+                    else:
+                        byte = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph)
+                        m = _upload_u8(masks_u8, dev).float()[..., None]
+                        base = (resize_frames(m, pw, ph)[..., 0] > 0.5).float()
+                    frames_norm = byte / 255.0 * 2.0 - 1.0
+                    flow_masks = binary_dilation(base, flow_mask_dilates) if flow_mask_dilates > 0 else base
+                    masks_dilated = binary_dilation(base, mask_dilates) if mask_dilates > 0 else base
+                pipe = get_pipeline(config, dev, _allow_random_weights)
+                self.last_pipeline, self.last_crop = pipe, crop
 
-        # host resize (PIL bicubic, as the reference); on-device otherwise
-        frames_r = _host_resize_u8(frames_u8, pw, ph)
-        masks_r = _host_resize_u8(masks_u8, pw, ph)
-        if frames_r is not None and masks_r is not None:
-            masks_bin = masks_r != 0
-            crop = _mask_crop_plan(masks_bin, ph, pw, pad)
-            byte = _upload_u8(frames_r, dev).float()
-            base = _upload_u8(masks_bin, dev).float()
-        else:
-            # the plan from the input-resolution mask's nearest projection,
-            # with a 4 px margin for the bicubic resize's spill
-            h_in, w_in = masks_u8.shape[1], masks_u8.shape[2]
-            iy = np.minimum((np.arange(ph) * h_in / ph).astype(int), h_in - 1)
-            ix = np.minimum((np.arange(pw) * w_in / pw).astype(int), w_in - 1)
-            crop = _mask_crop_plan((masks_u8 != 0)[:, iy][:, :, ix], ph, pw, pad + 4)
-            byte = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph)
-            m = _upload_u8(masks_u8, dev).float()[..., None]
-            base = (resize_frames(m, pw, ph)[..., 0] > 0.5).float()
-        frames_norm = byte / 255.0 * 2.0 - 1.0
-        flow_masks = binary_dilation(base, flow_mask_dilates) if flow_mask_dilates > 0 else base
-        masks_dilated = binary_dilation(base, mask_dilates) if mask_dilates > 0 else base
+            with _node_progress(pipe, t):
+                comp_crop = pipe.process(
+                    frames_norm[None], flow_masks[None, ..., None], masks_dilated[None, ..., None], byte, crop=crop
+                )
 
-        pipe = get_pipeline(config, dev, _allow_random_weights)
-        self.last_pipeline, self.last_crop = pipe, crop
-        with _node_progress(pipe, t), RunRecorder("inpaint", config, t):
-            comp_crop = pipe.process(
-                frames_norm[None], flow_masks[None, ..., None], masks_dilated[None, ..., None], byte, crop=crop
-            )
             # fetch the crops only; paste them over the host's own bytes (or
             # the device-resized frames, fetched once) and over zero masks
-            y0, x0, ch, cw = crop
-            window = (slice(None), slice(y0, y0 + ch), slice(x0, x0 + cw))
-            base_u8 = frames_r if frames_r is not None else byte.to(torch.uint8).cpu().numpy()
-            out_images = _paste(base_u8.astype(np.float32), crop, comp_crop.to(torch.uint8)).div_(255.0)
-            fm = _paste(np.zeros((t, ph, pw), np.float32), crop, flow_masks[window].bool())
-            md = _paste(np.zeros((t, ph, pw), np.float32), crop, masks_dilated[window].bool())
+            with span("node.finish"):
+                with span("node.fetch"):
+                    comp = comp_crop.to(torch.uint8).cpu()
+                    base_u8 = frames_r if on_host else byte.to(torch.uint8).cpu().numpy()
+                with span("node.paste"):
+                    y0, x0, ch, cw = crop
+                    window = (slice(None), slice(y0, y0 + ch), slice(x0, x0 + cw))
+                    out_images = _paste(base_u8.astype(np.float32), crop, comp).div_(255.0)
+                    fm = _paste(np.zeros((t, ph, pw), np.float32), crop, flow_masks[window].bool())
+                    md = _paste(np.zeros((t, ph, pw), np.float32), crop, masks_dilated[window].bool())
         return out_images, fm.squeeze(), md.squeeze()
 
 
@@ -343,9 +361,6 @@ class ProPainterOutpaint:
         _allow_random_weights: bool = False,
     ):
         """Perform outpainting on images input using the ProPainter pipeline."""
-        frames = _to_numpy(image)
-        if frames.dtype != np.uint8:
-            frames = frames.astype(np.float32, copy=False)
         img_cfg = OutpaintConfig(width, height, mask_dilates, flow_mask_dilates, width_scale, height_scale)
         pw, ph = img_cfg.process_size
         cw, chh = img_cfg.outpaint_size
@@ -357,37 +372,51 @@ class ProPainterOutpaint:
             fp16=fp16,
             process_size=(cw, chh),
         )
-        t = frames.shape[0]
-        frames_u8 = _to_u8(frames)
+        t = len(image)
         dev = self.device
-        frames_r = _host_resize_u8(frames_u8, pw, ph)
-        if frames_r is not None:
-            interior = frames_r
-            frames_dev = _upload_u8(frames_r, dev)
-        else:  # resize on the device; its bytes are the interior, fetched once
-            frames_dev = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph).to(torch.uint8)
-            interior = frames_dev.cpu().numpy()
+        with span("node.outpaint"), RunRecorder("outpaint", config, t):
+            with span("node.prepare"):
+                with span("node.to_bytes"):
+                    frames = _to_numpy(image)
+                    if frames.dtype != np.uint8:
+                        frames = frames.astype(np.float32, copy=False)
+                    frames_u8 = _to_u8(frames)
+                with span("node.resize"):
+                    frames_r = _host_resize_u8(frames_u8, pw, ph)
+                with span("node.upload"):
+                    if frames_r is not None:
+                        interior = frames_r
+                        frames_dev = _upload_u8(frames_r, dev)
+                    else:  # resize on the device; its bytes are the interior, fetched once
+                        frames_dev = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph).to(torch.uint8)
+                        interior = frames_dev.cpu().numpy()
+                pipe = get_pipeline(config, dev, _allow_random_weights)
+                self.last_pipeline = pipe
 
-        pipe = get_pipeline(config, dev, _allow_random_weights)
-        self.last_pipeline = pipe
-        with _node_progress(pipe, t), RunRecorder("outpaint", config, t):
-            bands = [b.cpu().numpy() for b in pipe.process_node_outpaint(frames_dev, (chh, cw))]
+            with _node_progress(pipe, t):
+                bands_dev = pipe.process_node_outpaint(frames_dev, (chh, cw))
 
-        # the interior is the host's own bytes (composed == input there,
-        # exactly); the bands fill the ring around it
-        out = np.zeros((t, chh, cw, 3), np.float32)
-        h_start, w_start = (chh - ph) // 2, (cw - pw) // 2
-        out[:, h_start : h_start + ph, w_start : w_start + pw] = interior
-        bi = iter(bands)
-        if h_start:
-            out[:, :h_start] = next(bi)
-            out[:, h_start + ph :] = next(bi)
-        if w_start:
-            out[:, h_start : h_start + ph, :w_start] = next(bi)
-            out[:, h_start : h_start + ph, w_start + pw :] = next(bi)
-        # the ring mask is static geometry, built on the host
-        mask = ring_masks((ph, pw), (chh, cw))[1]
-        return torch.from_numpy(out).div_(255.0), mask.expand(t, chh, cw).clone().squeeze(), cw, chh
+            with span("node.finish"):
+                with span("node.fetch"):
+                    bands = [b.cpu().numpy() for b in bands_dev]
+                # the interior is the host's own bytes (composed == input there,
+                # exactly); the bands fill the ring around it
+                with span("node.paste"):
+                    out = np.zeros((t, chh, cw, 3), np.float32)
+                    h_start, w_start = (chh - ph) // 2, (cw - pw) // 2
+                    out[:, h_start : h_start + ph, w_start : w_start + pw] = interior
+                    bi = iter(bands)
+                    if h_start:
+                        out[:, :h_start] = next(bi)
+                        out[:, h_start + ph :] = next(bi)
+                    if w_start:
+                        out[:, h_start : h_start + ph, :w_start] = next(bi)
+                        out[:, h_start : h_start + ph, w_start + pw :] = next(bi)
+                    # the ring mask is static geometry, built on the host
+                    mask = ring_masks((ph, pw), (chh, cw))[1]
+                    image_out = torch.from_numpy(out).div_(255.0)
+                    mask_out = mask.expand(t, chh, cw).clone().squeeze()
+        return image_out, mask_out, cw, chh
 
 
 NODE_CLASS_MAPPINGS = {

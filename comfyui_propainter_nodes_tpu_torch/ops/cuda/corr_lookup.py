@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import kernel
 from . import _build
 from ._grad import forward_only
 
@@ -31,8 +32,6 @@ RADIUS = 4
 WIN = 2 * RADIUS + 1
 LEVELS = 4
 BLENDS = ("lanes", "map")
-launches = 0  # launches of `corr_lookup_kernel` (fp32 maps, or bf16 maps with the lanes blend)
-launches_map = 0  # launches of `corr_lookup_map_kernel` (bf16 maps, the map-dtype blend)
 
 
 def _lookup(pyramid: list[torch.Tensor], flat: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -102,7 +101,6 @@ def _check(pyramids, coords):
 
 
 def corr_lookup(pyramid: list[torch.Tensor], coords: torch.Tensor, pyramid_b=None, blend: str = "lanes") -> torch.Tensor:
-    global launches, launches_map
     if coords.device.type == "cpu":
         return corr_lookup_plain(pyramid, coords, pyramid_b, blend)
     if coords.device.type != "cuda":
@@ -122,20 +120,19 @@ def corr_lookup(pyramid: list[torch.Tensor], coords: torch.Tensor, pyramid_b=Non
     else:
         mode = 2 if blend == "map" else 1
     lib = _build.library()
-    status = lib.propainter_corr_lookup(
-        *[m.data_ptr() for m in pyramid],
-        *[m.data_ptr() for m in backward],
-        *dims,
-        coords.data_ptr(),
-        out.data_ptr(),
-        pyramid[0].shape[0],
-        im * h8 * w8,
-        mode,
-        torch.cuda.current_stream(coords.device).cuda_stream,
-    )
-    _build.check(status, "corr_lookup")
-    if mode == 2:
-        launches_map += 1
-    else:
-        launches += 1
+    # counted as "corr_lookup" (`corr_lookup_kernel`: fp32 maps, or bf16
+    # maps with the lanes blend) or "corr_lookup_map" (`corr_lookup_map_kernel`)
+    with kernel("corr_lookup_map" if mode == 2 else "corr_lookup"):
+        status = lib.propainter_corr_lookup(
+            *[m.data_ptr() for m in pyramid],
+            *[m.data_ptr() for m in backward],
+            *dims,
+            coords.data_ptr(),
+            out.data_ptr(),
+            pyramid[0].shape[0],
+            im * h8 * w8,
+            mode,
+            torch.cuda.current_stream(coords.device).cuda_stream,
+        )
+        _build.check(status, "corr_lookup")
     return out

@@ -23,13 +23,12 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import kernel
 from . import _build
 from ._grad import forward_only
 
 WIN = 10  # window rows/cols fetched per pixel (2 * radius + 2)
 TAPS = 9
-launches = 0  # one-level kernel launches since the last reset
-launches4 = 0  # four-level kernel launches since the last reset
 
 
 def corr_window_lookup_plain(corr_pad: torch.Tensor, sy, sx, fy, fx) -> torch.Tensor:
@@ -85,7 +84,6 @@ def _device_ok(t: torch.Tensor, name: str) -> bool:
 
 
 def corr_window_lookup(corr_pad, sy, sx, fy, fx) -> torch.Tensor:
-    global launches
     if not _device_ok(corr_pad, "corr_window_lookup"):
         return corr_window_lookup_plain(corr_pad, sy, sx, fy, fx)
     forward_only("corr_window_lookup", corr_pad, fy, fx)
@@ -93,18 +91,17 @@ def corr_window_lookup(corr_pad, sy, sx, fy, fx) -> torch.Tensor:
     _check_maps([corr_pad], m, sy.device)
     sy, sx, fy, fx = _starts_and_fracs(sy, sx, fy, fx, (m,))
     out = torch.empty((m, TAPS, TAPS), device=corr_pad.device, dtype=torch.float32)
-    status = _build.library().propainter_corr_window(
-        corr_pad.data_ptr(), sy.data_ptr(), sx.data_ptr(), fy.data_ptr(), fx.data_ptr(),
-        out.data_ptr(), m, hp, wp, int(corr_pad.dtype == torch.bfloat16),
-        torch.cuda.current_stream(corr_pad.device).cuda_stream,
-    )
-    _build.check(status, "corr_window_lookup")
-    launches += 1
+    with kernel("corr_window"):
+        status = _build.library().propainter_corr_window(
+            corr_pad.data_ptr(), sy.data_ptr(), sx.data_ptr(), fy.data_ptr(), fx.data_ptr(),
+            out.data_ptr(), m, hp, wp, int(corr_pad.dtype == torch.bfloat16),
+            torch.cuda.current_stream(corr_pad.device).cuda_stream,
+        )
+        _build.check(status, "corr_window_lookup")
     return out
 
 
 def corr_window_lookup4(pyramid, sy, sx, fy, fx) -> torch.Tensor:
-    global launches4
     if len(pyramid) != 4:
         raise ValueError(f"corr_window_lookup4 needs 4 levels, got {len(pyramid)}")
     if not _device_ok(pyramid[0], "corr_window_lookup4"):
@@ -117,12 +114,12 @@ def corr_window_lookup4(pyramid, sy, sx, fy, fx) -> torch.Tensor:
     dims = []
     for p in pyramid:
         dims += [p.shape[1], p.shape[2]]
-    status = _build.library().propainter_corr_window4(
-        *[p.data_ptr() for p in pyramid], *dims,
-        sy.data_ptr(), sx.data_ptr(), fy.data_ptr(), fx.data_ptr(), out.data_ptr(),
-        m, int(pyramid[0].dtype == torch.bfloat16),
-        torch.cuda.current_stream(sy.device).cuda_stream,
-    )
-    _build.check(status, "corr_window_lookup4")
-    launches4 += 1
+    with kernel("corr_window4"):
+        status = _build.library().propainter_corr_window4(
+            *[p.data_ptr() for p in pyramid], *dims,
+            sy.data_ptr(), sx.data_ptr(), fy.data_ptr(), fx.data_ptr(), out.data_ptr(),
+            m, int(pyramid[0].dtype == torch.bfloat16),
+            torch.cuda.current_stream(sy.device).cuda_stream,
+        )
+        _build.check(status, "corr_window_lookup4")
     return out

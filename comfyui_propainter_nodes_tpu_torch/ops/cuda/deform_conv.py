@@ -22,11 +22,11 @@ raises there).
 
 from __future__ import annotations
 
-import collections
 import weakref
 
 import torch
 
+from ...utils.profiling import count, kernel
 from . import _build
 from ._grad import twin_grad, wants_grad
 
@@ -35,9 +35,9 @@ BN = 128  # output channels of its block (tc::BN, f32::BN)
 F32_KC = 16  # channels of the CUDA-core kernel's K chunk (f32::KC)
 F32_BM = 64  # pixels of its block (f32::BM)
 TAP_SPLITS = (1, 3, 9)  # blocks over the 9 taps the CUDA-core kernel takes (`tap_splits` picks 1 or 9)
-launches = 0  # kernel launches since the last reset
-# launches by x's shape (and, for a row slab, its rows), reset with `launches`
-launch_shapes: collections.Counter = collections.Counter()
+# a launch counts under "deform_conv" and under SHAPE_COUNTER + x's shape,
+# "x"-joined, with "xrows<a>-<b>" after it for a row slab
+SHAPE_COUNTER = "deform_conv/"
 
 # the weights laid out for the kernels, once per weight tensor:
 # (id, dtype) -> (weakref to the weight, its version, the laid-out copy)
@@ -185,7 +185,6 @@ def deform_conv2d(x, offset, mask, weight, bias=None, padding: int = 1, row0: in
 
 
 def _launch(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0):
-    global launches
     _check(x, offset, mask, weight, bias, padding, row0)
     n, h, w, cin = x.shape
     ho = offset.shape[1]
@@ -195,25 +194,26 @@ def _launch(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0)
     out = torch.empty((n, ho, w, cout), device=x.device, dtype=x.dtype)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16:
-        b = None if bias is None else bias.to(torch.bfloat16).contiguous()  # the JAX path adds bias.astype(dt)
-        vec = (cin // g) % 8 == 0 and x.data_ptr() % 16 == 0
-        status = lib.propainter_deform_conv_mma(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
-            None if b is None else b.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, g, wmat.shape[2], block_rows(n * ho * w, cout, x.device), int(vec), ho, row0, stream,
-        )
-    else:
-        b = None if bias is None else bias.float().contiguous()
-        splits = tap_splits(n * ho * w, cout, x.device)
-        ws = torch.empty((splits, n * ho * w, cout), device=x.device) if splits > 1 else None
-        vec = (cin // g) % 4 == 0 and x.data_ptr() % 16 == 0
-        status = lib.propainter_deform_conv(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
-            None if b is None else b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-            n, h, w, cin, cout, g, wmat.shape[1], wmat.shape[2], splits, int(vec), ho, row0, stream,
-        )
-    _build.check(status, "deform_conv2d")
-    launches += 1
-    launch_shapes[tuple(x.shape) if ho == h else tuple(x.shape) + (f"rows{row0}-{row0 + ho}",)] += 1
+    with kernel("deform_conv"):
+        if x.dtype == torch.bfloat16:
+            b = None if bias is None else bias.to(torch.bfloat16).contiguous()  # the JAX path adds bias.astype(dt)
+            vec = (cin // g) % 8 == 0 and x.data_ptr() % 16 == 0
+            status = lib.propainter_deform_conv_mma(
+                x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
+                None if b is None else b.data_ptr(), out.data_ptr(),
+                n, h, w, cin, cout, g, wmat.shape[2], block_rows(n * ho * w, cout, x.device), int(vec), ho, row0,
+                stream,
+            )
+        else:
+            b = None if bias is None else bias.float().contiguous()
+            splits = tap_splits(n * ho * w, cout, x.device)
+            ws = torch.empty((splits, n * ho * w, cout), device=x.device) if splits > 1 else None
+            vec = (cin // g) % 4 == 0 and x.data_ptr() % 16 == 0
+            status = lib.propainter_deform_conv(
+                x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wmat.data_ptr(),
+                None if b is None else b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+                n, h, w, cin, cout, g, wmat.shape[1], wmat.shape[2], splits, int(vec), ho, row0, stream,
+            )
+        _build.check(status, "deform_conv2d")
+    count(SHAPE_COUNTER + "x".join(map(str, x.shape)) + ("" if ho == h else f"xrows{row0}-{row0 + ho}"))
     return out

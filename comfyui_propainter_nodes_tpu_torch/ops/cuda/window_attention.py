@@ -38,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import kernel
 from . import _build
 from ._grad import twin_grad, wants_grad
 
@@ -55,8 +56,6 @@ SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
 SPLIT_KEYS = 2 * SEG_TILE
 TILED_ESTIMATE = 12e6  # the JAX dispatcher's threshold
 MAX_GRID_Z = 65535
-launches = 0  # single-pass kernel launches since the last reset
-launches_tiled = 0  # segment-tiled kernel launches since the last reset
 
 
 def window_attention_plain(
@@ -157,7 +156,6 @@ def _launch(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, *, n_win_per_b: int,
 ):
-    global launches
     args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
     _check(args, n_win_per_b)
     if win_q.dtype == torch.bfloat16:
@@ -166,15 +164,15 @@ def _launch(
     occ_i = occ.to(torch.int32).contiguous()
     out = torch.empty_like(win_q)
     lib = _build.library()
-    status = lib.propainter_window_attention(
-        *[a.data_ptr() for a in (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v)],
-        occ_i.data_ptr(), bias_w.data_ptr(), bias_r.data_ptr(), bias_p.data_ptr(),
-        out.data_ptr(), nw, nh, t * wsz, rolled_k.shape[2], pool_k.shape[2], ch,
-        n_win_per_b, wsz, 1.0 / math.sqrt(ch), int(win_q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(win_q.device).cuda_stream,
-    )
-    _build.check(status, "window_attention")
-    launches += 1
+    with kernel("window_attention"):
+        status = lib.propainter_window_attention(
+            *[a.data_ptr() for a in (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v)],
+            occ_i.data_ptr(), bias_w.data_ptr(), bias_r.data_ptr(), bias_p.data_ptr(),
+            out.data_ptr(), nw, nh, t * wsz, rolled_k.shape[2], pool_k.shape[2], ch,
+            n_win_per_b, wsz, 1.0 / math.sqrt(ch), int(win_q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(win_q.device).cuda_stream,
+        )
+        _build.check(status, "window_attention")
     return out
 
 
@@ -248,7 +246,6 @@ def _launch_tiled(
     win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ,
     bias_w, bias_r, bias_p, *, n_win_per_b: int,
 ):
-    global launches_tiled
     args = (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v, occ, bias_w, bias_r, bias_p)
     _check(args, n_win_per_b)
     bf16 = win_q.dtype == torch.bfloat16
@@ -271,15 +268,15 @@ def _launch_tiled(
     part_m = torch.empty((n_part, nh, n_split, qt), device=dev, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     part_o = torch.empty((n_part, nh, n_split, qt, ch), device=dev, dtype=torch.float32)
-    status = _build.library().propainter_window_attention_tiled(
-        *[a.data_ptr() for a in (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v)],
-        occ_i.data_ptr(), occ_list.data_ptr(), bias_w.data_ptr(), bias_r.data_ptr(), bias_p.data_ptr(),
-        out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
-        nw, n_occ, nh, qt, rl, rlp, pl_len, plp, ch, n_win_per_b, wsz, n_split, split_keys,
-        1.0 / math.sqrt(ch), int(bf16), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(status, "window_attention_tiled")
-    launches_tiled += 1
+    with kernel("window_attention_tiled"):
+        status = _build.library().propainter_window_attention_tiled(
+            *[a.data_ptr() for a in (win_q, win_k, win_v, rolled_k, rolled_v, pool_k, pool_v)],
+            occ_i.data_ptr(), occ_list.data_ptr(), bias_w.data_ptr(), bias_r.data_ptr(), bias_p.data_ptr(),
+            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+            nw, n_occ, nh, qt, rl, rlp, pl_len, plp, ch, n_win_per_b, wsz, n_split, split_keys,
+            1.0 / math.sqrt(ch), int(bf16), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(status, "window_attention_tiled")
     return out
 
 

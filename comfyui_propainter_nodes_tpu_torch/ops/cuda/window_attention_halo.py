@@ -36,12 +36,12 @@ import math
 import numpy as np
 import torch
 
+from ...utils.profiling import kernel
 from . import _build
 from ._grad import twin_grad, wants_grad
 from .window_attention import check_mma, window_attention_plain
 
 NEG = -1e9
-launches = 0  # kernel launches since the last reset
 
 
 @functools.lru_cache(maxsize=8)
@@ -168,7 +168,6 @@ def window_attention_halo(
 
 
 def _launch(q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p, *, window_size, n_head: int):
-    global launches
     args = (q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p)
     _check(*args, window_size, n_head)
     if q.dtype == torch.bfloat16:
@@ -180,13 +179,13 @@ def _launch(q, k, v, khalo, vhalo, pool_k, pool_v, occ, bias_w, bias_hv, bias_p,
     bias_h = _halo_bias(bias_hv, window_size).contiguous()
     surv = _survivors_on(tuple(window_size), q.device)
     out = torch.empty_like(q)
-    status = _build.library().propainter_window_attention_halo(
-        *[a.data_ptr() for a in (q, k, v, khalo, vhalo, pool_k, pool_v)],
-        occ_i.data_ptr(), bias_w.data_ptr(), bias_h.data_ptr(), bias_p.data_ptr(), surv.data_ptr(),
-        out.data_ptr(), b, t, khalo.shape[1], hp, wp, c, n_head, wh, ww, pool_k.shape[2], surv.numel(),
-        1.0 / math.sqrt(c // n_head), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(status, "window_attention_halo")
-    launches += 1
+    with kernel("window_attention_halo"):
+        status = _build.library().propainter_window_attention_halo(
+            *[a.data_ptr() for a in (q, k, v, khalo, vhalo, pool_k, pool_v)],
+            occ_i.data_ptr(), bias_w.data_ptr(), bias_h.data_ptr(), bias_p.data_ptr(), surv.data_ptr(),
+            out.data_ptr(), b, t, khalo.shape[1], hp, wp, c, n_head, wh, ww, pool_k.shape[2], surv.numel(),
+            1.0 / math.sqrt(c // n_head), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _build.check(status, "window_attention_halo")
     return out

@@ -1,5 +1,7 @@
 """One JSON record per node run: kind, clip length, config, wall time,
-frames/s, the stage timers and whether it ended without an error.
+frames/s, the stage timers and whether it ended without an error. The
+nodes open the recorder around their whole call, the host's work before
+and after the pipeline included.
 
 The record is kept in-process (`last_run()`) and, when
 PROPAINTER_TPU_METRICS names a file, appended to it as one JSON line.
@@ -18,7 +20,8 @@ _LAST: dict | None = None
 
 
 class RunRecorder:
-    """Context manager around one run; resets the stage timers on entry."""
+    """Context manager around one run; restarts the stage table on entry
+    (the spans and counters stay: `profiling.reset` clears them)."""
 
     def __init__(self, kind: str, config, video_length: int):
         self.record = {
@@ -29,7 +32,7 @@ class RunRecorder:
         }
 
     def __enter__(self):
-        profiling.reset()
+        profiling.reset_stages()
         self._t0 = time.perf_counter()
         return self
 

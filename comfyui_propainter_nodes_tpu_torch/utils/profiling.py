@@ -1,17 +1,31 @@
-"""Stage timing and progress.
+"""The program's one record of spans, stage times and counters, and progress.
 
-Every timed region records its wall time into a process-local registry
-(`summary()`) and opens a `torch.profiler.record_function` range, so a
-profiler trace shows the stages by name.
+  * `span(name)` times a region. Each ends as one record (id, name, the
+    id of the span open around it, start and end on `time.perf_counter_ns`)
+    in a ring of RING_CAPACITY records (`spans()`); where it is full the
+    oldest record goes, counted by `dropped()`. While a `torch.profiler`
+    records, the span also opens a `record_function` range of its name, so
+    the profiler's trace shows it on the clock it shares with the card's
+    kernels; `trace_us` maps a span's times onto that trace's timestamps.
+  * `stage_timer(name)` is a span that also adds its time to the stage
+    table (`summary()`: the pipeline's four stages, streaming's and the
+    training step's parts), which `reset_stages` restarts at every run.
+  * `kernel(name)` is a kernel launch: while a profiler records it opens
+    a range "kernel.<name>", and a launch whose block ends without an
+    error counts one under `name`; it keeps no clock and no ring record
+    and never synchronises.
+  * `count(name, n)` adds to a program counter (`counters()`).
 
-Two timing modes:
+Two timing modes, for spans and stage timers:
 
   * default: the clock stops when the host has enqueued the region's
     work, which may still run on the card; no overhead.
   * blocking (``set_blocking(True)`` or ``PROPAINTER_TPU_BLOCKING_TIMERS=1``,
     the JAX package's variable): the card is synchronised before the
-    clock starts and before it stops, so the stages add up to the wall
+    clock starts and before it stops, so the regions add up to the wall
     time. This serialises host and card; keep it off for throughput.
+
+Spans nest on the thread that opens them (the node's).
 
 Progress: a pipeline reports (stage, done, total) through
 `progress_report`, whose callback's errors never end a run;
@@ -20,17 +34,39 @@ Progress: a pipeline reports (stage, done, total) through
 
 from __future__ import annotations
 
-import contextlib
+import collections
+import itertools
 import os
 import sys
 import time
 from collections import defaultdict
+from typing import NamedTuple
 
 import torch
 
+RING_CAPACITY = 1 << 16
+KERNEL_RANGE = "kernel."  # prefix of a kernel launch's profiler range
+
+
+class SpanRecord(NamedTuple):
+    id: int
+    name: str
+    parent: int | None  # id of the span open around this one
+    start_ns: int
+    end_ns: int
+
+
 _TIMES: dict[str, float] = defaultdict(float)
 _COUNTS: dict[str, int] = defaultdict(int)
+_COUNTERS: dict[str, int] = defaultdict(int)
+_RING: collections.deque = collections.deque(maxlen=RING_CAPACITY)
+_DROPPED = [0, 0]  # records dropped, the newest dropped record's end_ns
+_OPEN: list[int] = []  # ids of the open spans, innermost last
+_IDS = itertools.count()
 _BLOCKING = os.environ.get("PROPAINTER_TPU_BLOCKING_TIMERS", "0") == "1"
+# one (perf_counter_ns, time_ns) pair: the spans' clock against Unix time
+_ANCHOR = (time.perf_counter_ns(), time.time_ns())
+_profiler_on = torch._C._autograd._profiler_enabled
 
 
 def set_blocking(on: bool) -> None:
@@ -47,28 +83,111 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-class StageTime:
-    """What a `stage_timer` block measured: `seconds`, set when it ends."""
+def _open_range(name: str):
+    """A `record_function` range's handle while a profiler records, else None."""
+    if not _profiler_on():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
-    __slots__ = ("seconds",)
 
-    def __init__(self):
+class span:
+    """Times its block into the ring (see the module's docstring);
+    `seconds` holds the time once the block has ended."""
+
+    __slots__ = ("name", "seconds", "_id", "_parent", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
         self.seconds = 0.0
 
-
-@contextlib.contextmanager
-def stage_timer(name: str):
-    tm = StageTime()
-    if _BLOCKING:
-        _sync()
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield tm
+    def __enter__(self):
         if _BLOCKING:
             _sync()
-    tm.seconds = time.perf_counter() - t0
-    _TIMES[name] += tm.seconds
-    _COUNTS[name] += 1
+        self._id = next(_IDS)
+        self._parent = _OPEN[-1] if _OPEN else None
+        _OPEN.append(self._id)
+        self._t0 = time.perf_counter_ns()
+        self._range = _open_range(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            if _BLOCKING and exc_type is None:
+                _sync()
+        finally:
+            if self._range is not None:
+                self._range.__exit__(exc_type, exc, tb)
+            t1 = time.perf_counter_ns()
+            _OPEN.pop()
+            if len(_RING) == RING_CAPACITY:
+                _DROPPED[0] += 1
+                _DROPPED[1] = _RING[0].end_ns
+            _RING.append(SpanRecord(self._id, self.name, self._parent, self._t0, t1))
+            self.seconds = (t1 - self._t0) * 1e-9
+        return False
+
+
+class stage_timer(span):
+    """A span that also adds its time to the stage table when its block
+    ends without an error."""
+
+    __slots__ = ()
+
+    def __exit__(self, exc_type, exc, tb):
+        super().__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            _TIMES[self.name] += self.seconds
+            _COUNTS[self.name] += 1
+        return False
+
+
+class kernel:
+    """One launch of the kernel `name`: a profiler range "kernel.<name>"
+    while a profiler records, counted when the block ends without an
+    error."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = _open_range(KERNEL_RANGE + self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            _COUNTERS[self.name] += 1
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    _COUNTERS[name] += n
+
+
+def counters() -> dict[str, int]:
+    return dict(_COUNTERS)
+
+
+def spans() -> list[SpanRecord]:
+    """The ring's records, oldest first (in the order their spans ended)."""
+    return list(_RING)
+
+
+def dropped() -> tuple[int, int]:
+    """(records the ring dropped, the newest dropped record's end_ns)."""
+    return _DROPPED[0], _DROPPED[1]
+
+
+def trace_us(ns: int) -> float:
+    """A span's time (perf_counter_ns) as a `torch.profiler` Chrome trace
+    stamps it: an event's `ts` plus the trace's `baseTimeNanoseconds` /
+    1000, i.e. Unix microseconds."""
+    return (ns - _ANCHOR[0] + _ANCHOR[1]) / 1e3
 
 
 def progress_report(callback, stage: str, done: int, total: int) -> None:
@@ -129,17 +248,20 @@ class NodeProgress:
             print(f"[propainter] {stage}: {done}/{total}", file=sys.stderr)
 
 
-def reset() -> None:
+def reset_stages() -> None:
+    """Restart the stage table only (a run record's `stages`)."""
     _TIMES.clear()
     _COUNTS.clear()
 
 
+def reset() -> None:
+    """Clear the stage table, the counters and the ring."""
+    reset_stages()
+    _COUNTERS.clear()
+    _RING.clear()
+    _DROPPED[:] = [0, 0]
+
+
 def summary() -> dict[str, dict[str, float]]:
+    """The stage table: {stage: {"seconds", "calls"}}, stage timers only."""
     return {k: {"seconds": _TIMES[k], "calls": _COUNTS[k]} for k in sorted(_TIMES)}
-
-
-def log_summary(printer=print) -> None:
-    mode = "blocking" if _BLOCKING else "enqueue-only"
-    printer(f"  stage timers ({mode}):")
-    for name, row in summary().items():
-        printer(f"    {name}: {row['seconds']:.3f}s over {row['calls']} call(s)")

@@ -21,8 +21,14 @@ from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as b67
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as b3
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
+from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
+
+
+def launched(name: str) -> int:
+    """The program's launch counter of the kernel `name` (utils/profiling.py::kernel)."""
+    return profiling.counters().get(name, 0)
 
 
 @pytest.fixture
@@ -46,9 +52,9 @@ def test_corr_lookup_matches_plain(gen, dt):
     coords = torch.stack([xx, yy], -1)[None] + 8.0 * torch.randn(3, 17, 24, 2, generator=gen, device="cuda")
     coords[0, :4] = -50.0
     coords = coords.contiguous()
-    before = b1.launches
+    before = launched("corr_lookup")
     out = b1.corr_lookup(pyr, coords)
-    assert b1.launches == before + 1
+    assert launched("corr_lookup") == before + 1
     assert out.dtype == dt
     assert torch.equal(out, b1.corr_lookup_plain(pyr, coords))  # fp32 bit for bit; bf16 = the fp32 result rounded
     assert torch.count_nonzero(out[0, :4]) == 0
@@ -73,9 +79,9 @@ def test_corr_lookup_two_directions(gen, dt, n):
     coords[0, :3] = -50.0
     coords[n, 5:7] = 90.0
     coords = coords.contiguous()
-    before = b1.launches
+    before = launched("corr_lookup")
     out = b1.corr_lookup(fwd, coords, bwd)
-    assert b1.launches == before + 1
+    assert launched("corr_lookup") == before + 1
     assert out.dtype == dt and out.shape == (2 * n, 17, 23, 324)
     ref = torch.cat([b1.corr_lookup_plain(fwd, coords[:n].contiguous()), b1.corr_lookup_plain(bwd, coords[n:].contiguous())])
     assert torch.equal(out, ref)
@@ -103,9 +109,9 @@ def test_corr_lookup_map_blend(gen, dt, n):
     coords[0, :3] = -50.0
     coords[n, 5:7] = 90.0
     coords = coords.contiguous()
-    before = (b1.launches, b1.launches_map)
+    before = (launched("corr_lookup"), launched("corr_lookup_map"))
     out = b1.corr_lookup(fwd, coords, bwd, blend="map")
-    after = (b1.launches, b1.launches_map)
+    after = (launched("corr_lookup"), launched("corr_lookup_map"))
     assert after == ((before[0], before[1] + 1) if dt == torch.bfloat16 else (before[0] + 1, before[1]))
     assert out.dtype == dt and out.shape == (2 * n, 17, 23, 324)
     assert torch.equal(out, b1.corr_lookup_plain(fwd, coords, bwd, blend="map"))
@@ -126,9 +132,9 @@ def test_deform_conv_matches_plain(gen, dt, tol, cin, g):
     mask = torch.rand(2, 13, 21, g, 9, generator=gen, device="cuda").to(dt)
     w = (torch.randn(40, cin, 3, 3, generator=gen, device="cuda") * 0.05).to(dt)
     bias = torch.randn(40, generator=gen, device="cuda").to(dt)
-    before = b2.launches
+    before = launched("deform_conv")
     out = b2.deform_conv2d(x, off, mask, w, bias)
-    assert b2.launches == before + 1
+    assert launched("deform_conv") == before + 1
     torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w, bias), atol=tol, rtol=tol)
 
 
@@ -168,9 +174,9 @@ def test_deform_conv_row_origin(gen, dt, tol, row0, ho):
     bias = torch.randn(128, generator=gen, device="cuda").to(dt)
     rows = slice(row0, row0 + ho)
     o, m = off[:, rows].contiguous(), mask[:, rows].contiguous()
-    before = b2.launches
+    before = launched("deform_conv")
     out = b2.deform_conv2d(x, o, m, w, bias, row0=row0)
-    assert b2.launches == before + 1 and out.shape == (2, ho, 21, 128)
+    assert launched("deform_conv") == before + 1 and out.shape == (2, ho, 21, 128)
     torch.testing.assert_close(out, b2.deform_conv2d_plain(x, o, m, w, bias, row0=row0), atol=tol, rtol=tol)
     assert torch.equal(out, b2.deform_conv2d(x, off, mask, w, bias)[:, rows])
     with pytest.raises(ValueError, match="within"):
@@ -196,9 +202,9 @@ def test_deform_conv_f32_tiles(gen, monkeypatch, splits, cin, g, cout, aligned):
     mask = torch.rand(3, 11, 17, g, 9, generator=gen, device="cuda")
     w = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") * 0.05
     bias = torch.randn(cout, generator=gen, device="cuda")
-    before = b2.launches
+    before = launched("deform_conv")
     out = b2.deform_conv2d(x, off, mask, w, bias)
-    assert b2.launches == before + 1
+    assert launched("deform_conv") == before + 1
     layout = b2._cached_layout(w, torch.float32)
     torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w, bias), atol=1e-4, rtol=1e-4)
     assert torch.equal(b2.deform_conv2d(x, off, mask, w, bias), out)
@@ -259,9 +265,9 @@ def test_window_attention_matches_plain(gen, dt, tol, ch, occ):
     ragged segments of 148 and 91 keys a frame, so 64-key tiles straddle
     segment ends; batch row 1's first t_ind frame padded."""
     full = _attention_args(gen, dt, 2, 3, 2, 5, 45, ch, 148, 91, _OCC[occ], pad_first=True)
-    before = b3.launches
+    before = launched("window_attention")
     out = b3.window_attention(*full, n_win_per_b=3)
-    assert b3.launches == before + 1
+    assert launched("window_attention") == before + 1
     torch.testing.assert_close(out, b3.window_attention_plain(*full, 3), atol=tol, rtol=tol)
 
 
@@ -304,9 +310,9 @@ def test_window_attention_tiled_matches_plain(gen, monkeypatch, dt, tol, split, 
     n_keys = 225 + b3._padded(3 * rl_per) + 3 * 405 + 65
     keys = {64: 64, "default": b3.SPLIT_KEYS, "one": n_keys}[split]
     assert b3.split_plan(n_keys, dt) == (-(-n_keys // keys), keys)
-    before = b3.launches_tiled
+    before = launched("window_attention_tiled")
     out = b3.window_attention_tiled(*full, n_win_per_b=3)
-    assert b3.launches_tiled == before + 1
+    assert launched("window_attention_tiled") == before + 1
     torch.testing.assert_close(out, b3.window_attention_tiled_plain(*full, 3), atol=tol, rtol=tol)
     torch.testing.assert_close(out, b3.window_attention(*full, n_win_per_b=3), atol=tol, rtol=tol)
 
@@ -334,11 +340,11 @@ def test_window_attention_dispatch(gen):
     small one to B3."""
     small = _attention_args(gen, torch.bfloat16, 1, 2, 4, 13, 45, 128, 148, 91, [True, False])
     large = _attention_args(gen, torch.bfloat16, 1, 2, 4, 13, 45, 128, 148, 405, [True, False])
-    single, tiled = b3.launches, b3.launches_tiled
+    single, tiled = launched("window_attention"), launched("window_attention_tiled")
     b3.window_attention_dispatch(*small, n_win_per_b=2)
-    assert (b3.launches, b3.launches_tiled) == (single + 1, tiled)
+    assert (launched("window_attention"), launched("window_attention_tiled")) == (single + 1, tiled)
     b3.window_attention_dispatch(*large, n_win_per_b=2)
-    assert (b3.launches, b3.launches_tiled) == (single + 1, tiled + 1)
+    assert (launched("window_attention"), launched("window_attention_tiled")) == (single + 1, tiled + 1)
 
 
 def _shifted(t):
@@ -363,9 +369,9 @@ def test_window_attention_f32_loop(gen, monkeypatch, kernel, split, ch, occ):
     full = _attention_args(gen, torch.float32, 2, 3, 2, 5, 45, ch, 148, pl_per, _OCC[occ], pad_first=True)
     fn, plain = ((b3.window_attention_tiled, b3.window_attention_tiled_plain) if kernel == "tiled"
                  else (b3.window_attention, b3.window_attention_plain))
-    before = b3.launches + b3.launches_tiled
+    before = launched("window_attention") + launched("window_attention_tiled")
     out = fn(*full, n_win_per_b=3)
-    assert b3.launches + b3.launches_tiled == before + 1
+    assert launched("window_attention") + launched("window_attention_tiled") == before + 1
     torch.testing.assert_close(out, plain(*full, 3), atol=1e-4, rtol=1e-4)
 
 
@@ -426,9 +432,9 @@ def test_window_attention_halo_matches_plain(gen, dt, tol, ch, occ):
     all 209."""
     pattern = _OCC[occ] * 2 if occ in _OCC else [False, True, False, True, True, False] * 2
     args, nh = _halo_args(gen, dt, ch, pattern, pad_first=True)
-    before = b5.launches
+    before = launched("window_attention_halo")
     out = b5.window_attention_halo(*args, window_size=(5, 9), n_head=nh)
-    assert b5.launches == before + 1
+    assert launched("window_attention_halo") == before + 1
     ref = b5.window_attention_halo_plain(*args, window_size=(5, 9), n_head=nh)
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
@@ -446,9 +452,9 @@ def test_window_attention_halo_f32_loop(gen, ch, aligned, occ):
     if not aligned:
         args = (_shifted(args[0]),) + args[1:5] + (_shifted(args[5]),) + args[6:]
         assert args[0].data_ptr() % 16 and args[5].data_ptr() % 16
-    before = b5.launches
+    before = launched("window_attention_halo")
     out = b5.window_attention_halo(*args, window_size=(5, 9), n_head=nh)
-    assert b5.launches == before + 1
+    assert launched("window_attention_halo") == before + 1
     ref = b5.window_attention_halo_plain(*args, window_size=(5, 9), n_head=nh)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
@@ -486,9 +492,9 @@ def test_corr_window4_is_bit_equal(gen, dt, m):
     sy[:, 0], sx[:, -1] = -7, 99
     fy = torch.rand(4, m, generator=gen, device="cuda").to(dt).float()
     fx = torch.rand(4, m, generator=gen, device="cuda").to(dt).float()
-    before = b67.launches4
+    before = launched("corr_window4")
     out = b67.corr_window_lookup4(maps, sy, sx, fy, fx)
-    assert b67.launches4 == before + 1
+    assert launched("corr_window4") == before + 1
     assert torch.equal(out, b67.corr_window_lookup4_plain(maps, sy, sx, fy, fx))
 
 
@@ -507,9 +513,9 @@ def test_corr_window_is_bit_equal(gen, dt, m):
         sy[1], sx[1] = 1 << 30, -(1 << 30)
     fy = torch.rand(m, generator=gen, device="cuda").to(dt).float()
     fx = torch.rand(m, generator=gen, device="cuda").to(dt).float()
-    before = b67.launches
+    before = launched("corr_window")
     out = b67.corr_window_lookup(maps, sy, sx, fy, fx)
-    assert b67.launches == before + 1
+    assert launched("corr_window") == before + 1
     assert torch.equal(out, b67.corr_window_lookup_plain(maps, sy, sx, fy, fx))
 
 
@@ -552,9 +558,9 @@ def test_deform_conv_gradients_match_the_twin(gen, shape):
     wt = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") * 0.05
     bias = torch.randn(cout, generator=gen, device="cuda")
     gout = torch.randn(n, h, w, cout, generator=gen, device="cuda")
-    before = b2.launches
+    before = launched("deform_conv")
     out, got = _grads(b2.deform_conv2d, (x, off, mask, wt, bias), gout)
-    assert b2.launches == before + 1 and out.grad_fn is not None
+    assert launched("deform_conv") == before + 1 and out.grad_fn is not None
     ref, want = _grads(b2.deform_conv2d_plain, (x, off, mask, wt, bias), gout)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     _assert_grads_match(got, want)
@@ -572,9 +578,10 @@ def test_window_attention_gradients_match_the_twin(gen, tiled, dims):
     fn = b3.window_attention_tiled if tiled else b3.window_attention
     plain = b3.window_attention_tiled_plain if tiled else b3.window_attention_plain
     gout = torch.randn(full[0].shape, generator=gen, device="cuda")
-    before = (b3.launches, b3.launches_tiled)
+    before = (launched("window_attention"), launched("window_attention_tiled"))
     out, got = _grads(lambda *a: fn(*a, *full[7:], n_win_per_b=nwb), full[:7], gout)
-    assert (b3.launches, b3.launches_tiled) == (before[0] + (not tiled), before[1] + tiled)
+    after = (launched("window_attention"), launched("window_attention_tiled"))
+    assert after == (before[0] + (not tiled), before[1] + tiled)
     assert out.grad_fn is not None
     ref, want = _grads(lambda *a: plain(*a, *full[7:], nwb), full[:7], gout)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
@@ -585,9 +592,9 @@ def test_window_attention_gradients_match_the_twin(gen, tiled, dims):
 def test_window_attention_halo_gradients_match_the_twin(gen, ch, occ):
     args, nh = _halo_args(gen, torch.float32, ch, _OCC[occ] * 2, pad_first=False)
     gout = torch.randn(args[0].shape, generator=gen, device="cuda")
-    before = b5.launches
+    before = launched("window_attention_halo")
     out, got = _grads(lambda *a: b5.window_attention_halo(*a, *args[7:], window_size=(5, 9), n_head=nh), args[:7], gout)
-    assert b5.launches == before + 1 and out.grad_fn is not None
+    assert launched("window_attention_halo") == before + 1 and out.grad_fn is not None
     ref, want = _grads(lambda *a: b5.window_attention_halo_plain(*a, *args[7:], window_size=(5, 9), n_head=nh),
                        args[:7], gout)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
