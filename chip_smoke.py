@@ -51,7 +51,11 @@ weights lookup of the run takes the cache and nothing is downloaded.
      Function's output has a grad_fn, its input gradients are within 1e-4
      of the plain version's largest, and its backward (the plain
      version's forward and backward) is timed beside, for B3/B4, SDPA's
-     forward and backward on the same inputs;
+     forward and backward on the same inputs; then RAFT's update-loop
+     convs at the main path's call (46 rows of 45x80, fp32): each conv
+     (the GRU's z and r as one) on `conv2d_gemm`, on cuDNN's heuristic
+     and with cuDNN's algorithms timed, beside its FLOP bound, and one
+     iteration of the update block on each path (`check_conv_gemm`);
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
@@ -81,7 +85,9 @@ weights lookup of the run takes the cache and nothing is downloaded.
      map-dtype blend, B2, B4; the form of each RAFT call and completion
      chunk; the output checked as path S's; peak at most 64 GiB; the live
      set flat between chunk fills); the five earlier paths' launches are
-     held to `EARLIER_LAUNCHES`;
+     held to `EARLIER_LAUNCHES`; the `conv_gemm` count (RAFT's fp32
+     convs on cuBLAS) must be 0 on every bf16 run and above 0 on the fp32
+     legs of paths C, M and MH;
      then check the card against the host on a small
      clip, the inpaint node with the default kernels and with both
      switches, and the outpaint node; and streaming against the
@@ -172,6 +178,11 @@ chunk at 1920x1080 in every combination of the directions (batched or
 in turn), the encoder (whole or temporal chunks) and its rows (full or
 slabs), at path S's largest chunk and path A's in the port's plan and in
 turn, and RAFT's forms on 25 frames at 1920x1080 (one JSON line).
+
+    python3 chip_smoke.py --conv-gemm
+
+times RAFT's update-loop convs as phase 2 does (`check_conv_gemm`),
+alone (one JSON line).
 
     python3 chip_smoke.py --span-cost
 
@@ -489,6 +500,93 @@ def check_corr_window(dt, gen):
                          library_ms=library_ms)
     log(f"    padded level-0 maps {pyr[0].numel() * esz / 2**30:.3f} GiB")
     return res
+
+
+# RAFT's update loop on the main path: one call of 23 pairs, both
+# directions, at 640x360's 1/8-res grid (rows, height, width)
+MAIN_RAFT_ROWS = (46, 45, 80)
+
+
+def check_conv_gemm(gen) -> dict:
+    """RAFT's update-loop convs on `conv2d_gemm` (models/raft.py's
+    UpdateConvs) at MAIN_RAFT_ROWS in fp32 (TF32 off), each conv, or the
+    GRU's z and r pair, timed four ways: the GEMM path (`ms`), `pconv2d`
+    on cuDNN's heuristic (`cudnn_ms`; the pair as two convs, as that path
+    runs them), the same with `cudnn.benchmark` timing the algorithms
+    (`library_ms`), and the bound, its FLOPs over 67 TFLOP/s; each
+    output's max abs error against cuDNN's and both against float64;
+    then one whole iteration of the update block (no lookup) and the
+    mask head on each path, with the block's max abs errors."""
+    from comfyui_propainter_nodes_tpu_torch.models import raft as traft
+    from comfyui_propainter_nodes_tpu_torch.ops.conv import conv2d_gemm, pconv2d
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+    from comfyui_propainter_nodes_tpu_torch.utils.params import from_jax_params
+    from comfyui_propainter_nodes_tpu_torch.utils.weights import random_params
+
+    rows, h8, w8 = MAIN_RAFT_ROWS
+    params = {k: v.cuda() for k, v in from_jax_params(random_params("raft", seed=3)).items()}
+    gemm = traft.UpdateConvs(params, True, torch.float32)
+    res = {}
+    for names, (wt, b, kernel) in gemm.laid.items():
+        pad = (kernel[0] // 2, kernel[1] // 2)
+        x = torch.randn(rows, h8, w8, wt.shape[1], generator=gen, device="cuda")
+        with torch.no_grad():
+            got = conv2d_gemm(x, wt, b, kernel, pad)
+            ref = torch.cat([pconv2d(params, n, x, padding=pad) for n in names], -1)
+            f64 = torch.cat([pconv2d({k: v.double() for k, v in params.items() if k.startswith(n + ".")}, n,
+                                     x.double(), padding=pad) for n in names], -1)
+            ms = time_ms(lambda: conv2d_gemm(x, wt, b, kernel, pad))
+            cudnn_ms = time_ms(lambda: [pconv2d(params, n, x, padding=pad) for n in names])
+            torch.backends.cudnn.benchmark = True
+            try:
+                library_ms = time_ms(lambda: [pconv2d(params, n, x, padding=pad) for n in names])
+            finally:
+                torch.backends.cudnn.benchmark = False
+        flops = 2.0 * x.numel() * wt.numel() / wt.shape[1]
+        name = "+".join(n[len("update_block."):] for n in names)
+        res[name] = dict(kernel=kernel, cin=wt.shape[1], cout=wt.shape[2], ms=ms, cudnn_ms=cudnn_ms,
+                         library_ms=library_ms, bound_ms=flops / PEAK_FLOPS[torch.float32] * 1e3,
+                         max_abs_err=(got - ref).abs().max().item(), gemm_vs_f64=(got - f64).abs().max().item(),
+                         cudnn_vs_f64=(ref - f64).abs().max().item())
+        log(f"  conv_gemm {name} {kernel} {wt.shape[1]}->{wt.shape[2]}: {ms:.4f} ms, cuDNN {cudnn_ms:.4f}, "
+            f"timed cuDNN {library_ms:.4f}, bound {res[name]['bound_ms']:.4f}; max abs err "
+            f"{res[name]['max_abs_err']:.2e} (vs float64: GEMM {res[name]['gemm_vs_f64']:.2e}, "
+            f"cuDNN {res[name]['cudnn_vs_f64']:.2e})")
+        del x, got, ref, f64
+        torch.cuda.empty_cache()
+    net = torch.tanh(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
+    inp = torch.relu(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
+    corr = torch.randn(rows, h8, w8, 324, generator=gen, device="cuda")
+    flow = torch.randn(rows, h8, w8, 2, generator=gen, device="cuda") * 4
+    block = {}
+    with torch.no_grad():
+        for tag, convs in (("gemm", gemm), ("cudnn", traft.UpdateConvs(params, False, torch.float32))):
+            def step(convs=convs):
+                n_, d_ = traft._update_block(convs, net, inp, corr, flow)
+                return n_, d_, traft._upsample_mask(convs, n_)
+            before = profiling.counters().get("conv_gemm", 0)
+            block[tag] = step()
+            counted = profiling.counters().get("conv_gemm", 0) - before
+            require(counted == (13 if tag == "gemm" else 0), f"conv_gemm counted {counted} on the {tag} path")
+            block[tag + "_ms"] = time_ms(lambda: traft._update_block(convs, net, inp, corr, flow), reps=7, batch=2)
+    errs = [(g - c).abs().max().item() for g, c in zip(block["gemm"], block["cudnn"])]
+    require(max(errs) < 1e-3, f"update block on GEMMs against cuDNN: max abs err {errs}")
+    res["update_block"] = dict(rows=MAIN_RAFT_ROWS, ms=block["gemm_ms"], cudnn_ms=block["cudnn_ms"],
+                               max_abs_err_net_delta_mask=errs,
+                               bound_ms=sum(r["bound_ms"] for k, r in res.items() if not k.startswith("mask")))
+    log(f"  update block, one iteration at {MAIN_RAFT_ROWS}: GEMMs {block['gemm_ms']:.3f} ms, cuDNN "
+        f"{block['cudnn_ms']:.3f} ms, convs' bound {res['update_block']['bound_ms']:.3f} ms; max abs err "
+        f"(net, delta, mask) {errs}")
+    return res
+
+
+def conv_gemm_times() -> int:
+    """`--conv-gemm`: `check_conv_gemm` alone (one JSON line)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = check_conv_gemm(torch.Generator(device="cuda").manual_seed(0))
+    print(json.dumps(dict(card=nvidia_smi(), torch=torch.__version__, conv_gemm=res)), flush=True)
+    return 0
 
 
 # path A's RAFT call: 4-frame clips at 1280x720, 3 pairs of 90x160 1/8-res maps
@@ -971,9 +1069,10 @@ WIDGETS = dict(
 )
 
 
-# every kernel's launch counter (utils/profiling.py::kernel), by its row's name
+# every launch counter of the port (utils/profiling.py::kernel): the kernels'
+# by their rows' names, and `conv_gemm`, RAFT's fp32 update-loop convs on cuBLAS
 KERNELS = ("corr_lookup", "corr_lookup_map", "deform_conv", "window_attention", "window_attention_tiled",
-           "window_attention_halo", "corr_window4", "corr_window")
+           "window_attention_halo", "corr_window4", "corr_window", "conv_gemm")
 
 
 # each counter's kernel as the profiler names it on the node's bf16 paths
@@ -1013,7 +1112,8 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
     if prof is not None:
         require(all(prof["kernels_ms"][PROFILED[k]] > 0 for k in need),
                 f"{tag}: a kernel of the path has no device time in the profile: {prof['kernels_ms']}")
-        require(all(prof["kernels_ms"][PROFILED[k]] == 0 for k in forbid),
+        # `conv_gemm` runs cuBLAS's kernels, which no profiled name singles out
+        require(all(prof["kernels_ms"][PROFILED[k]] == 0 for k in forbid if k in PROFILED),
                 f"{tag}: a kernel off the path has device time in the profile: {prof['kernels_ms']}")
     summary = dict(frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
                    peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, profile=prof)
@@ -2452,7 +2552,9 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
             wall = time.perf_counter() - t0
         counts, b2_shapes = read_counters()
         peak, stage_s = torch.cuda.max_memory_allocated(), dict(pipe.stage_seconds)
+        reset_counters()
         out32 = pipe32.process(*args)
+        counts32, _ = read_counters()
     finally:
         os.environ.pop("PROPAINTER_TPU_CLIP_PARALLEL")
     log(f"  [{tag}] timed run (bf16) {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
@@ -2460,6 +2562,7 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
     log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; RAFT form {form!r}, calls (pairs, blend) {forms}")
     log(f"  [{tag}] launches {counts}; B2 launches by x shape {b2_shapes}")
     require_kernels(tag, counts, need, forbid)
+    require(counts32["conv_gemm"] > 0, f"{tag}: the fp32 run's RAFT convs did not take conv_gemm: {counts32}")
     require(len(forms) == 1, f"{tag}: RAFT ran in {len(forms)} calls, not one")
     c16 = check_video(out, args[2], args[3], tag + " bf16")
     c32 = check_video(out32, args[2], args[3], tag + " fp32")
@@ -2603,6 +2706,8 @@ def path_m_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: s
                 video = check_video(out, args[2], args[3], tag)
                 if fp16 == "enable":  # the default widgets (fp32 maps take B1's one fp32 kernel)
                     require_kernels(tag, counts, need, [k for k in KERNELS if k not in need])
+                else:
+                    require(counts["conv_gemm"] > 0, f"{tag}: RAFT's convs did not take conv_gemm: {counts}")
                 log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
                 results[f"{shape[0]}x{shape[1]} {fp16}"] = dict(
                     seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=torch.cuda.max_memory_allocated(),
@@ -2854,6 +2959,8 @@ def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: 
             video = check_video(out, args[2], args[3], tag, PATH_MH)
             if fp16 == "enable":
                 require_kernels(tag, counts, PATH_MH_NEED, [k for k in KERNELS if k not in PATH_MH_NEED])
+            else:
+                require(counts["conv_gemm"] > 0, f"{tag}: RAFT's convs did not take conv_gemm: {counts}")
             require(any("rows" in k for k in b2_shapes), f"{tag}: B2 never ran in its row form: {b2_shapes}")
             results[fp16] = dict(
                 seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1],
@@ -3496,6 +3603,8 @@ def main() -> int:
         return f32_splits()
     if len(sys.argv) == 2 and sys.argv[1] == "--span-cost":
         return span_cost()
+    if len(sys.argv) == 2 and sys.argv[1] == "--conv-gemm":
+        return conv_gemm_times()
     t_start = time.perf_counter()
     weights_dir = weights_cache()
     from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
@@ -3600,6 +3709,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     grads = path_t_grad_checks(gen)
     torch.cuda.empty_cache()
+    conv_gemm = check_conv_gemm(gen)
+    torch.cuda.empty_cache()
 
     log("phase 3: ProPainterInpaint and ProPainterOutpaint, 24 frames, default widgets, random weights")
     # the JAX dispatcher's lookup gate: the lanes blend for the main path's
@@ -3607,16 +3718,18 @@ def main() -> int:
     # path A's (w8 = 160)
     main_run, main_img, main_md = node_run(
         "main path 640x360", 360, 640, ("corr_lookup", "deform_conv", "window_attention"),
-        ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window"),
+        ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window",
+         "conv_gemm"),
         profile_name="profile.txt",
     )
     path_a, _, _ = node_run(
         "path A 1280x720", 720, 1280, ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
-        ("corr_lookup", "window_attention_halo", "corr_window4", "corr_window"), profile_name="profile_720p.txt",
+        ("corr_lookup", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
+        profile_name="profile_720p.txt",
     )
     path_b, b_img, _ = node_run(
         "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4"),
-        ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window"),
+        ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window", "conv_gemm"),
         switched=True, profile_name="profile_switches.txt",
     )
     inside = main_md != 0
@@ -3628,7 +3741,8 @@ def main() -> int:
     # lanes' widest; 976.8 MB of the 1 GiB a direction) still takes the lanes
     path_o = outpaint_run(
         ("corr_lookup", "deform_conv", "window_attention"),
-        ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window"),
+        ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window",
+         "conv_gemm"),
     )
     card_vs_host(False)
     card_vs_host(True)
@@ -3636,14 +3750,14 @@ def main() -> int:
     # a transformer call, B4 by the size estimate
     path_s = path_s_run(
         ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
-        ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
+        ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
     )
     # path H at 1920x1080: the forced forms first (also its warm-up); RAFT
     # (w8 = 240) takes the map blend, the windows B4
     forced = forced_forms()
     path_h = path_h_run(
         ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
-        ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
+        ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
     )
     card_vs_host(False, outpaint=True)
     streaming = {fp16: stream_vs_memory(fp16) for fp16 in ("disable", "enable")}
@@ -3652,7 +3766,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ref_dir:
         path_c = path_c_run(
             PATH_M_MESHES[(2, 1)],
-            ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window"),
+            ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
             ref_dir,
         )
         path_m = path_m_run(ref_dir)
@@ -3775,11 +3889,12 @@ def main() -> int:
             }
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"conv_gemm": conv_gemm}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": detail, "resources": resources,
                    "streaming_vs_in_memory": streaming, "forced_forms_1080p": forced,
-                   "gradients_path_t": grads, "node": paths}, f, indent=1)
+                   "gradients_path_t": grads, "conv_gemm": conv_gemm, "node": paths}, f, indent=1)
     weights_dir.cleanup()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

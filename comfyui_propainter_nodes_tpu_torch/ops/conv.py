@@ -4,7 +4,9 @@ Weights are upstream-layout tensors (conv OIHW, conv3d OIDHW, linear
 (out, in)) in a flat {state_dict_key: tensor} dict. Activations stay
 NHWC like the JAX package; each conv views its input as NCHW with
 channels-last strides, which cuDNN takes natively, so the permutes
-around `F.conv2d` copy nothing on the card.
+around `F.conv2d` copy nothing on the card. `conv2d_gemm` computes a
+stride-1 conv as matrix products over its taps instead (cuBLAS on the
+card), on weights laid out once by `gemm_weight`.
 """
 
 from __future__ import annotations
@@ -14,7 +16,14 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 Params = Mapping[str, torch.Tensor]
+
+# `conv2d_gemm` unfolds every tap into one product below this many input
+# channels, and takes one product of every tap's weights below this many
+# output channels: a product per tap would be a sliver of a matrix
+FEW_CHANNELS = 8
 
 
 def conv2d(
@@ -61,6 +70,71 @@ def conv3d(
 
 def pconv2d(p: Params, name: str, x: torch.Tensor, **kw) -> torch.Tensor:
     return conv2d(x, p[name + ".weight"], p.get(name + ".bias"), **kw)
+
+
+def gemm_weight(w: torch.Tensor) -> torch.Tensor:
+    """Conv weight [Cout, Cin, kh, kw] -> the tap-major [kh*kw, Cin, Cout]
+    layout `conv2d_gemm` takes (tap t = i*kw + j)."""
+    co, ci, kh, kw = w.shape
+    return w.permute(2, 3, 1, 0).reshape(kh * kw, ci, co).contiguous()
+
+
+def conv2d_gemm(
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    b: torch.Tensor | None,
+    kernel: tuple[int, int],
+    padding: tuple[int, int],
+) -> torch.Tensor:
+    """Stride-1, undilated, ungrouped conv as matrix products over its taps.
+    x [N, H, W, Cin]; wt [kh*kw, Cin, Cout] (`gemm_weight`), b [Cout] or
+    None, both in x's dtype -> [N, H', W', Cout] in x's dtype, with H' =
+    H + 2*ph - kh + 1 (W' alike); often a strided view.
+
+    x is zero-padded once and its padded rows flattened into one run of
+    N*Hp*Wp pixels; output pixel (n, y, x) is row r = (n*Hp + y)*Wp + x
+    of one output of the same rows (less the last taps' reach), and tap
+    (i, j) adds input row r + i*Wp + j times its weight. So each tap is
+    one 2D product whose A operand is a shifted view of the padded input
+    (no copy a tap), added into the output in place; the bias is the
+    first tap's C operand. The result is a strided view of the output's
+    [:H', :W'] corner of each image; the rows between mix neighbouring
+    pixels and are never read. A 1x1 conv is one product. Below
+    FEW_CHANNELS input channels the taps are unfolded into one product
+    over kh*kw*Cin columns; below FEW_CHANNELS output channels x takes
+    one product with every tap's weights side by side, and the taps'
+    outputs are added shifted. Differentiable. The products run in x's
+    dtype under the caller's TF32 setting
+    (`pipeline/stages.py::full_fp32` turns it off). Counted as
+    `conv_gemm`, one a call (utils/profiling.py::kernel)."""
+    kh, kw = kernel
+    ph, pw = padding
+    n, h, w, c = x.shape
+    taps, _, co = wt.shape
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    with profiling.kernel("conv_gemm"):
+        xp = F.pad(x, (0, 0, pw, pw, ph, ph)) if ph or pw else x
+        if c < FEW_CHANNELS:
+            cols = torch.cat([xp[:, i : i + ho, j : j + wo] for i in range(kh) for j in range(kw)], -1)
+            cols, wcols = cols.reshape(-1, taps * c), wt.reshape(taps * c, co)
+            y = torch.mm(cols, wcols) if b is None else torch.addmm(b, cols, wcols)
+            return y.view(n, ho, wo, co)
+        if co < FEW_CHANNELS:
+            y = torch.mm(x.reshape(-1, c), wt.permute(1, 0, 2).reshape(c, taps * co))
+            yp = F.pad(y.view(n, h, w, taps, co), (0, 0, 0, 0, pw, pw, ph, ph))
+            out = x.new_zeros(n, ho, wo, co) if b is None else b.expand(n, ho, wo, co).clone()
+            for t in range(taps):
+                i, j = divmod(t, kw)
+                out += yp[:, i : i + ho, j : j + wo, t]
+            return out
+        hp, wp = h + 2 * ph, w + 2 * pw
+        flat = xp.reshape(n * hp * wp, c)
+        m = n * hp * wp - (kh - 1) * wp - (kw - 1)
+        out = torch.mm(flat[:m], wt[0]) if b is None else torch.addmm(b, flat[:m], wt[0])
+        for t in range(1, taps):
+            i, j = divmod(t, kw)
+            out.addmm_(flat[i * wp + j : i * wp + j + m], wt[t])
+        return out.as_strided((n, ho, wo, co), (hp * wp * co, wp * co, co, 1))
 
 
 def pconv3d(p: Params, name: str, x: torch.Tensor, **kw) -> torch.Tensor:

@@ -15,13 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from comfyui_propainter_nodes_tpu_torch.models import raft as traft
 from comfyui_propainter_nodes_tpu_torch.models.raft import build_corr_pyramids
+from comfyui_propainter_nodes_tpu_torch.pipeline.stages import full_fp32
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as b67
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as b3
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
 from comfyui_propainter_nodes_tpu_torch.utils import profiling
+from comfyui_propainter_nodes_tpu_torch.utils.params import from_jax_params
+from comfyui_propainter_nodes_tpu_torch.utils.weights import random_params
 
 pytestmark = pytest.mark.cuda
 
@@ -642,3 +646,78 @@ def test_forward_only_kernels_refuse_gradients(gen):
         b67.corr_window_lookup(maps[0], s[0], s[0], f[0], f[0])
     with torch.inference_mode():
         b67.corr_window_lookup(maps[0], s[0], s[0], f[0], f[0])
+
+
+def _raft_params(dt=torch.float32):
+    return {k: v.to("cuda", dt) for k, v in from_jax_params(random_params("raft", seed=3)).items()}
+
+
+def _update_inputs(gen, rows=46, h8=45, w8=80):
+    """net, inp, corr, flow of RAFT's update block: the main path's one call
+    (23 pairs, both directions) at 640x360 by default."""
+    net = torch.tanh(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
+    inp = torch.relu(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
+    corr = torch.randn(rows, h8, w8, 324, generator=gen, device="cuda")
+    flow = torch.randn(rows, h8, w8, 2, generator=gen, device="cuda") * 4
+    return net, inp, corr, flow
+
+
+def test_update_block_gemm_convs_match_cudnn(gen):
+    """The update block and the mask head on `conv2d_gemm` (cuBLAS) against
+    the cuDNN path, fp32 with TF32 off, at the main path's shape: 46 rows
+    of 45x80. Both compute each conv in fp32 in another order (cuDNN's
+    heuristic takes FFT algorithms for some of these shapes)."""
+    params = _raft_params()
+    args = _update_inputs(gen)
+    with torch.no_grad():
+        before = launched("conv_gemm")
+        gemm = traft.UpdateConvs(params, True, torch.float32)
+        net, delta = traft._update_block(gemm, *args)
+        mask = traft._upsample_mask(gemm, net)
+        assert launched("conv_gemm") == before + 13
+        cudnn = traft.UpdateConvs(params, False, torch.float32)
+        net_ref, delta_ref = traft._update_block(cudnn, *args)
+        mask_ref = traft._upsample_mask(cudnn, net_ref)
+        assert launched("conv_gemm") == before + 13
+    for got, want in ((net, net_ref), (delta, delta_ref), (mask, mask_ref)):
+        print(f"max abs err {float((got - want).abs().max()):.3e} of {float(want.abs().max()):.3e}")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_conv_gemm_counts_per_raft_call(gen, dt):
+    """`conv_gemm` counts 11 convs an iteration and the mask head's 2 in
+    every fp32 RAFT call (both forms), none in bf16."""
+    params = _raft_params(dt)
+    frames = torch.rand(1, 3, 64, 96, 3, generator=gen, device="cuda") * 2 - 1
+    iters = 2
+    per_call = (11 * iters + 2) if dt == torch.float32 else 0
+    with torch.no_grad(), full_fp32():
+        before = launched("conv_gemm")
+        traft.raft_bi_forward(params, frames, iters)
+        assert launched("conv_gemm") == before + per_call
+        traft.raft_bi_forward_seqdir(params, frames, iters)
+        assert launched("conv_gemm") == before + 3 * per_call
+
+
+def test_gemm_convs_are_tf32_free_under_full_fp32(gen):
+    """With TF32 allowed for the process, the update block on GEMMs inside
+    `full_fp32()` equals the same block with TF32 off everywhere, bit for
+    bit, and the flags are restored after it; outside the scope cuBLAS
+    takes TF32 and the result moves."""
+    params = _raft_params()
+    args = _update_inputs(gen, rows=4, h8=24, w8=40)
+    gemm = traft.UpdateConvs(params, True, torch.float32)
+    with torch.no_grad():
+        want = traft._update_block(gemm, *args)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            with full_fp32():
+                got = traft._update_block(gemm, *args)
+            assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+            loose = traft._update_block(gemm, *args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(loose[0], want[0])

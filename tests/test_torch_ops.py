@@ -12,13 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from comfyui_propainter_nodes_tpu import ops as jops
 from comfyui_propainter_nodes_tpu.utils import image as jimage
 from comfyui_propainter_nodes_tpu.utils.checkpoint import convert_state_dict
 from comfyui_propainter_nodes_tpu.utils.weights import random_params as jax_random_params
+from comfyui_propainter_nodes_tpu_torch.models import raft as traft
 from comfyui_propainter_nodes_tpu_torch.ops import conv, dilation, patches, pool, resize, warp
 from comfyui_propainter_nodes_tpu_torch.utils import image as timage
+from comfyui_propainter_nodes_tpu_torch.utils import profiling
 from comfyui_propainter_nodes_tpu_torch.utils.params import from_jax_params
 from comfyui_propainter_nodes_tpu_torch.utils.weights import random_params
 
@@ -68,6 +71,82 @@ def test_conv2d(stride, groups, dilation_):
     out = conv.conv2d(torch.from_numpy(x), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
                       torch.from_numpy(b), stride=stride, padding=(1, 1), dilation=dilation_, groups=groups)
     _close(out, ref)
+
+
+# RAFT's update-loop convs (models/raft.py): name, Cin, Cout of each conv
+# (the GRU's z and r side by side), kernel, padding
+GEMM_CONVS = {
+    "encoder.convc1": (324, (256,), (1, 1), (0, 0)),
+    "encoder.convc2": (256, (192,), (3, 3), (1, 1)),
+    "encoder.convf1": (2, (128,), (7, 7), (3, 3)),
+    "flow_head.conv2": (256, (2,), (3, 3), (1, 1)),
+    "gru.convz1+convr1": (384, (128, 128), (1, 5), (0, 2)),
+    "gru.convq2": (384, (128,), (5, 1), (2, 0)),
+}
+
+
+@pytest.mark.parametrize("name", list(GEMM_CONVS))
+@pytest.mark.parametrize("n,h,w", [(1, 5, 7), (3, 6, 9)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv2d_gemm_matches_conv2d(name, n, h, w, bias):
+    """`conv2d_gemm` on `gemm_weight`'s layout against `F.conv2d`, fp32,
+    each of a fused pair's halves against its own conv; one `conv_gemm`
+    count a call."""
+    cin, couts, kernel, padding = GEMM_CONVS[name]
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(n, h, w, cin, generator=gen)
+    ws = [torch.randn(co, cin, *kernel, generator=gen) / (cin * kernel[0] * kernel[1]) ** 0.5 for co in couts]
+    bs = [torch.randn(co, generator=gen) if bias else None for co in couts]
+    wt = torch.cat([conv.gemm_weight(w_) for w_ in ws], -1)
+    before = profiling.counters().get("conv_gemm", 0)
+    out = conv.conv2d_gemm(x, wt, torch.cat(bs) if bias else None, kernel, padding)
+    assert profiling.counters()["conv_gemm"] == before + 1
+    assert out.shape == (n, h, w, sum(couts))
+    for part, w_, b_ in zip(out.split(list(couts), -1), ws, bs):
+        ref = F.conv2d(x.permute(0, 3, 1, 2), w_, b_, padding=padding).permute(0, 2, 3, 1)
+        torch.testing.assert_close(part, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["encoder.convc2", "encoder.convf1", "flow_head.conv2"])
+def test_conv2d_gemm_gradients_match_conv2d(name):
+    """Each of `conv2d_gemm`'s three forms is differentiable: x's, the
+    weight's and the bias's gradients against `F.conv2d`'s, fp32."""
+    cin, (co,), kernel, padding = GEMM_CONVS[name]
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 5, 7, cin, generator=gen, requires_grad=True)
+    w_ = (torch.randn(co, cin, *kernel, generator=gen) / (cin * kernel[0] * kernel[1]) ** 0.5).requires_grad_()
+    b_ = torch.randn(co, generator=gen, requires_grad=True)
+    gout = torch.randn(2, 5, 7, co, generator=gen)
+    out = conv.conv2d_gemm(x, conv.gemm_weight(w_), b_, kernel, padding)
+    got = torch.autograd.grad(out, (x, w_, b_), gout)
+    ref = F.conv2d(x.permute(0, 3, 1, 2), w_, b_, padding=padding).permute(0, 2, 3, 1)
+    want = torch.autograd.grad(ref, (x, w_, b_), gout)
+    for g, wg in zip(got, want):
+        torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-5)
+
+
+def test_refine_gemm_convs_match_pconv2d(monkeypatch):
+    """RAFT's update loop (3 iterations and the mask head) with the convs
+    forced onto `conv2d_gemm` against `pconv2d`, on the CPU in fp32. The
+    two sum each conv in another order; the GRU and the bilinear lookup
+    carry the difference through the iterations. Here the flows reach
+    2.7 px, the two runs sit 3.1e-6 px apart and each within 3e-6 px of
+    the same loop in float64: atol 2e-5 px, rtol 1e-5."""
+    params = from_jax_params(random_params("raft", seed=5))
+    gen = torch.Generator().manual_seed(12)
+    n, h8, w8 = 1, 5, 7
+    f1, f2 = (torch.randn(n, h8, w8, 256, generator=gen) for _ in range(2))
+    cnet = torch.randn(2 * n, h8, w8, 256, generator=gen)
+    lookup = traft._lookup_fn("lanes", f1, f2, bidirectional=True)
+    before = profiling.counters().get("conv_gemm", 0)
+    ref = traft._refine(params, cnet, lookup, h8, w8, 3)
+    assert profiling.counters().get("conv_gemm", 0) == before
+    monkeypatch.setattr(traft, "gemm_convs", lambda x: True)
+    out = traft._refine(params, cnet, lookup, h8, w8, 3)
+    # 11 convs an iteration (the GRU's z and r one each 1x5 / 5x1), 2 in the mask head
+    assert profiling.counters()["conv_gemm"] == before + 11 * 3 + 2
+    assert out.shape == (2 * n, 8 * h8, 8 * w8, 2) and ref.abs().max() > 0.1
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
 
 
 def test_pconv3d_spatial_and_temporal():
