@@ -51,11 +51,14 @@ weights lookup of the run takes the cache and nothing is downloaded.
      Function's output has a grad_fn, its input gradients are within 1e-4
      of the plain version's largest, and its backward (the plain
      version's forward and backward) is timed beside, for B3/B4, SDPA's
-     forward and backward on the same inputs; then RAFT's update-loop
-     convs at the main path's call (46 rows of 45x80, fp32): each conv
-     (the GRU's z and r as one) on `conv2d_gemm`, on cuDNN's heuristic
-     and with cuDNN's algorithms timed, beside its FLOP bound, and one
-     iteration of the update block on each path (`check_conv_gemm`);
+     forward and backward on the same inputs; then every conv site of
+     one float32 clip of the benchmark's `inpaint-360p-fp32.object`
+     (24 frames at 640x360), at its shapes, fp32: cuDNN's heuristic (its
+     kernels, FFT or not), the GEMM path (`conv2d_gemm`) and its FLOP
+     bound, with each GEMM site's max abs error; one iteration of RAFT's
+     update block on GEMM_SITES and on cuDNN; and a float32 and a bf16
+     clip of that cell: `conv_gemm` launches (0 in bf16) and no cuDNN
+     FFT kernel in the float32 clip's profile (`check_conv_gemm`);
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
@@ -85,8 +88,9 @@ weights lookup of the run takes the cache and nothing is downloaded.
      map-dtype blend, B2, B4; the form of each RAFT call and completion
      chunk; the output checked as path S's; peak at most 64 GiB; the live
      set flat between chunk fills); the five earlier paths' launches are
-     held to `EARLIER_LAUNCHES`; the `conv_gemm` count (RAFT's fp32
-     convs on cuBLAS) must be 0 on every bf16 run and above 0 on the fp32
+     held to `EARLIER_LAUNCHES`; the `conv_gemm` count (the fp32
+     convs of GEMM_SITES on cuBLAS, grad mode off) must be 0 on every
+     bf16 run and above 0 on the fp32
      legs of paths C, M and MH;
      then check the card against the host on a small
      clip, the inpaint node with the default kernels and with both
@@ -181,8 +185,11 @@ turn, and RAFT's forms on 25 frames at 1920x1080 (one JSON line).
 
     python3 chip_smoke.py --conv-gemm
 
-times RAFT's update-loop convs as phase 2 does (`check_conv_gemm`),
-alone (one JSON line).
+times path T's training step as the port runs it (cuDNN under autograd)
+and with the conv sites of `ops/conv.py::GEMM_SITES` on GEMMs there too,
+in turns, then every conv site of a float32 clip as phase 2
+does (`check_conv_gemm`; one JSON line, the sites' table also in
+chiprun_out/conv_gemm.json).
 
     python3 chip_smoke.py --span-cost
 
@@ -506,86 +513,247 @@ def check_corr_window(dt, gen):
 # directions, at 640x360's 1/8-res grid (rows, height, width)
 MAIN_RAFT_ROWS = (46, 45, 80)
 
+# the float32 benchmark cell whose clip `clip_conv_sites` records, and the
+# names of cuDNN's FFT convolution kernels
+CONV_GEMM_CELL = "inpaint-360p-fp32.object"
+FFT_KERNELS = ("fft", "cf32", "DSE::", "pointwise_mult_and_sum_complex")
+
+
+def clip_conv_sites() -> dict:
+    """Every 2D conv of one float32 inpaint node clip of CONV_GEMM_CELL (the
+    benchmark's traffic and widgets, 24 frames at 640x360, seed 0), run with
+    GEMM_SITES emptied, so each goes through `ops/conv.py::conv2d` on cuDNN,
+    synchronised around each call: {(site, x shape, w shape, stride,
+    padding, dilation, groups): [calls, host ms in the clip, the most bytes
+    a call held above what was allocated before it]}."""
+    from comfyui_propainter_nodes_tpu_torch.ops import attention, conv
+
+    calls = collections.defaultdict(lambda: [0, 0.0, 0])
+    base = conv.conv2d
+
+    def recorded(x, w, b=None, stride=(1, 1), padding=(0, 0), dilation=(1, 1), groups=1, site=None):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = base(x, w, b, stride, padding, dilation, groups, site)
+        torch.cuda.synchronize()
+        rec = calls[(site, tuple(x.shape), tuple(w.shape), tuple(stride), tuple(padding), tuple(dilation), groups)]
+        rec[0] += 1
+        rec[1] += (time.perf_counter() - t0) * 1e3
+        rec[2] = max(rec[2], torch.cuda.max_memory_allocated() - held)
+        return y
+
+    run = conv_gemm_clip()
+    saved = conv.GEMM_SITES
+    conv.GEMM_SITES, conv.conv2d, attention.conv2d = frozenset(), recorded, recorded
+    try:
+        run("disable")
+    finally:
+        conv.GEMM_SITES, conv.conv2d, attention.conv2d = saved, base, base
+    return calls
+
+
+def conv_gemm_clip():
+    """`run(fp16)`: one inpaint node call on CONV_GEMM_CELL's clip (seed 0)
+    at its widgets but fp16, synchronised."""
+    from benchmark.core import session, traffic
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+
+    spec = session.cell_spec(session.manifest(), CONV_GEMM_CELL)
+    w = session.widgets(spec)
+    image, mask = traffic.inputs(spec.mix, w, 0, 0)
+    node = ProPainterInpaint()
+
+    def run(fp16):
+        out = session.call_node(node, "inpaint", image, mask, dict(w, fp16=fp16))
+        torch.cuda.synchronize()
+        return out
+
+    return run
+
+
+def clip_fft_check() -> dict:
+    """One float32 and one bf16 node clip of CONV_GEMM_CELL as the port runs
+    them (after a warm-up each): `conv_gemm` launches a clip (0 in bf16),
+    and the float32 clip profiled: no cuDNN FFT kernel (FFT_KERNELS) may
+    run; its conv and GEMM kernels' device ms."""
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+    run = conv_gemm_clip()
+    res = {}
+    for fp16 in ("disable", "enable"):
+        run(fp16)
+        before = profiling.counters().get("conv_gemm", 0)
+        run(fp16)
+        res["conv_gemm_" + fp16] = profiling.counters().get("conv_gemm", 0) - before
+    require(res["conv_gemm_disable"] > 0 and res["conv_gemm_enable"] == 0, f"conv_gemm launches a clip: {res}")
+    kernels = cudnn_kernels(lambda: run("disable"))
+    fft = {k: v for k, v in kernels.items() if any(p in k for p in FFT_KERNELS)}
+    require(not fft, f"a float32 clip ran cuDNN FFT kernels: {fft}")
+    res["fp32_conv_kernels_ms"] = {k: v for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])
+                                   if "gemm" in k or "conv" in k or "fprop" in k}
+    log(f"  float32 clip: conv_gemm {res['conv_gemm_disable']} launches (bf16 {res['conv_gemm_enable']}), no FFT "
+        f"kernel; conv / GEMM kernels (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                         list(res["fp32_conv_kernels_ms"].items())[:8]))
+    return res
+
+
+def cudnn_kernels(run) -> dict:
+    """Device ms by kernel name of one `run`, profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key[:96]: e.device_time_total / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
+
 
 def check_conv_gemm(gen) -> dict:
-    """RAFT's update-loop convs on `conv2d_gemm` (models/raft.py's
-    UpdateConvs) at MAIN_RAFT_ROWS in fp32 (TF32 off), each conv, or the
-    GRU's z and r pair, timed four ways: the GEMM path (`ms`), `pconv2d`
-    on cuDNN's heuristic (`cudnn_ms`; the pair as two convs, as that path
-    runs them), the same with `cudnn.benchmark` timing the algorithms
-    (`library_ms`), and the bound, its FLOPs over 67 TFLOP/s; each
-    output's max abs error against cuDNN's and both against float64;
-    then one whole iteration of the update block (no lookup) and the
-    mask head on each path, with the block's max abs errors."""
+    """Every conv site of one float32 inpaint clip (`clip_conv_sites`), fp32
+    with TF32 off, at its shapes: cuDNN's heuristic (`cudnn_ms`, its kernels
+    and whether one is an FFT convolution's), the GEMM path
+    (`ops/conv.py::conv2d_gemm`, stride-1 undilated sites: `gemm_ms`), the
+    bound (its FLOPs over 67 TFLOP/s), each a call and times the clip's
+    calls; the GEMM output's max abs error against cuDNN's at the whole
+    shape and, on its first two images, both against float64. Each site
+    that GEMM_SITES names must be stride 1 and hold its GEMMs to 1e-3 of
+    cuDNN. Then one iteration of RAFT's update block (no lookup) and the
+    mask head at MAIN_RAFT_ROWS, on GEMM_SITES and on cuDNN, with the
+    `conv_gemm` count and the block's max abs errors."""
     from comfyui_propainter_nodes_tpu_torch.models import raft as traft
-    from comfyui_propainter_nodes_tpu_torch.ops.conv import conv2d_gemm, pconv2d
+    from comfyui_propainter_nodes_tpu_torch.ops import conv
     from comfyui_propainter_nodes_tpu_torch.utils import profiling
     from comfyui_propainter_nodes_tpu_torch.utils.params import from_jax_params
     from comfyui_propainter_nodes_tpu_torch.utils.weights import random_params
 
+    t0 = time.perf_counter()
+    calls = clip_conv_sites()
+    log(f"  conv sites of one float32 {CONV_GEMM_CELL} clip: {len(calls)} shapes, "
+        f"{sum(c[0] for c in calls.values())} calls ({time.perf_counter() - t0:.1f} s)")
+    sites = []
+    for (site, xs, ws, stride, pad, dil, groups), (n_calls, clip_ms, clip_peak) in calls.items():
+        x = torch.randn(xs, generator=gen, device="cuda")
+        w = torch.randn(ws, generator=gen, device="cuda") / math.sqrt(ws[1] * ws[2] * ws[3])
+        b = torch.randn(ws[0], generator=gen, device="cuda")
+        with torch.no_grad():
+            ref = conv.conv2d(x, w, b, stride, pad, dil, groups)
+            cudnn_ms = time_ms(lambda: conv.conv2d(x, w, b, stride, pad, dil, groups), reps=5, warmup=1, batch=2)
+            kernels = cudnn_kernels(lambda: conv.conv2d(x, w, b, stride, pad, dil, groups))
+            row = dict(site=site, calls=n_calls, x=xs, w=ws, stride=stride, padding=pad, dilation=dil, groups=groups,
+                       in_clip_ms=clip_ms, in_clip_extra_bytes=clip_peak, cudnn_ms=cudnn_ms, cudnn_kernels=kernels, fft=any(k in name for name in kernels for k in FFT_KERNELS),
+                       bound_ms=2.0 * ref.numel() * ws[1] * ws[2] * ws[3] / PEAK_FLOPS[torch.float32] * 1e3,
+                       gemm_site=site in conv.GEMM_SITES)
+            if stride == (1, 1) and dil == (1, 1) and (groups == 1 or min(xs[3], ws[0]) >= conv.FEW_CHANNELS):
+                wt = conv.gemm_weight(w)
+                got = conv.conv2d_gemm(x, wt, b, ws[2:], pad, groups)
+                row["gemm_ms"] = time_ms(lambda: conv.conv2d_gemm(x, wt, b, ws[2:], pad, groups), reps=5, warmup=1,
+                                         batch=2)
+                row["max_abs_err"] = (got - ref).abs().max().item()
+                f64 = conv.conv2d(x[:2].double(), w.double(), b.double(), stride, pad, dil, groups)
+                row["gemm_vs_f64"] = (got[:2] - f64).abs().max().item()
+                row["cudnn_vs_f64"] = (ref[:2] - f64).abs().max().item()
+                row["out_max"] = ref.abs().max().item()
+                del got, wt, f64
+        # the rule GEMM_SITES was set by: FFT, 1.5x the GEMMs' time, or 4 GiB held in the clip
+        row["rule"] = "gemm_ms" in row and (row["fft"] or cudnn_ms >= 1.5 * row["gemm_ms"] or clip_peak >= 4 << 30)
+        if row["gemm_site"]:
+            require("gemm_ms" in row, f"GEMM site {site} is not a stride-1 undilated conv: {row}")
+            require(row["max_abs_err"] < 1e-3, f"GEMM site {site} against cuDNN: {row['max_abs_err']:.3e}")
+        sites.append(row)
+        log(f"  conv {site} x{list(xs)} w{list(ws)} s{stride[0]} g{groups} x{n_calls} (in the clip {clip_ms:.2f} ms, "
+            f"{clip_peak / 2**30:.2f} GiB above): cuDNN {cudnn_ms:.4f} ms"
+            f"{' (FFT)' if row['fft'] else ''}, GEMM " + (f"{row['gemm_ms']:.4f}" if "gemm_ms" in row else "-")
+            + f", bound {row['bound_ms']:.4f}" + (f"; max abs err {row['max_abs_err']:.2e} of {row['out_max']:.2e} "
+            f"(vs float64: GEMM {row['gemm_vs_f64']:.2e}, cuDNN {row['cudnn_vs_f64']:.2e})" if "gemm_ms" in row else "")
+            + (" [GEMM site]" if row["gemm_site"] else "") + (" [rule: GEMM]" if row["rule"] else ""))
+        del x, w, b, ref
+        torch.cuda.empty_cache()
+    clip = {k: sum(r.get(k + "_ms", 0.0) * r["calls"] for r in sites) for k in ("cudnn", "bound")}
+    clip["path"] = sum(r["calls"] * (r["gemm_ms"] if r["gemm_site"] else r["cudnn_ms"]) for r in sites)
+    clip["fft_sites_off_gemm"] = sorted({r["site"] for r in sites if r["fft"] and not r["gemm_site"]})
+    clip["rule_disagrees"] = sorted({r["site"] for r in sites if r["rule"] != r["gemm_site"]})
+    log(f"  a clip's convs: cuDNN {clip['cudnn']:.1f} ms, as GEMM_SITES runs them {clip['path']:.1f} ms, bound "
+        f"{clip['bound']:.1f} ms; FFT sites left on cuDNN: {clip['fft_sites_off_gemm']}; sites where this run's "
+        f"reading of the rule differs from GEMM_SITES: {clip['rule_disagrees']}")
     rows, h8, w8 = MAIN_RAFT_ROWS
     params = {k: v.cuda() for k, v in from_jax_params(random_params("raft", seed=3)).items()}
-    gemm = traft.UpdateConvs(params, True, torch.float32)
-    res = {}
-    for names, (wt, b, kernel) in gemm.laid.items():
-        pad = (kernel[0] // 2, kernel[1] // 2)
-        x = torch.randn(rows, h8, w8, wt.shape[1], generator=gen, device="cuda")
-        with torch.no_grad():
-            got = conv2d_gemm(x, wt, b, kernel, pad)
-            ref = torch.cat([pconv2d(params, n, x, padding=pad) for n in names], -1)
-            f64 = torch.cat([pconv2d({k: v.double() for k, v in params.items() if k.startswith(n + ".")}, n,
-                                     x.double(), padding=pad) for n in names], -1)
-            ms = time_ms(lambda: conv2d_gemm(x, wt, b, kernel, pad))
-            cudnn_ms = time_ms(lambda: [pconv2d(params, n, x, padding=pad) for n in names])
-            torch.backends.cudnn.benchmark = True
-            try:
-                library_ms = time_ms(lambda: [pconv2d(params, n, x, padding=pad) for n in names])
-            finally:
-                torch.backends.cudnn.benchmark = False
-        flops = 2.0 * x.numel() * wt.numel() / wt.shape[1]
-        name = "+".join(n[len("update_block."):] for n in names)
-        res[name] = dict(kernel=kernel, cin=wt.shape[1], cout=wt.shape[2], ms=ms, cudnn_ms=cudnn_ms,
-                         library_ms=library_ms, bound_ms=flops / PEAK_FLOPS[torch.float32] * 1e3,
-                         max_abs_err=(got - ref).abs().max().item(), gemm_vs_f64=(got - f64).abs().max().item(),
-                         cudnn_vs_f64=(ref - f64).abs().max().item())
-        log(f"  conv_gemm {name} {kernel} {wt.shape[1]}->{wt.shape[2]}: {ms:.4f} ms, cuDNN {cudnn_ms:.4f}, "
-            f"timed cuDNN {library_ms:.4f}, bound {res[name]['bound_ms']:.4f}; max abs err "
-            f"{res[name]['max_abs_err']:.2e} (vs float64: GEMM {res[name]['gemm_vs_f64']:.2e}, "
-            f"cuDNN {res[name]['cudnn_vs_f64']:.2e})")
-        del x, got, ref, f64
-        torch.cuda.empty_cache()
     net = torch.tanh(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
     inp = torch.relu(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
     corr = torch.randn(rows, h8, w8, 324, generator=gen, device="cuda")
     flow = torch.randn(rows, h8, w8, 2, generator=gen, device="cuda") * 4
     block = {}
     with torch.no_grad():
-        for tag, convs in (("gemm", gemm), ("cudnn", traft.UpdateConvs(params, False, torch.float32))):
-            def step(convs=convs):
-                n_, d_ = traft._update_block(convs, net, inp, corr, flow)
-                return n_, d_, traft._upsample_mask(convs, n_)
-            before = profiling.counters().get("conv_gemm", 0)
-            block[tag] = step()
-            counted = profiling.counters().get("conv_gemm", 0) - before
-            require(counted == (13 if tag == "gemm" else 0), f"conv_gemm counted {counted} on the {tag} path")
-            block[tag + "_ms"] = time_ms(lambda: traft._update_block(convs, net, inp, corr, flow), reps=7, batch=2)
+        for tag in ("gemm", "cudnn"):
+            with cudnn_convs() if tag == "cudnn" else contextlib.nullcontext():
+                def step():
+                    n_, d_ = traft._update_block(params, net, inp, corr, flow)
+                    return n_, d_, traft._upsample_mask(params, n_)
+                before = profiling.counters().get("conv_gemm", 0)
+                block[tag] = step()
+                counted = profiling.counters().get("conv_gemm", 0) - before
+                require(counted == (8 if tag == "gemm" else 0), f"conv_gemm counted {counted} on the {tag} path")
+                block[tag + "_ms"] = time_ms(lambda: traft._update_block(params, net, inp, corr, flow), reps=7, batch=2)
     errs = [(g - c).abs().max().item() for g, c in zip(block["gemm"], block["cudnn"])]
     require(max(errs) < 1e-3, f"update block on GEMMs against cuDNN: max abs err {errs}")
-    res["update_block"] = dict(rows=MAIN_RAFT_ROWS, ms=block["gemm_ms"], cudnn_ms=block["cudnn_ms"],
-                               max_abs_err_net_delta_mask=errs,
-                               bound_ms=sum(r["bound_ms"] for k, r in res.items() if not k.startswith("mask")))
+    update_block = dict(rows=MAIN_RAFT_ROWS, ms=block["gemm_ms"], cudnn_ms=block["cudnn_ms"],
+                        max_abs_err_net_delta_mask=errs)
     log(f"  update block, one iteration at {MAIN_RAFT_ROWS}: GEMMs {block['gemm_ms']:.3f} ms, cuDNN "
-        f"{block['cudnn_ms']:.3f} ms, convs' bound {res['update_block']['bound_ms']:.3f} ms; max abs err "
-        f"(net, delta, mask) {errs}")
-    return res
+        f"{block['cudnn_ms']:.3f} ms; max abs err (net, delta, mask) {errs}")
+    return dict(sites=sites, clip_ms=clip, update_block=update_block, clip=clip_fft_check())
+
+
+@contextlib.contextmanager
+def cudnn_convs():
+    """Every conv on cuDNN: `ops/conv.py::GEMM_SITES` emptied."""
+    from comfyui_propainter_nodes_tpu_torch.ops import conv
+
+    saved = conv.GEMM_SITES
+    conv.GEMM_SITES = frozenset()
+    try:
+        yield
+    finally:
+        conv.GEMM_SITES = saved
+
+
+@contextlib.contextmanager
+def gemm_under_autograd():
+    """GEMM_SITES on `conv2d_gemm` with grad mode on too (the port keeps
+    cuDNN there), the weights laid out in the graph each call."""
+    from comfyui_propainter_nodes_tpu_torch.ops import conv
+
+    saved = conv.gemm_site, conv.laid_weight
+    conv.gemm_site = lambda site, x: site in conv.GEMM_SITES and x.is_cuda and x.dtype == torch.float32
+    conv.laid_weight = lambda ws, dtype: torch.cat([conv.gemm_weight(w.to(dtype)) for w in ws], -1)
+    try:
+        yield
+    finally:
+        conv.gemm_site, conv.laid_weight = saved
 
 
 def conv_gemm_times() -> int:
-    """`--conv-gemm`: `check_conv_gemm` alone (one JSON line)."""
+    """`--conv-gemm`: path T's training step (`tree_path_t_steps`) as the
+    port runs it (cuDNN under autograd) and with GEMM_SITES on GEMMs there
+    too (`gemm_under_autograd`), in turns, then `check_conv_gemm` (one
+    JSON line; the sites' table also to chiprun_out/conv_gemm.json)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = check_conv_gemm(torch.Generator(device="cuda").manual_seed(0))
-    print(json.dumps(dict(card=nvidia_smi(), torch=torch.__version__, conv_gemm=res)), flush=True)
+    weights_dir = weights_cache()
+    steps = {"cudnn": [], "gemm": []}
+    for tag in ("cudnn", "gemm", "gemm", "cudnn"):
+        with gemm_under_autograd() if tag == "gemm" else contextlib.nullcontext():
+            steps[tag] += tree_path_t_steps()
+    path_t = {k: dict(steps=v, median=statistics.median(v)) for k, v in steps.items()}
+    log(f"  path T's step, median s: cuDNN under autograd (the port) {path_t['cudnn']['median']:.4f}, GEMM_SITES on GEMMs "
+        f"{path_t['gemm']['median']:.4f}")
+    res = dict(check_conv_gemm(torch.Generator(device="cuda").manual_seed(0)), path_t_step_s=path_t)
+    weights_dir.cleanup()
+    line = dict(card=nvidia_smi(), torch=torch.__version__, conv_gemm=res)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "conv_gemm.json"), "w") as f:
+        json.dump(line, f, indent=1)
+    print(json.dumps(dict(line, conv_gemm={k: v for k, v in res.items() if k != "sites"})), flush=True)
     return 0
 
 
@@ -1070,7 +1238,7 @@ WIDGETS = dict(
 
 
 # every launch counter of the port (utils/profiling.py::kernel): the kernels'
-# by their rows' names, and `conv_gemm`, RAFT's fp32 update-loop convs on cuBLAS
+# by their rows' names, and `conv_gemm`, the float32 convs of GEMM_SITES on cuBLAS
 KERNELS = ("corr_lookup", "corr_lookup_map", "deform_conv", "window_attention", "window_attention_tiled",
            "window_attention_halo", "corr_window4", "corr_window", "conv_gemm")
 
@@ -2562,7 +2730,7 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
     log(f"  [{tag}] max_memory_allocated {peak / 2**30:.3f} GiB; RAFT form {form!r}, calls (pairs, blend) {forms}")
     log(f"  [{tag}] launches {counts}; B2 launches by x shape {b2_shapes}")
     require_kernels(tag, counts, need, forbid)
-    require(counts32["conv_gemm"] > 0, f"{tag}: the fp32 run's RAFT convs did not take conv_gemm: {counts32}")
+    require(counts32["conv_gemm"] > 0, f"{tag}: the fp32 run's convs did not take conv_gemm: {counts32}")
     require(len(forms) == 1, f"{tag}: RAFT ran in {len(forms)} calls, not one")
     c16 = check_video(out, args[2], args[3], tag + " bf16")
     c32 = check_video(out32, args[2], args[3], tag + " fp32")
@@ -2707,7 +2875,7 @@ def path_m_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: s
                 if fp16 == "enable":  # the default widgets (fp32 maps take B1's one fp32 kernel)
                     require_kernels(tag, counts, need, [k for k in KERNELS if k not in need])
                 else:
-                    require(counts["conv_gemm"] > 0, f"{tag}: RAFT's convs did not take conv_gemm: {counts}")
+                    require(counts["conv_gemm"] > 0, f"{tag}: the fp32 convs did not take conv_gemm: {counts}")
                 log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
                 results[f"{shape[0]}x{shape[1]} {fp16}"] = dict(
                     seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=torch.cuda.max_memory_allocated(),
@@ -2960,7 +3128,7 @@ def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: 
             if fp16 == "enable":
                 require_kernels(tag, counts, PATH_MH_NEED, [k for k in KERNELS if k not in PATH_MH_NEED])
             else:
-                require(counts["conv_gemm"] > 0, f"{tag}: RAFT's convs did not take conv_gemm: {counts}")
+                require(counts["conv_gemm"] > 0, f"{tag}: the fp32 convs did not take conv_gemm: {counts}")
             require(any("rows" in k for k in b2_shapes), f"{tag}: B2 never ran in its row form: {b2_shapes}")
             results[fp16] = dict(
                 seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1],

@@ -18,10 +18,10 @@ lookup takes the padded-map window kernel (ops/cuda/corr_window.py),
 the JAX package's padded `lookup_corr` branch.
 Compute dtype follows the params (bf16 under fp16="enable"); coords,
 convex upsampling and the returned flows stay fp32. On CUDA float32
-activations the update block's and the mask head's convs run as GEMMs
-over NHWC taps (`gemm_convs`, `UpdateConvs`, ops/conv.py::conv2d_gemm),
-their weights laid out once a call; bf16 and CPU activations keep
-`pconv2d`.
+activations the convs named in ops/conv.py::GEMM_SITES (seven of the
+update block's, the mask head's 1x1 and seven of each encoder's) run as
+GEMMs over NHWC taps (`conv2d_gemm`); the rest, and every bf16 and CPU
+conv, keep cuDNN.
 Each call is two spans (utils/profiling.py): "raft.encode" (fnet, cnet
 and the pyramids) and "raft.refine" (the update loop and convex
 upsampling, `_refine`).
@@ -36,7 +36,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import batch_norm_eval, conv2d_gemm, gemm_weight, instance_norm, pconv2d
+from ..ops.conv import batch_norm_eval, instance_norm, pconv2d, pconv2d_many
 from ..ops.cuda.corr_lookup import corr_lookup
 from ..ops.cuda.corr_window import corr_window_lookup4
 from ..ops.patches import unfold
@@ -248,93 +248,43 @@ def call_bytes(n: int, h8: int, w8: int, esz: int, mode: str, directions: int = 
 # ------------------------------------------------------------ update block
 
 
-def gemm_convs(x: torch.Tensor) -> bool:
-    """Whether the update block and the mask head run their convs as GEMMs
-    over NHWC taps (`ops/conv.py::conv2d_gemm`, cuBLAS): for CUDA float32
-    activations, where cuDNN's heuristic picks FFT algorithms for some of
-    their shapes (on an H100 at 46 x 45 x 80, convc2 and conv 75-120 ms a
-    call, against 4.4 and 3.1 ms as GEMMs). bf16 and CPU activations keep
-    `pconv2d`."""
-    return x.is_cuda and x.dtype == torch.float32
-
-
-# the convs `UpdateConvs` lays out; the SepConvGRU's z and r convs read the
-# same input, so each pair is laid out side by side as one product
-UPDATE_CONVS = tuple(
-    "update_block." + n
-    for n in ("encoder.convc1", "encoder.convc2", "encoder.convf1", "encoder.convf2", "encoder.conv",
-              "gru.convq1", "gru.convq2", "flow_head.conv1", "flow_head.conv2", "mask.0", "mask.2")
-)
-GRU_PAIRS = tuple((f"update_block.gru.convz{t}", f"update_block.gru.convr{t}") for t in "12")
-
-
-class UpdateConvs:
-    """The update block's and the mask head's convs: `conv(name, x,
-    padding)`, and `pair(a, b, x, padding)` -> (a's, b's) for two convs of
-    one input. `pconv2d` each; or, with `gemm`, `conv2d_gemm` on tap-major
-    weights laid out here in `dtype`, once a `_refine` call, a pair's
-    side by side as one product whose output is split."""
-
-    def __init__(self, p: Params, gemm: bool, dtype: torch.dtype):
-        self.p = p
-        self.laid = None
-        if gemm:
-            self.laid = {names: self._lay(names, dtype) for names in [(n,) for n in UPDATE_CONVS] + list(GRU_PAIRS)}
-
-    def _lay(self, names, dtype):
-        ws = [self.p[n + ".weight"] for n in names]
-        wt = torch.cat([gemm_weight(w.to(dtype)) for w in ws], -1)
-        return wt, torch.cat([self.p[n + ".bias"].to(dtype) for n in names]), tuple(ws[0].shape[2:])
-
-    def __call__(self, name: str, x, padding=(0, 0)):
-        if self.laid is None:
-            return pconv2d(self.p, name, x, padding=padding)
-        return conv2d_gemm(x, *self.laid[(name,)], padding)
-
-    def pair(self, a: str, b: str, x, padding):
-        if self.laid is None:
-            return self(a, x, padding), self(b, x, padding)
-        y = conv2d_gemm(x, *self.laid[(a, b)], padding)
-        ca = self.p[a + ".weight"].shape[0]
-        return y[..., :ca], y[..., ca:]
-
-
-def _motion_encoder(conv: UpdateConvs, flow, corr):
+def _motion_encoder(p: Params, flow, corr):
     """update.py:94-112 BasicMotionEncoder."""
     pre = "update_block.encoder"
-    cor = torch.relu(conv(pre + ".convc1", corr))
-    cor = torch.relu(conv(pre + ".convc2", cor, (1, 1)))
-    flo = torch.relu(conv(pre + ".convf1", flow, (3, 3)))
-    flo = torch.relu(conv(pre + ".convf2", flo, (1, 1)))
-    out = torch.relu(conv(pre + ".conv", torch.cat([cor, flo], -1), (1, 1)))
+    cor = torch.relu(pconv2d(p, pre + ".convc1", corr))
+    cor = torch.relu(pconv2d(p, pre + ".convc2", cor, padding=(1, 1)))
+    flo = torch.relu(pconv2d(p, pre + ".convf1", flow, padding=(3, 3)))
+    flo = torch.relu(pconv2d(p, pre + ".convf2", flo, padding=(1, 1)))
+    out = torch.relu(pconv2d(p, pre + ".conv", torch.cat([cor, flo], -1), padding=(1, 1)))
     return torch.cat([out, flow], dim=-1)
 
 
-def _sep_conv_gru(conv: UpdateConvs, h, x):
-    """update.py:35-73 SepConvGRU: 1x5 then 5x1 gated updates."""
+def _sep_conv_gru(p: Params, h, x):
+    """update.py:35-73 SepConvGRU: 1x5 then 5x1 gated updates (z and r,
+    convs of one input, as one product on GEMMs: `pconv2d_many`)."""
     pre = "update_block.gru"
     for tag, pad in (("1", (0, 2)), ("2", (2, 0))):
         hx = torch.cat([h, x], dim=-1)
-        z, r = (torch.sigmoid(g) for g in conv.pair(f"{pre}.convz{tag}", f"{pre}.convr{tag}", hx, pad))
-        q = torch.tanh(conv(f"{pre}.convq{tag}", torch.cat([r * h, x], -1), pad))
+        z, r = (torch.sigmoid(g) for g in pconv2d_many(p, (f"{pre}.convz{tag}", f"{pre}.convr{tag}"), hx, pad))
+        q = torch.tanh(pconv2d(p, f"{pre}.convq{tag}", torch.cat([r * h, x], -1), padding=pad))
         h = (1 - z) * h + z * q
     return h
 
 
-def _update_block(conv: UpdateConvs, net, inp, corr, flow):
+def _update_block(p: Params, net, inp, corr, flow):
     """update.py:131-154 BasicUpdateBlock, without the mask head."""
-    motion = _motion_encoder(conv, flow, corr)
-    net = _sep_conv_gru(conv, net, torch.cat([inp, motion], dim=-1))
-    fh = torch.relu(conv("update_block.flow_head.conv1", net, (1, 1)))
-    delta_flow = conv("update_block.flow_head.conv2", fh, (1, 1))
+    motion = _motion_encoder(p, flow, corr)
+    net = _sep_conv_gru(p, net, torch.cat([inp, motion], dim=-1))
+    fh = torch.relu(pconv2d(p, "update_block.flow_head.conv1", net, padding=(1, 1)))
+    delta_flow = pconv2d(p, "update_block.flow_head.conv2", fh, padding=(1, 1))
     return net, delta_flow
 
 
-def _upsample_mask(conv: UpdateConvs, net):
+def _upsample_mask(p: Params, net):
     """update.py:139-153 mask head, evaluated once on the final `net`
     (inference only consumes the last iteration's mask)."""
-    m = torch.relu(conv("update_block.mask.0", net, (1, 1)))
-    return 0.25 * conv("update_block.mask.2", m)
+    m = torch.relu(pconv2d(p, "update_block.mask.0", net, padding=(1, 1)))
+    return 0.25 * pconv2d(p, "update_block.mask.2", m)
 
 
 def convex_upsample(flow, mask):
@@ -360,13 +310,12 @@ def _refine(params: Params, cnet, lookup, h8: int, w8: int, iters: int):
         inp = torch.relu(cnet[..., HDIM:])
         coords0 = coords_grid(cnet.shape[0], h8, w8, device=cnet.device)
         coords1 = coords0.clone()
-        conv = UpdateConvs(params, gemm_convs(net), cdt)
         for _ in range(iters):
             corr = lookup(coords1)
             flow = coords1 - coords0
-            net, delta = _update_block(conv, net, inp, corr.to(cdt), flow.to(cdt))
+            net, delta = _update_block(params, net, inp, corr.to(cdt), flow.to(cdt))
             coords1 = coords1 + delta.float()
-        return convex_upsample(coords1 - coords0, _upsample_mask(conv, net).float())
+        return convex_upsample(coords1 - coords0, _upsample_mask(params, net).float())
 
 
 def _lookup_fn(mode: str, fmap1, fmap2, bidirectional: bool):

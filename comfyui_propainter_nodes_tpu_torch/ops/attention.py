@@ -46,7 +46,7 @@ import torch.nn.functional as F
 
 from ..parallel.sharding import copy_to, reduce_from
 from ..parallel.spatial import Partition, RowSplit, token_rows
-from .conv import conv2d, layer_norm, linear
+from .conv import conv2d, layer_norm, linear, pconv2d
 from .cuda.window_attention import window_attention_dispatch
 from .cuda.window_attention_halo import window_attention_halo
 from .pool import max_pool2d
@@ -76,11 +76,11 @@ def _phase_kernel(wmat: torch.Tensor, bias: torch.Tensor, c_out: int, flip: bool
     return k.permute(3, 2, 0, 1)
 
 
-def _phase_fold_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def _phase_fold_conv(x: torch.Tensor, kernel: torch.Tensor, site: str) -> torch.Tensor:
     """Token grid [N, fh, fw, in] -> phase canvases [N, qh, qw, 9*c_out]."""
     dh, dw = kernel.shape[2], kernel.shape[3]
     ones = x.new_ones(x.shape[:-1] + (1,))
-    return conv2d(torch.cat([x, ones], dim=-1), kernel, padding=(dh - 1, dw - 1))
+    return conv2d(torch.cat([x, ones], dim=-1), kernel, padding=(dh - 1, dw - 1), site=site)
 
 
 def _interleave_phases(ph_canvas: torch.Tensor, c_out: int, w: int, r0: int, r1: int) -> torch.Tensor:
@@ -168,8 +168,10 @@ def soft_comp(p: Params, pre: str, tokens: torch.Tensor, output_size, rows=None)
     # the canvas's feature rows [c0, c1) the bias conv reads; canvas row
     # k of the phases of token rows [a, ..) is feature row sh * a + k - ph
     c0, c1 = max(0, feat.lo - 1), min(feat.total, feat.hi + 1)
-    canvas = _interleave_phases(_phase_fold_conv(ext, kernel), c, output_size[1], c0 + ph - sh * a, c1 + ph - sh * a)
-    out = conv2d(canvas, p[pre + ".bias_conv.weight"], p[pre + ".bias_conv.bias"], padding=(1, 1))
+    canvas = _interleave_phases(
+        _phase_fold_conv(ext, kernel, pre + ".embedding"), c, output_size[1], c0 + ph - sh * a, c1 + ph - sh * a
+    )
+    out = pconv2d(p, pre + ".bias_conv", canvas, padding=(1, 1))
     return out[:, feat.lo - c0 : feat.hi - c0]
 
 
@@ -194,7 +196,7 @@ def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size, rows=
     b1 = p[pre + ".fc1.0.bias"]
     c_mid = b1.shape[0] // 49
     k1 = _phase_kernel(p[pre + ".fc1.0.weight"].t(), b1, c_mid, flip=True)
-    y = _phase_fold_conv(x, k1)
+    y = _phase_fold_conv(x, k1, pre + ".fc1.0")
     qh, qw = y.shape[1], y.shape[2]
     mult = torch.from_numpy(_phase_mult(rows.total, fw, *output_size)[q0 : q0 + qh]).to(y.device, y.dtype)
     y = y.reshape(n, qh, qw, 9, c_mid) * mult[..., None]
@@ -209,7 +211,7 @@ def fusion_feed_forward(p: Params, pre: str, x: torch.Tensor, output_size, rows=
     k2 = k2.reshape(c_mid, dh, sh, dw, sw, dim).permute(1, 3, 2, 4, 0, 5)
     k2 = k2.reshape(dh, dw, sh * sw * c_mid, dim).permute(3, 2, 0, 1)
     b2 = p[pre + ".fc2.1.bias"]
-    out = conv2d(y, k2, None if tp is not None else b2)[:, rows.lo - q0 : rows.hi - q0]
+    out = conv2d(y, k2, None if tp is not None else b2, site=pre + ".fc2.1")[:, rows.lo - q0 : rows.hi - q0]
     if tp is not None:
         out = reduce_from(out, *tp) + b2.to(out.dtype)
     return out

@@ -6,12 +6,16 @@ NHWC like the JAX package; each conv views its input as NCHW with
 channels-last strides, which cuDNN takes natively, so the permutes
 around `F.conv2d` copy nothing on the card. `conv2d_gemm` computes a
 stride-1 conv as matrix products over its taps instead (cuBLAS on the
-card), on weights laid out once by `gemm_weight`.
+card), on weights laid out by `gemm_weight`. Which convs take it is one
+rule, `gemm_site`: the named sites of GEMM_SITES, on CUDA float32
+activations, with grad mode off; `conv2d` and `pconv2d` consult it, and
+lay out each weight once per tensor and dtype.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import weakref
+from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +29,60 @@ Params = Mapping[str, torch.Tensor]
 # output channels: a product per tap would be a sliver of a matrix
 FEW_CHANNELS = 8
 
+# The float32 conv sites (a weight's name) that run as `conv2d_gemm` on the
+# card: each stride-1, undilated site where cuDNN's heuristic takes an FFT
+# algorithm, takes 1.5x the GEMMs' time or more, or holds a workspace of 4
+# GiB or more, at the float32 inpaint clip's shapes (640x360, 24 frames;
+# `chip_smoke.py --conv-gemm` times every conv site of the clip both ways
+# and reads each one's memory in the clip; PERF.md keeps the table). The
+# other sites are as fast or faster on cuDNN's implicit GEMMs.
+GEMM_SITES = frozenset(
+    # RAFT's encoders: the residual blocks at 1/4 and 1/8 res (FFT), the 1x1 head
+    [f"{net}.{conv}" for net in ("fnet", "cnet")
+     for conv in ("layer2.0.conv2", "layer2.1.conv1", "layer2.1.conv2", "layer3.0.conv2", "layer3.1.conv1",
+                  "layer3.1.conv2", "conv2")]
+    # RAFT's update block (convc2, convf2, conv: FFT) and mask head
+    + ["update_block." + conv for conv in ("encoder.convc1", "encoder.convc2", "encoder.convf2", "encoder.conv",
+                                           "gru.convz2", "gru.convr2", "gru.convq2", "flow_head.conv2", "mask.2")]
+    # flow completion: the mid dilation's last conv and the decoder's first (FFT), the 1x1 fusion
+    + ["mid_dilation.4", "feat_prop_module.fusion", "decoder2.0"]
+    # ProPainter: the encoder's grouped 768 -> 384 and its 512 -> 128 (47 and 39 GiB
+    # workspaces), feature fusion, soft_comp's bias conv and the decoder's first two
+    # (FFT), its last
+    + ["encoder.layers.12", "encoder.layers.16", "feat_prop_module.fuse.0", "feat_prop_module.fuse.2",
+       "sc.bias_conv", "decoder.0.conv", "decoder.2", "decoder.6"]
+)
+
+
+def gemm_site(site: str | None, x: torch.Tensor) -> bool:
+    """Whether the conv at `site` runs as `conv2d_gemm`: a site of
+    GEMM_SITES, on CUDA float32 activations, with grad mode off. The
+    training step keeps cuDNN: on GEMMs its first step's gradients moved
+    past the 1e-4 that `chip_smoke.py` holds them to against the plain
+    kernels' step (1.56e-4), for 2% of its time. bf16 and CPU activations
+    keep `F.conv2d`."""
+    return site in GEMM_SITES and x.is_cuda and x.dtype == torch.float32 and not torch.is_grad_enabled()
+
+
+# tap-major layouts by the first weight tensor's id and the dtype: (weak
+# reference to it, its version, the other weights laid beside it, layout)
+_LAYOUTS: dict = {}
+
+
+def laid_weight(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """`gemm_weight` of the weights ws (of one input, side by side along
+    Cout) in dtype, computed once per tensor (and again only if one is
+    written in place)."""
+    key = (id(ws[0]), dtype)
+    versions = tuple(w._version for w in ws)
+    hit = _LAYOUTS.get(key)
+    if (hit is not None and hit[0]() is ws[0] and hit[1] == versions and len(hit[2]) == len(ws) - 1
+            and all(a is b for a, b in zip(hit[2], ws[1:]))):
+        return hit[3]
+    laid = torch.cat([gemm_weight(w.to(dtype)) for w in ws], -1)
+    _LAYOUTS[key] = (weakref.ref(ws[0], lambda _, key=key: _LAYOUTS.pop(key, None)), versions, tuple(ws[1:]), laid)
+    return laid
+
 
 def conv2d(
     x: torch.Tensor,
@@ -34,8 +92,14 @@ def conv2d(
     padding: tuple[int, int] = (0, 0),
     dilation: tuple[int, int] = (1, 1),
     groups: int = 1,
+    site: str | None = None,
 ) -> torch.Tensor:
-    """x: [N, H, W, Cin], w: [Cout, Cin/groups, kh, kw] -> [N, H', W', Cout]."""
+    """x: [N, H, W, Cin], w: [Cout, Cin/groups, kh, kw] -> [N, H', W', Cout].
+    At a stride-1, undilated `site` that `gemm_site` takes: `conv2d_gemm`."""
+    if tuple(stride) == (1, 1) and tuple(dilation) == (1, 1) and gemm_site(site, x):
+        return conv2d_gemm(
+            x, laid_weight((w,), x.dtype), None if b is None else b.to(x.dtype), tuple(w.shape[2:]), padding, groups
+        )
     y = F.conv2d(
         x.permute(0, 3, 1, 2),
         w.to(x.dtype),
@@ -69,12 +133,27 @@ def conv3d(
 
 
 def pconv2d(p: Params, name: str, x: torch.Tensor, **kw) -> torch.Tensor:
-    return conv2d(x, p[name + ".weight"], p.get(name + ".bias"), **kw)
+    """The conv whose weight and bias are p[name + ".weight"] / ".bias";
+    `name` is its site."""
+    return conv2d(x, p[name + ".weight"], p.get(name + ".bias"), site=name, **kw)
+
+
+def pconv2d_many(p: Params, names: Sequence[str], x: torch.Tensor, padding=(0, 0)) -> list[torch.Tensor]:
+    """Stride-1 convs of one input, of one kernel size: `pconv2d` each;
+    or, where `gemm_site` takes the first, one `conv2d_gemm` with their
+    weights side by side (laid out once), its output split."""
+    ws = [p[n + ".weight"] for n in names]
+    if not gemm_site(names[0], x):
+        return [pconv2d(p, n, x, padding=padding) for n in names]
+    b = torch.cat([p[n + ".bias"] for n in names]).to(x.dtype)
+    y = conv2d_gemm(x, laid_weight(ws, x.dtype), b, tuple(ws[0].shape[2:]), padding)
+    return list(y.split([w.shape[0] for w in ws], -1))
 
 
 def gemm_weight(w: torch.Tensor) -> torch.Tensor:
-    """Conv weight [Cout, Cin, kh, kw] -> the tap-major [kh*kw, Cin, Cout]
-    layout `conv2d_gemm` takes (tap t = i*kw + j)."""
+    """Conv weight [Cout, Cin/groups, kh, kw] -> the tap-major [kh*kw,
+    Cin/groups, Cout] layout `conv2d_gemm` takes (tap t = i*kw + j; group
+    g's outputs are its columns [g*Cout/groups, (g+1)*Cout/groups))."""
     co, ci, kh, kw = w.shape
     return w.permute(2, 3, 1, 0).reshape(kh * kw, ci, co).contiguous()
 
@@ -85,11 +164,12 @@ def conv2d_gemm(
     b: torch.Tensor | None,
     kernel: tuple[int, int],
     padding: tuple[int, int],
+    groups: int = 1,
 ) -> torch.Tensor:
-    """Stride-1, undilated, ungrouped conv as matrix products over its taps.
-    x [N, H, W, Cin]; wt [kh*kw, Cin, Cout] (`gemm_weight`), b [Cout] or
-    None, both in x's dtype -> [N, H', W', Cout] in x's dtype, with H' =
-    H + 2*ph - kh + 1 (W' alike); often a strided view.
+    """Stride-1, undilated conv as matrix products over its taps.
+    x [N, H, W, Cin]; wt [kh*kw, Cin/groups, Cout] (`gemm_weight`), b
+    [Cout] or None, both in x's dtype -> [N, H', W', Cout] in x's dtype,
+    with H' = H + 2*ph - kh + 1 (W' alike); often a strided view.
 
     x is zero-padded once and its padded rows flattened into one run of
     N*Hp*Wp pixels; output pixel (n, y, x) is row r = (n*Hp + y)*Wp + x
@@ -99,19 +179,25 @@ def conv2d_gemm(
     (no copy a tap), added into the output in place; the bias is the
     first tap's C operand. The result is a strided view of the output's
     [:H', :W'] corner of each image; the rows between mix neighbouring
-    pixels and are never read. A 1x1 conv is one product. Below
+    pixels and are never read. With groups, each tap is one product
+    batched over the groups: group g's A operand is the column slice
+    [g*Cin/groups, ..) of the same shifted view, its output the column
+    slice [g*Cout/groups, ..) of the one output, which starts as the bias
+    (all strided views, no copy). A 1x1 conv is one product. Below
     FEW_CHANNELS input channels the taps are unfolded into one product
     over kh*kw*Cin columns; below FEW_CHANNELS output channels x takes
     one product with every tap's weights side by side, and the taps'
-    outputs are added shifted. Differentiable. The products run in x's
-    dtype under the caller's TF32 setting
+    outputs are added shifted (both ungrouped only). Differentiable.
+    The products run in x's dtype under the caller's TF32 setting
     (`pipeline/stages.py::full_fp32` turns it off). Counted as
     `conv_gemm`, one a call (utils/profiling.py::kernel)."""
     kh, kw = kernel
     ph, pw = padding
     n, h, w, c = x.shape
-    taps, _, co = wt.shape
+    taps, cg, co = wt.shape
     ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    if c != groups * cg or (groups > 1 and min(c, co) < FEW_CHANNELS):
+        raise ValueError(f"conv2d_gemm: {c} input channels, weights {tuple(wt.shape)}, groups {groups}")
     with profiling.kernel("conv_gemm"):
         xp = F.pad(x, (0, 0, pw, pw, ph, ph)) if ph or pw else x
         if c < FEW_CHANNELS:
@@ -130,10 +216,18 @@ def conv2d_gemm(
         hp, wp = h + 2 * ph, w + 2 * pw
         flat = xp.reshape(n * hp * wp, c)
         m = n * hp * wp - (kh - 1) * wp - (kw - 1)
-        out = torch.mm(flat[:m], wt[0]) if b is None else torch.addmm(b, flat[:m], wt[0])
-        for t in range(1, taps):
-            i, j = divmod(t, kw)
-            out.addmm_(flat[i * wp + j : i * wp + j + m], wt[t])
+        if groups == 1:
+            out = torch.mm(flat[:m], wt[0]) if b is None else torch.addmm(b, flat[:m], wt[0])
+            for t in range(1, taps):
+                i, j = divmod(t, kw)
+                out.addmm_(flat[i * wp + j : i * wp + j + m], wt[t])
+        else:
+            out = x.new_zeros(m, co) if b is None else b.expand(m, co).clone()
+            per_group = out.view(m, groups, co // groups).transpose(0, 1)
+            for t in range(taps):
+                i, j = divmod(t, kw)
+                a = flat[i * wp + j : i * wp + j + m].view(m, groups, cg).transpose(0, 1)
+                per_group.baddbmm_(a, wt[t].view(cg, groups, co // groups).transpose(0, 1))
         return out.as_strided((n, ho, wo, co), (hp * wp * co, wp * co, co, 1))
 
 
@@ -154,6 +248,7 @@ def pconv3d(p: Params, name: str, x: torch.Tensor, **kw) -> torch.Tensor:
             stride=stride[1:],
             padding=padding[1:],
             dilation=dilation[1:],
+            site=name,
         )
         return y.reshape(n, t, y.shape[1], y.shape[2], y.shape[3])
     return conv3d(x, w, b, stride=stride, padding=padding, dilation=dilation)

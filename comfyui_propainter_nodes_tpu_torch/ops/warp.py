@@ -72,10 +72,14 @@ def coords_grid(batch: int, h: int, w: int, dtype=torch.float32, device=None, ro
 def flow_warp(x: torch.Tensor, flow: torch.Tensor, interpolation: str = "bilinear", row0: int = 0) -> torch.Tensor:
     """Backward-warp x [N, H, W, C] by flow [N, Ho, W, 2] (dx, dy): output
     row y is x's row row0 + y moved by the flow (Ho = H and row0 = 0: the
-    whole image; the H split warps its rows out of the whole map)."""
+    whole image; the H split warps its rows out of the whole map). The
+    grid and `grid + flow` are float32 at least, whatever the flow's
+    dtype: bf16 holds pixel coordinates exactly only up to 256, so a bf16
+    grid would sample 1-4 px off across a 360p-720p frame."""
     n, h, w, _ = flow.shape
-    grid = coords_grid(1, h, w, flow.dtype, flow.device, row0)
-    coords = (grid + flow).reshape(n, h * w, 2)
+    dt = torch.promote_types(flow.dtype, torch.float32)
+    grid = coords_grid(1, h, w, dt, flow.device, row0)
+    coords = (grid + flow.to(dt)).reshape(n, h * w, 2)
     return grid_sample(x, coords, mode=interpolation).reshape(n, h, w, x.shape[-1])
 
 

@@ -17,6 +17,7 @@ import torch
 
 from comfyui_propainter_nodes_tpu_torch.models import raft as traft
 from comfyui_propainter_nodes_tpu_torch.models.raft import build_corr_pyramids
+from comfyui_propainter_nodes_tpu_torch.ops import conv
 from comfyui_propainter_nodes_tpu_torch.pipeline.stages import full_fp32
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as b67
@@ -662,23 +663,24 @@ def _update_inputs(gen, rows=46, h8=45, w8=80):
     return net, inp, corr, flow
 
 
-def test_update_block_gemm_convs_match_cudnn(gen):
-    """The update block and the mask head on `conv2d_gemm` (cuBLAS) against
-    the cuDNN path, fp32 with TF32 off, at the main path's shape: 46 rows
-    of 45x80. Both compute each conv in fp32 in another order (cuDNN's
-    heuristic takes FFT algorithms for some of these shapes)."""
+def test_update_block_gemm_convs_match_cudnn(gen, monkeypatch):
+    """The update block and the mask head with GEMM_SITES on `conv2d_gemm`
+    (cuBLAS) against every conv on cuDNN (GEMM_SITES emptied), fp32 with
+    TF32 off, at the main path's shape: 46 rows of 45x80. Both compute
+    each conv in fp32 in another order (cuDNN's heuristic takes FFT
+    algorithms for convc2, convf2 and conv). 7 GEMM sites an iteration
+    and mask.2."""
     params = _raft_params()
     args = _update_inputs(gen)
     with torch.no_grad():
         before = launched("conv_gemm")
-        gemm = traft.UpdateConvs(params, True, torch.float32)
-        net, delta = traft._update_block(gemm, *args)
-        mask = traft._upsample_mask(gemm, net)
-        assert launched("conv_gemm") == before + 13
-        cudnn = traft.UpdateConvs(params, False, torch.float32)
-        net_ref, delta_ref = traft._update_block(cudnn, *args)
-        mask_ref = traft._upsample_mask(cudnn, net_ref)
-        assert launched("conv_gemm") == before + 13
+        net, delta = traft._update_block(params, *args)
+        mask = traft._upsample_mask(params, net)
+        assert launched("conv_gemm") == before + 8
+        monkeypatch.setattr(conv, "GEMM_SITES", frozenset())
+        net_ref, delta_ref = traft._update_block(params, *args)
+        mask_ref = traft._upsample_mask(params, net_ref)
+        assert launched("conv_gemm") == before + 8
     for got, want in ((net, net_ref), (delta, delta_ref), (mask, mask_ref)):
         print(f"max abs err {float((got - want).abs().max()):.3e} of {float(want.abs().max()):.3e}")
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
@@ -686,12 +688,13 @@ def test_update_block_gemm_convs_match_cudnn(gen):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_conv_gemm_counts_per_raft_call(gen, dt):
-    """`conv_gemm` counts 11 convs an iteration and the mask head's 2 in
-    every fp32 RAFT call (both forms), none in bf16."""
+    """`conv_gemm` counts, in every fp32 RAFT call (both forms), the 14
+    GEMM sites of fnet and cnet (7 each), 7 convs an iteration and the
+    mask head's mask.2; none in bf16."""
     params = _raft_params(dt)
     frames = torch.rand(1, 3, 64, 96, 3, generator=gen, device="cuda") * 2 - 1
     iters = 2
-    per_call = (11 * iters + 2) if dt == torch.float32 else 0
+    per_call = (14 + 7 * iters + 1) if dt == torch.float32 else 0
     with torch.no_grad(), full_fp32():
         before = launched("conv_gemm")
         traft.raft_bi_forward(params, frames, iters)
@@ -707,17 +710,126 @@ def test_gemm_convs_are_tf32_free_under_full_fp32(gen):
     takes TF32 and the result moves."""
     params = _raft_params()
     args = _update_inputs(gen, rows=4, h8=24, w8=40)
-    gemm = traft.UpdateConvs(params, True, torch.float32)
     with torch.no_grad():
-        want = traft._update_block(gemm, *args)
+        want = traft._update_block(params, *args)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
         try:
             with full_fp32():
-                got = traft._update_block(gemm, *args)
+                got = traft._update_block(params, *args)
             assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
-            loose = traft._update_block(gemm, *args)
+            loose = traft._update_block(params, *args)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert not torch.equal(loose[0], want[0])
+
+
+# each GEMM site (ops/conv.py::GEMM_SITES) at the float32 inpaint clip's
+# shapes (640x360, 24 frames; `chip_smoke.py --conv-gemm`): x [N, H, W, Cin],
+# the weight's shape [Cout, Cin/groups, kh, kw], padding
+CELL_SITES = {
+    **{f"{net}.{c}": ((24, 90, 160, 96), (96, 96, 3, 3), (1, 1))
+       for net in ("fnet", "cnet") for c in ("layer2.0.conv2", "layer2.1.conv1", "layer2.1.conv2")},
+    **{f"{net}.{c}": ((24, 45, 80, 128), (128, 128, 3, 3), (1, 1))
+       for net in ("fnet", "cnet") for c in ("layer3.0.conv2", "layer3.1.conv1", "layer3.1.conv2")},
+    **{f"{net}.conv2": ((24, 45, 80, 128), (256, 128, 1, 1), (0, 0)) for net in ("fnet", "cnet")},
+    "update_block.encoder.convc1": ((46, 45, 80, 324), (256, 324, 1, 1), (0, 0)),
+    "update_block.encoder.convc2": ((46, 45, 80, 256), (192, 256, 3, 3), (1, 1)),
+    "update_block.encoder.convf2": ((46, 45, 80, 128), (64, 128, 3, 3), (1, 1)),
+    "update_block.encoder.conv": ((46, 45, 80, 256), (126, 256, 3, 3), (1, 1)),
+    "update_block.gru.convz2": ((46, 45, 80, 384), (128, 384, 5, 1), (2, 0)),
+    "update_block.gru.convr2": ((46, 45, 80, 384), (128, 384, 5, 1), (2, 0)),
+    "update_block.gru.convq2": ((46, 45, 80, 384), (128, 384, 5, 1), (2, 0)),
+    "update_block.flow_head.conv2": ((46, 45, 80, 256), (2, 256, 3, 3), (1, 1)),
+    "update_block.mask.2": ((46, 45, 80, 256), (576, 256, 1, 1), (0, 0)),
+    "encoder.layers.12": ((24, 90, 160, 768), (384, 192, 3, 3), (1, 1)),
+    "encoder.layers.16": ((24, 90, 160, 512), (128, 512, 3, 3), (1, 1)),
+    "mid_dilation.4": ((46, 45, 80, 128), (128, 128, 3, 3), (1, 1)),
+    "feat_prop_module.fusion": ((46, 45, 80, 256), (128, 256, 1, 1), (0, 0)),
+    "decoder2.0": ((46, 45, 80, 128), (128, 128, 3, 3), (1, 1)),
+    "feat_prop_module.fuse.0": ((55, 90, 160, 258), (128, 258, 3, 3), (1, 1)),
+    "feat_prop_module.fuse.2": ((55, 90, 160, 128), (128, 128, 3, 3), (1, 1)),
+    "sc.bias_conv": ((65, 90, 160, 128), (128, 128, 3, 3), (1, 1)),
+    "decoder.0.conv": ((55, 78, 112, 128), (128, 128, 3, 3), (1, 1)),
+    "decoder.2": ((55, 78, 112, 128), (64, 128, 3, 3), (1, 1)),
+    "decoder.6": ((55, 156, 224, 64), (3, 64, 3, 3), (1, 1)),
+}
+
+
+def test_cell_sites_are_the_gemm_sites():
+    """CELL_SITES lists every site of GEMM_SITES, and no other."""
+    assert set(CELL_SITES) == conv.GEMM_SITES
+
+
+@pytest.mark.parametrize("site", sorted(CELL_SITES))
+def test_gemm_sites_match_cudnn_at_cell_shapes(gen, site):
+    """Each GEMM site at the float32 inpaint clip's shapes, through
+    `conv2d` (the rule takes `conv2d_gemm`, one `conv_gemm` launch) against
+    cuDNN (`conv2d` without a site), fp32 with TF32 off, on unit-scale
+    inputs and weights (outputs up to about 9). Largest abs error measured
+    on the card by this test: 1.38e-5, the 5x1 GRU convs (1,920 terms a
+    sum; in `chip_smoke.py --conv-gemm` cuDNN itself is 9.9e-6 from
+    float64 there); 4.1e-6 at fuse.0 (2,322 terms), 2.9e-6-3.8e-6 at the
+    other 3x3 sites, 0 at the 1x1 sites. The tolerance, 5e-5 + 1e-5 of
+    the value, is over three times the largest: two fp32 summation orders
+    of the same terms."""
+    xs, ws, pad = CELL_SITES[site]
+    groups = xs[3] // ws[1]
+    x = torch.randn(xs, generator=gen, device="cuda")
+    w = torch.randn(ws, generator=gen, device="cuda") / (ws[1] * ws[2] * ws[3]) ** 0.5
+    b = torch.randn(ws[0], generator=gen, device="cuda")
+    with torch.no_grad():
+        before = launched("conv_gemm")
+        got = conv.conv2d(x, w, b, padding=pad, groups=groups, site=site)
+        assert launched("conv_gemm") == before + 1
+        want = conv.conv2d(x, w, b, padding=pad, groups=groups)
+        assert launched("conv_gemm") == before + 1
+    print(f"{site}: max abs err {float((got - want).abs().max()):.3e} of {float(want.abs().max()):.3e}")
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("groups,cin,cout", [(2, 640, 512), (4, 768, 384), (8, 640, 256)])
+def test_grouped_conv2d_gemm_matches_cudnn(gen, groups, cin, cout):
+    """`conv2d_gemm` with groups (one product a tap, batched over the
+    groups) at ProPainter's grouped encoder layers' full shapes (24 frames
+    of 90x160) against cuDNN, fp32 (the groups-4 layer is a GEMM site; the
+    groups-2 and groups-8 ones keep cuDNN, as fast or faster there).
+    Largest abs error on the card: 1.48e-5 (groups 2, 2,880 terms); the
+    same tolerance as the sites'."""
+    x = torch.randn(24, 90, 160, cin, generator=gen, device="cuda")
+    w = torch.randn(cout, cin // groups, 3, 3, generator=gen, device="cuda") / (cin // groups * 9) ** 0.5
+    b = torch.randn(cout, generator=gen, device="cuda")
+    with torch.no_grad():
+        got = conv.conv2d_gemm(x, conv.gemm_weight(w), b, (3, 3), (1, 1), groups)
+        want = conv.conv2d(x, w, b, padding=(1, 1), groups=groups)
+    print(f"groups {groups}: max abs err {float((got - want).abs().max()):.3e} of {float(want.abs().max()):.3e}")
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fp16", ["disable", "enable"])
+def test_node_clip_conv_gemm_and_no_fft(gen, fp16):
+    """The inpaint node on one clip of the benchmark's
+    `inpaint-360p-fp32.object` (24 frames at 640x360, the shapes GEMM_SITES
+    was measured at), after a warm-up: in float32 (fp16 "disable") the GEMM
+    sites launch `conv_gemm` and the profiled clip runs no cuDNN FFT
+    kernel; in bf16 no `conv_gemm` at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.core import session, traffic
+    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint
+
+    spec = session.cell_spec(session.manifest(), "inpaint-360p-fp32.object")
+    widgets = dict(session.widgets(spec), fp16=fp16)
+    image, mask = traffic.inputs(spec.mix, widgets, 7, 0)
+    node = ProPainterInpaint()
+    session.call_node(node, "inpaint", image, mask, widgets)
+    before = launched("conv_gemm")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        session.call_node(node, "inpaint", image, mask, widgets)
+        torch.cuda.synchronize()
+    counted = launched("conv_gemm") - before
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    fft = [n for n in names if any(p in n for p in ("fft", "cf32", "DSE::", "pointwise_mult_and_sum_complex"))]
+    assert not fft, fft
+    assert counted > 0 if fp16 == "disable" else counted == 0

@@ -5,6 +5,7 @@ and its port on the CPU, in fp32. Per-op tolerance: 1e-5 absolute (the
 same arithmetic in another framework; only summation order and fused
 multiply-adds differ)."""
 
+import functools
 import subprocess
 import sys
 
@@ -73,65 +74,99 @@ def test_conv2d(stride, groups, dilation_):
     _close(out, ref)
 
 
-# RAFT's update-loop convs (models/raft.py): name, Cin, Cout of each conv
-# (the GRU's z and r side by side), kernel, padding
+# `conv2d_gemm`'s cases: RAFT's update-loop convs (models/raft.py; the GRU's
+# z and r side by side) and ProPainter's grouped encoder layers
+# (models/propainter.py): name, Cin, Cout of each conv, kernel, padding, groups
 GEMM_CONVS = {
-    "encoder.convc1": (324, (256,), (1, 1), (0, 0)),
-    "encoder.convc2": (256, (192,), (3, 3), (1, 1)),
-    "encoder.convf1": (2, (128,), (7, 7), (3, 3)),
-    "flow_head.conv2": (256, (2,), (3, 3), (1, 1)),
-    "gru.convz1+convr1": (384, (128, 128), (1, 5), (0, 2)),
-    "gru.convq2": (384, (128,), (5, 1), (2, 0)),
+    "encoder.convc1": (324, (256,), (1, 1), (0, 0), 1),
+    "encoder.convc2": (256, (192,), (3, 3), (1, 1), 1),
+    "encoder.convf1": (2, (128,), (7, 7), (3, 3), 1),
+    "flow_head.conv2": (256, (2,), (3, 3), (1, 1), 1),
+    "gru.convz1+convr1": (384, (128, 128), (1, 5), (0, 2), 1),
+    "gru.convq2": (384, (128,), (5, 1), (2, 0), 1),
+    "encoder.layers.10": (640, (512,), (3, 3), (1, 1), 2),
+    "encoder.layers.12": (768, (384,), (3, 3), (1, 1), 4),
+    "encoder.layers.14": (640, (256,), (3, 3), (1, 1), 8),
 }
+# each dtype's tolerance against F.conv2d: fp32 sums in another order;
+# float64 is exact to its own rounding
+GEMM_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
+
+
+def _gemm_case(name, n, h, w, dtype, gen, bias=True):
+    """x, the weights of each conv of the case (scaled to unit outputs) and
+    their biases."""
+    cin, couts, kernel, _, groups = GEMM_CONVS[name]
+    x = torch.randn(n, h, w, cin, generator=gen, dtype=dtype)
+    fan = cin // groups * kernel[0] * kernel[1]
+    ws = [torch.randn(co, cin // groups, *kernel, generator=gen, dtype=dtype) / fan**0.5 for co in couts]
+    bs = [torch.randn(co, generator=gen, dtype=dtype) if bias else None for co in couts]
+    return x, ws, bs
 
 
 @pytest.mark.parametrize("name", list(GEMM_CONVS))
 @pytest.mark.parametrize("n,h,w", [(1, 5, 7), (3, 6, 9)])
 @pytest.mark.parametrize("bias", [True, False])
-def test_conv2d_gemm_matches_conv2d(name, n, h, w, bias):
-    """`conv2d_gemm` on `gemm_weight`'s layout against `F.conv2d`, fp32,
-    each of a fused pair's halves against its own conv; one `conv_gemm`
-    count a call."""
-    cin, couts, kernel, padding = GEMM_CONVS[name]
-    gen = torch.Generator().manual_seed(11)
-    x = torch.randn(n, h, w, cin, generator=gen)
-    ws = [torch.randn(co, cin, *kernel, generator=gen) / (cin * kernel[0] * kernel[1]) ** 0.5 for co in couts]
-    bs = [torch.randn(co, generator=gen) if bias else None for co in couts]
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_conv2d_gemm_matches_conv2d(name, n, h, w, bias, dtype):
+    """`conv2d_gemm` on `gemm_weight`'s layout against `F.conv2d`, in fp32
+    and float64, each of a fused pair's halves against its own conv, the
+    grouped layers as one product a tap batched over the groups; one
+    `conv_gemm` count a call."""
+    _, couts, kernel, padding, groups = GEMM_CONVS[name]
+    x, ws, bs = _gemm_case(name, n, h, w, dtype, torch.Generator().manual_seed(11), bias)
     wt = torch.cat([conv.gemm_weight(w_) for w_ in ws], -1)
     before = profiling.counters().get("conv_gemm", 0)
-    out = conv.conv2d_gemm(x, wt, torch.cat(bs) if bias else None, kernel, padding)
+    out = conv.conv2d_gemm(x, wt, torch.cat(bs) if bias else None, kernel, padding, groups)
     assert profiling.counters()["conv_gemm"] == before + 1
-    assert out.shape == (n, h, w, sum(couts))
+    assert out.shape == (n, h, w, sum(couts)) and out.dtype == dtype
     for part, w_, b_ in zip(out.split(list(couts), -1), ws, bs):
-        ref = F.conv2d(x.permute(0, 3, 1, 2), w_, b_, padding=padding).permute(0, 2, 3, 1)
-        torch.testing.assert_close(part, ref, rtol=1e-5, atol=1e-5)
+        ref = F.conv2d(x.permute(0, 3, 1, 2), w_, b_, padding=padding, groups=groups).permute(0, 2, 3, 1)
+        torch.testing.assert_close(part, ref, rtol=GEMM_TOL[dtype], atol=GEMM_TOL[dtype])
 
 
-@pytest.mark.parametrize("name", ["encoder.convc2", "encoder.convf1", "flow_head.conv2"])
-def test_conv2d_gemm_gradients_match_conv2d(name):
-    """Each of `conv2d_gemm`'s three forms is differentiable: x's, the
-    weight's and the bias's gradients against `F.conv2d`'s, fp32."""
-    cin, (co,), kernel, padding = GEMM_CONVS[name]
+@pytest.mark.parametrize(
+    "name", ["encoder.convc2", "encoder.convf1", "flow_head.conv2", "encoder.layers.10", "encoder.layers.12",
+             "encoder.layers.14"]
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_conv2d_gemm_gradients_match_conv2d(name, dtype):
+    """Each of `conv2d_gemm`'s forms (products a tap, unfolded taps, taps
+    side by side, and a tap's product batched over groups 2, 4 and 8) is
+    differentiable: x's, the weight's and the bias's gradients against
+    `F.conv2d`'s, in fp32 and float64."""
+    _, (co,), kernel, padding, groups = GEMM_CONVS[name]
     gen = torch.Generator().manual_seed(13)
-    x = torch.randn(2, 5, 7, cin, generator=gen, requires_grad=True)
-    w_ = (torch.randn(co, cin, *kernel, generator=gen) / (cin * kernel[0] * kernel[1]) ** 0.5).requires_grad_()
-    b_ = torch.randn(co, generator=gen, requires_grad=True)
-    gout = torch.randn(2, 5, 7, co, generator=gen)
-    out = conv.conv2d_gemm(x, conv.gemm_weight(w_), b_, kernel, padding)
+    x, (w_,), (b_,) = _gemm_case(name, 2, 5, 7, dtype, gen)
+    for t in (x, w_, b_):
+        t.requires_grad_()
+    gout = torch.randn(2, 5, 7, co, generator=gen, dtype=dtype)
+    out = conv.conv2d_gemm(x, conv.gemm_weight(w_), b_, kernel, padding, groups)
     got = torch.autograd.grad(out, (x, w_, b_), gout)
-    ref = F.conv2d(x.permute(0, 3, 1, 2), w_, b_, padding=padding).permute(0, 2, 3, 1)
+    ref = F.conv2d(x.permute(0, 3, 1, 2), w_, b_, padding=padding, groups=groups).permute(0, 2, 3, 1)
     want = torch.autograd.grad(ref, (x, w_, b_), gout)
     for g, wg in zip(got, want):
-        torch.testing.assert_close(g, wg, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(g, wg, rtol=GEMM_TOL[dtype], atol=GEMM_TOL[dtype])
+
+
+def test_conv2d_gemm_refuses_mismatched_groups():
+    """Input channels that the weights' groups do not account for, and the
+    few-channel forms asked for groups, raise."""
+    x = torch.randn(1, 4, 5, 12)
+    with pytest.raises(ValueError):
+        conv.conv2d_gemm(x, torch.randn(9, 5, 8), None, (3, 3), (1, 1), 2)
+    with pytest.raises(ValueError):
+        conv.conv2d_gemm(torch.randn(1, 4, 5, 6), torch.randn(9, 3, 8), None, (3, 3), (1, 1), 2)
 
 
 def test_refine_gemm_convs_match_pconv2d(monkeypatch):
     """RAFT's update loop (3 iterations and the mask head) with the convs
-    forced onto `conv2d_gemm` against `pconv2d`, on the CPU in fp32. The
-    two sum each conv in another order; the GRU and the bilinear lookup
-    carry the difference through the iterations. Here the flows reach
-    2.7 px, the two runs sit 3.1e-6 px apart and each within 3e-6 px of
-    the same loop in float64: atol 2e-5 px, rtol 1e-5."""
+    of GEMM_SITES forced onto `conv2d_gemm` against `pconv2d` on cuDNN's
+    stand-in, on the CPU in fp32. The two sum each conv in another order;
+    the GRU and the bilinear lookup carry the difference through the
+    iterations. Here the flows reach 2.7 px, the two runs sit 3.1e-6 px
+    apart and each within 3e-6 px of the same loop in float64: atol 2e-5
+    px, rtol 1e-5."""
     params = from_jax_params(random_params("raft", seed=5))
     gen = torch.Generator().manual_seed(12)
     n, h8, w8 = 1, 5, 7
@@ -141,12 +176,98 @@ def test_refine_gemm_convs_match_pconv2d(monkeypatch):
     before = profiling.counters().get("conv_gemm", 0)
     ref = traft._refine(params, cnet, lookup, h8, w8, 3)
     assert profiling.counters().get("conv_gemm", 0) == before
-    monkeypatch.setattr(traft, "gemm_convs", lambda x: True)
+    monkeypatch.setattr(conv, "gemm_site", lambda site, x: site in conv.GEMM_SITES)
     out = traft._refine(params, cnet, lookup, h8, w8, 3)
-    # 11 convs an iteration (the GRU's z and r one each 1x5 / 5x1), 2 in the mask head
-    assert profiling.counters()["conv_gemm"] == before + 11 * 3 + 2
+    # 7 convs an iteration (convc1, convc2, convf2, conv, the GRU's 5x1 z|r and
+    # q, flow_head.conv2), 1 in the mask head (mask.2)
+    assert profiling.counters()["conv_gemm"] == before + 7 * 3 + 1
     assert out.shape == (2 * n, 8 * h8, 8 * w8, 2) and ref.abs().max() > 0.1
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=2e-5)
+
+
+@functools.lru_cache(maxsize=1)
+def _all_params() -> dict:
+    """The three networks' random weights in float64, by name (no name is
+    in two networks); made once, read only."""
+    out = {}
+    for model in ("raft", "flow_completion", "inpaint_generator"):
+        p = from_jax_params(random_params(model, seed=4))
+        assert not set(out) & set(p)
+        out.update({k: v.double() for k, v in p.items()})
+    return out
+
+
+def _site_conv(p, site):
+    """A GEMM site's weight, bias, padding (the site's own: half the kernel)
+    and groups."""
+    from comfyui_propainter_nodes_tpu_torch.models import propainter as tpp
+
+    w = p[site + ".weight"]
+    if w.ndim == 5:  # a (1, k, k) conv3d, run as a batched 2D conv (`pconv3d`)
+        w = w[:, :, 0]
+    i = int(site.rsplit(".", 1)[1]) if site.startswith("encoder.layers.") else None
+    return w, p.get(site + ".bias"), (w.shape[2] // 2, w.shape[3] // 2), tpp._ENC_GROUPS.get(i, 1)
+
+
+@pytest.mark.parametrize("site", sorted(conv.GEMM_SITES))
+def test_gemm_sites_match_pconv2d(site):
+    """Each site of GEMM_SITES, its GEMM form (`conv2d_gemm` on `gemm_weight`
+    of its weights, called directly) against its `pconv2d` form (`conv2d`
+    at the site, which keeps F.conv2d on the CPU), in float64 at a small
+    grid: the same conv, equal to float64 rounding."""
+    p = _all_params()
+    w, b, padding, groups = _site_conv(p, site)
+    x = torch.randn(2, 6, 9, w.shape[1] * groups, generator=torch.Generator().manual_seed(14), dtype=torch.float64)
+    before = profiling.counters().get("conv_gemm", 0)
+    want = conv.conv2d(x, w, b, padding=padding, groups=groups, site=site)
+    assert profiling.counters().get("conv_gemm", 0) == before
+    got = conv.conv2d_gemm(x, conv.gemm_weight(w), b, tuple(w.shape[2:]), padding, groups)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+
+def test_gemm_site_rule():
+    """`gemm_site`: a site of GEMM_SITES on CUDA float32 activations with
+    grad mode off; CPU and bf16 activations, other sites and grad mode on
+    (the training step) keep cuDNN (stand-in tensors: the rule reads only
+    the device and the dtype). On the CPU, float32 and bf16 convs at a
+    site launch no `conv_gemm`."""
+    from types import SimpleNamespace as T
+
+    site = sorted(conv.GEMM_SITES)[0]
+    cuda32 = T(is_cuda=True, dtype=torch.float32)
+    with torch.no_grad():
+        assert conv.gemm_site(site, cuda32)
+        assert not conv.gemm_site("encoder.layers.0", cuda32)
+        assert not conv.gemm_site(None, cuda32)
+        assert not conv.gemm_site(site, T(is_cuda=True, dtype=torch.bfloat16))
+        assert not conv.gemm_site(site, T(is_cuda=False, dtype=torch.float32))
+    with torch.enable_grad():
+        assert not conv.gemm_site(site, cuda32)
+    p = _all_params()
+    wt = p[site + ".weight"]
+    before = profiling.counters().get("conv_gemm", 0)
+    for dt in (torch.float32, torch.bfloat16):
+        q = {k: v.to(dt) for k, v in p.items() if k.startswith(site + ".")}
+        conv.pconv2d(q, site, torch.randn(1, 5, 6, wt.shape[1], dtype=dt), padding=(wt.shape[2] // 2, wt.shape[3] // 2))
+    assert profiling.counters().get("conv_gemm", 0) == before
+
+
+def test_laid_weight_is_laid_once_per_tensor():
+    """`laid_weight` lays a weight (or weights side by side) out once per
+    tensor and dtype, again after an in-place write."""
+    w, v = torch.randn(4, 3, 3, 3), torch.randn(2, 3, 3, 3)
+    first = conv.laid_weight((w,), torch.float32)
+    assert conv.laid_weight((w,), torch.float32) is first
+    assert torch.equal(first, conv.gemm_weight(w))
+    pair = conv.laid_weight((w, v), torch.float32)
+    assert pair is not first and torch.equal(pair, torch.cat([conv.gemm_weight(w), conv.gemm_weight(v)], -1))
+    assert conv.laid_weight((w, v), torch.float32) is pair
+    # the same first weight alone again: its own layout, not the pair's
+    assert torch.equal(conv.laid_weight((w,), torch.float32), conv.gemm_weight(w))
+    assert conv.laid_weight((w,), torch.float64).dtype == torch.float64
+    w.mul_(2)
+    again = conv.laid_weight((w,), torch.float32)
+    assert again is not first and torch.equal(again, conv.gemm_weight(w))
 
 
 def test_pconv3d_spatial_and_temporal():
@@ -216,6 +337,26 @@ def test_flow_warp_and_consistency(mode):
            jops.flow_warp(jnp.asarray(x), jnp.asarray(flow), mode))
     _close(warp.fb_consistency_check(torch.from_numpy(flow), torch.from_numpy(flow2)),
            jops.fb_consistency_check(jnp.asarray(flow), jnp.asarray(flow2)), 0)
+
+
+def test_flow_warp_bf16_samples_at_float32_coordinates():
+    """A bf16 map 640 px wide, warped by a sub-pixel flow, samples the same
+    taps with the same weights as the warp at float32 coordinates (grid
+    and `grid + flow` in float32): bit for bit. bf16 coordinates would be
+    exact only up to 256 px, and past it a whole 2-4 px off."""
+    gen = torch.Generator().manual_seed(21)
+    h, w = 4, 640
+    x = torch.randn(1, h, w, 3, generator=gen).to(torch.bfloat16)
+    flow = torch.full((1, h, w, 2), 0.375).to(torch.bfloat16)
+    flow[..., 1] = -0.625
+    coords = (warp.coords_grid(1, h, w) + flow.float()).reshape(1, h * w, 2)
+    want = warp.grid_sample(x, coords).reshape(1, h, w, 3)
+    got = warp.flow_warp(x, flow)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    # float32 maps and flows: the same arithmetic as ever
+    x32, f32 = x.float(), flow.float()
+    assert torch.equal(warp.flow_warp(x32, f32),
+                       warp.grid_sample(x32, (warp.coords_grid(1, h, w) + f32).reshape(1, h * w, 2)).reshape(1, h, w, 3))
 
 
 def test_pools_dilation_patches():
