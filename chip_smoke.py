@@ -1269,6 +1269,7 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
         out = run()
         wall = time.perf_counter() - t0
         counts, b2_shapes = read_counters()
+        card_io = card_io_since()
         stages = node.last_pipeline.stage_seconds
         peak = torch.cuda.max_memory_allocated()
         log(f"  [{tag}] timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
@@ -1277,6 +1278,7 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
         prof = profile_run(run, wall, profile_name)
 
     require_kernels(tag, counts, need, forbid)
+    require(card_io == 1, f"{tag}: node_card_io counted {card_io} in one call of a clip at the process size")
     if prof is not None:
         require(all(prof["kernels_ms"][PROFILED[k]] > 0 for k in need),
                 f"{tag}: a kernel of the path has no device time in the profile: {prof['kernels_ms']}")
@@ -1284,7 +1286,7 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
         require(all(prof["kernels_ms"][PROFILED[k]] == 0 for k in forbid if k in PROFILED),
                 f"{tag}: a kernel off the path has device time in the profile: {prof['kernels_ms']}")
     summary = dict(frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
-                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, profile=prof)
+                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, card_io=card_io, profile=prof)
     return out, summary
 
 
@@ -1447,6 +1449,7 @@ def card_vs_host(switched: bool, outpaint: bool = False):
 
     frames, masks = synthetic_clip(8, 120, 160)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
+    reset_counters()
     if outpaint:
         kw = dict(SMALL_INPAINT, width_scale=1.25, height_scale=1.5)
         runs = [ProPainterOutpaint(device=d).propainter_outpainting(frames, **kw) for d in ("cuda", "cpu")]
@@ -1455,6 +1458,8 @@ def card_vs_host(switched: bool, outpaint: bool = False):
             runs = [ProPainterInpaint(device=d).propainter_inpainting(frames, masks, **SMALL_INPAINT)
                     for d in ("cuda", "cpu")]
     gpu, cpu = runs
+    # 120x160 clips at a 96x64 process size: the host resizes, the card makes no bytes
+    require(card_io_since() == 0, f"card vs host: node_card_io counted {card_io_since()} for resized clips")
     diff = (gpu[0] - cpu[0]).abs()
     share = float((diff > 1.5 / 255).float().mean())
     same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in zip(gpu[1:], cpu[1:]))
@@ -1613,6 +1618,14 @@ def read_counters():
     since = {k: v - _COUNTER_BASE.get(k, 0) for k, v in profiling.counters().items()}
     return ({name: since.get(name, 0) for name in KERNELS},
             {k[len(SHAPE_COUNTER):]: c for k, c in since.items() if k.startswith(SHAPE_COUNTER) and c})
+
+
+def card_io_since() -> int:
+    """The nodes' calls that made their bytes on the card ("node_card_io")
+    since `reset_counters`."""
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+    return profiling.counters().get("node_card_io", 0) - _COUNTER_BASE.get("node_card_io", 0)
 
 
 def require_kernels(tag, counts, need, forbid):

@@ -5,22 +5,28 @@ RETURN_TYPES / RETURN_NAMES / FUNCTION / CATEGORY contract as the
 reference (and the JAX package), so workflow JSONs run unchanged. They
 run on the card: `ProPainterInpaint()` resolves to CUDA and raises when
 there is none; `device="cpu"` runs the plain versions of the kernels on
-the host. Outputs are CPU torch tensors.
+the host. Outputs are CPU torch tensors, new ones each call.
 
-Only what can differ from the input comes back from the device: the
-inpaint node's mask bounding box (`_mask_crop_plan`), the outpaint
-node's bands. The host pastes them over the frames it holds and builds
-the masks outside them itself.
+The host moves bytes and plans; the device does the rest. A clip already
+at the process size goes up as ComfyUI hands it over and is quantized on
+the device (`_quantize`, `_to_u8`'s arithmetic), and the counter
+"node_card_io" counts the call; a clip of another size takes the PIL
+resize on the host, or the device resize without PIL. The inpaint node
+fetches one [H, W] map of the mask's union for its padded box
+(`_mask_crop_plan`) and decodes only that crop; the outpaint node gets
+back only the canvas's bands. Either composes its outputs on the device
+(`_compose`, `_unit`) and fetches them once (`_fetch`).
 
 Each run reports its stages' progress (`utils/profiling.py::NodeProgress`:
 ComfyUI's progress bar, tqdm or stderr) and leaves a run record
 (`utils/metrics.py::last_run`, and a JSON line in the file that
 PROPAINTER_TPU_METRICS names). Its host phases are spans
 (`utils/profiling.py::span`): the root "node.inpaint" / "node.outpaint";
-"node.prepare" before the pipeline ("node.to_bytes", "node.resize",
-"node.crop_plan" (inpaint), "node.upload" with the normalisation and the
-dilations); "node.finish" after it ("node.fetch", "node.paste" with the
-masks).
+"node.prepare" before the pipeline ("node.to_bytes" with the upload of a
+clip at the process size, "node.resize", "node.crop_plan" (inpaint),
+"node.upload" with the other uploads, the normalisation and the
+dilations); "node.finish" after it ("node.paste", the composition on the
+device, and "node.fetch").
 """
 
 from __future__ import annotations
@@ -44,10 +50,11 @@ _PIPELINE_CACHE: dict = {}
 _PARAM_CACHE: dict = {}  # (model, dtype, device, allow_random) -> params on the device
 
 
-def _to_numpy(x) -> np.ndarray:
-    if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+def _as_tensor(x) -> torch.Tensor:
+    """A ComfyUI IMAGE or MASK, a tensor or an array wherever it lies, as a
+    tensor: uint8 as it is, any other dtype as float32."""
+    x = x.detach() if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+    return x if x.dtype == torch.uint8 else x.float()
 
 
 def _to_u8(a: np.ndarray) -> np.ndarray:
@@ -56,6 +63,15 @@ def _to_u8(a: np.ndarray) -> np.ndarray:
     if a.dtype == np.uint8:
         return a
     return np.floor(np.clip(a * 255.0, 0.0, 255.0)).astype(np.uint8)
+
+
+def _quantize(x: torch.Tensor) -> torch.Tensor:
+    """`_to_u8`'s bytes of x (uint8 or float32) as float32, where x lies:
+    floor(clamp(x * 255, 0, 255)), the multiply in float32 as on the host.
+    A new tensor; x is left as it is."""
+    if x.dtype == torch.uint8:
+        return x.float()
+    return torch.mul(x, 255.0).clamp_(0.0, 255.0).floor_()
 
 
 def _host_resize_u8(stack_u8: np.ndarray, pw: int, ph: int):
@@ -100,13 +116,53 @@ def _mask_crop_plan(masks_bin: np.ndarray, ph: int, pw: int, pad: int) -> tuple[
     return y0, x0, ch, cw
 
 
-def _paste(full: np.ndarray, crop, window: torch.Tensor) -> torch.Tensor:
-    """full [T, H, W(, C)] float32 with `window` (a tensor, fetched where
-    it is on the device) written over it at the crop. NumPy on the host: a
-    zero array's pages stay unwritten outside the crop."""
-    y0, x0, ch, cw = crop
-    full[:, y0 : y0 + ch, x0 : x0 + cw] = window.cpu().numpy()
-    return torch.from_numpy(full)
+def _compose(shape, pieces, device) -> torch.Tensor:
+    """A float32 tensor of `shape` [T, H, W(, C)] on `device`: zeros, with
+    each (rows, cols, tensor) of `pieces` written over it in turn (rows
+    and cols slice H and W)."""
+    out = torch.zeros(shape, dtype=torch.float32, device=device)
+    for rows, cols, piece in pieces:
+        out[:, rows, cols] = piece
+    return out
+
+
+def _unit(byte: torch.Tensor) -> torch.Tensor:
+    """byte / 255 in place, each of the 256 quotients correctly rounded as
+    the host's division gives it. The divisor is a tensor on byte's device:
+    CUDA divides by a host scalar as a product with its reciprocal, which
+    moves 126 of the 256 quotients by an ulp."""
+    return byte.div_(torch.tensor(255.0, device=byte.device))
+
+
+def _upload(x: torch.Tensor, device) -> torch.Tensor:
+    """x on `device`. From the host to the card it goes through page-locked
+    memory of PyTorch's caching host allocator, registered at the first
+    call and reused by later ones (3.2 against 10.1 ms for a 24-frame
+    640x360 IMAGE by a pageable copy on an H100's host, PERF.md)."""
+    if torch.device(device).type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
+def _fetch(x: torch.Tensor) -> torch.Tensor:
+    """x, a tensor the node made, in host memory. From the card it lands in
+    page-locked memory of PyTorch's caching host allocator: a new block
+    while the caller holds the last output, a freed one reused otherwise
+    (1.3 against 33 ms for a 24-frame 640x360 IMAGE in float32, whose
+    fresh pageable pages fault one by one; PERF.md)."""
+    if x.device.type == "cuda":
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+    return x.cpu()
+
+
+def _at_size(frames: torch.Tensor, pw: int, ph: int, device) -> bool:
+    """Whether a clip is already at the process size, so that its bytes are
+    made on the device; a call that makes them on the card counts one
+    "node_card_io"."""
+    at = frames.shape[1] == ph and frames.shape[2] == pw
+    if at and torch.device(device).type == "cuda":
+        profiling.count("node_card_io")
+    return at
 
 
 def check_inputs(frames: np.ndarray, masks: np.ndarray) -> None:
@@ -142,7 +198,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _upload_u8(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return _upload(torch.from_numpy(np.ascontiguousarray(a)), device)
 
 
 def _cached_params(model: str, dtype: torch.dtype, device, allow_random: bool) -> dict:
@@ -250,26 +306,29 @@ class ProPainterInpaint:
         with span("node.inpaint"), RunRecorder("inpaint", config, t):
             with span("node.prepare"):
                 with span("node.to_bytes"):
-                    frames = _to_numpy(image)
-                    if frames.dtype != np.uint8:
-                        frames = frames.astype(np.float32, copy=False)
-                    masks = _to_numpy(mask)
-                    if masks.dtype != np.uint8:
-                        masks = masks.astype(np.float32, copy=False)
+                    frames, masks = _as_tensor(image), _as_tensor(mask)
                     if masks.ndim == 2:
                         masks = masks[None]
                     check_inputs(frames, masks)
-                    frames_u8 = _to_u8(frames)
-                    masks_u8 = _to_u8(masks)
-                    if masks_u8.shape[0] == 1:
-                        masks_u8 = np.broadcast_to(masks_u8, (t,) + masks_u8.shape[1:])
+                    on_card = _at_size(frames, pw, ph, dev)
+                    if on_card:  # the tensors go up as they are and turn to bytes there
+                        byte = _quantize(_upload(frames, dev))
+                        masks_bin = _quantize(_upload(masks, dev)) != 0
+                    else:
+                        frames_u8 = _to_u8(frames.cpu().numpy())
+                        masks_u8 = _to_u8(masks.cpu().numpy())
+                        if masks_u8.shape[0] == 1:
+                            masks_u8 = np.broadcast_to(masks_u8, (t,) + masks_u8.shape[1:])
                 # host resize (PIL bicubic, as the reference); on-device otherwise
                 with span("node.resize"):
-                    frames_r = _host_resize_u8(frames_u8, pw, ph)
-                    masks_r = _host_resize_u8(masks_u8, pw, ph)
-                on_host = frames_r is not None and masks_r is not None
+                    if not on_card:
+                        frames_r = _host_resize_u8(frames_u8, pw, ph)
+                        masks_r = _host_resize_u8(masks_u8, pw, ph)
+                        on_host = frames_r is not None and masks_r is not None
                 with span("node.crop_plan"):
-                    if on_host:
+                    if on_card:  # one [H, W] map of the masks' union comes back
+                        crop = _mask_crop_plan(masks_bin.any(0).cpu().numpy()[None], ph, pw, pad)
+                    elif on_host:
                         masks_bin = masks_r != 0
                         crop = _mask_crop_plan(masks_bin, ph, pw, pad)
                     else:
@@ -280,7 +339,10 @@ class ProPainterInpaint:
                         ix = np.minimum((np.arange(pw) * w_in / pw).astype(int), w_in - 1)
                         crop = _mask_crop_plan((masks_u8 != 0)[:, iy][:, :, ix], ph, pw, pad + 4)
                 with span("node.upload"):
-                    if on_host:
+                    if on_card:
+                        base = masks_bin.expand(t, ph, pw).float()
+                        del masks_bin  # the pipeline's peak holds no more than before
+                    elif on_host:
                         byte = _upload_u8(frames_r, dev).float()
                         base = _upload_u8(masks_bin, dev).float()
                     else:
@@ -298,18 +360,18 @@ class ProPainterInpaint:
                     frames_norm[None], flow_masks[None, ..., None], masks_dilated[None, ..., None], byte, crop=crop
                 )
 
-            # fetch the crops only; paste them over the host's own bytes (or
-            # the device-resized frames, fetched once) and over zero masks
+            # the crops pasted over the frames' bytes and over zero masks on the
+            # device; the three outputs come back once
             with span("node.finish"):
-                with span("node.fetch"):
-                    comp = comp_crop.to(torch.uint8).cpu()
-                    base_u8 = frames_r if on_host else byte.to(torch.uint8).cpu().numpy()
                 with span("node.paste"):
                     y0, x0, ch, cw = crop
-                    window = (slice(None), slice(y0, y0 + ch), slice(x0, x0 + cw))
-                    out_images = _paste(base_u8.astype(np.float32), crop, comp).div_(255.0)
-                    fm = _paste(np.zeros((t, ph, pw), np.float32), crop, flow_masks[window].bool())
-                    md = _paste(np.zeros((t, ph, pw), np.float32), crop, masks_dilated[window].bool())
+                    rows, cols, whole = slice(y0, y0 + ch), slice(x0, x0 + cw), slice(None)
+                    pieces = [(whole, whole, byte), (rows, cols, comp_crop.to(torch.uint8))]
+                    out_images = _unit(_compose(byte.shape, pieces, dev))
+                    fm = _compose((t, ph, pw), [(rows, cols, flow_masks[:, rows, cols].bool())], dev)
+                    md = _compose((t, ph, pw), [(rows, cols, masks_dilated[:, rows, cols].bool())], dev)
+                with span("node.fetch"):
+                    out_images, fm, md = _fetch(out_images), _fetch(fm), _fetch(md)
         return out_images, fm.squeeze(), md.squeeze()
 
 
@@ -377,45 +439,44 @@ class ProPainterOutpaint:
         with span("node.outpaint"), RunRecorder("outpaint", config, t):
             with span("node.prepare"):
                 with span("node.to_bytes"):
-                    frames = _to_numpy(image)
-                    if frames.dtype != np.uint8:
-                        frames = frames.astype(np.float32, copy=False)
-                    frames_u8 = _to_u8(frames)
+                    frames = _as_tensor(image)
+                    on_card = _at_size(frames, pw, ph, dev)
+                    if on_card:  # the IMAGE goes up as it is and turns to bytes there
+                        frames_dev = _quantize(_upload(frames, dev)).to(torch.uint8)
+                    else:
+                        frames_u8 = _to_u8(frames.cpu().numpy())
                 with span("node.resize"):
-                    frames_r = _host_resize_u8(frames_u8, pw, ph)
+                    if not on_card:
+                        frames_r = _host_resize_u8(frames_u8, pw, ph)
                 with span("node.upload"):
-                    if frames_r is not None:
-                        interior = frames_r
+                    if not on_card and frames_r is not None:
                         frames_dev = _upload_u8(frames_r, dev)
-                    else:  # resize on the device; its bytes are the interior, fetched once
+                    elif not on_card:  # resize on the device
                         frames_dev = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph).to(torch.uint8)
-                        interior = frames_dev.cpu().numpy()
                 pipe = get_pipeline(config, dev, _allow_random_weights)
                 self.last_pipeline = pipe
 
             with _node_progress(pipe, t):
                 bands_dev = pipe.process_node_outpaint(frames_dev, (chh, cw))
 
+            # the interior is the input's bytes (composed == input there,
+            # exactly); the bands fill the ring around it, on the device
             with span("node.finish"):
-                with span("node.fetch"):
-                    bands = [b.cpu().numpy() for b in bands_dev]
-                # the interior is the host's own bytes (composed == input there,
-                # exactly); the bands fill the ring around it
                 with span("node.paste"):
-                    out = np.zeros((t, chh, cw, 3), np.float32)
                     h_start, w_start = (chh - ph) // 2, (cw - pw) // 2
-                    out[:, h_start : h_start + ph, w_start : w_start + pw] = interior
-                    bi = iter(bands)
+                    rows, cols, whole = slice(h_start, h_start + ph), slice(w_start, w_start + pw), slice(None)
+                    pieces = [(rows, cols, frames_dev)]
+                    bi = iter(bands_dev)
                     if h_start:
-                        out[:, :h_start] = next(bi)
-                        out[:, h_start + ph :] = next(bi)
+                        pieces += [(slice(None, h_start), whole, next(bi))]
+                        pieces += [(slice(h_start + ph, None), whole, next(bi))]
                     if w_start:
-                        out[:, h_start : h_start + ph, :w_start] = next(bi)
-                        out[:, h_start : h_start + ph, w_start + pw :] = next(bi)
-                    # the ring mask is static geometry, built on the host
-                    mask = ring_masks((ph, pw), (chh, cw))[1]
-                    image_out = torch.from_numpy(out).div_(255.0)
-                    mask_out = mask.expand(t, chh, cw).clone().squeeze()
+                        pieces += [(rows, slice(None, w_start), next(bi)), (rows, slice(w_start + pw, None), next(bi))]
+                    image_out = _unit(_compose((t, chh, cw, 3), pieces, dev))
+                    # the ring mask is static geometry, laid out beside the image
+                    mask_out = ring_masks((ph, pw), (chh, cw), dev)[1].expand(t, chh, cw).contiguous()
+                with span("node.fetch"):
+                    image_out, mask_out = _fetch(image_out), _fetch(mask_out).squeeze()
         return image_out, mask_out, cw, chh
 
 

@@ -833,3 +833,74 @@ def test_node_clip_conv_gemm_and_no_fft(gen, fp16):
     fft = [n for n in names if any(p in n for p in ("fft", "cf32", "DSE::", "pointwise_mult_and_sum_complex"))]
     assert not fft, fft
     assert counted > 0 if fp16 == "disable" else counted == 0
+
+
+def test_node_byte_helpers_match_the_host(gen):
+    """The nodes' quantizer, division and composition on the card equal the
+    host's bit for bit: `_to_u8` over the float32 grid of
+    `test_torch_node_card_io.py`, every byte's k / 255 (CUDA's division by a
+    host scalar multiplies by the reciprocal), and a composition of pieces;
+    the fetch lands in new page-locked host memory each call."""
+    from comfyui_propainter_nodes_tpu_torch import nodes
+    from test_torch_node_card_io import _grid
+
+    x = _grid()
+    got = nodes._quantize(torch.from_numpy(x).cuda())
+    assert np.array_equal(got.cpu().numpy(), nodes._to_u8(x).astype(np.float32))
+    k = torch.arange(256, dtype=torch.float32)
+    want = (k.numpy() / np.float32(255)).astype(np.float32)
+    assert np.array_equal(nodes._unit(k.cuda()).cpu().numpy(), want)
+    moved = int((k.cuda().div_(255.0).cpu() != torch.from_numpy(want)).sum())
+    print(f"CUDA's division by a host scalar moves {moved} of the 256 quotients")
+    byte = torch.randint(0, 256, (6, 40, 48, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    band = torch.randint(0, 256, (6, 40, 8, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    crop = torch.rand(6, 16, 24, 3, generator=gen, device="cuda") * 255
+    pieces = [(slice(None), slice(8, 56), byte), (slice(None), slice(None, 8), band),
+              (slice(4, 20), slice(16, 40), crop.to(torch.uint8))]
+    on_card = nodes._unit(nodes._compose((6, 40, 64, 3), pieces, "cuda"))
+    on_host = nodes._unit(nodes._compose((6, 40, 64, 3), [(r, c, p.cpu()) for r, c, p in pieces], "cpu"))
+    first, second = nodes._fetch(on_card), nodes._fetch(on_card)
+    assert first.device.type == "cpu" and first.is_pinned() and first.data_ptr() != second.data_ptr()
+    assert torch.equal(first, on_host) and torch.equal(second, on_host)
+
+
+@pytest.mark.parametrize("kind", ["inpaint", "outpaint"])
+def test_node_card_io_on_the_card_matches_the_host_paste(gen, monkeypatch, kind):
+    """Both nodes on the card, at the benchmark cells' 24 x 360 x 640 (the
+    outpaint node with four bands), on the stand-in pipeline of
+    `test_torch_node_card_io.py`: outputs bit for bit those of the host prep
+    and paste, the pipeline's inputs too; `node_card_io` counts 1 a call at
+    the process size and 0 for a clip the node resizes."""
+    from comfyui_propainter_nodes_tpu_torch import nodes
+    from test_torch_node_card_io import INPAINT, StandIn, host_inpaint, host_outpaint
+
+    rng = np.random.default_rng(3)
+    frames = rng.random((24, 360, 640, 3), dtype=np.float32) * 1.2 - 0.1
+    masks = np.zeros((24, 360, 640), np.float32)
+    for i in range(24):
+        masks[i, 100 + i : 160 + i, 200 + 3 * i : 280 + 3 * i] = 1.0
+    w = dict(INPAINT, width=640, height=360, mask_dilates=5, flow_mask_dilates=8)
+    stand_in = StandIn()
+    monkeypatch.setattr(nodes, "get_pipeline", lambda *a: stand_in)
+    before = launched("node_card_io")
+    if kind == "inpaint":
+        node = nodes.ProPainterInpaint()
+        got = node.propainter_inpainting(frames, masks, **w)
+        want, crop, inputs = host_inpaint(StandIn(), frames, masks, w, dev="cuda")
+        assert node.last_crop == crop
+        for a, b in zip(stand_in.calls[0][:4], inputs):
+            assert torch.equal(a, b)
+        small = (frames[:, ::4, ::4], masks[:, ::4, ::4])
+        resize = lambda: node.propainter_inpainting(*small, **dict(w, width=96, height=64))  # noqa: E731
+    else:
+        w = dict(w, width_scale=1.2, height_scale=1.5)
+        node = nodes.ProPainterOutpaint()
+        got = node.propainter_outpainting(frames, **w)
+        want, frames_dev = host_outpaint(StandIn(), frames, w, dev="cuda")
+        assert torch.equal(stand_in.calls[0][0], frames_dev)
+        resize = lambda: node.propainter_outpainting(frames[:, ::4, ::4], **dict(w, width=96, height=64))  # noqa: E731
+    assert launched("node_card_io") == before + 1
+    for a, b in zip(got, want):
+        assert (torch.equal(a, b) and a.device.type == "cpu") if isinstance(a, torch.Tensor) else a == b
+    resize()
+    assert launched("node_card_io") == before + 1
