@@ -51,14 +51,14 @@ weights lookup of the run takes the cache and nothing is downloaded.
      Function's output has a grad_fn, its input gradients are within 1e-4
      of the plain version's largest, and its backward (the plain
      version's forward and backward) is timed beside, for B3/B4, SDPA's
-     forward and backward on the same inputs; then every conv site of
+     forward and backward on the same inputs; then the conv sites of
      one float32 clip of the benchmark's `inpaint-360p-fp32.object`
-     (24 frames at 640x360), at its shapes, fp32: cuDNN's heuristic (its
-     kernels, FFT or not), the GEMM path (`conv2d_gemm`) and its FLOP
-     bound, with each GEMM site's max abs error; one iteration of RAFT's
-     update block on GEMM_SITES and on cuDNN; and a float32 and a bf16
-     clip of that cell: `conv_gemm` launches (0 in bf16) and no cuDNN
-     FFT kernel in the float32 clip's profile (`check_conv_gemm`);
+     (24 frames at 640x360) that GEMM_SITES names, at their shapes, fp32:
+     each stride 1 and its GEMM path (`conv2d_gemm`) within 1e-3 of
+     cuDNN; one iteration of RAFT's update block on GEMM_SITES and on
+     cuDNN, with its `conv_gemm` count; and a float32 and a bf16 clip of
+     that cell: `conv_gemm` launches (0 in bf16) and no cuDNN FFT kernel
+     in the float32 clip's profile (`check_conv_gemm`);
   3. run ProPainterInpaint(device="cuda") on synthetic 24-frame clips at
      default widgets with seeded random weights, each a warm-up run, a
      timed run with the launch counters reset just before it, and a
@@ -130,83 +130,19 @@ weights lookup of the run takes the cache and nothing is downloaded.
 Needs a CUDA card; exits nonzero without one. Details land in
 chiprun_out/ (ptxas log, profiles, chip_smoke.json).
 
-    python3 chip_smoke.py --tree DIR
-
-times only B1 as RAFT calls it, B2 at its phase-2 shapes and the
-attention kernels B3 and B5 at their phase-2 shapes and inputs, all
-bf16; in fp32 B2 at the main path's, path O's and path T's shapes and
-in the row form at path MH's rank 0, B5 at both token grids, B3 at the
-main path's and path O's phase-2 shapes and B4 at path A's, S's and
-C's (each held against its plain version), path T's
-training step (five after a warm-up, fp32), and the
-node on each of the three paths and the outpaint node on path O (a
-warm-up, five timed runs on the host clock with the median of each
-stage, and a profiled run for the device-to-host copy's time; null for
-a tree without the outpaint node),
-with the port package of another checkout DIR (the same seed, so the
-same inputs in every run), and prints them as one JSON line: two trees
-are compared in one call by running them in turns, parent, change,
-change, parent.
-
-    python3 chip_smoke.py --tree-cm DIR
-
-times path C and path M (2, 1) in bf16 with the port package of another
-checkout DIR (a warm-up and three timed runs each, blocking stage
-timers; one JSON line); run parent, change, change, parent in one call.
-
-    python3 chip_smoke.py --b7-tiles
-
-builds B7 with 16, 32, 64 and 96 pixels a block and times each, in bf16
-and fp32, at its phase-2 shape (one JSON line).
-
-    python3 chip_smoke.py --b2-f32-tiles
-
-builds B2's fp32 kernel with each pair of threads a block and blocks an
-SM in B2_F32_TILES, with its registers and spills, and times each at
-every tap split, at every fp32 phase-2 shape and the row form at path
-MH's rank 0, in turns (each held against its plain version; one JSON
-line).
-
-    python3 chip_smoke.py --f32-splits
-
-times B4's fp32 loop at path A's, S's, C's and path MH rank 0's phase-2
-shapes with 512 and 1024 keys a split and one split a window, each held
-against its plain version, beside B3 on the same inputs, and runs path
-T's first step at each split against the plain versions' step (one JSON
-line).
-
-    python3 chip_smoke.py --fc-plan
-
-measures flow completion's peak memory and time on path H's 85-pair
-chunk at 1920x1080 in every combination of the directions (batched or
-in turn), the encoder (whole or temporal chunks) and its rows (full or
-slabs), at path S's largest chunk and path A's in the port's plan and in
-turn, and RAFT's forms on 25 frames at 1920x1080 (one JSON line).
-
     python3 chip_smoke.py --conv-gemm
 
 times path T's training step as the port runs it (cuDNN under autograd)
 and with the conv sites of `ops/conv.py::GEMM_SITES` on GEMMs there too,
-in turns, then every conv site of a float32 clip as phase 2
-does (`check_conv_gemm`; one JSON line, the sites' table also in
-chiprun_out/conv_gemm.json).
-
-    python3 chip_smoke.py --span-cost
-
-measures the span record's cost with tracing off (utils/profiling.py):
-microseconds a span, a stage timer and a kernel launch's count and
-range check, also under a CPU profiler, `trace_us` against a CPU and
-CUDA profiler's trace, and on one call of each
-benchmark cell's node (24 frames at 640x360, inpaint in fp32, outpaint
-in bf16) its ring records and kernel launches a clip and their cost off,
-and untraced against traced (blocking) clips in turns (one JSON line).
+in turns, then phase 2's conv checks with every conv site of the float32
+clip timed both ways (`check_conv_gemm`; one JSON line, the sites' table
+also in chiprun_out/conv_gemm.json).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import importlib.util
 import json
 import math
 import os
@@ -610,18 +546,20 @@ def cudnn_kernels(run) -> dict:
     return {e.key[:96]: e.device_time_total / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def check_conv_gemm(gen) -> dict:
+def check_conv_gemm(gen, table: bool = True) -> dict:
     """Every conv site of one float32 inpaint clip (`clip_conv_sites`), fp32
-    with TF32 off, at its shapes: cuDNN's heuristic (`cudnn_ms`, its kernels
-    and whether one is an FFT convolution's), the GEMM path
-    (`ops/conv.py::conv2d_gemm`, stride-1 undilated sites: `gemm_ms`), the
-    bound (its FLOPs over 67 TFLOP/s), each a call and times the clip's
-    calls; the GEMM output's max abs error against cuDNN's at the whole
-    shape and, on its first two images, both against float64. Each site
-    that GEMM_SITES names must be stride 1 and hold its GEMMs to 1e-3 of
-    cuDNN. Then one iteration of RAFT's update block (no lookup) and the
-    mask head at MAIN_RAFT_ROWS, on GEMM_SITES and on cuDNN, with the
-    `conv_gemm` count and the block's max abs errors."""
+    with TF32 off, at its shapes: each site that GEMM_SITES names must be
+    stride 1 and undilated, and its GEMM output (`ops/conv.py::conv2d_gemm`)
+    within 1e-3 of cuDNN's at the whole shape. Then one iteration of RAFT's
+    update block (no lookup) and the mask head at MAIN_RAFT_ROWS, on
+    GEMM_SITES (8 `conv_gemm` launches) and on cuDNN (none), within 1e-3 of
+    each other; and `clip_fft_check`. With `table` (`--conv-gemm`) every
+    site, also those on cuDNN, is timed: cuDNN's heuristic (`cudnn_ms`, its
+    kernels and whether one is an FFT convolution's), the GEMM path
+    (`gemm_ms`) and the bound (its FLOPs over 67 TFLOP/s), each a call and
+    times the clip's calls, with both outputs against float64 on the first
+    two images and the rule GEMM_SITES was set by; and the update block
+    both ways."""
     from comfyui_propainter_nodes_tpu_torch.models import raft as traft
     from comfyui_propainter_nodes_tpu_torch.ops import conv
     from comfyui_propainter_nodes_tpu_torch.utils import profiling
@@ -634,49 +572,65 @@ def check_conv_gemm(gen) -> dict:
         f"{sum(c[0] for c in calls.values())} calls ({time.perf_counter() - t0:.1f} s)")
     sites = []
     for (site, xs, ws, stride, pad, dil, groups), (n_calls, clip_ms, clip_peak) in calls.items():
+        gemm_site = site in conv.GEMM_SITES
+        if not (table or gemm_site):
+            continue
         x = torch.randn(xs, generator=gen, device="cuda")
         w = torch.randn(ws, generator=gen, device="cuda") / math.sqrt(ws[1] * ws[2] * ws[3])
         b = torch.randn(ws[0], generator=gen, device="cuda")
+        row = dict(site=site, calls=n_calls, x=xs, w=ws, stride=stride, padding=pad, dilation=dil, groups=groups,
+                   in_clip_ms=clip_ms, in_clip_extra_bytes=clip_peak, gemm_site=gemm_site)
         with torch.no_grad():
             ref = conv.conv2d(x, w, b, stride, pad, dil, groups)
-            cudnn_ms = time_ms(lambda: conv.conv2d(x, w, b, stride, pad, dil, groups), reps=5, warmup=1, batch=2)
-            kernels = cudnn_kernels(lambda: conv.conv2d(x, w, b, stride, pad, dil, groups))
-            row = dict(site=site, calls=n_calls, x=xs, w=ws, stride=stride, padding=pad, dilation=dil, groups=groups,
-                       in_clip_ms=clip_ms, in_clip_extra_bytes=clip_peak, cudnn_ms=cudnn_ms, cudnn_kernels=kernels, fft=any(k in name for name in kernels for k in FFT_KERNELS),
-                       bound_ms=2.0 * ref.numel() * ws[1] * ws[2] * ws[3] / PEAK_FLOPS[torch.float32] * 1e3,
-                       gemm_site=site in conv.GEMM_SITES)
+            if table:
+                row["cudnn_ms"] = time_ms(lambda: conv.conv2d(x, w, b, stride, pad, dil, groups), reps=5, warmup=1,
+                                          batch=2)
+                kernels = cudnn_kernels(lambda: conv.conv2d(x, w, b, stride, pad, dil, groups))
+                row.update(cudnn_kernels=kernels, fft=any(k in name for name in kernels for k in FFT_KERNELS),
+                           bound_ms=2.0 * ref.numel() * ws[1] * ws[2] * ws[3] / PEAK_FLOPS[torch.float32] * 1e3)
             if stride == (1, 1) and dil == (1, 1) and (groups == 1 or min(xs[3], ws[0]) >= conv.FEW_CHANNELS):
                 wt = conv.gemm_weight(w)
                 got = conv.conv2d_gemm(x, wt, b, ws[2:], pad, groups)
-                row["gemm_ms"] = time_ms(lambda: conv.conv2d_gemm(x, wt, b, ws[2:], pad, groups), reps=5, warmup=1,
-                                         batch=2)
                 row["max_abs_err"] = (got - ref).abs().max().item()
-                f64 = conv.conv2d(x[:2].double(), w.double(), b.double(), stride, pad, dil, groups)
-                row["gemm_vs_f64"] = (got[:2] - f64).abs().max().item()
-                row["cudnn_vs_f64"] = (ref[:2] - f64).abs().max().item()
                 row["out_max"] = ref.abs().max().item()
-                del got, wt, f64
-        # the rule GEMM_SITES was set by: FFT, 1.5x the GEMMs' time, or 4 GiB held in the clip
-        row["rule"] = "gemm_ms" in row and (row["fft"] or cudnn_ms >= 1.5 * row["gemm_ms"] or clip_peak >= 4 << 30)
-        if row["gemm_site"]:
-            require("gemm_ms" in row, f"GEMM site {site} is not a stride-1 undilated conv: {row}")
+                if table:
+                    row["gemm_ms"] = time_ms(lambda: conv.conv2d_gemm(x, wt, b, ws[2:], pad, groups), reps=5,
+                                             warmup=1, batch=2)
+                    f64 = conv.conv2d(x[:2].double(), w.double(), b.double(), stride, pad, dil, groups)
+                    row["gemm_vs_f64"] = (got[:2] - f64).abs().max().item()
+                    row["cudnn_vs_f64"] = (ref[:2] - f64).abs().max().item()
+                    del f64
+                del got, wt
+        if gemm_site:
+            require("max_abs_err" in row, f"GEMM site {site} is not a stride-1 undilated conv: {row}")
             require(row["max_abs_err"] < 1e-3, f"GEMM site {site} against cuDNN: {row['max_abs_err']:.3e}")
+        shape = f"conv {site} x{list(xs)} w{list(ws)} s{stride[0]} g{groups} x{n_calls}"
+        err = (f"max abs err {row['max_abs_err']:.2e} of {row['out_max']:.2e}" if "max_abs_err" in row else "")
+        if table:
+            # the rule GEMM_SITES was set by: FFT, 1.5x the GEMMs' time, or 4 GiB held in the clip
+            row["rule"] = "gemm_ms" in row and (row["fft"] or row["cudnn_ms"] >= 1.5 * row["gemm_ms"]
+                                                or clip_peak >= 4 << 30)
+            log(f"  {shape} (in the clip {clip_ms:.2f} ms, {clip_peak / 2**30:.2f} GiB above): cuDNN "
+                f"{row['cudnn_ms']:.4f} ms{' (FFT)' if row['fft'] else ''}, GEMM "
+                + (f"{row['gemm_ms']:.4f}" if "gemm_ms" in row else "-") + f", bound {row['bound_ms']:.4f}"
+                + (f"; {err} (vs float64: GEMM {row['gemm_vs_f64']:.2e}, cuDNN {row['cudnn_vs_f64']:.2e})"
+                   if "gemm_ms" in row else "")
+                + (" [GEMM site]" if gemm_site else "") + (" [rule: GEMM]" if row["rule"] else ""))
+        else:
+            log(f"  GEMM site {shape}: {err} against cuDNN")
         sites.append(row)
-        log(f"  conv {site} x{list(xs)} w{list(ws)} s{stride[0]} g{groups} x{n_calls} (in the clip {clip_ms:.2f} ms, "
-            f"{clip_peak / 2**30:.2f} GiB above): cuDNN {cudnn_ms:.4f} ms"
-            f"{' (FFT)' if row['fft'] else ''}, GEMM " + (f"{row['gemm_ms']:.4f}" if "gemm_ms" in row else "-")
-            + f", bound {row['bound_ms']:.4f}" + (f"; max abs err {row['max_abs_err']:.2e} of {row['out_max']:.2e} "
-            f"(vs float64: GEMM {row['gemm_vs_f64']:.2e}, cuDNN {row['cudnn_vs_f64']:.2e})" if "gemm_ms" in row else "")
-            + (" [GEMM site]" if row["gemm_site"] else "") + (" [rule: GEMM]" if row["rule"] else ""))
         del x, w, b, ref
         torch.cuda.empty_cache()
-    clip = {k: sum(r.get(k + "_ms", 0.0) * r["calls"] for r in sites) for k in ("cudnn", "bound")}
-    clip["path"] = sum(r["calls"] * (r["gemm_ms"] if r["gemm_site"] else r["cudnn_ms"]) for r in sites)
-    clip["fft_sites_off_gemm"] = sorted({r["site"] for r in sites if r["fft"] and not r["gemm_site"]})
-    clip["rule_disagrees"] = sorted({r["site"] for r in sites if r["rule"] != r["gemm_site"]})
-    log(f"  a clip's convs: cuDNN {clip['cudnn']:.1f} ms, as GEMM_SITES runs them {clip['path']:.1f} ms, bound "
-        f"{clip['bound']:.1f} ms; FFT sites left on cuDNN: {clip['fft_sites_off_gemm']}; sites where this run's "
-        f"reading of the rule differs from GEMM_SITES: {clip['rule_disagrees']}")
+    res = dict(sites=sites)
+    if table:
+        clip = {k: sum(r.get(k + "_ms", 0.0) * r["calls"] for r in sites) for k in ("cudnn", "bound")}
+        clip["path"] = sum(r["calls"] * (r["gemm_ms"] if r["gemm_site"] else r["cudnn_ms"]) for r in sites)
+        clip["fft_sites_off_gemm"] = sorted({r["site"] for r in sites if r["fft"] and not r["gemm_site"]})
+        clip["rule_disagrees"] = sorted({r["site"] for r in sites if r["rule"] != r["gemm_site"]})
+        log(f"  a clip's convs: cuDNN {clip['cudnn']:.1f} ms, as GEMM_SITES runs them {clip['path']:.1f} ms, bound "
+            f"{clip['bound']:.1f} ms; FFT sites left on cuDNN: {clip['fft_sites_off_gemm']}; sites where this run's "
+            f"reading of the rule differs from GEMM_SITES: {clip['rule_disagrees']}")
+        res["clip_ms"] = clip
     rows, h8, w8 = MAIN_RAFT_ROWS
     params = {k: v.cuda() for k, v in from_jax_params(random_params("raft", seed=3)).items()}
     net = torch.tanh(torch.randn(rows, h8, w8, 128, generator=gen, device="cuda"))
@@ -694,14 +648,19 @@ def check_conv_gemm(gen) -> dict:
                 block[tag] = step()
                 counted = profiling.counters().get("conv_gemm", 0) - before
                 require(counted == (8 if tag == "gemm" else 0), f"conv_gemm counted {counted} on the {tag} path")
-                block[tag + "_ms"] = time_ms(lambda: traft._update_block(params, net, inp, corr, flow), reps=7, batch=2)
+                if table:
+                    block[tag + "_ms"] = time_ms(lambda: traft._update_block(params, net, inp, corr, flow), reps=7,
+                                                 batch=2)
     errs = [(g - c).abs().max().item() for g, c in zip(block["gemm"], block["cudnn"])]
     require(max(errs) < 1e-3, f"update block on GEMMs against cuDNN: max abs err {errs}")
-    update_block = dict(rows=MAIN_RAFT_ROWS, ms=block["gemm_ms"], cudnn_ms=block["cudnn_ms"],
-                        max_abs_err_net_delta_mask=errs)
-    log(f"  update block, one iteration at {MAIN_RAFT_ROWS}: GEMMs {block['gemm_ms']:.3f} ms, cuDNN "
-        f"{block['cudnn_ms']:.3f} ms; max abs err (net, delta, mask) {errs}")
-    return dict(sites=sites, clip_ms=clip, update_block=update_block, clip=clip_fft_check())
+    res["update_block"] = dict(rows=MAIN_RAFT_ROWS, max_abs_err_net_delta_mask=errs)
+    if table:
+        res["update_block"].update(ms=block["gemm_ms"], cudnn_ms=block["cudnn_ms"])
+        log(f"  update block, one iteration at {MAIN_RAFT_ROWS}: GEMMs {block['gemm_ms']:.3f} ms, cuDNN "
+            f"{block['cudnn_ms']:.3f} ms")
+    log(f"  update block at {MAIN_RAFT_ROWS}, GEMMs against cuDNN: max abs err (net, delta, mask) {errs}")
+    res["clip"] = clip_fft_check()
+    return res
 
 
 @contextlib.contextmanager
@@ -725,7 +684,7 @@ def gemm_under_autograd():
 
     saved = conv.gemm_site, conv.laid_weight
     conv.gemm_site = lambda site, x: site in conv.GEMM_SITES and x.is_cuda and x.dtype == torch.float32
-    conv.laid_weight = lambda ws, dtype: torch.cat([conv.gemm_weight(w.to(dtype)) for w in ws], -1)
+    conv.laid_weight = lambda layout, ws, dtype: layout(*ws, dtype=dtype)
     try:
         yield
     finally:
@@ -817,11 +776,6 @@ def deform_inputs(dt, gen, shape, rows=None):
     wt = (torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") / math.sqrt(9 * cin)).to(dt)
     bias = (torch.randn(cout, generator=gen, device="cuda") * 0.05).to(dt)
     return x, off, mask, wt, bias
-
-
-def b2_case(tag: str):
-    """x's shape and (row0, Ho) (None: the whole image) of a B2 tag."""
-    return B2_ROWS[tag] if tag in B2_ROWS else (B2_SHAPES[tag], None)
 
 
 def deform_bound(shape, m: int, cout: int, dt) -> tuple[float, str]:
@@ -1258,19 +1212,22 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
     after), profiled run of a node's `run`. `need` kernels must have
     launched in the timed run, `forbid` kernels must not. Returns the
     timed run's outputs and its summary."""
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
     with switches(switched):
         t0 = time.perf_counter()
         run()
         log(f"  warm-up run {time.perf_counter() - t0:.3f} s")
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
+        profiling.reset_stages()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run()
         wall = time.perf_counter() - t0
         counts, b2_shapes = read_counters()
         card_io = card_io_since()
-        stages = node.last_pipeline.stage_seconds
+        stages = stage_seconds()
         peak = torch.cuda.max_memory_allocated()
         log(f"  [{tag}] timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
             + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
@@ -1330,8 +1287,9 @@ def outpaint_run(need, forbid):
     """Path O: the outpaint node at default widgets on 24 frames of
     640x360 (a 768x360 canvas, `drive`), and its output checks: the
     interior is the input exactly, both bands are painted, the mask is
-    the ring and the size is the canvas's. The interior is the host's
-    own bytes, so the bands are all the card computed: they are held
+    the ring and the size is the canvas's. The interior is the input's
+    bytes (the composite keeps them), so the bands are all the card
+    computes: they are held
     against the same node at fp16="disable" on the card (fp32 RAFT and
     B2, attention through B4's fp32 loop, which the dispatcher's
     estimate picks for fp32 at these shapes)."""
@@ -1618,6 +1576,14 @@ def read_counters():
     since = {k: v - _COUNTER_BASE.get(k, 0) for k, v in profiling.counters().items()}
     return ({name: since.get(name, 0) for name in KERNELS},
             {k[len(SHAPE_COUNTER):]: c for k, c in since.items() if k.startswith(SHAPE_COUNTER) and c})
+
+
+def stage_seconds() -> dict:
+    """Each stage's seconds in the stage table (`profiling.summary()`)
+    since the last `profiling.reset_stages()`."""
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+    return {k: v["seconds"] for k, v in profiling.summary().items()}
 
 
 def card_io_since() -> int:
@@ -1965,79 +1931,9 @@ def stream_vs_memory(fp16: str) -> dict:
                 blends_in_memory=mem_blends, blends_streaming=stream_blends, first_difference=where)
 
 
-def site_times(gen) -> dict:
-    """bf16 times for `--tree`: B1 as RAFT's default branch calls it (both
-    directions, output in the compute dtype; a package whose lookup takes
-    one pyramid is timed as its RAFT called it, two launches, a cat and a
-    cast) and B2 at its six node shapes."""
-    import inspect
-
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
-
-    dt = torch.bfloat16
-    fwd, bwd, coords = corr_lookup_inputs(dt, gen)
-    n = coords.shape[0] // 2
-    if "pyramid_b" in inspect.signature(b1.corr_lookup).parameters:
-        site = lambda: b1.corr_lookup(fwd, coords, bwd).to(dt)  # noqa: E731
-    else:
-        site = lambda: torch.cat([b1.corr_lookup(fwd, coords[:n].contiguous()),  # noqa: E731
-                                  b1.corr_lookup(bwd, coords[n:].contiguous())]).to(dt)
-    times = {"B1_raft_site": time_ms(site)}
-    del fwd, bwd
-    for tag, shape in B2_SHAPES.items():
-        args = deform_inputs(dt, gen, shape)
-        times[f"B2_{tag}"] = time_ms(lambda: b2.deform_conv2d(*args))
-    return times
-
-
-def tree_f32_times(gen) -> dict:
-    """fp32 times for `--tree`: B2 at the main path's, path O's and path
-    T's shapes and in the row form at path MH's rank 0, B5 at both token
-    grids, B3 at the main path's and path O's phase-2 shapes, B4 at path
-    A's, S's and C's, each held against its plain version (rel 1e-4)
-    first."""
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
-
-    times = {}
-    for tag in ("fp", "fc", "fpO", "fcO", "fpT", "fpMH0"):
-        shape, rows = b2_case(tag)
-        row0 = 0 if rows is None else rows[0]
-        args = deform_inputs(torch.float32, gen, shape, rows)
-        _, rel = rel_err(b2.deform_conv2d(*args, row0=row0), b2.deform_conv2d_plain(*args, row0=row0))
-        require(rel <= 1e-4, f"B2 {tag} fp32 disagrees with its plain version: rel {rel:.3e}")
-        times[f"B2_{tag}_fp32"] = time_ms(lambda: b2.deform_conv2d(*args, row0=row0))
-        del args
-    for grid, occ in (((30, 54), clip_occupancy(360, 640)), ((60, 108), clip_occupancy(720, 1280))):
-        args = halo_inputs(torch.float32, gen, 5, 13, 7, grid, occ)
-        kw = dict(window_size=(5, 9), n_head=4)
-        _, rel = rel_err(b5.window_attention_halo(*args, **kw), b5.window_attention_halo_plain(*args, **kw))
-        require(rel <= 1e-4, f"B5 {grid} fp32 disagrees with its plain version: rel {rel:.3e}")
-        times[f"B5_{grid[0]}x{grid[1]}_fp32"] = time_ms(lambda: b5.window_attention_halo(*args, **kw))
-        del args
-        torch.cuda.empty_cache()
-    b3, b4 = attention_f32_shapes()
-    for tag in ("B3e", "B3o", "B3eO", "B3oO", "B4e", "B4o", "B4eS", "B4oS", "B4eC", "B4oC"):
-        if tag in b3:
-            (t_sel, occ, n_win, pl_per, _), b, t = b3[tag], 5, 13
-            fn, plain = mod.window_attention, mod.window_attention_plain
-        else:
-            t_sel, occ, b, t, n_win, pl_per = b4[tag]
-            fn, plain = mod.window_attention_tiled, mod.window_attention_tiled_plain
-        args = attention_inputs(torch.float32, gen, n_win, t_sel, pl_per, occ, b, t)
-        _, rel = rel_err(fn(*args, n_win_per_b=n_win), plain(*args, n_win))
-        require(rel <= 1e-4, f"{tag} fp32 disagrees with its plain version: rel {rel:.3e}")
-        times[f"{tag}_fp32"] = time_ms(lambda: fn(*args, n_win_per_b=n_win))
-        del args
-        torch.cuda.empty_cache()
-    return times
-
-
 def tree_path_t_steps() -> list:
-    """Path T's training step (fp32) for `--tree`: host-clock seconds of
-    PATH_T_STEPS synchronised steps after a warm-up step."""
+    """Path T's training step (fp32) for `--conv-gemm`: host-clock seconds
+    of PATH_T_STEPS synchronised steps after a warm-up step."""
     from comfyui_propainter_nodes_tpu_torch.training.train_step import init_state, make_train_step
     from comfyui_propainter_nodes_tpu_torch.utils import weights
 
@@ -2054,181 +1950,6 @@ def tree_path_t_steps() -> list:
     del state, batch
     torch.cuda.empty_cache()
     return walls[1:]
-
-
-def dtoh_ms(run) -> float:
-    """Device time of the device-to-host copies of one `run`, profiled."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return sum(r[0] for r in _device_rows(prof) if "DtoH" in r[2])
-
-
-def tree_times(tree: str) -> int:
-    """`--tree DIR`: B1, B2, B3 and B5 bf16 times, B2-B5 fp32 times
-    (`tree_f32_times`), path T's step times (`tree_path_t_steps`), and node
-    wall times
-    and device-to-host copy times on each path of the port package in DIR
-    (the outpaint node's path O null where DIR has no such node)."""
-    sys.path.insert(0, os.path.abspath(tree))
-    import comfyui_propainter_nodes_tpu_torch as pkg
-    from comfyui_propainter_nodes_tpu_torch import nodes
-
-    require(os.path.dirname(os.path.abspath(pkg.__file__)).startswith(os.path.abspath(tree)), pkg.__file__)
-    if importlib.util.find_spec("comfyui_propainter_nodes_tpu_torch.utils.profiling") is not None:
-        from comfyui_propainter_nodes_tpu_torch.utils import profiling
-
-        profiling.set_blocking(True)  # stage times synchronised, as a tree without the timers takes them
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    occ360, occ720 = clip_occupancy(360, 640), clip_occupancy(720, 1280)
-    dt = torch.bfloat16
-    times = {
-        **site_times(gen),
-        "B3_t_sel7": check_window_attention(dt, gen, 7, occ360)["ms"],
-        "B3_t_sel6": check_window_attention(dt, gen, 6, occ360)["ms"],
-        "B5_30x54": check_window_attention_halo(dt, gen, (30, 54), occ360)["ms"],
-        "B5_60x108": check_window_attention_halo(dt, gen, (60, 108), occ720)["ms"],
-        **tree_f32_times(gen),
-    }
-    path_t = tree_path_t_steps()
-    walls, dtoh, stages = {}, {}, {}
-    for path, h, w, switched in (("main_s", 360, 640, False), ("path_a_s", 720, 1280, False),
-                                 ("path_b_s", 360, 640, True), ("path_o_s", 360, 640, False)):
-        frames, masks = synthetic_clip(24, h, w)
-        if path != "path_o_s":
-            node = nodes.ProPainterInpaint(device="cuda")
-            run = lambda: node.propainter_inpainting(frames, masks, width=w, height=h, **WIDGETS)  # noqa: E731
-        elif hasattr(nodes, "ProPainterOutpaint"):
-            node = nodes.ProPainterOutpaint(device="cuda")
-            run = lambda: node.propainter_outpainting(  # noqa: E731
-                frames, width=w, height=h, width_scale=1.2, height_scale=1.0, **WIDGETS)
-        else:
-            walls[path], dtoh[path], stages[path] = None, None, None
-            continue
-        runs, per_stage = [], []
-        with switches(switched):
-            for _ in range(6):  # the first is the warm-up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                runs.append(time.perf_counter() - t0)
-                per_stage.append(node.last_pipeline.stage_seconds)
-            dtoh[path] = dtoh_ms(run)
-        walls[path] = runs[1:]
-        stages[path] = {k: statistics.median(s[k] for s in per_stage[1:]) for k in per_stage[-1]}
-    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "ms": times, **walls,
-                      "dtoh_ms": dtoh, "stage_medians_s": stages, "path_t_step_s": path_t}))
-    return 0
-
-
-TREE_CM_REPS = 3  # `--tree-cm`'s timed runs a path
-
-
-def timed_runs(pipe, args, before=None) -> list:
-    """A warm-up, then TREE_CM_REPS synchronised runs of pipe.process:
-    each run's wall and stage seconds (blocking stage timers)."""
-    pipe.process(*args)
-    runs = []
-    for _ in range(TREE_CM_REPS):
-        if before is not None:
-            before()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.process(*args)
-        torch.cuda.synchronize()
-        runs.append(dict(pipe.stage_seconds, wall=time.perf_counter() - t0))
-    return runs
-
-
-def tree_cm_rank(rank: int, tree: str, rendezvous: str, out: str) -> None:
-    """One of `--tree-cm`'s two ranks: path M (2, 1) in bf16 over gloo with
-    the port package in `tree`; its runs written to `out`."""
-    import datetime
-
-    import torch.distributed as dist
-
-    sys.path.insert(0, os.path.abspath(tree))
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    from comfyui_propainter_nodes_tpu_torch.parallel.mesh import make_mesh
-    from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
-    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
-
-    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=2,
-                            timeout=datetime.timedelta(seconds=M_COLLECTIVE_TIMEOUT_S))
-    try:
-        profiling.set_blocking(True)
-        params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
-        mesh = make_mesh(model_parallel=1)
-        pipe = Pipeline(*params, path_config("enable"), mesh=mesh)
-        with open(out, "w") as f:
-            json.dump(timed_runs(pipe, path_inputs(mesh.device), dist.barrier), f)
-    finally:
-        dist.destroy_process_group()
-
-
-def tree_cm(tree: str) -> int:
-    """`--tree-cm DIR`: path C (`PROPAINTER_TPU_CLIP_PARALLEL=1`, one
-    card) and path M (2, 1) (two ranks over gloo on the card) in bf16
-    with the port package in DIR, a warm-up and TREE_CM_REPS timed runs
-    each; prints one JSON line with every run and the medians."""
-    sys.path.insert(0, os.path.abspath(tree))
-    import comfyui_propainter_nodes_tpu_torch as pkg
-    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
-    from comfyui_propainter_nodes_tpu_torch.utils import profiling
-
-    require(os.path.dirname(os.path.abspath(pkg.__file__)).startswith(os.path.abspath(tree)), pkg.__file__)
-    profiling.set_blocking(True)
-    pipe = get_pipeline(path_config("enable"), torch.device("cuda"), True)
-    os.environ["PROPAINTER_TPU_CLIP_PARALLEL"] = "1"
-    try:
-        path_c = timed_runs(pipe, path_inputs("cuda"))
-    finally:
-        os.environ.pop("PROPAINTER_TPU_CLIP_PARALLEL")
-    del pipe
-    with tempfile.TemporaryDirectory() as d:
-        outs = [os.path.join(d, f"rank{r}.json") for r in range(2)]
-        spawn_ranks(tree_cm_rank, [(r, tree, os.path.join(d, "rendezvous"), outs[r]) for r in range(2)])
-        path_m = []
-        for o in outs:
-            with open(o) as f:
-                path_m.append(json.load(f))
-
-    def medians(runs):
-        return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-
-    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "path_c": path_c, "path_m_2x1": path_m,
-                      "medians": {"path_c": medians(path_c), "path_m_2x1": [medians(r) for r in path_m]}}))
-    return 0
-
-
-def measure(fn, reps: int = 3) -> dict:
-    """fn's peak allocated above what is allocated before it (an
-    out-of-memory is recorded as such) and the median of `reps` timed
-    calls after the first; the last output under "out"."""
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        out = fn()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        times = []
-        for _ in range(reps):
-            del out
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return {"peak_gib": peak / 2**30, "seconds": statistics.median(times), "out": out}
-    except torch.cuda.OutOfMemoryError as e:
-        return {"oom": str(e).splitlines()[0]}
-    finally:
-        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -2251,363 +1972,9 @@ def budgets(**values):
             setattr(mods[mod], name, v)
 
 
-BIG = 1 << 62
-# --fc-plan's combinations at 1920x1080: directions, encoder, rows
-FC_COMBOS = {
-    (d, e, r): dict(fc__BATCH_BYTES=BIG if d == "batched" else 0, fc__ENCODE_BYTES=BIG if e == "whole" else 0,
-                    fc__SLAB_BYTES=BIG if r == "full rows" else 1 << 30)
-    for d in ("batched", "in turn") for e in ("whole", "temporal chunks") for r in ("full rows", "slabs")
-}
-
-
-def raft_form_budgets(h8: int, w8: int) -> list:
-    """(form, RAFT_CALL_BYTES) that make `raft_form` pick the path's own
-    form (None), then a pair a call, then a pair a call with the
-    directions in turn, for calls of the map blend at h8 x w8, bf16."""
-    from comfyui_propainter_nodes_tpu_torch.models.raft import call_bytes
-
-    one = call_bytes(1, h8, w8, 2, "map")
-    return [(None, BIG), ("per pair", 1.5 * one), ("per pair, directions in turn", 1)]
-
-
-def fc_plan() -> int:
-    """`--fc-plan`: flow completion's memory plans, bf16, random weights:
-    at path H's first completion chunk (85 pairs at 1920x1080) every
-    combination of the directions (batched or in turn), the encoder (the
-    whole clip or temporal chunks) and its rows (full, or slabs within 1
-    GiB a call), forced through the budgets; at path S's 90-pair chunk and
-    path A's 23 pairs at 1280x720 the port's plan, the directions in turn,
-    and (path A) the decoder in one call. Then RAFT's forms at path H's
-    sub-range of 24 pairs (25 frames at 1920x1080, 20 iterations): chunks
-    of 2 pairs, a pair a call, a pair a call with the directions in turn
-    (their flows against the chunks'). Each: the peak above its inputs (an
-    out-of-memory is recorded as such) and the median of 3 timed calls
-    after a warm-up; prints one JSON line."""
-    from comfyui_propainter_nodes_tpu_torch.config import PipelineConfig
-    from comfyui_propainter_nodes_tpu_torch.models import flow_completion as fc
-    from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
-    from comfyui_propainter_nodes_tpu_torch.pipeline import stages
-
-    _build.build()
-    _build.library()
-    result = {}
-    g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(PATH_H, 85, FC_COMBOS), (PATH_S, 90, None), (PATH_S, 23, None)]
-    for (_, h, w), pairs, combos in cases:
-        pipe = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
-        p = pipe.flow_params
-        if combos is None:
-            combos = {("port plan",): {}, ("in turn",): dict(fc__BATCH_BYTES=0)}
-            if pairs == 23:
-                combos[("decoded at once",)] = dict(fc__DECODE_BYTES=BIG)
-        ff, fb = (torch.randn(2, 1, pairs, h, w, 2, generator=g, device="cuda") * 3).to(torch.bfloat16)
-        mk = torch.zeros(1, pairs + 1, h, w, 1, device="cuda", dtype=torch.bfloat16)
-        mk[:, :, h // 3 : 2 * h // 3, w // 3 : w // 2] = 1
-        log(f"  {pairs} pairs at {w}x{h}: the port's plan {fc.completion_plan(ff.shape, ff.dtype)}")
-        for combo, values in combos.items():
-            key = f"{w}x{h}/{pairs}_pairs/" + ", ".join(combo)
-            with budgets(**values), torch.inference_mode():
-                r = measure(lambda: fc.forward_bidirect_flow(p, ff, fb, mk))
-            r.pop("out", None)
-            result[key] = r
-            log(f"  fc plan {key}: {r}")
-        del ff, fb, mk, pipe, p
-        torch.cuda.empty_cache()
-    t, h, w = 25, PATH_H[1], PATH_H[2]
-    pipe = get_pipeline(PipelineConfig(**node_widgets(), process_size=(w, h)), torch.device("cuda"), True)
-    frames = (torch.rand(1, t, h, w, 3, generator=g, device="cuda") * 2 - 1)
-    frames[:, :, 200:500, 300:700] = frames[:, :1, 200:500, 300:700]
-    ref = None
-    for form, budget in raft_form_budgets(h // 8, w // 8):
-        with budgets(stages__RAFT_CALL_BYTES=budget), torch.inference_mode():
-            taken = stages.raft_form(pipe.config, t, (h, w))
-            require(form in (None, taken), f"RAFT_CALL_BYTES {budget} gives {taken}, not {form}")
-            r = measure(lambda: pipe.compute_flow(frames), reps=1)
-            form = taken
-        out = r.pop("out", None)
-        if out is not None and ref is None:
-            ref = out
-        elif out is not None:
-            scale = max(float(a.abs().max()) for a in ref)
-            r["max_abs_diff_vs_path_form"] = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
-            r["flow_scale"] = scale
-        result[f"raft/{w}x{h}/{t}_frames/{form}"] = r
-        log(f"  raft form {form}: {r}")
-    print(json.dumps({"fc_plan": result, "nvidia_smi": nvidia_smi()}))
-    return 0
-
-
-def b7_tiles() -> int:
-    """`--b7-tiles`: B7 (csrc/corr_window.cu, one level) built with 16,
-    32, 64 and 96 pixels a block (a copy of the source with its `PIX1`
-    constant set, under build/b7_tiles/), each held bit-equal
-    to its plain version and timed at the phase-2 shape (level 0 of the
-    main path's padded pyramid, M = 165600) in bf16 and fp32, in turns
-    (each size twice, in rising then falling order), beside one
-    grid_sample; prints one JSON line."""
-    import ctypes
-
-    from comfyui_propainter_nodes_tpu_torch.models.raft import build_padded_pyramid_bi, padded_starts
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as mod
-
-    tiles = (16, 32, 64, 96)
-    out_dir = os.path.join(HERE, "build", "b7_tiles")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(_build.CSRC, "corr_window.cu")) as f:
-        source = f.read()
-    constant = "constexpr int PIX1 = 32;"
-    require(source.count(constant) == 1, f"csrc/corr_window.cu must define `{constant}` once")
-    libs, procs = {}, {}
-    for p in tiles:
-        src = os.path.join(out_dir, f"corr_window_{p}.cu")
-        with open(src, "w") as f:
-            f.write(source.replace(constant, f"constexpr int PIX1 = {p};"))
-        libs[p] = os.path.join(out_dir, f"libcorr_window_{p}.so")
-        procs[p] = subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
-             "-Xptxas", "-v", src, "-o", libs[p]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for p, proc in procs.items():
-        ptxas = proc.communicate()[0]
-        require(proc.returncode == 0, f"nvcc failed for {p} pixels a block:\n{ptxas}")
-        regs = {k: r["registers"] for k, r in kernel_resources(ptxas, libs[p]).items() if k.startswith("corr_window_kernel")}
-        log(f"  {p} pixels a block: registers {regs}")
-        fn = ctypes.CDLL(libs[p]).propainter_corr_window
-        fn.argtypes, fn.restype = _build._SIGNATURES["propainter_corr_window"], ctypes.c_int
-        fns[p] = fn
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {}
-    for dt in (torch.bfloat16, torch.float32):
-        im, h8, w8, c = 23, 45, 80, 256
-        f1 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
-        f2 = torch.randn(im, h8, w8, c, generator=gen, device="cuda").to(dt)
-        pyr = build_padded_pyramid_bi(f1, f2)
-        del f1, f2
-        sy, sx, fy, fx = padded_starts(pyr, corr_coords(gen, 2 * im, h8, w8))
-        maps, sy, sx, fy, fx = pyr[0], sy[0].contiguous(), sx[0].contiguous(), fy[0].contiguous(), fx[0].contiguous()
-        del pyr
-        m, hp, wp = maps.shape
-        out = torch.empty(m, 9, 9, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def run(p):
-            status = fns[p](maps.data_ptr(), sy.data_ptr(), sx.data_ptr(), fy.data_ptr(), fx.data_ptr(),
-                            out.data_ptr(), m, hp, wp, int(dt == torch.bfloat16), stream)
-            _build.check(status, f"corr_window {p}")
-
-        ref = mod.corr_window_lookup_plain(maps, sy, sx, fy, fx)
-        for p in tiles:
-            out.fill_(float("nan"))
-            run(p)
-            torch.cuda.synchronize()
-            require(torch.equal(out, ref), f"B7 with {p} pixels a block disagrees with its plain version")
-        ms = {p: [] for p in tiles}
-        for p in tiles + tiles[::-1]:
-            ms[p].append(time_ms(lambda: run(p)))
-        taps = torch.arange(9, device="cuda", dtype=torch.float32)
-        lib = grid_sample_taps(maps, sx[:, None, None] + fx[:, None, None] + taps[None, :],
-                               sy[:, None, None] + fy[:, None, None] + taps[:, None])
-        bound, _ = bound_ms(m * 81 * 6, m * (100 * maps.element_size() + 16 + 81 * 4), torch.float32)
-        key = str(dt)[6:]
-        result[key] = dict(ms={str(p): v for p, v in ms.items()}, library_ms=time_ms(lib), bound_ms=bound)
-        log(f"  {key}: " + ", ".join(f"{p} pixels {v[0]:.4f} / {v[1]:.4f} ms" for p, v in ms.items())
-            + f"; grid_sample {result[key]['library_ms']:.4f}; bound {bound:.4f}")
-        del maps, out, ref
-        torch.cuda.empty_cache()
-    print(json.dumps({"b7_tiles": result, "nvidia_smi": nvidia_smi()}))
-    return 0
-
-
-# (threads a block, blocks an SM) of B2's fp32 kernel that `--b2-f32-tiles` builds; the first is the source's
-B2_F32_TILES = ((128, 2), (128, 3), (256, 1))
-
-
-def b2_f32_tiles() -> int:
-    """`--b2-f32-tiles`: B2's fp32 kernel (csrc/deform_conv.cu) built with
-    each (threads a block, blocks an SM) of B2_F32_TILES (a copy of the
-    source with `f32::NT` and `f32::MIN_BLOCKS` set, under
-    build/b2_f32_tiles/), each run through the wrapper at each tap split,
-    held against the plain version (rel 1e-4) and timed at every fp32
-    phase-2 shape (B2_FP32) and the row form at path MH's rank 0, in turns
-    (each variant twice, in listed then reversed order). Prints one JSON
-    line."""
-    import ctypes
-    import types
-
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as mod
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    out_dir = os.path.join(HERE, "build", "b2_f32_tiles")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(_build.CSRC, "deform_conv.cu")) as f:
-        source = f.read()
-    consts = ("constexpr int NT = {};", "constexpr int MIN_BLOCKS = {};")
-    nt0, mb0 = B2_F32_TILES[0]
-    for c, v in zip(consts, (nt0, mb0)):
-        require(source.count(c.format(v)) == 1, f"csrc/deform_conv.cu must define `{c.format(v)}` once")
-    libs, procs = {}, {}
-    for nt, mb in B2_F32_TILES:
-        src = os.path.join(out_dir, f"deform_conv_{nt}_{mb}.cu")
-        with open(src, "w") as f:
-            f.write(source.replace(consts[0].format(nt0), consts[0].format(nt))
-                    .replace(consts[1].format(mb0), consts[1].format(mb)))
-        libs[(nt, mb)] = os.path.join(out_dir, f"libdeform_conv_{nt}_{mb}.so")
-        procs[(nt, mb)] = subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
-             "-I", _build.CSRC, "-Xptxas", "-v", src, "-o", libs[(nt, mb)]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns, variant_regs = {}, {}
-    for v, proc in procs.items():
-        ptxas = proc.communicate()[0]
-        require(proc.returncode == 0, f"nvcc failed for {v}:\n{ptxas}")
-        variant_regs[v] = {k: subset(r, ("registers", "spill_stores", "spill_loads"))
-                           for k, r in kernel_resources(ptxas, libs[v]).items() if k.startswith(B2_F32_KERNEL)}
-        log(f"  {v[0]} threads, {v[1]} blocks an SM: {variant_regs[v]}")
-        fn = ctypes.CDLL(libs[v]).propainter_deform_conv
-        fn.argtypes, fn.restype = _build._SIGNATURES["propainter_deform_conv"], ctypes.c_int
-        fns[v] = types.SimpleNamespace(propainter_deform_conv=fn)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {}
-    library, splits_rule = _build.library, mod.tap_splits
-    try:
-        for tag in B2_FP32 + ("fpMH0",):
-            shape, rows = b2_case(tag)
-            row0 = 0 if rows is None else rows[0]
-            args = deform_inputs(torch.float32, gen, shape, rows)
-            ref = mod.deform_conv2d_plain(*args, row0=row0)
-            chosen = splits_rule(ref.shape[0] * ref.shape[1] * ref.shape[2], ref.shape[3], ref.device)
-
-            def run(v, sp):
-                _build.library = lambda v=v: fns[v]  # noqa: E731
-                mod.tap_splits = lambda m, c, d, sp=sp: sp  # noqa: E731
-                return mod.deform_conv2d(*args, row0=row0)
-
-            for v in B2_F32_TILES:
-                for sp in mod.TAP_SPLITS:
-                    _, rel = rel_err(run(v, sp), ref)
-                    require(rel <= 1e-4, f"B2 fp32 {v} in {sp} tap splits at {tag}: rel {rel:.3e}")
-            ms = {(v, sp): [] for v in B2_F32_TILES for sp in mod.TAP_SPLITS}
-            for v in B2_F32_TILES + B2_F32_TILES[::-1]:
-                for sp in mod.TAP_SPLITS:
-                    ms[(v, sp)].append(time_ms(lambda: run(v, sp)))
-            bound, _ = deform_bound(shape, ref.shape[0] * ref.shape[1] * ref.shape[2], ref.shape[3], torch.float32)
-            result[tag] = dict(shape=shape, rows=rows, bound_ms=bound, tap_split=chosen,
-                               ms={f"{v[0]}x{v[1]} split {sp}": t for (v, sp), t in ms.items()})
-            log(f"  {tag} x{list(shape)}" + ("" if rows is None else f" rows {rows}") + f" (bound {bound:.4f} ms, "
-                f"the wrapper splits {chosen}): "
-                + "; ".join(f"{v[0]}x{v[1]} split {sp} {t[0]:.4f} / {t[1]:.4f}" for (v, sp), t in ms.items()))
-            del args, ref
-            torch.cuda.empty_cache()
-    finally:
-        _build.library, mod.tap_splits = library, splits_rule
-    print(json.dumps({"b2_f32_tiles": result, "variant_registers": {f"{v[0]}x{v[1]}": r for v, r in variant_regs.items()},
-                      "nvidia_smi": nvidia_smi()}))
-    return 0
-
-
 # B3's, B4's and B5's fp32 kernels (csrc/flash_f32.cuh)
 F32_LOOP_KERNELS = ("window_attention_f32_kernel", "window_attention_split_f32_kernel", "window_attention_halo_f32_kernel")
 B2_F32_KERNEL = "deform_conv_kernel"  # B2's fp32 kernel (csrc/deform_conv.cu)
-F32_SPLITS = (512, 1024, None)  # `--f32-splits`: keys a split of B4's fp32 loop; None: one split a window
-
-
-def attention_f32_shapes():
-    """The fp32 shapes of B3 and B4 that phase 2 times, by result tag, as
-    the arguments after (dtype, gen) of check_window_attention (the main
-    path's 30x54 grid, path O's 30x72) and check_window_attention_tiled
-    (path A's 5 windows of 13 frames, path S's one window of 19, path C's
-    middle group, path MH rank 0's 72 windows); the even and the odd
-    layers' t_sel."""
-    occ360, occ720, occ_o = clip_occupancy(360, 640), clip_occupancy(720, 1280), ring_occupancy()
-    occ_s = stream_occupancy(PATH_S)
-    t_win_s, t_sel_s, _ = stream_window(PATH_S[0])
-    t_win_c, t_sel_c, _ = stream_window(PATH_C[0])
-    b_c, occ_c = group_occupancy(PATH_C)
-    occ_mh = occ720.reshape(5, 12, 12)[:, :6].reshape(-1).contiguous()
-    b3 = {"B3e": (7, occ360, 36, 91, "30x54"), "B3o": (6, occ360, 36, 91, "30x54"),
-          "B3eO": (7, occ_o, 48, 126, "30x72"), "B3oO": (6, occ_o, 48, 126, "30x72")}
-    b4 = {"B4e": (7, occ720, 5, 13, 144, 405), "B4o": (6, occ720, 5, 13, 144, 405),
-          "B4eS": (t_sel_s[0], occ_s, 1, t_win_s, 144, 405), "B4oS": (t_sel_s[1], occ_s, 1, t_win_s, 144, 405),
-          "B4eC": (t_sel_c[0], occ_c, b_c, t_win_c, 36, 91),
-          "B4oC": (t_sel_c[1], occ_c, b_c, t_win_c, 36, 91), "B4eMH0": (7, occ_mh, 5, 13, 72, 405),
-          "B4oMH0": (6, occ_mh, 5, 13, 72, 405)}
-    return b3, b4
-
-
-def f32_splits() -> int:
-    """`--f32-splits`: B4's fp32 loop at path A's, S's, C's and path MH
-    rank 0's phase-2 shapes with SPLIT_KEYS 512, 1024 and one split a
-    window (ops/cuda/window_attention.py), each held against the plain
-    version (rel 1e-4) and timed, in turns (each split twice, in rising
-    then falling order); B3 on the same inputs; path T's first step at
-    each split against the plain versions' (`path_t_first_step`, not
-    gated); the fp32 loop kernels' registers and spills (ptxas). Prints
-    one JSON line."""
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import _build
-    from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as mod
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    lib_path = _build.build()
-    resources = {k: r for k, r in kernel_resources(_build.build_log, lib_path).items() if k.startswith(F32_LOOP_KERNELS)}
-    log(f"  fp32 loop kernels: {resources}")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    _, shapes = attention_f32_shapes()
-    saved, result = mod.SPLIT_KEYS, {}
-    try:
-        for tag, shape in shapes.items():
-            t_sel, occ, b, t, n_win, pl_per = shape
-            args = attention_inputs(torch.float32, gen, n_win, t_sel, pl_per, occ, b, t)
-            ref = mod.window_attention_tiled_plain(*args, n_win)
-
-            def run(keys):
-                mod.SPLIT_KEYS = keys or 1 << 30
-                return mod.window_attention_tiled(*args, n_win_per_b=n_win)
-
-            for keys in F32_SPLITS:
-                out = run(keys)
-                torch.cuda.synchronize()
-                _, rel = rel_err(out, ref)
-                require(rel <= 1e-4, f"B4 fp32 at {tag} in splits of {keys} keys: rel {rel:.3e}")
-            ms = {keys: [] for keys in F32_SPLITS}
-            for keys in F32_SPLITS + F32_SPLITS[::-1]:
-                ms[keys].append(time_ms(lambda: run(keys)))
-            b3_ms = time_ms(lambda: mod.window_attention(*args, n_win_per_b=n_win))
-            result[tag] = dict(ms={str(k or "one"): v for k, v in ms.items()}, b3_ms=b3_ms, t_sel=t_sel, b=b, t=t,
-                               n_win=n_win, occupied=int(occ.sum()))
-            log(f"  {tag}: " + ", ".join(f"{k or 'one'} keys {v[0]:.4f} / {v[1]:.4f} ms" for k, v in ms.items())
-                + f"; B3 {b3_ms:.4f}")
-            del args, ref
-            torch.cuda.empty_cache()
-        # path T's first step at each split (B4 runs 8 times in it): its
-        # worst gradient's distance to the plain versions' step (tol 1e-4)
-        from comfyui_propainter_nodes_tpu_torch.training.train_step import make_train_step
-        from comfyui_propainter_nodes_tpu_torch.utils import weights
-
-        weights_dir = weights_cache()
-        batch = path_t_batch()
-        params = weights.get_params("inpaint_generator", allow_download=False, allow_random=True)
-        step = make_train_step(None, PATH_T["local"])
-        path_t = {}
-        for keys in F32_SPLITS:
-            mod.SPLIT_KEYS = keys or 1 << 30
-            first = path_t_first_step(f"path T, B4 fp32 in splits of {keys or 'one a window'}", batch, params, step)
-            path_t[str(keys or "one")] = dict(worst=first["worst"], worst_err=first["grad_errs"][first["worst"]],
-                                              loss_rel=first["loss_rel"], floor=first["floor"])
-            del first
-            torch.cuda.empty_cache()
-        weights_dir.cleanup()
-    finally:
-        mod.SPLIT_KEYS = saved
-    print(json.dumps({"b4_fp32_ms_by_split": result, "path_t_first_step_by_split": path_t, "resources": resources,
-                      "nvidia_smi": nvidia_smi()}))
-    return 0
-
 
 PATH_C = (100, 360, 640)  # paths C and M: the synthetic clip at default widgets
 M_JOIN_TIMEOUT_S = 900  # path M's ranks, from their start to their last result
@@ -2709,6 +2076,7 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
     are written to ref_dir for path M."""
     from comfyui_propainter_nodes_tpu_torch.nodes import get_pipeline
     from comfyui_propainter_nodes_tpu_torch.pipeline import stages
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
     t, h, w = PATH_C
     tag = f"path C clip-parallel {t} frames {w}x{h}"
@@ -2726,13 +2094,14 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         torch.cuda.synchronize()
+        profiling.reset_stages()
         with recorded_raft(forms):
             t0 = time.perf_counter()
             out = pipe.process(*args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts, b2_shapes = read_counters()
-        peak, stage_s = torch.cuda.max_memory_allocated(), dict(pipe.stage_seconds)
+        peak, stage_s = torch.cuda.max_memory_allocated(), stage_seconds()
         reset_counters()
         out32 = pipe32.process(*args)
         counts32, _ = read_counters()
@@ -2800,6 +2169,7 @@ def feature_split(pipe, args) -> dict:
     gathers. A gather's time includes its wait for the other rank."""
     from comfyui_propainter_nodes_tpu_torch.ops import attention
     from comfyui_propainter_nodes_tpu_torch.parallel.mesh import Mesh
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
     spent = dict(gather_in_attention_s=0.0, gather_other_s=0.0, attention_s=0.0, gathers=0, gathered_bytes=0)
     inside = []
@@ -2826,11 +2196,12 @@ def feature_split(pipe, args) -> dict:
             inside.pop()
 
     Mesh.all_gather, attention._gathered_kv_attention = timed(gather, None), attend_timed
+    profiling.reset_stages()
     try:
         pipe.process(*args)
     finally:
         Mesh.all_gather, attention._gathered_kv_attention = gather, attend
-    spent["feature_propagation_s"] = pipe.stage_seconds["feature_propagation"]
+    spent["feature_propagation_s"] = stage_seconds()["feature_propagation"]
     spent["attention_less_gathers_s"] = spent["attention_s"] - spent["gather_in_attention_s"]
     return spent
 
@@ -2878,20 +2249,22 @@ def path_m_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: s
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 reset_counters()
+                profiling.reset_stages()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = pipe.process(*args)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts, _ = read_counters()
+                stages = stage_seconds()
                 video = check_video(out, args[2], args[3], tag)
                 if fp16 == "enable":  # the default widgets (fp32 maps take B1's one fp32 kernel)
                     require_kernels(tag, counts, need, [k for k in KERNELS if k not in need])
                 else:
                     require(counts["conv_gemm"] > 0, f"{tag}: the fp32 convs did not take conv_gemm: {counts}")
-                log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
+                log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
                 results[f"{shape[0]}x{shape[1]} {fp16}"] = dict(
-                    seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=torch.cuda.max_memory_allocated(),
+                    seconds=wall, stages=stages, peak_bytes=torch.cuda.max_memory_allocated(),
                     launches=counts, vs_path_c=video_diff(video, np.load(os.path.join(ref_dir, f"{fp16}.npy"))),
                     clip_parallel=pipe._clip_parallel(), seq=pipe._seq_selected(PATH_C[1]), device=str(mesh.device),
                 )
@@ -3017,6 +2390,7 @@ def h_split_exchanges(pipe, args) -> dict:
     other rank)."""
     from comfyui_propainter_nodes_tpu_torch.parallel import spatial
     from comfyui_propainter_nodes_tpu_torch.parallel.mesh import Mesh
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
     spent = {f"{k}_{m}": 0 for k in ("halo", "gather") for m in ("s", "calls", "bytes")}
     inside = []
@@ -3051,11 +2425,12 @@ def h_split_exchanges(pipe, args) -> dict:
 
     spatial.halo_rows, spatial.gather_rows = timed(halo, "halo"), timed(gather, "gather")
     Mesh.all_gather, Mesh.send_recv = counted, received
+    profiling.reset_stages()
     try:
         pipe.process(*args)
     finally:
         spatial.halo_rows, spatial.gather_rows, Mesh.all_gather, Mesh.send_recv = halo, gather, all_gather, send_recv
-    spent["feature_propagation_s"] = pipe.stage_seconds["feature_propagation"]
+    spent["feature_propagation_s"] = stage_seconds()["feature_propagation"]
     return spent
 
 
@@ -3064,7 +2439,7 @@ def path_mh_single(ref_dir: str) -> dict:
     no mesh, fp32 (written to ref_dir for the ranks) and bf16 after a
     warm-up, each with its peak and its feature stage's peak."""
     from comfyui_propainter_nodes_tpu_torch.pipeline.stages import Pipeline
-    from comfyui_propainter_nodes_tpu_torch.utils import weights
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling, weights
 
     params = [weights.get_params(m, allow_download=False, allow_random=True) for m in ("raft", "flow_completion", "inpaint_generator")]
     args = path_inputs("cuda", PATH_MH)
@@ -3077,17 +2452,19 @@ def path_mh_single(ref_dir: str) -> dict:
         feature_peak(pipe, peaks)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        profiling.reset_stages()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         video = pipe.process(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        stages = stage_seconds()
         peak = max(peaks[0][0], torch.cuda.max_memory_allocated())
         np.save(os.path.join(ref_dir, f"mh_{fp16}.npy"), check_video(video, args[2], args[3], f"path MH single card {fp16}", PATH_MH))
-        out[fp16] = dict(seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1])
+        out[fp16] = dict(seconds=wall, stages=stages, peak_bytes=peak, feature_peak_bytes=peaks[0][1])
         log(f"  [path MH single card fp16={fp16}] {wall:.3f} s; peak {peak / 2**30:.3f} GiB, feature stage "
             f"{peaks[0][1] / 2**30:.3f} GiB; stages (s) "
-            + ", ".join(f"{k} {v:.4f}" for k, v in pipe.stage_seconds.items()))
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
         del pipe, video
     return out
 
@@ -3130,11 +2507,13 @@ def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: 
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
+            profiling.reset_stages()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = pipe.process(*args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            stages = stage_seconds()
             peak = max(peaks[0][0], torch.cuda.max_memory_allocated())  # stages 1-3, and the feature stage on
             counts, b2_shapes = read_counters()
             video = check_video(out, args[2], args[3], tag, PATH_MH)
@@ -3144,11 +2523,11 @@ def path_mh_rank(rank: int, world: int, backend: str, rendezvous: str, ref_dir: 
                 require(counts["conv_gemm"] > 0, f"{tag}: the fp32 convs did not take conv_gemm: {counts}")
             require(any("rows" in k for k in b2_shapes), f"{tag}: B2 never ran in its row form: {b2_shapes}")
             results[fp16] = dict(
-                seconds=wall, stages=dict(pipe.stage_seconds), peak_bytes=peak, feature_peak_bytes=peaks[0][1],
+                seconds=wall, stages=stages, peak_bytes=peak, feature_peak_bytes=peaks[0][1],
                 launches=counts, b2_launches_by_shape=b2_shapes, seq=pipe._seq_selected(PATH_MH[1]),
                 vs_single=video_diff(video, np.load(os.path.join(ref_dir, f"mh_{fp16}.npy"))), device=str(mesh.device),
             )
-            log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items()))
+            log(f"  [{tag}] {wall:.3f} s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
             if fp16 == "enable":
                 results["exchanges"] = h_split_exchanges(pipe, args)
                 log(f"  [{tag}] the H split's exchanges (an extra run, synchronised timers): {results['exchanges']}")
@@ -3652,138 +3031,12 @@ def weights_cache() -> tempfile.TemporaryDirectory:
     return d
 
 
-SPAN_COST_N = 20000  # spans or launches a sample of `--span-cost`
-SPAN_COST_REPS = 7
-# `--span-cost`'s node calls: (node, fp16) of the benchmark's two cells, 24 frames at 640x360
-SPAN_COST_CELLS = {"inpaint-360p-fp32.object": ("inpaint", "disable"), "outpaint-360p.sides": ("outpaint", "enable")}
-SPAN_COST_PAIRS = {"inpaint-360p-fp32.object": 4, "outpaint-360p.sides": 12}  # untraced / traced clips in turns
-
-
-def span_cost() -> int:
-    """`--span-cost`: the span record's cost with tracing off (no
-    profiler recording, no blocking): microseconds a span (one ring
-    record), a stage timer and a kernel launch's `profiling.kernel` (its
-    count and its range check), each the median of SPAN_COST_REPS loops of
-    SPAN_COST_N; the same under a CPU profiler; `trace_us` against a CPU
-    and CUDA profiler's trace of 20 spans; then a warm-up and one
-    call of each benchmark cell's node: its ring records and kernel
-    launches a clip, its wall, and what the record costs it off; then
-    SPAN_COST_PAIRS pairs of an untraced and a traced (blocking) clip, in
-    turns."""
-    from comfyui_propainter_nodes_tpu_torch.nodes import ProPainterInpaint, ProPainterOutpaint
-    from comfyui_propainter_nodes_tpu_torch.utils import profiling
-    from torch.profiler import ProfilerActivity, profile
-
-    weights_dir = weights_cache()
-    profiling.set_blocking(False)
-
-    def per_call_us(make):
-        samples = []
-        for _ in range(SPAN_COST_REPS):
-            profiling.reset()
-            t0 = time.perf_counter_ns()
-            for _ in range(SPAN_COST_N):
-                with make("node.prepare"):
-                    pass
-            samples.append((time.perf_counter_ns() - t0) / SPAN_COST_N / 1e3)
-        profiling.reset()
-        return statistics.median(samples)
-
-    kinds = {"span": profiling.span, "stage_timer": profiling.stage_timer, "kernel": profiling.kernel}
-    off = {k: per_call_us(f) for k, f in kinds.items()}
-    with profile(activities=[ProfilerActivity.CPU]):
-        on = {k: per_call_us(f) for k, f in kinds.items()}
-    log(f"  tracing off, us a call: {off}; under a CPU profiler: {on}")
-    # trace_us against a CPU and CUDA profiler's trace: each span's ends
-    # beside its range's, in microseconds
-    x = torch.randn(1 << 20, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            with profiling.span("node.upload"):
-                (x * 2).sum().item()
-    path = os.path.join(tempfile.mkdtemp(prefix="span-cost-"), "trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        trace = json.load(f)
-    base_us = trace.get("baseTimeNanoseconds", 0) / 1e3
-    theirs = sorted((e["ts"] + base_us, e["ts"] + e["dur"] + base_us) for e in trace["traceEvents"]
-                    if e.get("cat") == "user_annotation" and e.get("name") == "node.upload")
-    mine = sorted((profiling.trace_us(r.start_ns), profiling.trace_us(r.end_ns)) for r in profiling.spans())
-    require(len(mine) == len(theirs) == 20, f"trace_us: {len(mine)} spans, {len(theirs)} ranges")
-    offsets = [m - t for pair in zip(mine, theirs) for m, t in zip(*pair)]
-    trace_offset_us = dict(min=min(offsets), max=max(offsets), base_time_ns="baseTimeNanoseconds" in trace)
-    log(f"  trace_us less the profiler's range, us: {trace_offset_us}")
-    profiling.reset()
-    frames_u8, masks_u8 = synthetic_clip(24, 360, 640)
-    image, mask = torch.from_numpy(frames_u8).float() / 255.0, torch.from_numpy(masks_u8).float() / 255.0
-    cells = {}
-    for cell, (kind, fp16) in SPAN_COST_CELLS.items():
-        w = dict(WIDGETS, fp16=fp16, width=640, height=360)
-        if kind == "inpaint":
-            node = ProPainterInpaint()
-            run = lambda: node.propainter_inpainting(image, mask, **w)  # noqa: E731
-        else:
-            node = ProPainterOutpaint()
-            run = lambda: node.propainter_outpainting(image, width_scale=1.2, height_scale=1.0, **w)  # noqa: E731
-        run()
-        torch.cuda.synchronize()
-        profiling.reset()
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-        records = len(profiling.spans())
-        stages = sum(r["calls"] for r in profiling.summary().values())
-        launches = sum(v for k, v in profiling.counters().items() if k in KERNELS)
-        cost_ms = ((records - stages) * off["span"] + stages * off["stage_timer"] + launches * off["kernel"]) / 1e3
-        cells[cell] = dict(wall_s=wall, ring_records=records, stage_timers=stages, kernel_launches=launches,
-                           launches_by_kernel={k: v for k, v in profiling.counters().items() if k in KERNELS},
-                           spans_by_name=dict(collections.Counter(r.name for r in profiling.spans())),
-                           off_cost_ms=cost_ms, off_cost_share=cost_ms / 1e3 / wall)
-        log(f"  [{cell}] wall {wall:.4f} s; {records} ring records ({stages} stage timers), {launches} kernel "
-            f"launches: {cost_ms:.4f} ms a clip off, {100 * cost_ms / 1e3 / wall:.4f}% of the clip")
-        # traced (blocking spans, as the benchmark's traced window) against
-        # untraced, in turns, each clip's wall to its last synchronise
-        walls = {False: [], True: []}
-        for _ in range(SPAN_COST_PAIRS[cell]):
-            for traced in (False, True):
-                profiling.set_blocking(traced)
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                walls[traced].append(time.perf_counter() - t0)
-        profiling.set_blocking(False)
-        pairs = [b - a for a, b in zip(walls[False], walls[True])]
-        cells[cell].update(untraced_walls_s=walls[False], traced_walls_s=walls[True],
-                           traced_less_untraced_median_ms=1e3 * statistics.median(pairs))
-        log(f"  [{cell}] untraced median {statistics.median(walls[False]):.4f} s, traced median "
-            f"{statistics.median(walls[True]):.4f} s; traced less untraced, median of pairs, "
-            f"{1e3 * statistics.median(pairs):.1f} ms")
-    weights_dir.cleanup()
-    print(json.dumps(dict(card=nvidia_smi(), torch=torch.__version__, us_off=off, us_under_cpu_profiler=on,
-                          trace_offset_us=trace_offset_us, cells=cells)), flush=True)
-    return 0
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     for k in SWITCHES:
         os.environ.pop(k, None)  # the main path and path A run the default kernels
-    if len(sys.argv) == 3 and sys.argv[1] == "--tree":
-        return tree_times(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--tree-cm":
-        return tree_cm(sys.argv[2])
-    if len(sys.argv) == 2 and sys.argv[1] == "--b7-tiles":
-        return b7_tiles()
-    if len(sys.argv) == 2 and sys.argv[1] == "--b2-f32-tiles":
-        return b2_f32_tiles()
-    if len(sys.argv) == 2 and sys.argv[1] == "--fc-plan":
-        return fc_plan()
-    if len(sys.argv) == 2 and sys.argv[1] == "--f32-splits":
-        return f32_splits()
-    if len(sys.argv) == 2 and sys.argv[1] == "--span-cost":
-        return span_cost()
     if len(sys.argv) == 2 and sys.argv[1] == "--conv-gemm":
         return conv_gemm_times()
     t_start = time.perf_counter()
@@ -3890,7 +3143,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     grads = path_t_grad_checks(gen)
     torch.cuda.empty_cache()
-    conv_gemm = check_conv_gemm(gen)
+    conv_gemm = check_conv_gemm(gen, table=False)
     torch.cuda.empty_cache()
 
     log("phase 3: ProPainterInpaint and ProPainterOutpaint, 24 frames, default widgets, random weights")

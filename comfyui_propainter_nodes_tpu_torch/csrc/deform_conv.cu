@@ -70,8 +70,8 @@
 //     writes its partial sums to a workspace [splits, M, Cout], and
 //     `deform_conv_reduce_kernel` adds them in split order, then the
 //     bias. No atomics: two calls on the same inputs give the same bits.
-// Measured on an NVIDIA H100 80GB HBM3, 700.00 W (`chip_smoke.py
-// --b2-f32-tiles`): with the corners loaded in the same chunk as their
+// Measured on an NVIDIA H100 80GB HBM3, 700.00 W (this kernel's
+// redesign, CHANGES.md): with the corners loaded in the same chunk as their
 // offsets (the first form), the kernel at 3 blocks an SM (168 registers)
 // took 0.885 ms at x[5,90,160,128] and 1.99 ms in path MH's row form;
 // at 2 blocks, 4 blocks (spilling 156-180 bytes) and with 256 threads

@@ -25,8 +25,8 @@ from the shapes, passes its budget (bytes, sized for an 80 GB card):
     CHUNK_T frames;
   * the decoder in calls that keep one full-res activation within
     DECODE_BYTES (72 frames in bf16 at 1280x720, 32 at 1920x1080).
-The budgets keep the fastest form that fits, measured by `chip_smoke.py
---fc-plan` on path H's 85-pair chunk at 1920x1080 in bf16 (NVIDIA H100
+The budgets keep the fastest form that fits, measured with the plans'
+bring-up (CHANGES.md) on path H's 85-pair chunk at 1920x1080 in bf16 (NVIDIA H100
 80GB HBM3, 700.00 W; peak above the inputs, median of 3 calls):
 
   directions  encoder          rows   peak GiB  seconds

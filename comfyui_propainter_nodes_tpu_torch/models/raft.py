@@ -234,7 +234,7 @@ def call_bytes(n: int, h8: int, w8: int, esz: int, mode: str, directions: int = 
     transpose; zero-padded by PAD on each side under "pallas"). At
     1920x1080 in bf16 a pair's product is 3.9 GiB of fp32; the encoders,
     the update loop and the flows it leaves out came to about 3 GiB more
-    for 2-pair calls there (`chip_smoke.py --fc-plan`)."""
+    for 2-pair calls there (the high-res plans' bring-up, CHANGES.md)."""
     hw = h8 * w8
     v = float(n) * hw * hw
     product = v * 4 + (v * esz if esz != 4 else 0)

@@ -7,25 +7,28 @@ run on the card: `ProPainterInpaint()` resolves to CUDA and raises when
 there is none; `device="cpu"` runs the plain versions of the kernels on
 the host. Outputs are CPU torch tensors, new ones each call.
 
-The host moves bytes and plans; the device does the rest. A clip already
-at the process size goes up as ComfyUI hands it over and is quantized on
-the device (`_quantize`, `_to_u8`'s arithmetic), and the counter
-"node_card_io" counts the call; a clip of another size takes the PIL
-resize on the host, or the device resize without PIL. The inpaint node
-fetches one [H, W] map of the mask's union for its padded box
-(`_mask_crop_plan`) and decodes only that crop; the outpaint node gets
-back only the canvas's bands. Either composes its outputs on the device
-(`_compose`, `_unit`) and fetches them once (`_fetch`).
+The host moves bytes and plans; the device does the rest. Both nodes
+turn their ComfyUI tensors into bytes at the process size in one place
+(`_process_bytes`): a clip already at that size goes up as ComfyUI hands
+it over and is quantized on the device (`_quantize`, `_to_u8`'s
+arithmetic), and the counter "node_card_io" counts the call; a clip of
+another size takes the PIL resize on the host, or the device resize
+without PIL. The inpaint node fetches one [H, W] map of the mask's union
+for its padded box (`_mask_crop_plan`) and decodes only that crop; the
+outpaint node centres the bytes on its canvas (`outpaint_canvas`) and
+takes the composed canvas whole. The outputs are composed on the device
+(`_compose`, `_unit`) and fetched once (`_fetch`).
 
 Each run reports its stages' progress (`utils/profiling.py::NodeProgress`:
 ComfyUI's progress bar, tqdm or stderr) and leaves a run record
 (`utils/metrics.py::last_run`, and a JSON line in the file that
 PROPAINTER_TPU_METRICS names). Its host phases are spans
 (`utils/profiling.py::span`): the root "node.inpaint" / "node.outpaint";
-"node.prepare" before the pipeline ("node.to_bytes" with the upload of a
-clip at the process size, "node.resize", "node.crop_plan" (inpaint),
-"node.upload" with the other uploads, the normalisation and the
-dilations); "node.finish" after it ("node.paste", the composition on the
+"node.prepare" before the pipeline ("node.to_bytes", the bytes at the
+input's size: on the device at the process size, else on the host;
+"node.resize" with the resize and its upload; "node.crop_plan"
+(inpaint); "node.upload" with the normalisation, the dilations or the
+canvas); "node.finish" after it ("node.paste", the composition on the
 device, and "node.fetch").
 """
 
@@ -41,7 +44,7 @@ from .ops.dilation import binary_dilation
 from .pipeline.stages import Pipeline
 from .utils import profiling
 from .utils import weights as weights_zoo
-from .utils.image import resize_frames, ring_masks
+from .utils.image import outpaint_canvas, resize_frames
 from .utils.metrics import RunRecorder
 from .utils.params import to_device
 from .utils.profiling import span
@@ -155,14 +158,28 @@ def _fetch(x: torch.Tensor) -> torch.Tensor:
     return x.cpu()
 
 
-def _at_size(frames: torch.Tensor, pw: int, ph: int, device) -> bool:
-    """Whether a clip is already at the process size, so that its bytes are
-    made on the device; a call that makes them on the card counts one
-    "node_card_io"."""
-    at = frames.shape[1] == ph and frames.shape[2] == pw
-    if at and torch.device(device).type == "cuda":
-        profiling.count("node_card_io")
-    return at
+def _process_bytes(pw: int, ph: int, device, *xs: torch.Tensor) -> tuple[list[torch.Tensor], bool]:
+    """The ComfyUI IMAGE [T, H, W, 3] and MASK [T, H, W] tensors xs (of one
+    H and W, `_as_tensor`) as float bytes at the process size (pw, ph) on
+    `device`, and whether the device resized them. A clip at the process
+    size goes up as it is and is quantized there (`_quantize`); on the card
+    that counts one "node_card_io" a call. Another size is quantized on the
+    host (`_to_u8`) and resized by PIL (bicubic, as the reference), or on
+    the device without PIL (`resize_frames`)."""
+    with span("node.to_bytes"):
+        at = xs[0].shape[1] == ph and xs[0].shape[2] == pw
+        if at and torch.device(device).type == "cuda":
+            profiling.count("node_card_io")
+        made = [_quantize(_upload(x, device)) if at else _to_u8(x.cpu().numpy()) for x in xs]
+    with span("node.resize"):
+        if at:
+            return made, False
+        resized = [_host_resize_u8(a, pw, ph) for a in made]
+        if all(r is not None for r in resized):
+            return [_upload(torch.from_numpy(r), device).float() for r in resized], False
+        ups = [_upload(torch.from_numpy(np.ascontiguousarray(a)), device).float() for a in made]
+        return [resize_frames(b.reshape(b.shape[:3] + (-1,)), pw, ph).reshape((len(b), ph, pw) + b.shape[3:])
+                for b in ups], True
 
 
 def check_inputs(frames: np.ndarray, masks: np.ndarray) -> None:
@@ -195,10 +212,6 @@ def resolve_device(device=None) -> torch.device:
             'pass device="cpu" to run the plain (kernel-free) path on the host'
         )
     return dev
-
-
-def _upload_u8(a: np.ndarray, device) -> torch.Tensor:
-    return _upload(torch.from_numpy(np.ascontiguousarray(a)), device)
 
 
 def _cached_params(model: str, dtype: torch.dtype, device, allow_random: bool) -> dict:
@@ -305,50 +318,25 @@ class ProPainterInpaint:
         dev = self.device
         with span("node.inpaint"), RunRecorder("inpaint", config, t):
             with span("node.prepare"):
-                with span("node.to_bytes"):
-                    frames, masks = _as_tensor(image), _as_tensor(mask)
-                    if masks.ndim == 2:
-                        masks = masks[None]
-                    check_inputs(frames, masks)
-                    on_card = _at_size(frames, pw, ph, dev)
-                    if on_card:  # the tensors go up as they are and turn to bytes there
-                        byte = _quantize(_upload(frames, dev))
-                        masks_bin = _quantize(_upload(masks, dev)) != 0
-                    else:
-                        frames_u8 = _to_u8(frames.cpu().numpy())
-                        masks_u8 = _to_u8(masks.cpu().numpy())
-                        if masks_u8.shape[0] == 1:
-                            masks_u8 = np.broadcast_to(masks_u8, (t,) + masks_u8.shape[1:])
-                # host resize (PIL bicubic, as the reference); on-device otherwise
-                with span("node.resize"):
-                    if not on_card:
-                        frames_r = _host_resize_u8(frames_u8, pw, ph)
-                        masks_r = _host_resize_u8(masks_u8, pw, ph)
-                        on_host = frames_r is not None and masks_r is not None
+                frames, masks = _as_tensor(image), _as_tensor(mask)
+                if masks.ndim == 2:
+                    masks = masks[None]
+                check_inputs(frames, masks)
+                (byte, mask_bytes), resized_on_device = _process_bytes(pw, ph, dev, frames, masks)
                 with span("node.crop_plan"):
-                    if on_card:  # one [H, W] map of the masks' union comes back
-                        crop = _mask_crop_plan(masks_bin.any(0).cpu().numpy()[None], ph, pw, pad)
-                    elif on_host:
-                        masks_bin = masks_r != 0
-                        crop = _mask_crop_plan(masks_bin, ph, pw, pad)
-                    else:
+                    if resized_on_device:
                         # the plan from the input-resolution mask's nearest projection,
                         # with a 4 px margin for the bicubic resize's spill
-                        h_in, w_in = masks_u8.shape[1], masks_u8.shape[2]
+                        union = (_quantize(masks) != 0).any(0).cpu().numpy()
+                        h_in, w_in = union.shape
                         iy = np.minimum((np.arange(ph) * h_in / ph).astype(int), h_in - 1)
                         ix = np.minimum((np.arange(pw) * w_in / pw).astype(int), w_in - 1)
-                        crop = _mask_crop_plan((masks_u8 != 0)[:, iy][:, :, ix], ph, pw, pad + 4)
+                        crop = _mask_crop_plan(union[iy][:, ix][None], ph, pw, pad + 4)
+                    else:  # one [H, W] map of the masks' union comes back
+                        crop = _mask_crop_plan((mask_bytes != 0).any(0).cpu().numpy()[None], ph, pw, pad)
                 with span("node.upload"):
-                    if on_card:
-                        base = masks_bin.expand(t, ph, pw).float()
-                        del masks_bin  # the pipeline's peak holds no more than before
-                    elif on_host:
-                        byte = _upload_u8(frames_r, dev).float()
-                        base = _upload_u8(masks_bin, dev).float()
-                    else:
-                        byte = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph)
-                        m = _upload_u8(masks_u8, dev).float()[..., None]
-                        base = (resize_frames(m, pw, ph)[..., 0] > 0.5).float()
+                    base = (mask_bytes != 0).expand(t, ph, pw).float()
+                    del mask_bytes  # freed before the pipeline runs
                     frames_norm = byte / 255.0 * 2.0 - 1.0
                     flow_masks = binary_dilation(base, flow_mask_dilates) if flow_mask_dilates > 0 else base
                     masks_dilated = binary_dilation(base, mask_dilates) if mask_dilates > 0 else base
@@ -438,45 +426,25 @@ class ProPainterOutpaint:
         dev = self.device
         with span("node.outpaint"), RunRecorder("outpaint", config, t):
             with span("node.prepare"):
-                with span("node.to_bytes"):
-                    frames = _as_tensor(image)
-                    on_card = _at_size(frames, pw, ph, dev)
-                    if on_card:  # the IMAGE goes up as it is and turns to bytes there
-                        frames_dev = _quantize(_upload(frames, dev)).to(torch.uint8)
-                    else:
-                        frames_u8 = _to_u8(frames.cpu().numpy())
-                with span("node.resize"):
-                    if not on_card:
-                        frames_r = _host_resize_u8(frames_u8, pw, ph)
+                (byte,), _ = _process_bytes(pw, ph, dev, _as_tensor(image))
                 with span("node.upload"):
-                    if not on_card and frames_r is not None:
-                        frames_dev = _upload_u8(frames_r, dev)
-                    elif not on_card:  # resize on the device
-                        frames_dev = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph).to(torch.uint8)
+                    canvas, flow_masks, masks_dilated = outpaint_canvas(byte, (chh, cw))
+                    del byte  # the canvas holds the bytes
+                    frames_norm = canvas / 255.0 * 2.0 - 1.0
                 pipe = get_pipeline(config, dev, _allow_random_weights)
                 self.last_pipeline = pipe
 
             with _node_progress(pipe, t):
-                bands_dev = pipe.process_node_outpaint(frames_dev, (chh, cw))
+                composed = pipe.process(frames_norm[None], flow_masks[None], masks_dilated[None], canvas)
 
-            # the interior is the input's bytes (composed == input there,
-            # exactly); the bands fill the ring around it, on the device
+            # the composed canvas is the input's bytes inside the ring (its
+            # dilated mask is 0 there), so it is the output whole; a copy, as
+            # the pipeline's output is an inference tensor
             with span("node.finish"):
                 with span("node.paste"):
-                    h_start, w_start = (chh - ph) // 2, (cw - pw) // 2
-                    rows, cols, whole = slice(h_start, h_start + ph), slice(w_start, w_start + pw), slice(None)
-                    pieces = [(rows, cols, frames_dev)]
-                    bi = iter(bands_dev)
-                    if h_start:
-                        pieces += [(slice(None, h_start), whole, next(bi))]
-                        pieces += [(slice(h_start + ph, None), whole, next(bi))]
-                    if w_start:
-                        pieces += [(rows, slice(None, w_start), next(bi)), (rows, slice(w_start + pw, None), next(bi))]
-                    image_out = _unit(_compose((t, chh, cw, 3), pieces, dev))
-                    # the ring mask is static geometry, laid out beside the image
-                    mask_out = ring_masks((ph, pw), (chh, cw), dev)[1].expand(t, chh, cw).contiguous()
+                    image_out = _unit(composed.clone())
                 with span("node.fetch"):
-                    image_out, mask_out = _fetch(image_out), _fetch(mask_out).squeeze()
+                    image_out, mask_out = _fetch(image_out), _fetch(masks_dilated[..., 0]).squeeze()
         return image_out, mask_out, cw, chh
 
 

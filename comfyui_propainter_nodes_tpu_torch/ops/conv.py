@@ -64,22 +64,24 @@ def gemm_site(site: str | None, x: torch.Tensor) -> bool:
     return site in GEMM_SITES and x.is_cuda and x.dtype == torch.float32 and not torch.is_grad_enabled()
 
 
-# tap-major layouts by the first weight tensor's id and the dtype: (weak
-# reference to it, its version, the other weights laid beside it, layout)
+# laid-out weights by the layout function, the first weight tensor's id and
+# the dtype: (weak reference to that tensor, the versions, the other
+# weights laid beside it, the layout)
 _LAYOUTS: dict = {}
 
 
-def laid_weight(ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
-    """`gemm_weight` of the weights ws (of one input, side by side along
-    Cout) in dtype, computed once per tensor (and again only if one is
-    written in place)."""
-    key = (id(ws[0]), dtype)
+def laid_weight(layout, ws: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """layout(*ws, dtype=dtype), computed once per weight tensor and dtype,
+    and again only if one of ws is written in place (an optimizer step) or
+    other weights are laid beside the first: `gemm_layout` here, B2's
+    `ops/cuda/deform_conv.py::weight_layout`."""
+    key = (layout, id(ws[0]), dtype)
     versions = tuple(w._version for w in ws)
     hit = _LAYOUTS.get(key)
     if (hit is not None and hit[0]() is ws[0] and hit[1] == versions and len(hit[2]) == len(ws) - 1
             and all(a is b for a, b in zip(hit[2], ws[1:]))):
         return hit[3]
-    laid = torch.cat([gemm_weight(w.to(dtype)) for w in ws], -1)
+    laid = layout(*ws, dtype=dtype)
     _LAYOUTS[key] = (weakref.ref(ws[0], lambda _, key=key: _LAYOUTS.pop(key, None)), versions, tuple(ws[1:]), laid)
     return laid
 
@@ -98,7 +100,8 @@ def conv2d(
     At a stride-1, undilated `site` that `gemm_site` takes: `conv2d_gemm`."""
     if tuple(stride) == (1, 1) and tuple(dilation) == (1, 1) and gemm_site(site, x):
         return conv2d_gemm(
-            x, laid_weight((w,), x.dtype), None if b is None else b.to(x.dtype), tuple(w.shape[2:]), padding, groups
+            x, laid_weight(gemm_layout, (w,), x.dtype), None if b is None else b.to(x.dtype), tuple(w.shape[2:]),
+            padding, groups,
         )
     y = F.conv2d(
         x.permute(0, 3, 1, 2),
@@ -146,7 +149,7 @@ def pconv2d_many(p: Params, names: Sequence[str], x: torch.Tensor, padding=(0, 0
     if not gemm_site(names[0], x):
         return [pconv2d(p, n, x, padding=padding) for n in names]
     b = torch.cat([p[n + ".bias"] for n in names]).to(x.dtype)
-    y = conv2d_gemm(x, laid_weight(ws, x.dtype), b, tuple(ws[0].shape[2:]), padding)
+    y = conv2d_gemm(x, laid_weight(gemm_layout, ws, x.dtype), b, tuple(ws[0].shape[2:]), padding)
     return list(y.split([w.shape[0] for w in ws], -1))
 
 
@@ -156,6 +159,12 @@ def gemm_weight(w: torch.Tensor) -> torch.Tensor:
     g's outputs are its columns [g*Cout/groups, (g+1)*Cout/groups))."""
     co, ci, kh, kw = w.shape
     return w.permute(2, 3, 1, 0).reshape(kh * kw, ci, co).contiguous()
+
+
+def gemm_layout(*ws: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`gemm_weight` of the weights ws (of one input) in dtype, side by side
+    along Cout."""
+    return torch.cat([gemm_weight(w.to(dtype)) for w in ws], -1)
 
 
 def conv2d_gemm(

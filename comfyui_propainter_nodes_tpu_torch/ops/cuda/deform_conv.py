@@ -22,11 +22,10 @@ raises there).
 
 from __future__ import annotations
 
-import weakref
-
 import torch
 
 from ...utils.profiling import count, kernel
+from ..conv import laid_weight
 from . import _build
 from ._grad import twin_grad, wants_grad
 
@@ -38,10 +37,6 @@ TAP_SPLITS = (1, 3, 9)  # blocks over the 9 taps the CUDA-core kernel takes (`ta
 # a launch counts under "deform_conv" and under SHAPE_COUNTER + x's shape,
 # "x"-joined, with "xrows<a>-<b>" after it for a row slab
 SHAPE_COUNTER = "deform_conv/"
-
-# the weights laid out for the kernels, once per weight tensor:
-# (id, dtype) -> (weakref to the weight, its version, the laid-out copy)
-_LAYOUTS: dict = {}
 
 
 def deform_conv2d_plain(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0):
@@ -105,7 +100,8 @@ def weight_layout(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[Cout, Cin, 3, 3] -> the kernel's layout, Cout padded to a multiple
     of BN with zeros: fp32 [9, Kp, Np] (Cin padded to a multiple of
     F32_KC, output channels contiguous); bf16 [Np, 9, Kp] (Cin padded to a
-    multiple of KC), K contiguous per output channel."""
+    multiple of KC), K contiguous per output channel. The launch lays each
+    weight out once (`ops/conv.py::laid_weight`)."""
     cout, cin = weight.shape[:2]
     np_ = -(-cout // BN) * BN
     if dtype == torch.float32:
@@ -118,18 +114,6 @@ def weight_layout(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
-def _cached_layout(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """weight_layout, computed once per weight tensor (and again only if
-    the tensor is written in place)."""
-    key = (id(weight), dtype)
-    hit = _LAYOUTS.get(key)
-    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
-        return hit[2]
-    laid = weight_layout(weight, dtype)
-    _LAYOUTS[key] = (weakref.ref(weight, lambda _, key=key: _LAYOUTS.pop(key, None)), weight._version, laid)
-    return laid
-
-
 def block_rows(m: int, cout: int, device) -> int:
     """Pixels a block of the tensor-core kernel: 64, unless 64-pixel
     blocks would not give every SM two blocks; then 32."""
@@ -140,8 +124,8 @@ def block_rows(m: int, cout: int, device) -> int:
 def tap_splits(m: int, cout: int, device) -> int:
     """Blocks over the taps of the CUDA-core kernel: 1, unless its pixel
     tiles give fewer than three blocks for every two SMs; then 9, a tap a
-    block. On an NVIDIA H100 80GB HBM3 at 700 W (`chip_smoke.py
-    --b2-f32-tiles`), 9 splits took 0.179 ms against 0.213 unsplit at
+    block. On an NVIDIA H100 80GB HBM3 at 700 W (builds of the kernel timed
+    at every split in its redesign, CHANGES.md), 9 splits took 0.179 ms against 0.213 unsplit at
     x[2,45,80,256] (113 tiles on 132 SMs) and 0.225 against 0.322 at
     x[2,45,96,256] (135), and no split was fastest from 203 tiles up;
     3 splits lost to one or the other at every measured shape."""
@@ -190,7 +174,7 @@ def _launch(x, offset, mask, weight, bias=None, padding: int = 1, row0: int = 0)
     ho = offset.shape[1]
     cout = weight.shape[0]
     g = offset.shape[3]
-    wmat = _cached_layout(weight, x.dtype)
+    wmat = laid_weight(weight_layout, (weight,), x.dtype)
     out = torch.empty((n, ho, w, cout), device=x.device, dtype=x.dtype)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream

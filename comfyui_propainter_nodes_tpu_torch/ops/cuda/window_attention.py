@@ -48,7 +48,7 @@ SEG_TILE = 256  # rolled/pooled keys per segment tile (the TPU kernel's)
 # bf16 runs one split a window, which needs no workspace and no combine
 # and ran faster on the H100 than splits of 512, 1024 or 2048 keys. In
 # fp32 one split a window was 2-5% faster than 512 keys a split at paths
-# A, S, C and MH (`chip_smoke.py --f32-splits`), but a split's running
+# A, S, C and MH (the fp32 loop's bring-up, CHANGES.md), but a split's running
 # sums add one term a key, and over thousands of keys the terms below
 # half an ulp of the sum drop out: with 512-key splits the training
 # step's gradients stay within 1e-4 of the plain versions' step, with one

@@ -24,8 +24,7 @@ T below 512 rows (`parallel/sequence.py`), the frames' rows from 512
 With a crop (the node's mask bounding box, `nodes.py::_mask_crop_plan`)
 the feature stage decodes, composites and blends only that window: the
 composed video equals the input outside the dilated mask, and
-`decoder_crop` is exact. `process_node_outpaint` runs the stages on the
-outpaint canvas and returns only its bands.
+`decoder_crop` is exact.
 
 `process` times each stage with `utils/profiling.stage_timer` (one
 registry for the whole package) and every stage reports its progress
@@ -50,7 +49,6 @@ from ..models import raft
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.sequence import sequence_sharding
 from ..parallel.spatial import Partition, spatial_sharding, token_rows
-from ..utils.image import extrapolate_frames
 from ..utils.params import to_device
 from ..utils.profiling import progress_report, stage_timer
 
@@ -348,7 +346,6 @@ class Pipeline:
         self.raft_params = to_device(raft_params, self.device, rdt)
         self.flow_params = to_device(flow_params, self.device, self.cdtype)
         self.inpaint_params = to_device(inpaint_params, self.device, self.cdtype)
-        self.stage_seconds: dict[str, float] = {}
         # progress callback: fn(stage_name, done_units, total_units)
         self.progress = None
 
@@ -715,52 +712,16 @@ class Pipeline:
         """The four stages. frames_norm [1, T, H, W, 3] fp32 in [-1, 1];
         masks [1, T, H, W, 1]; original_frames [T, H, W, 3] float 0..255.
         Returns the composed video [T, H, W, 3] float 0..255, or with crop =
-        (y0, x0, ch, cw) its window [T, ch, cw, 3]. Per-stage wall times
-        (`stage_timer`: synchronised on the card in blocking mode) land in
-        `stage_seconds`."""
-        stages = {}
-
-        def timed(name, fn, *args):
-            with stage_timer(name) as tm:
-                out = fn(*args)
-            stages[name] = tm.seconds
-            return out
-
+        (y0, x0, ch, cw) its window [T, ch, cw, 3]. Each stage's wall time
+        (`stage_timer`: synchronised on the card in blocking mode) lands in
+        the stage table, `utils/profiling.summary()`."""
         fp32 = full_fp32() if self.device.type == "cuda" else contextlib.nullcontext()
         with fp32, torch.inference_mode():
-            gt_flows = timed("compute_flow", self.compute_flow, frames_norm)
-            pred_flows = timed("complete_flow", self.complete_flow, gt_flows, flow_masks)
-            uf, um = timed("image_propagation", self.image_propagation, frames_norm, masks_dilated, pred_flows)
-            out = timed(
-                "feature_propagation", self.feature_propagation,
-                uf, um, masks_dilated, pred_flows, original_frames, crop,
-            )
-        self.stage_seconds = stages
-        return out
-
-    def process_node_outpaint(self, frames_u8, canvas_hw: tuple[int, int]):
-        """The outpaint node's run. frames_u8 [T, ph, pw, 3] uint8 on the
-        device go centred on a zero canvas of canvas_hw with both ring
-        masks (`extrapolate_frames`; k / 255 * 255 is k again in fp32);
-        the four stages take the canvas as the original frames.
-        Returns the composed canvas's uint8 bands, top, bottom, left and
-        right, empty ones left out: the interior equals the input bytes
-        (its dilated mask is 0), so the caller already holds it."""
-        t, ph, pw, _ = frames_u8.shape
-        chh, cww = canvas_hw
-        h_start, w_start = (chh - ph) // 2, (cww - pw) // 2
-        canvas, flow_masks, masks_dilated = extrapolate_frames(frames_u8.float() / 255.0, pw, ph, cww, chh)
-        canvas = canvas * 255.0
-        composed = self.process(
-            (canvas / 255.0 * 2.0 - 1.0)[None],
-            flow_masks[None].contiguous(),
-            masks_dilated[None].contiguous(),
-            canvas,
-        ).to(torch.uint8)
-        bands = []
-        if h_start:
-            bands += [composed[:, :h_start], composed[:, h_start + ph :]]
-        if w_start:
-            mid = composed[:, h_start : h_start + ph]
-            bands += [mid[:, :, :w_start], mid[:, :, w_start + pw :]]
-        return bands
+            with stage_timer("compute_flow"):
+                gt_flows = self.compute_flow(frames_norm)
+            with stage_timer("complete_flow"):
+                pred_flows = self.complete_flow(gt_flows, flow_masks)
+            with stage_timer("image_propagation"):
+                uf, um = self.image_propagation(frames_norm, masks_dilated, pred_flows)
+            with stage_timer("feature_propagation"):
+                return self.feature_propagation(uf, um, masks_dilated, pred_flows, original_frames, crop)

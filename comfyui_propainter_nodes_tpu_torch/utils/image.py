@@ -94,18 +94,17 @@ def ring_masks(frame_hw, canvas_hw, device=None):
     return flow_mask, mask_dilated
 
 
-def extrapolate_frames(frames: torch.Tensor, out_w: int, out_h: int, canvas_w: int, canvas_h: int):
-    """Outpainting canvas (utils/image_utils.py:200-252). frames [T, H, W, 3]
-    in [0, 1] -> (canvas [T, canvas_h, canvas_w, 3] in [0, 1] with the
-    resized frames centred, flow_masks, masks_dilated [T, canvas_h,
-    canvas_w, 1])."""
-    t = frames.shape[0]
-    byte0 = torch.floor(torch.clamp(frames.float() * 255.0, 0.0, 255.0))
-    byte = resize_frames(byte0, out_w, out_h) / 255.0
-    h_start = (canvas_h - out_h) // 2
-    w_start = (canvas_w - out_w) // 2
-    canvas = frames.new_zeros((t, canvas_h, canvas_w, 3))
-    canvas[:, h_start : h_start + out_h, w_start : w_start + out_w] = byte.to(canvas.dtype)
-    flow_mask, mask_dilated = ring_masks((out_h, out_w), (canvas_h, canvas_w), frames.device)
+def outpaint_canvas(byte: torch.Tensor, canvas_hw):
+    """The outpaint canvas (utils/image_utils.py:200-252): the frames'
+    bytes byte [T, H, W, 3] centred on a zero canvas [T, canvas_h,
+    canvas_w, 3], and its ring masks (flow_masks, masks_dilated)
+    [T, canvas_h, canvas_w, 1] (`ring_masks`)."""
+    t, h, w, c = byte.shape
+    canvas_h, canvas_w = canvas_hw
+    h_start = (canvas_h - h) // 2
+    w_start = (canvas_w - w) // 2
+    canvas = byte.new_zeros((t, canvas_h, canvas_w, c))
+    canvas[:, h_start : h_start + h, w_start : w_start + w] = byte
     shape = (t, canvas_h, canvas_w, 1)
-    return canvas, flow_mask[None, :, :, None].expand(shape), mask_dilated[None, :, :, None].expand(shape)
+    masks = ring_masks((h, w), canvas_hw, byte.device)
+    return (canvas, *(m[None, :, :, None].expand(shape).contiguous() for m in masks))

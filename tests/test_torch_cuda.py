@@ -160,10 +160,10 @@ def test_deform_conv_bf16_tiles(gen, monkeypatch, rows, cin, g, cout, aligned):
     mask = torch.rand(3, 11, 17, g, 9, generator=gen, device="cuda").to(dt)
     w = (torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") * 0.05).to(dt)
     out = b2.deform_conv2d(x, off, mask, w)
-    layout = b2._cached_layout(w, dt)
+    layout = conv.laid_weight(b2.weight_layout, (w,), dt)
     torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w), atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(b2.deform_conv2d(x, off, mask, w), out, atol=0, rtol=0)
-    assert b2._cached_layout(w, dt) is layout
+    assert conv.laid_weight(b2.weight_layout, (w,), dt) is layout
 
 
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -210,10 +210,10 @@ def test_deform_conv_f32_tiles(gen, monkeypatch, splits, cin, g, cout, aligned):
     before = launched("deform_conv")
     out = b2.deform_conv2d(x, off, mask, w, bias)
     assert launched("deform_conv") == before + 1
-    layout = b2._cached_layout(w, torch.float32)
+    layout = conv.laid_weight(b2.weight_layout, (w,), torch.float32)
     torch.testing.assert_close(out, b2.deform_conv2d_plain(x, off, mask, w, bias), atol=1e-4, rtol=1e-4)
     assert torch.equal(b2.deform_conv2d(x, off, mask, w, bias), out)
-    assert b2._cached_layout(w, torch.float32) is layout
+    assert conv.laid_weight(b2.weight_layout, (w,), torch.float32) is layout
 
 
 @pytest.mark.parametrize("splits", b2.TAP_SPLITS)
@@ -320,6 +320,19 @@ def test_window_attention_tiled_matches_plain(gen, monkeypatch, dt, tol, split, 
     assert launched("window_attention_tiled") == before + 1
     torch.testing.assert_close(out, b3.window_attention_tiled_plain(*full, 3), atol=tol, rtol=tol)
     torch.testing.assert_close(out, b3.window_attention(*full, n_win_per_b=3), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("keys", [1024, "one"])
+def test_window_attention_tiled_f32_other_splits(gen, monkeypatch, keys):
+    """B4's fp32 loop in splits of 1024 keys and in one split a window
+    (SPLIT_KEYS raised: what the loop's bring-up timed against 512), 2017 keys a
+    window, against its plain version (1e-4)."""
+    monkeypatch.setattr(b3, "SPLIT_KEYS", 1024 if keys == 1024 else 1 << 30)
+    full = _attention_args(gen, torch.float32, 2, 3, 2, 5, 45, 128, 148, 405, _OCC["mixed"], pad_first=True)
+    n_keys = 225 + b3._padded(3 * 148) + 3 * 405 + 65
+    assert b3.split_plan(n_keys, torch.float32)[0] == (2 if keys == 1024 else 1)
+    out = b3.window_attention_tiled(*full, n_win_per_b=3)
+    torch.testing.assert_close(out, b3.window_attention_tiled_plain(*full, 3), atol=1e-4, rtol=1e-4)
 
 
 def test_attention_tiled_bf16_checks(gen):
@@ -607,7 +620,7 @@ def test_window_attention_halo_gradients_match_the_twin(gen, ch, occ):
 
 
 def test_deform_conv_weight_relaid_after_an_optimizer_step(gen):
-    """B2 lays its weights out once per tensor (`_cached_layout`); an
+    """B2 lays its weights out once per tensor (`ops/conv.py::laid_weight`); an
     optimizer step writes the weight in place, so the second forward must
     use the new values."""
     x = torch.randn(1, 12, 20, 64, generator=gen, device="cuda")
@@ -869,8 +882,9 @@ def test_node_card_io_on_the_card_matches_the_host_paste(gen, monkeypatch, kind)
     """Both nodes on the card, at the benchmark cells' 24 x 360 x 640 (the
     outpaint node with four bands), on the stand-in pipeline of
     `test_torch_node_card_io.py`: outputs bit for bit those of the host prep
-    and paste, the pipeline's inputs too; `node_card_io` counts 1 a call at
-    the process size and 0 for a clip the node resizes."""
+    and paste, the pipeline's inputs too (the outpaint canvas's bytes
+    exactly, its normalised frames within an ulp); `node_card_io` counts 1
+    a call at the process size and 0 for a clip the node resizes."""
     from comfyui_propainter_nodes_tpu_torch import nodes
     from test_torch_node_card_io import INPAINT, StandIn, host_inpaint, host_outpaint
 
@@ -896,11 +910,44 @@ def test_node_card_io_on_the_card_matches_the_host_paste(gen, monkeypatch, kind)
         w = dict(w, width_scale=1.2, height_scale=1.5)
         node = nodes.ProPainterOutpaint()
         got = node.propainter_outpainting(frames, **w)
-        want, frames_dev = host_outpaint(StandIn(), frames, w, dev="cuda")
-        assert torch.equal(stand_in.calls[0][0], frames_dev)
+        want, inputs = host_outpaint(StandIn(), frames, w, dev="cuda")
+        frames_norm, flow_masks, masks_dilated, canvas = stand_in.calls[0][:4]
+        assert torch.equal(flow_masks, inputs[1]) and torch.equal(masks_dilated, inputs[2])
+        # the canvas is the bytes; the host's round trip through / 255 and * 255
+        # left 126 of the 256 bytes a float32 ulp above themselves on the card
+        # (CUDA divides by a host scalar as a product with its reciprocal)
+        assert torch.equal(canvas, torch.floor(inputs[3]))
+        torch.testing.assert_close(frames_norm, inputs[0], atol=1.2e-7, rtol=0)
         resize = lambda: node.propainter_outpainting(frames[:, ::4, ::4], **dict(w, width=96, height=64))  # noqa: E731
     assert launched("node_card_io") == before + 1
     for a, b in zip(got, want):
         assert (torch.equal(a, b) and a.device.type == "cpu") if isinstance(a, torch.Tensor) else a == b
     resize()
     assert launched("node_card_io") == before + 1
+
+
+def test_trace_us_matches_the_cuda_profiler_ranges(gen, tmp_path):
+    """20 spans around device work under a CPU and CUDA profiler: one
+    range each in its Chrome trace; each span mapped by `trace_us` beside
+    its range (the offsets printed)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset()
+    x = torch.randn(1 << 20, generator=gen, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            with profiling.span("node.upload"):
+                (x * 2).sum().item()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1e3
+    theirs = sorted((e["ts"] + base_us, e["ts"] + e["dur"] + base_us) for e in trace["traceEvents"]
+                    if e.get("cat") == "user_annotation" and e.get("name") == "node.upload")
+    mine = sorted((profiling.trace_us(r.start_ns), profiling.trace_us(r.end_ns)) for r in profiling.spans())
+    profiling.reset()
+    assert len(mine) == len(theirs) == 20
+    offsets = [m - t for pair in zip(mine, theirs) for m, t in zip(*pair)]
+    print(f"trace_us less the profiler's range: {min(offsets):.1f} to {max(offsets):.1f} us")

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from comfyui_propainter_nodes_tpu.ops.deform_conv import deform_conv2d_xla
+from comfyui_propainter_nodes_tpu_torch.ops import conv
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
 
 torch.set_num_threads(1)
@@ -156,25 +157,26 @@ def test_gather_slices(cin, g, vector):
 
 def test_weight_layout_is_cached_per_tensor():
     """[Cout, Cin, 3, 3] -> [Np, 9, Kp] bf16 with zero padding, made once a
-    weight tensor, remade after an in-place write, dropped with the tensor."""
+    weight tensor (`ops/conv.py::laid_weight`), remade after an in-place
+    write, dropped with the tensor."""
     rng = np.random.default_rng(1)
     w = torch.from_numpy(rng.standard_normal((40, 48, 3, 3)).astype(np.float32)).bfloat16()
-    laid = b2._cached_layout(w, torch.bfloat16)
+    laid = conv.laid_weight(b2.weight_layout, (w,), torch.bfloat16)
     assert laid.shape == (128, 9, 64) and laid.dtype == torch.bfloat16
     assert torch.equal(laid[:40, :, :48], w.permute(0, 2, 3, 1).reshape(40, 9, 48))
     assert torch.count_nonzero(laid[40:]) == 0 and torch.count_nonzero(laid[:, :, 48:]) == 0
-    assert b2._cached_layout(w, torch.bfloat16) is laid
-    f32 = b2._cached_layout(w, torch.float32)
+    assert conv.laid_weight(b2.weight_layout, (w,), torch.bfloat16) is laid
+    f32 = conv.laid_weight(b2.weight_layout, (w,), torch.float32)
     assert f32.shape == (9, 48, 128) and f32.dtype == torch.float32
     assert torch.equal(f32[:, :, :40], w.float().permute(2, 3, 1, 0).reshape(9, 48, 40))
     assert torch.count_nonzero(f32[:, :, 40:]) == 0
     w.mul_(2)
-    again = b2._cached_layout(w, torch.bfloat16)
+    again = conv.laid_weight(b2.weight_layout, (w,), torch.bfloat16)
     assert again is not laid and torch.equal(again[:40, :, :48], w.permute(0, 2, 3, 1).reshape(40, 9, 48))
-    key = (id(w), torch.bfloat16)
+    key = (b2.weight_layout, id(w), torch.bfloat16)
     del w, laid, again, f32
     gc.collect()
-    assert key not in b2._LAYOUTS
+    assert key not in conv._LAYOUTS
 
 
 # ------------------------------------------------------------ fp32 kernel

@@ -93,8 +93,12 @@ def host_inpaint(pipe, image, mask, w, dev="cpu"):
 
 
 def host_outpaint(pipe, image, w, dev="cpu"):
-    """The outpaint node's prep and paste as the host made them: the
-    canvas filled on the host from the interior bytes and the bands."""
+    """The outpaint node's prep and paste as the host made them: uint8
+    bytes (the host's resize, or the device's without PIL), the canvas
+    through its round trip (the bytes / 255 quantized again, centred, /
+    255 and * 255), the composed canvas as uint8, and its bands pasted
+    around the interior bytes on the host. Returns the outputs and the
+    pipeline's inputs."""
     img_cfg = OutpaintConfig(w["width"], w["height"], w["mask_dilates"], w["flow_mask_dilates"],
                              w["width_scale"], w["height_scale"])
     pw, ph = img_cfg.process_size
@@ -111,24 +115,25 @@ def host_outpaint(pipe, image, w, dev="cpu"):
     else:
         frames_dev = resize_frames(_upload_u8(frames_u8, dev).float(), pw, ph).to(torch.uint8)
         interior = frames_dev.cpu().numpy()
-    bands = [b.cpu().numpy() for b in pipe.process_node_outpaint(frames_dev, (chh, cw))]
-    out = np.zeros((t, chh, cw, 3), np.float32)
     h_start, w_start = (chh - ph) // 2, (cw - pw) // 2
-    out[:, h_start : h_start + ph, w_start : w_start + pw] = interior
-    bi = iter(bands)
-    if h_start:
-        out[:, :h_start] = next(bi)
-        out[:, h_start + ph :] = next(bi)
-    if w_start:
-        out[:, h_start : h_start + ph, :w_start] = next(bi)
-        out[:, h_start : h_start + ph, w_start + pw :] = next(bi)
+    rows, cols = slice(h_start, h_start + ph), slice(w_start, w_start + pw)
+    unit = frames_dev.float() / 255.0
+    canvas = unit.new_zeros((t, chh, cw, 3))
+    canvas[:, rows, cols] = torch.floor(torch.clamp(unit * 255.0, 0.0, 255.0)) / 255.0
+    canvas = canvas * 255.0
+    shape = (t, chh, cw, 1)
+    fm, md = (m[None, :, :, None].expand(shape).contiguous() for m in ring_masks((ph, pw), (chh, cw), dev))
+    inputs = ((canvas / 255.0 * 2.0 - 1.0)[None], fm[None], md[None], canvas)
+    out = pipe.process(*inputs).to(torch.uint8).cpu().numpy().astype(np.float32)
+    out[:, rows, cols] = interior
     mask = ring_masks((ph, pw), (chh, cw))[1]
-    return (torch.from_numpy(out).div_(255.0), mask.expand(t, chh, cw).clone().squeeze(), cw, chh), frames_dev
+    return (torch.from_numpy(out).div_(255.0), mask.expand(t, chh, cw).clone().squeeze(), cw, chh), inputs
 
 
 class StandIn:
-    """A pipeline whose outputs are fixed functions of its inputs, with
-    fractions the node's uint8 cast truncates; it records its inputs."""
+    """A pipeline whose outputs are fixed functions of its inputs: a crop
+    with fractions the inpaint node's uint8 cast truncates, or a whole
+    canvas of bytes; it records its inputs."""
 
     def __init__(self):
         self.progress = None
@@ -136,22 +141,13 @@ class StandIn:
 
     def process(self, frames_norm, flow_masks, masks_dilated, byte, crop=None):
         self.calls.append((frames_norm, flow_masks, masks_dilated, byte, crop))
+        if crop is None:  # the outpaint canvas: the input's bytes where its dilated mask is 0, as the composite
+            gen = torch.Generator().manual_seed(byte.shape[1] * 1000 + byte.shape[2])
+            fill = torch.randint(0, 256, byte.shape, generator=gen).to(byte)
+            return torch.where(masks_dilated[0] != 0, fill, byte)
         y0, x0, ch, cw = crop
         win = byte[:, y0 : y0 + ch, x0 : x0 + cw]
         return 255.0 - 0.75 * win + 0.4 * masks_dilated[0, :, y0 : y0 + ch, x0 : x0 + cw]
-
-    def process_node_outpaint(self, frames_u8, canvas_hw):
-        self.calls.append((frames_u8, canvas_hw))
-        t, ph, pw, _ = frames_u8.shape
-        chh, cww = canvas_hw
-        h_start, w_start = (chh - ph) // 2, (cww - pw) // 2
-        gen = torch.Generator().manual_seed(ph * 1000 + pw)
-        shapes = []
-        if h_start:
-            shapes += [(t, h_start, cww, 3), (t, chh - h_start - ph, cww, 3)]
-        if w_start:
-            shapes += [(t, ph, w_start, 3), (t, ph, cww - w_start - pw, 3)]
-        return [torch.randint(0, 256, s, generator=gen, dtype=torch.uint8).to(frames_u8.device) for s in shapes]
 
 
 def _assert_same(got, want):
@@ -316,6 +312,23 @@ def test_inpaint_node_resized_matches_the_host_paste(monkeypatch, pil):
     _assert_same(stand_in.calls[0][:4], inputs)
 
 
+@pytest.mark.parametrize("pil", [True, False])
+def test_inpaint_node_resized_single_frame_mask_matches_the_host_paste(monkeypatch, pil):
+    """A one-frame mask of another size is resized once and expanded over
+    the clip after the resize; the host expanded it before."""
+    frames, masks = _clip(h=60, w=80)
+    stand_in = StandIn()
+    monkeypatch.setattr(nodes, "get_pipeline", lambda *a: stand_in)
+    if not pil:
+        monkeypatch.setattr(nodes, "_host_resize_u8", lambda *a: None)
+    node = nodes.ProPainterInpaint(device="cpu")
+    got = node.propainter_inpainting(frames, masks[2], **INPAINT)
+    want, crop, inputs = host_inpaint(StandIn(), frames, masks[2], INPAINT)
+    assert node.last_crop == crop
+    _assert_same(got, want)
+    _assert_same(stand_in.calls[0][:4], inputs)
+
+
 OUTPAINT = dict(INPAINT, width_scale=1.25, height_scale=1.0)
 
 
@@ -339,9 +352,9 @@ def test_outpaint_node_matches_the_host_paste(monkeypatch, scales, size, dtype):
     stand_in = StandIn()
     monkeypatch.setattr(nodes, "get_pipeline", lambda *a: stand_in)
     got = nodes.ProPainterOutpaint(device="cpu").propainter_outpainting(frames, **w)
-    want, frames_dev = host_outpaint(StandIn(), frames, w)
+    want, inputs = host_outpaint(StandIn(), frames, w)
     _assert_same(got, want)
-    assert torch.equal(stand_in.calls[0][0], frames_dev)
+    _assert_same(stand_in.calls[0][:4], inputs)
 
 
 # ------------------------------------------------- both nodes on the real pipeline

@@ -253,20 +253,20 @@ def test_gemm_site_rule():
 
 
 def test_laid_weight_is_laid_once_per_tensor():
-    """`laid_weight` lays a weight (or weights side by side) out once per
-    tensor and dtype, again after an in-place write."""
+    """`laid_weight` lays a weight (or weights side by side, `gemm_layout`)
+    out once per tensor and dtype, again after an in-place write."""
     w, v = torch.randn(4, 3, 3, 3), torch.randn(2, 3, 3, 3)
-    first = conv.laid_weight((w,), torch.float32)
-    assert conv.laid_weight((w,), torch.float32) is first
+    first = conv.laid_weight(conv.gemm_layout, (w,), torch.float32)
+    assert conv.laid_weight(conv.gemm_layout, (w,), torch.float32) is first
     assert torch.equal(first, conv.gemm_weight(w))
-    pair = conv.laid_weight((w, v), torch.float32)
+    pair = conv.laid_weight(conv.gemm_layout, (w, v), torch.float32)
     assert pair is not first and torch.equal(pair, torch.cat([conv.gemm_weight(w), conv.gemm_weight(v)], -1))
-    assert conv.laid_weight((w, v), torch.float32) is pair
+    assert conv.laid_weight(conv.gemm_layout, (w, v), torch.float32) is pair
     # the same first weight alone again: its own layout, not the pair's
-    assert torch.equal(conv.laid_weight((w,), torch.float32), conv.gemm_weight(w))
-    assert conv.laid_weight((w,), torch.float64).dtype == torch.float64
+    assert torch.equal(conv.laid_weight(conv.gemm_layout, (w,), torch.float32), conv.gemm_weight(w))
+    assert conv.laid_weight(conv.gemm_layout, (w,), torch.float64).dtype == torch.float64
     w.mul_(2)
-    again = conv.laid_weight((w,), torch.float32)
+    again = conv.laid_weight(conv.gemm_layout, (w,), torch.float32)
     assert again is not first and torch.equal(again, conv.gemm_weight(w))
 
 

@@ -1,5 +1,6 @@
 """The port's outpaint path vs the JAX package's: the canvas size, the
-canvas and its two ring masks, and the whole ProPainterOutpaint node.
+canvas (`outpaint_canvas`) and its two ring masks, and the whole
+ProPainterOutpaint node.
 
 Sizes and the canvas are exact; the node's IMAGE is within 1/255 (the
 uint8 floor of the composite can flip one level), its interior equals
@@ -39,11 +40,15 @@ CANVASES = [((64, 96), (96, 120), (64, 96)), ((64, 96), (64, 112), (64, 96)), ((
 
 @pytest.mark.parametrize("in_hw,canvas_hw,out_hw", CANVASES)
 def test_extrapolate_frames_matches_jax(in_hw, canvas_hw, out_hw):
+    """`outpaint_canvas` on the frames' bytes at the process size (the
+    node's, `resize_frames` of the quantized frames) against the JAX
+    `extrapolate_frames` of the same frames."""
     frames = np.random.default_rng(3).uniform(size=(3, *in_hw, 3)).astype(np.float32)
     (oh, ow), (chh, cw) = out_hw, canvas_hw
-    ours = timage.extrapolate_frames(torch.from_numpy(frames), ow, oh, cw, chh)
+    byte = timage.resize_frames(torch.floor(torch.clamp(torch.from_numpy(frames) * 255.0, 0.0, 255.0)), ow, oh)
+    ours = timage.outpaint_canvas(byte, canvas_hw)
     ref = jimage.extrapolate_frames(jnp.asarray(frames), ow, oh, cw, chh)
-    canvas, ref_canvas = ours[0].numpy(), np.asarray(ref[0])
+    canvas, ref_canvas = ours[0].numpy() / np.float32(255), np.asarray(ref[0])
     assert canvas.shape == ref_canvas.shape == (3, chh, cw, 3)
     if in_hw == out_hw:
         np.testing.assert_array_equal(canvas, ref_canvas)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from comfyui_propainter_nodes_tpu_torch.pipeline import stages
+from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
 
 def _flags():
@@ -53,10 +54,11 @@ def test_process_runs_in_full_fp32_and_restores(restore_flags):
     pipe.compute_flow = pipe.complete_flow = pipe.feature_propagation = stage
     pipe.image_propagation = lambda *args: (stage(*args), None)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
+    profiling.reset_stages()
     assert pipe.process("frames", "flow_masks", "masks", "original") == "frames"
     assert seen == [(False, False)] * 4
     assert _flags() == (True, True)
-    assert set(pipe.stage_seconds) == {"compute_flow", "complete_flow", "image_propagation", "feature_propagation"}
+    assert set(profiling.summary()) == {"compute_flow", "complete_flow", "image_propagation", "feature_propagation"}
 
 
 def test_building_a_pipeline_leaves_the_flags(restore_flags):
