@@ -44,7 +44,13 @@ weights lookup of the run takes the cache and nothing is downloaded.
        kernel) and path M (1, 2)'s 12-pair calls (lanes), B2 at
        x[4,45,80,256], x[8,90,160,128] and x[4,90,160,128], and B4 at
        path C's middle window group (8 windows of 19 frames, t_sel 10
-       and 9, 36 token windows a row, its occupancy);
+       and 9, 36 token windows a row, its occupancy); image propagation's
+       step (`prop_fill`) at the outpaint cell's clip (24 frames on the
+       768x360 canvas), the main path's, path A's 720p clip, path C's
+       batch of two 100-frame chunks with per-row restarts and an odd
+       size (bilinear), both directions bit-equal to the plain steps;
+       at the outpaint clip one step and a whole direction (23 steps)
+       timed both ways;
      then the gradients (fp32) at path T's shapes: B2 at x[2,60,108,128],
      B3 and B4 at a layer's attention (2 clips x 16 windows of 16 frames,
      t_sel 8, path T's occupancy), B5 on the same 20x36 token grid: each
@@ -442,6 +448,84 @@ def check_corr_window(dt, gen):
         res[name] = dict(max_abs_err=err, ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                          library_ms=library_ms)
     log(f"    padded level-0 maps {pyr[0].numel() * esz / 2**30:.3f} GiB")
+    return res
+
+
+# image propagation's directions: (batch rows, frames, height, width,
+# first index, interpolation) at the outpaint cell's clip (timed), the
+# main path's, path A's 720p clip, path C's batch of two 100-frame chunks
+# with per-row restarts, and an odd frame whose 23x37 pixels end each row
+# in a part-filled block (the kernel's tail guard), bilinear
+PROP_FILL_CLIPS = {
+    "path_o": (1, 24, 360, 768, 0, "nearest"),
+    "main": (1, 24, 360, 640, 0, "nearest"),
+    "path_a": (1, 24, 720, 1280, 0, "nearest"),
+    "path_c": (2, 100, 360, 640, "per_row", "nearest"),
+    "odd": (3, 5, 23, 37, 2, "bilinear"),
+}
+
+
+def prop_fill_inputs(n, t, h, w, dt, gen):
+    """Frames zero inside the masks, binary masks (a box moving over the
+    frames and the outpaint bands at both edges), flows of a few pixels."""
+    mask = torch.zeros(n, t, h, w, 1, device="cuda")
+    for j in range(t):
+        y0, x0 = (h // 6 + j) % (h // 2), (w // 4 + 3 * j) % (w // 2)
+        mask[:, j, y0 : y0 + h // 3, x0 : x0 + w // 3] = 1.0
+    band = max(1, w // 12)
+    mask[:, :, :, :band] = mask[:, :, :, -band:] = 1.0
+    x = ((torch.rand(n, t, h, w, 3, generator=gen, device="cuda") * 2 - 1) * (1 - mask)).to(dt)
+    fp, fc = (torch.randn(n, t - 1, h, w, 2, generator=gen, device="cuda").mul(3).to(dt) for _ in range(2))
+    return x, mask.to(dt), fp, fc
+
+
+def check_prop_fill(dt, gen):
+    """Image propagation's step (prop_fill) on each of PROP_FILL_CLIPS:
+    both directions against the plain steps, bit for bit (signed zeros
+    too), `max_abs_err` the largest difference over both. At the outpaint
+    clip, one step timed (kernel: `ms`, ten back to back, and `ms_single`,
+    one launch a sample with its enqueue; the plain step) and a whole
+    direction of 23 steps both ways, one call a sample. The bound: each
+    input element read once (the pixel's flow, frame and mask, the
+    previous slot's mask, frame and the check flow) and the slot written,
+    16 elements a pixel."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import prop_fill as mod
+
+    res = {}
+    for tag, (n, t, h, w, first, interp) in PROP_FILL_CLIPS.items():
+        x, mask, fp, fc = prop_fill_inputs(n, t, h, w, dt, gen)
+        fi = torch.tensor([0, t // 2 + 1, 1][:n], device="cuda") if first == "per_row" else first
+        err = 0.0
+        for reverse in (False, True):
+            got = mod.prop_fill(x, mask, fp, fc, interp, fi, reverse)
+            want = mod.prop_fill_plain(x, mask, fp, fc, interp, fi, reverse)
+            for a, b in zip(got, want):
+                require(torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b)),
+                        f"prop_fill {dt} {tag} reverse={reverse}: {int((a != b).sum())} values differ from the "
+                        "plain steps")
+                err = max(err, float((a.float() - b.float()).abs().max()))
+        res[tag] = dict(clip=(n, t, h, w), first_index=fi.tolist() if first == "per_row" else first,
+                        interpolation=interp, max_abs_err=err)
+        log(f"  prop_fill {str(dt)[6:]} {tag} at [{n}, {t}, {h}, {w}] {interp}, first index "
+            f"{res[tag]['first_index']}: both directions bit-equal to the plain steps (max abs err {err})")
+        if tag == "path_o":
+            feats, masks = got
+            step = mod._kernel_launcher(x, mask, fp, fc, feats, masks, interp)
+            run = lambda: step(t - 2, t - 1, t - 2, None)  # noqa: E731  (the backward pass's first step)
+            plain = lambda: mod.prop_step_plain(  # noqa: E731
+                feats[:, t - 1], masks[:, t - 1], x[:, t - 2], mask[:, t - 2], fp[:, t - 2], fc[:, t - 2], interp)
+            ms, ms_single = time_ms(run), time_ms(run, batch=1)
+            plain_ms = time_ms(plain, reps=10, warmup=2, batch=1)
+            direction_ms = time_ms(lambda: mod.prop_fill(x, mask, fp, fc), reps=10, warmup=2, batch=1)
+            plain_direction_ms = time_ms(lambda: mod.prop_fill_plain(x, mask, fp, fc), reps=5, warmup=1, batch=1)
+            bound, by = bound_ms(0, n * h * w * 16 * x.element_size(), dt)
+            log(f"  prop_fill {str(dt)[6:]} {tag}: a step: ms {ms:.4f} (one launch a sample {ms_single:.4f})  "
+                f"plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} ({by}), kernel / bound {ms / bound:.2f}; a direction "
+                f"of {t - 1} steps: {direction_ms:.4f} ms, plain {plain_direction_ms:.4f} ms")
+            res[tag].update(ms=ms, ms_single=ms_single, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            library_ms=None, direction_ms=direction_ms, plain_direction_ms=plain_direction_ms)
+        del x, mask, fp, fc, got, want
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1194,7 +1278,7 @@ WIDGETS = dict(
 # every launch counter of the port (utils/profiling.py::kernel): the kernels'
 # by their rows' names, and `conv_gemm`, the float32 convs of GEMM_SITES on cuBLAS
 KERNELS = ("corr_lookup", "corr_lookup_map", "deform_conv", "window_attention", "window_attention_tiled",
-           "window_attention_halo", "corr_window4", "corr_window", "conv_gemm")
+           "window_attention_halo", "corr_window4", "corr_window", "conv_gemm", "prop_fill")
 
 
 # each counter's kernel as the profiler names it on the node's bf16 paths
@@ -1203,7 +1287,7 @@ PROFILED = {
     "deform_conv": "deform_conv_mma_kernel",
     "window_attention": "window_attention_mma_kernel", "window_attention_tiled": "window_attention_split_mma_kernel",
     "window_attention_halo": "window_attention_halo_mma_kernel", "corr_window4": "corr_window4_kernel",
-    "corr_window": "corr_window_kernel",
+    "corr_window": "corr_window_kernel", "prop_fill": "prop_fill_kernel",
 }
 
 
@@ -1378,7 +1462,7 @@ def profile_run(run, timed_wall_s, name):
         "window_attention_kernel",
         "window_attention_split_mma_kernel", "window_attention_split_kernel", "window_attention_combine_kernel",
         "window_attention_halo_mma_kernel", "window_attention_halo_kernel", "corr_window4_kernel",
-        "corr_window_kernel")}
+        "corr_window_kernel", "prop_fill_kernel")}
     dtoh = sum(r[0] for r in rows if "DtoH" in r[2])
     share = busy / (timed_wall_s * 1e3)
     own = busy / (own_wall_s * 1e3)
@@ -1696,13 +1780,15 @@ def record_forms(pipe, forms: list):
 
 
 # the earlier paths' launches (every other counter 0); path S's B1 map
-# count is 76 RAFT calls of 20 iterations: its 24-pair flow sub-ranges
+# count is 76 RAFT calls of 20 iterations: its 24-pair flow sub-ranges;
+# prop_fill's, 2 (n - 1) a chunk of n frames: 24 frames, or path S's
+# chunks of 90, 100 and 90
 EARLIER_LAUNCHES = {
-    "main": dict(corr_lookup=20, deform_conv=66, window_attention=8),
-    "path_a": dict(corr_lookup_map=120, deform_conv=66, window_attention_tiled=8),
-    "path_b": dict(deform_conv=66, window_attention_halo=8, corr_window4=20),
-    "path_o": dict(corr_lookup=20, deform_conv=66, window_attention=8),
-    "path_s": dict(corr_lookup_map=1520, deform_conv=1568, window_attention_tiled=384),
+    "main": dict(corr_lookup=20, deform_conv=66, window_attention=8, prop_fill=46),
+    "path_a": dict(corr_lookup_map=120, deform_conv=66, window_attention_tiled=8, prop_fill=46),
+    "path_b": dict(deform_conv=66, window_attention_halo=8, corr_window4=20, prop_fill=46),
+    "path_o": dict(corr_lookup=20, deform_conv=66, window_attention=8, prop_fill=46),
+    "path_s": dict(corr_lookup_map=1520, deform_conv=1568, window_attention_tiled=384, prop_fill=554),
 }
 
 def live_growth(live, fills, h: int, w: int) -> list:
@@ -2138,8 +2224,8 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
 # the JAX size estimate, 14.9e6 and 14.1e6 at t_sel 10 and 9, sends
 # them to B4 (B3 below 12e6, as on the 24-frame main path)
 PATH_M_MESHES = {
-    (2, 1): ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
-    (1, 2): ("corr_lookup", "deform_conv"),
+    (2, 1): ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
+    (1, 2): ("corr_lookup", "deform_conv", "prop_fill"),
 }
 
 
@@ -2359,7 +2445,7 @@ def path_m_run(ref_dir: str) -> dict:
 # [0, 360) and [360, 720)); path A's kernels, B2's feature-propagation
 # launches in the row form (x[5,180,320,128], 96 rows a rank)
 PATH_MH = (24, 720, 1280)
-PATH_MH_NEED = ("corr_lookup_map", "deform_conv", "window_attention_tiled")
+PATH_MH_NEED = ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill")
 
 
 def feature_peak(pipe, peaks: list):
@@ -3140,6 +3226,7 @@ def main() -> int:
         res[("B5l", key)] = check_window_attention_halo(dt, gen, (60, 108), occ720)
         cw = check_corr_window(dt, gen)
         res[("B6", key)], res[("B7", key)] = cw["B6"], cw["B7"]
+        res[("PF", key)] = check_prop_fill(dt, gen)
         torch.cuda.empty_cache()
     grads = path_t_grad_checks(gen)
     torch.cuda.empty_cache()
@@ -3151,18 +3238,18 @@ def main() -> int:
     # one RAFT call (w8 = 80, 723.5 MB a direction), the map-dtype blend for
     # path A's (w8 = 160)
     main_run, main_img, main_md = node_run(
-        "main path 640x360", 360, 640, ("corr_lookup", "deform_conv", "window_attention"),
+        "main path 640x360", 360, 640, ("corr_lookup", "deform_conv", "window_attention", "prop_fill"),
         ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window",
          "conv_gemm"),
         profile_name="profile.txt",
     )
     path_a, _, _ = node_run(
-        "path A 1280x720", 720, 1280, ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+        "path A 1280x720", 720, 1280, ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
         ("corr_lookup", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
         profile_name="profile_720p.txt",
     )
     path_b, b_img, _ = node_run(
-        "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4"),
+        "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4", "prop_fill"),
         ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window", "conv_gemm"),
         switched=True, profile_name="profile_switches.txt",
     )
@@ -3174,7 +3261,7 @@ def main() -> int:
     # the outpaint canvas: RAFT's gate at both of its edges (w8 = 96, the
     # lanes' widest; 976.8 MB of the 1 GiB a direction) still takes the lanes
     path_o = outpaint_run(
-        ("corr_lookup", "deform_conv", "window_attention"),
+        ("corr_lookup", "deform_conv", "window_attention", "prop_fill"),
         ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window",
          "conv_gemm"),
     )
@@ -3183,14 +3270,14 @@ def main() -> int:
     # path S: RAFT at w8 = 160 takes the map blend; one window of 19 frames
     # a transformer call, B4 by the size estimate
     path_s = path_s_run(
-        ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
         ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
     )
     # path H at 1920x1080: the forced forms first (also its warm-up); RAFT
     # (w8 = 240) takes the map blend, the windows B4
     forced = forced_forms()
     path_h = path_h_run(
-        ("corr_lookup_map", "deform_conv", "window_attention_tiled"),
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
         ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
     )
     card_vs_host(False, outpaint=True)
@@ -3322,6 +3409,17 @@ def main() -> int:
                 for tag, (shape, (r0, ho)) in B2_ROWS.items()
             }
         kernels.append(row)
+    pf_, pf32 = res[("PF", "bfloat16")], res[("PF", "float32")]
+    kernels.append({  # replaces no TPU kernel: the eager step (the JAX package leaves it to XLA)
+        "name": "prop_fill", "route": "cuda", "source": f"{pkg}/csrc/prop_fill.cu", "replaces": None,
+        "launches": path_o["launches"]["prop_fill"], "clip": pf_["path_o"]["clip"], "dtype": "bf16",
+        **subset(pf_["path_o"], KEEP + ("ms_single", "direction_ms", "plain_direction_ms")),
+        **fp32_of(pf32["path_o"]),
+        **{f"{tag}_shapes": dict(subset(pf_[tag], ("clip", "first_index", "interpolation", "max_abs_err")),
+                                 max_abs_err_fp32=pf32[tag]["max_abs_err"])
+           for tag in PROP_FILL_CLIPS if tag != "path_o"},
+        "launches_by_path": {p: v["launches"]["prop_fill"] for p, v in paths.items()},
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"conv_gemm": conv_gemm}))
     detail = {f"{k}_{d}": v for (k, d), v in res.items()}

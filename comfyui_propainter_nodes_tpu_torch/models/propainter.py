@@ -1,11 +1,12 @@
 """ProPainter InpaintGenerator (inference, and the training step's forward).
 
 Port of the JAX package's `models/propainter.py` (main path): the
-encoder with grouped fusion, image propagation (warp-fill, no weights)
-and feature propagation (first-order deformable alignment on the
-deform-conv kernel) as Python loops over frames, soft split/comp around
-the 8-block sparse transformer (ops/attention.py), and the decoder over
-local frames: full-frame, or only a crop of it (`decoder_crop`).
+encoder with grouped fusion, image propagation (warp-fill, no weights,
+on the prop_fill kernel a step) and feature propagation (first-order
+deformable alignment on the deform-conv kernel) as Python loops over
+frames, soft split/comp around the 8-block sparse transformer
+(ops/attention.py), and the decoder over local frames: full-frame, or
+only a crop of it (`decoder_crop`).
 
 Memory plans (per-frame pure, so exact): `encode_features` encodes as
 many frames a call as keep its largest activation (1/4 res, 512
@@ -48,7 +49,7 @@ import torch
 from ..ops.attention import soft_comp, soft_split, transformer_stack
 from ..ops.conv import leaky_relu, pconv2d
 from ..ops.cuda.deform_conv import deform_conv2d
-from ..ops.dilation import binarize
+from ..ops.cuda.prop_fill import first_flags, prop_fill, row_flag
 from ..ops.pool import max_pool2d
 from ..ops.resize import resize_2x_window, resize_bilinear, resize_nearest
 from ..ops.warp import flow_warp
@@ -201,70 +202,9 @@ def _deformable_alignment(p: Params, pre: str, x, cond, flow, row0: int = 0):
     )
 
 
-def _first_flags(t: int, first_index, device):
-    """[T, 1] or [T, B] bool: True at the step where propagation (re)starts."""
-    ar = torch.arange(t, device=device)
-    if isinstance(first_index, torch.Tensor):
-        return ar[:, None] == first_index.to(device)[None, :]
-    return (ar == first_index)[:, None]
-
-
-def _bflag(flag, like):
-    """[B] or [1] flag -> broadcastable against [B, H, W, C]."""
-    return flag.reshape(-1, 1, 1, 1).expand(like.shape[0], 1, 1, 1)
-
-
 def _align_flows(flows):
     """[T-1, ...] -> [T, ...]: step i consumes flows[i-1]; slot 0 is a dummy."""
     return torch.cat([torch.zeros_like(flows[:1]), flows], dim=0)
-
-
-def _prop_direction_image(x_seq, mask_seq, flows_prop, flows_check, interpolation, first_index=0):
-    """Non-learnable direction: warp-fill. x_seq/mask_seq [T, N, H, W, C];
-    flows_* [T-1, N, H, W, 2]. Returns (feats, masks) [T, ...].
-
-    first_index: the step where propagation (re)starts, keeping the frame
-    as it is: an int, or a [N] tensor (each batch row its own). Steps
-    before it are padding (zeros for an int; for a tensor they run, their
-    values unused), so real frames' results do not depend on it."""
-    per_row = first_index if isinstance(first_index, torch.Tensor) and first_index.ndim == 1 else None
-    first = 0 if per_row is not None else int(first_index)
-    # each step's restart flags [T, N], made once: the loop copies nothing to the card
-    restarts = _first_flags(x_seq.shape[0], per_row, x_seq.device) if per_row is not None else None
-    feats, masks = [], []
-    for i in range(x_seq.shape[0]):
-        if i < first:
-            feats.append(torch.zeros_like(x_seq[i]))
-            masks.append(torch.zeros_like(mask_seq[i]))
-            continue
-        if i == first:  # the first frame is kept
-            feat_prop, mask_prop = x_seq[i], mask_seq[i]
-            feats.append(feat_prop)
-            masks.append(mask_prop)
-            continue
-        feat_current, mask_current = x_seq[i], mask_seq[i]
-        flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
-        if interpolation == "bilinear":
-            warped = flow_warp(torch.cat([flow_check, mask_prop, feat_prop], dim=-1), flow_prop)
-            warped3, feat_warped = warped[..., :3], warped[..., 3:]
-        else:
-            warped3 = flow_warp(torch.cat([flow_check, mask_prop], dim=-1), flow_prop)
-            feat_warped = flow_warp(feat_prop, flow_prop, interpolation)
-        flow_bw_warped = warped3[..., :2]
-        mask_prop_valid = binarize(warped3[..., 2:])
-        diff = flow_prop + flow_bw_warped
-        mag = torch.sum(flow_prop**2, -1, keepdim=True) + torch.sum(flow_bw_warped**2, -1, keepdim=True)
-        valid = (torch.sum(diff**2, -1, keepdim=True) < 0.01 * mag + 0.5).to(flow_prop.dtype)
-        union = binarize(mask_current * valid * (1 - mask_prop_valid))
-        feat_prop = union * feat_warped + (1 - union) * feat_current
-        mask_prop = binarize(mask_current * (1 - valid * (1 - mask_prop_valid)))
-        if per_row is not None:
-            restart = _bflag(restarts[i], feat_prop)
-            feat_prop = torch.where(restart, feat_current, feat_prop)
-            mask_prop = torch.where(restart, mask_current, mask_prop)
-        feats.append(feat_prop)
-        masks.append(mask_prop)
-    return torch.stack(feats), torch.stack(masks)
 
 
 def _prop_step(p, module, feat_prop, feat_current, mask_current, flow_prop, flow_check, first, row0: int = 0):
@@ -281,7 +221,7 @@ def _prop_step(p, module, feat_prop, feat_current, mask_current, flow_prop, flow
     valid = (torch.sum(diff**2, -1, keepdim=True) < 0.01 * mag + 0.5).to(feat_prop.dtype)
     cond = torch.cat([feat_current, feat_warped, flow_prop, valid, mask_current], dim=-1)
     aligned = _deformable_alignment(p, da, feat_prop, cond, flow_prop, row0)
-    out = torch.where(_bflag(first, feat_current), feat_current, aligned)
+    out = torch.where(row_flag(first, feat_current), feat_current, aligned)
     y = leaky_relu(
         pconv2d(p, bb + ".0", torch.cat([feat_current, out, mask_current], dim=-1), padding=(1, 1)),
         0.2,
@@ -301,7 +241,7 @@ def _prop_direction_feature(p, module, x_seq, mask_seq, flows_prop, flows_check,
     t = x_seq.shape[0]
     fp_all = _align_flows(flows_prop)
     fc_all = _align_flows(flows_check)
-    firsts = _first_flags(t, first_index, x_seq.device)
+    firsts = first_flags(t, first_index, x_seq.device)
     if feat is None:
         feat = RowSplit.whole(x_seq.shape[2])
     a, b = feat.widened(PROP_HALO4)
@@ -322,19 +262,16 @@ def bidirectional_propagation_image(x, flows_f, flows_b, mask, interpolation="ne
     """x [B,T,H,W,3]; flows [B,T-1,H,W,2]; mask [B,T,H,W,1] ->
     (prop_frames, updated_masks) [B,T,H,W,*].
 
-    t_valid: the count of real leading frames where T is zero-padded at
-    the end, an int or a [B] tensor (clip-parallel chunks); real frames'
-    results are exact: the backward pass, which meets the padding first,
-    restarts at the last real frame."""
-    xs, ms = x.movedim(1, 0), mask.movedim(1, 0)
-    ff, fb = flows_f.movedim(1, 0), flows_b.movedim(1, 0)
+    One `prop_fill` a direction (on CUDA one kernel launch a step): the
+    backward pass walks the slots from the last frame, so nothing is
+    flipped or stacked. t_valid: the count of real leading frames where T
+    is zero-padded at the end, an int or a [B] tensor (clip-parallel
+    chunks); real frames' results are exact: the backward pass, which
+    meets the padding first, restarts at the last real frame."""
+    x, flows_f, flows_b, mask = (a.contiguous() for a in (x, flows_f, flows_b, mask))
     bwd_first = 0 if t_valid is None else x.shape[1] - t_valid
-    feats_b, masks_b = _prop_direction_image(
-        xs.flip(0), ms.flip(0), ff.flip(0), fb.flip(0), interpolation, bwd_first
-    )
-    feats_b, masks_b = feats_b.flip(0), masks_b.flip(0)
-    feats_f, masks_f = _prop_direction_image(feats_b, masks_b, fb, ff, interpolation)
-    return feats_f.movedim(0, 1), masks_f.movedim(0, 1)
+    feats_b, masks_b = prop_fill(x, mask, flows_f, flows_b, interpolation, bwd_first, reverse=True)
+    return prop_fill(feats_b, masks_b, flows_b, flows_f, interpolation)
 
 
 def bidirectional_propagation_feature(p: Params, x, flows_f, flows_b, mask, t_valid=None, feat=None):

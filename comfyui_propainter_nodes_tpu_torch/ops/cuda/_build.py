@@ -38,6 +38,7 @@ _SIGNATURES = {
     "propainter_window_attention_halo": [_P] * 13 + [_I] * 11 + [ctypes.c_float, _I, _P],
     "propainter_corr_window": [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P],
     "propainter_corr_window4": [_P] * 4 + [_I] * 8 + [_P] * 5 + [ctypes.c_longlong, _I, _P],
+    "propainter_prop_fill": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 

@@ -22,6 +22,7 @@ from comfyui_propainter_nodes_tpu_torch.pipeline.stages import full_fp32
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as b67
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
+from comfyui_propainter_nodes_tpu_torch.ops.cuda import prop_fill as pf
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention as b3
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import window_attention_halo as b5
 from comfyui_propainter_nodes_tpu_torch.utils import profiling
@@ -951,3 +952,112 @@ def test_trace_us_matches_the_cuda_profiler_ranges(gen, tmp_path):
     assert len(mine) == len(theirs) == 20
     offsets = [m - t for pair in zip(mine, theirs) for m, t in zip(*pair)]
     print(f"trace_us less the profiler's range: {min(offsets):.1f} to {max(offsets):.1f} us")
+
+
+# image propagation's step (prop_fill): (batch rows, frames, height, width,
+# dtype, interpolation, first index): the two cells' clips, bilinear, path
+# C's batch of two 100-frame chunks with per-row restarts, an odd size
+PROP_FILL_CASES = {
+    "outpaint_bf16": (1, 24, 360, 768, torch.bfloat16, "nearest", 0),
+    "inpaint_fp32": (1, 24, 360, 640, torch.float32, "nearest", 0),
+    "bilinear_bf16": (2, 6, 90, 160, torch.bfloat16, "bilinear", 0),
+    "bilinear_fp32": (2, 6, 90, 160, torch.float32, "bilinear", 0),
+    "path_c_bf16": (2, 100, 360, 640, torch.bfloat16, "nearest", "per_row"),
+    "path_c_fp32": (2, 100, 360, 640, torch.float32, "nearest", "per_row"),
+    "odd_bf16": (3, 5, 17, 23, torch.bfloat16, "bilinear", 2),
+    "odd_fp32": (3, 5, 17, 23, torch.float32, "nearest", "per_row"),
+}
+
+
+def _prop_inputs(gen, n, t, h, w, dt):
+    """Frames zero (signs kept) inside a moving box, binary masks, flows of
+    a few pixels with a quarter on half pixels and a band far outside."""
+    yy = torch.arange(h, device="cuda")[:, None]
+    xx = torch.arange(w, device="cuda")[None, :]
+    mask = torch.zeros(n, t, h, w, 1, device="cuda")
+    for i in range(n):
+        for j in range(t):
+            y0, x0 = (h // 6 + 2 * j + i) % (h // 2), (w // 8 + 3 * j + 5 * i) % (w // 2)
+            mask[i, j, ((yy >= y0) & (yy < y0 + h // 3) & (xx >= x0) & (xx < x0 + w // 3))] = 1.0
+    x = (torch.rand(n, t, h, w, 3, generator=gen, device="cuda") * 2 - 1) * (1 - mask)
+
+    def flows():
+        f = torch.randn(n, t - 1, h, w, 2, generator=gen, device="cuda") * 3
+        f[:, :, : h // 4] = torch.round(f[:, :, : h // 4] * 2) / 2
+        f[:, :, -2:, :, 0] += 40.0
+        return f
+
+    return [a.to(dt).contiguous() for a in (x, mask, flows(), flows())]
+
+
+@pytest.mark.parametrize("case", list(PROP_FILL_CASES))
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+def test_prop_fill_is_bit_equal(gen, case, reverse):
+    """The kernel against its plain step on the card, bit for bit (signed
+    zeros included), both directions; one launch a step after the first."""
+    n, t, h, w, dt, interp, first = PROP_FILL_CASES[case]
+    args = _prop_inputs(gen, n, t, h, w, dt)
+    fi = torch.tensor([0, t // 2 + 1][:n] + [1] * (n - 2), device="cuda") if first == "per_row" else first
+    before = launched("prop_fill")
+    got = pf.prop_fill(*args, interp, fi, reverse=reverse)
+    assert launched("prop_fill") == before + t - 1 - (0 if first == "per_row" else first)
+    want = pf.prop_fill_plain(*args, interp, fi, reverse=reverse)
+    for g, r in zip(got, want):
+        assert g.dtype == dt
+        bad = int((g != r).sum())
+        assert torch.equal(g, r), f"{bad} values differ, max {float((g.float() - r.float()).abs().max())}"
+        assert torch.equal(torch.signbit(g), torch.signbit(r))
+
+
+def test_prop_fill_rounding_points_are_eager_pytorchs(gen):
+    """The rounding the kernel copies from eager PyTorch on the card, in
+    bf16: binarize's threshold is 0.1 rounded to bf16 (0.10009765625 is not
+    above it); a product with the float scalar 0.01 is taken in float32
+    and rounded once; a two-term sum is added in float32 and rounded once;
+    a square is the product rounded."""
+    from comfyui_propainter_nodes_tpu_torch.ops.dilation import binarize
+
+    edge = torch.tensor([0.0996094, 0.10009765625, 0.1005859375], device="cuda", dtype=torch.bfloat16)
+    assert binarize(edge).tolist() == [0.0, 0.0, 1.0]
+    v = (torch.rand(4096, 2, generator=gen, device="cuda") * 300).to(torch.bfloat16)
+    f = v.float()
+    assert torch.equal(0.01 * v[:, 0], (f[:, 0] * 0.01).to(torch.bfloat16))
+    assert torch.equal(v**2, (f * f).to(torch.bfloat16))
+    assert torch.equal(torch.sum(v, -1), (f[:, 0] + f[:, 1]).to(torch.bfloat16))
+
+
+def test_prop_fill_checks_on_the_card(gen):
+    """On CUDA the kernel takes fp32 and bf16 only, flows whose pairs are
+    aligned loads, and no input that requires grad."""
+    x, mask, fp, fc = _prop_inputs(gen, 1, 3, 8, 12, torch.float32)
+    with pytest.raises(ValueError, match="prop_fill: inputs must share"):
+        pf.prop_fill(*(a.double() for a in (x, mask, fp, fc)))
+    odd = torch.empty(fp.numel() + 1, device="cuda")[1:].view(fp.shape)
+    odd.copy_(fp)
+    with pytest.raises(ValueError, match="aligned"):
+        pf.prop_fill(x, mask, odd, fc)
+    with pytest.raises(ValueError, match="no backward"):
+        pf.prop_fill(x.clone().requires_grad_(), mask, fp, fc)
+
+
+@pytest.mark.parametrize("cell", ["outpaint-360p.sides", "inpaint-360p-fp32.object"])
+def test_prop_fill_counts_46_a_node_clip(gen, cell):
+    """One node clip of each cell's traffic launches `prop_fill` 46 times
+    (23 steps a direction of 24 frames); the same image propagation on CPU
+    tensors launches none."""
+    from benchmark.core import session, traffic
+    from comfyui_propainter_nodes_tpu_torch import nodes
+    from comfyui_propainter_nodes_tpu_torch.models import propainter as tpp
+
+    spec = session.cell_spec(session.manifest(), cell)
+    widgets = session.widgets(spec)
+    kind = spec.mix["node"]
+    image, mask = traffic.inputs(spec.mix, widgets, 7, 0)
+    node = (nodes.ProPainterInpaint if kind == "inpaint" else nodes.ProPainterOutpaint)()
+    before = launched("prop_fill")
+    session.call_node(node, kind, image, mask, widgets)
+    assert launched("prop_fill") - before == 46
+    x, m, ff, fb = (a.cpu() for a in _prop_inputs(gen, 1, 24, 16, 24, torch.float32))
+    before = launched("prop_fill")
+    tpp.bidirectional_propagation_image(x, ff, fb, m)
+    assert launched("prop_fill") == before
