@@ -1311,6 +1311,7 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
         wall = time.perf_counter() - t0
         counts, b2_shapes = read_counters()
         card_io = card_io_since()
+        forms = raft_forms_since()
         stages = stage_seconds()
         peak = torch.cuda.max_memory_allocated()
         log(f"  [{tag}] timed run {wall:.3f} s = {t / wall:.3f} frames/s; stages (s): "
@@ -1327,7 +1328,8 @@ def drive(tag, node, run, t, need, forbid, switched=False, profile_name=None):
         require(all(prof["kernels_ms"][PROFILED[k]] == 0 for k in forbid if k in PROFILED),
                 f"{tag}: a kernel off the path has device time in the profile: {prof['kernels_ms']}")
     summary = dict(frames=t, switches=switched, seconds=wall, fps=t / wall, stages=stages,
-                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, card_io=card_io, profile=prof)
+                   peak_bytes=peak, launches=counts, b2_launches_by_shape=b2_shapes, card_io=card_io,
+                   raft_forms=forms, profile=prof)
     return out, summary
 
 
@@ -1668,6 +1670,15 @@ def stage_seconds() -> dict:
     from comfyui_propainter_nodes_tpu_torch.utils import profiling
 
     return {k: v["seconds"] for k, v in profiling.summary().items()}
+
+
+def raft_forms_since() -> dict:
+    """The RAFT forms `Pipeline.compute_flow` counted ("raft_form/<form>",
+    one a call) since `reset_counters`."""
+    from comfyui_propainter_nodes_tpu_torch.utils import profiling
+
+    since = {k: v - _COUNTER_BASE.get(k, 0) for k, v in profiling.counters().items() if k.startswith("raft_form/")}
+    return {k: v for k, v in since.items() if v}
 
 
 def card_io_since() -> int:
@@ -3248,6 +3259,8 @@ def main() -> int:
         ("corr_lookup", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
         profile_name="profile_720p.txt",
     )
+    # at w8 = 160 the all-pairs volume passes RAFT_ALLPAIRS_BYTES: one call a chunk of 4 frames
+    require(path_a["raft_forms"] == {"raft_form/chunks": 1}, f"path A: RAFT forms {path_a['raft_forms']}")
     path_b, b_img, _ = node_run(
         "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4", "prop_fill"),
         ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window", "conv_gemm"),

@@ -50,7 +50,7 @@ from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.sequence import sequence_sharding
 from ..parallel.spatial import Partition, spatial_sharding, token_rows
 from ..utils.params import to_device
-from ..utils.profiling import progress_report, stage_timer
+from ..utils.profiling import count, progress_report, stage_timer
 
 RAFT_ALLPAIRS_BYTES = 4.5e9  # all-pairs volume budget for one RAFT call
 # what one RAFT call may hold in its correlation volume (`raft.call_bytes`):
@@ -435,13 +435,15 @@ class Pipeline:
     def compute_flow(self, frames):
         """Bidirectional RAFT flow. frames [1, T, H, W, 3] fp32 in [-1, 1]
         -> (flows_f, flows_b) [1, T-1, H, W, 2] fp32, in the form
-        `raft_form` picks; every call takes the blend of the JAX stage
-        plan for this clip (`jax_flow_lookup`)."""
+        `raft_form` picks, counted as `raft_form/<form>` (one a call);
+        every call takes the blend of the JAX stage plan for this clip
+        (`jax_flow_lookup`)."""
         cfg = self.config
         t, hw = frames.shape[1], (frames.shape[2], frames.shape[3])
         clip_dp = self._clip_dp()
         bounds = flow_chunk_plan(cfg, t)
         form = raft_form(cfg, t, hw, clip_dp)
+        count(f"raft_form/{form}")
         blend = jax_flow_lookup(cfg, t, hw, clip_dp)
         self._report("compute_flow", 0, 1)
         if clip_dp is not None and len(bounds) > 1:

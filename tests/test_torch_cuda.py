@@ -1061,3 +1061,33 @@ def test_prop_fill_counts_46_a_node_clip(gen, cell):
     before = launched("prop_fill")
     tpp.bidirectional_propagation_image(x, ff, fb, m)
     assert launched("prop_fill") == before
+
+
+NODE_CLIP_LAUNCHES = {
+    # 6 RAFT calls (chunks of 4 frames) of 20 lookups in the map-dtype blend; B4 at the 60x108 token grid
+    "inpaint-720p.object": {"raft_form/chunks": 1, "corr_lookup_map": 120, "corr_lookup": 0,
+                            "window_attention_tiled": 8, "window_attention": 0, "prop_fill": 46},
+    # one RAFT call of 20 lookups in the lanes blend; B3 at the 30x54 token grid
+    "inpaint-360p.object": {"raft_form/one call": 1, "corr_lookup": 20, "corr_lookup_map": 0,
+                            "window_attention": 8, "window_attention_tiled": 0, "prop_fill": 46},
+}
+
+
+@pytest.mark.parametrize("cell", sorted(NODE_CLIP_LAUNCHES))
+def test_node_clip_launches_by_resolution(gen, cell):
+    """One 24-frame bf16 clip of each bf16 inpaint cell through the node:
+    RAFT's form (one `raft_form/<form>` a clip, no other form), the
+    lookup's blend and the attention kernel that the resolution picks."""
+    from benchmark.core import session, traffic
+    from comfyui_propainter_nodes_tpu_torch import nodes
+
+    spec = session.cell_spec(session.manifest(), cell)
+    widgets = session.widgets(spec)
+    image, mask = traffic.inputs(spec.mix, widgets, 7, 0)
+    node = nodes.ProPainterInpaint()
+    before = profiling.counters()
+    session.call_node(node, "inpaint", image, mask, widgets)
+    since = {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+    expected = NODE_CLIP_LAUNCHES[cell]
+    assert {k: since.get(k, 0) for k in expected} == expected
+    assert sum(v for k, v in since.items() if k.startswith("raft_form/")) == 1

@@ -229,8 +229,12 @@ def test_run_record_covers_the_whole_node_call(node_calls, kind):
 
 @pytest.mark.parametrize("kind", ["inpaint", "outpaint"])
 def test_a_cpu_node_call_launches_no_kernel(node_calls, kind):
-    """The plain versions run on the host: no launch counter moves."""
-    assert all(v == 0 for v in node_calls[kind]["counters"].values())
+    """The plain versions run on the host: no launch counter moves. The
+    plan's counter does, as on the card: one RAFT form a call."""
+    counters = node_calls[kind]["counters"]
+    forms = {k: v for k, v in counters.items() if k.startswith("raft_form/")}
+    assert forms == {"raft_form/one call": 1}
+    assert all(v == 0 for k, v in counters.items() if k not in forms)
 
 
 @pytest.mark.parametrize("blocking", [False, True])
