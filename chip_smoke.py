@@ -50,7 +50,13 @@ weights lookup of the run takes the cache and nothing is downloaded.
        batch of two 100-frame chunks with per-row restarts and an odd
        size (bilinear), both directions bit-equal to the plain steps;
        at the outpaint clip one step and a whole direction (23 steps)
-       timed both ways;
+       timed both ways; RAFT's pyramid build (`corr_pyramid`, bf16) at the
+       main path's and the outpaint canvas's one call (23 pairs of 45x80,
+       45x96) and 1280x720's calls of 4 and 3 pairs of 90x160: level 0
+       within one bf16 ulp and the sums' slack of the eager build, the
+       backward level 0 its forward one transposed and levels 1-3 the
+       plain pooling of its level 0, bit for bit; kernel and eager build
+       timed;
      then the gradients (fp32) at path T's shapes: B2 at x[2,60,108,128],
      B3 and B4 at a layer's attention (2 clips x 16 windows of 16 frames,
      t_sel 8, path T's occupancy), B5 on the same 20x36 token grid: each
@@ -817,6 +823,63 @@ STREAM_CLIP = (48, 360, 640)
 # path S's RAFT calls: 4-frame clips, 3 or 4 pairs of 90x160 (path A's is 3)
 PATH_S_RAFT_CALL = (4, 90, 160)
 
+# RAFT's pyramid builds (corr_pyramid), bf16, (pairs, H8, W8): the main
+# path's and the outpaint canvas's one call, and 1280x720's chunked calls
+# of 4 and 3 pairs (the benchmark's 720p cell runs 5 of 4 and 1 of 3)
+CORR_PYRAMID_CALLS = {"main": (23, 45, 80), "path_o": PATH_O_RAFT_CALL, "720p_4": PATH_S_RAFT_CALL,
+                      "path_a": PATH_A_RAFT_CALL}
+
+
+def check_corr_pyramid(gen):
+    """The pyramid kernel against its plain version (the eager build) at
+    each of CORR_PYRAMID_CALLS, both directions, 256 channels: level 0
+    within one bf16 ulp of the plain value plus 2^-16 of sum |f1 f2| /
+    sqrt(C) (the float32 sums' order), `max_abs_err` its largest
+    difference; the backward level 0 bit for bit the transpose of the
+    forward one; levels 1-3 bit for bit `pool_pyramid` of the kernel's
+    level 0. Each call timed (kernel: ten back to back a sample; plain:
+    one a sample). The bound: the maps read once and both directions'
+    four levels written, against the product's operations."""
+    from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_pyramid as mod
+
+    res = {}
+    c = 256
+    for tag, (n, h, w) in CORR_PYRAMID_CALLS.items():
+        f1, f2 = (torch.randn(n, h, w, c, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+        fwd, bwd = mod.corr_pyramids(f1, f2)
+        want, _ = mod.corr_pyramids_plain(f1, f2, backward=False)
+        a1, a2 = (f.reshape(n, h * w, c).float().abs() for f in (f1, f2))
+        slack = torch.matmul(a1, a2.transpose(1, 2)).reshape(n * h * w, h, w) / math.sqrt(c) * 2.0**-16
+        _, e = torch.frexp(want[0].float())
+        err = (fwd[0].float() - want[0].float()).abs()
+        beyond = int((err > torch.ldexp(torch.ones_like(err), e - 8) + slack).sum())
+        require(beyond == 0, f"corr_pyramid {tag}: {beyond} level-0 values beyond one bf16 ulp and the sums' slack")
+        max_err = float(err.max())
+        del want, a1, a2, slack, e, err
+        require(torch.equal(bwd[0].reshape(n, h * w, h * w), fwd[0].reshape(n, h * w, h * w).transpose(1, 2)),
+                f"corr_pyramid {tag}: the backward level 0 is not the forward one transposed")
+        for d, pyr in (("forward", fwd), ("backward", bwd)):
+            pooled = mod.pool_pyramid(pyr[0])
+            for lvl in range(1, 4):
+                require(torch.equal(pyr[lvl], pooled[lvl]),
+                        f"corr_pyramid {tag}: {d} level {lvl} is not the plain pooling of the kernel's level 0")
+        del fwd, bwd, pooled
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: mod.corr_pyramids(f1, f2))
+        plain_ms = time_ms(lambda: mod.corr_pyramids_plain(f1, f2), reps=5, warmup=1, batch=1)
+        hw = h * w
+        written = 2 * sum(n * hw * (h >> lvl) * (w >> lvl) for lvl in range(4)) * 2
+        bound, by = bound_ms(2.0 * n * hw * hw * c, written + 2 * n * hw * c * 2, torch.bfloat16)
+        res[tag] = dict(call=(n, h, w), max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        library_ms=None, written_bytes=written)
+        log(f"  corr_pyramid bf16 {tag} ({n} pairs of {h}x{w}): level 0 within tolerance (max abs err {max_err:.3g}), "
+            f"levels 1-3 and the transpose bit-equal; ms {ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} "
+            f"({by}, {written / 1e9:.3f} GB written), kernel / bound {ms / bound:.2f}")
+        del f1, f2
+        torch.cuda.empty_cache()
+    return res
+
+
 # path H: process_streaming over the synthetic clip at 1920x1080, 120 frames
 # (the JAX package's scripts/bench_configs.py config 5), default widgets;
 # its RAFT calls: 3-frame clips, 1 or 2 pairs of 135x240
@@ -1278,7 +1341,7 @@ WIDGETS = dict(
 # every launch counter of the port (utils/profiling.py::kernel): the kernels'
 # by their rows' names, and `conv_gemm`, the float32 convs of GEMM_SITES on cuBLAS
 KERNELS = ("corr_lookup", "corr_lookup_map", "deform_conv", "window_attention", "window_attention_tiled",
-           "window_attention_halo", "corr_window4", "corr_window", "conv_gemm", "prop_fill")
+           "window_attention_halo", "corr_window4", "corr_window", "conv_gemm", "prop_fill", "corr_pyramid")
 
 
 # each counter's kernel as the profiler names it on the node's bf16 paths
@@ -1287,7 +1350,7 @@ PROFILED = {
     "deform_conv": "deform_conv_mma_kernel",
     "window_attention": "window_attention_mma_kernel", "window_attention_tiled": "window_attention_split_mma_kernel",
     "window_attention_halo": "window_attention_halo_mma_kernel", "corr_window4": "corr_window4_kernel",
-    "corr_window": "corr_window_kernel", "prop_fill": "prop_fill_kernel",
+    "corr_window": "corr_window_kernel", "prop_fill": "prop_fill_kernel", "corr_pyramid": "corr_pyramid_kernel",
 }
 
 
@@ -1464,7 +1527,7 @@ def profile_run(run, timed_wall_s, name):
         "window_attention_kernel",
         "window_attention_split_mma_kernel", "window_attention_split_kernel", "window_attention_combine_kernel",
         "window_attention_halo_mma_kernel", "window_attention_halo_kernel", "corr_window4_kernel",
-        "corr_window_kernel", "prop_fill_kernel")}
+        "corr_window_kernel", "prop_fill_kernel", "corr_pyramid_kernel")}
     dtoh = sum(r[0] for r in rows if "DtoH" in r[2])
     share = busy / (timed_wall_s * 1e3)
     own = busy / (own_wall_s * 1e3)
@@ -1793,13 +1856,15 @@ def record_forms(pipe, forms: list):
 # the earlier paths' launches (every other counter 0); path S's B1 map
 # count is 76 RAFT calls of 20 iterations: its 24-pair flow sub-ranges;
 # prop_fill's, 2 (n - 1) a chunk of n frames: 24 frames, or path S's
-# chunks of 90, 100 and 90
+# chunks of 90, 100 and 90; corr_pyramid's, one a bf16 RAFT call (path B's
+# padded build stays eager)
 EARLIER_LAUNCHES = {
-    "main": dict(corr_lookup=20, deform_conv=66, window_attention=8, prop_fill=46),
-    "path_a": dict(corr_lookup_map=120, deform_conv=66, window_attention_tiled=8, prop_fill=46),
+    "main": dict(corr_lookup=20, deform_conv=66, window_attention=8, prop_fill=46, corr_pyramid=1),
+    "path_a": dict(corr_lookup_map=120, deform_conv=66, window_attention_tiled=8, prop_fill=46, corr_pyramid=6),
     "path_b": dict(deform_conv=66, window_attention_halo=8, corr_window4=20, prop_fill=46),
-    "path_o": dict(corr_lookup=20, deform_conv=66, window_attention=8, prop_fill=46),
-    "path_s": dict(corr_lookup_map=1520, deform_conv=1568, window_attention_tiled=384, prop_fill=554),
+    "path_o": dict(corr_lookup=20, deform_conv=66, window_attention=8, prop_fill=46, corr_pyramid=1),
+    "path_s": dict(corr_lookup_map=1520, deform_conv=1568, window_attention_tiled=384, prop_fill=554,
+                   corr_pyramid=76),
 }
 
 def live_growth(live, fills, h: int, w: int) -> list:
@@ -2235,8 +2300,8 @@ def path_c_run(need, forbid, ref_dir: str) -> dict:
 # the JAX size estimate, 14.9e6 and 14.1e6 at t_sel 10 and 9, sends
 # them to B4 (B3 below 12e6, as on the 24-frame main path)
 PATH_M_MESHES = {
-    (2, 1): ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
-    (1, 2): ("corr_lookup", "deform_conv", "prop_fill"),
+    (2, 1): ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill", "corr_pyramid"),
+    (1, 2): ("corr_lookup", "deform_conv", "prop_fill", "corr_pyramid"),
 }
 
 
@@ -2456,7 +2521,7 @@ def path_m_run(ref_dir: str) -> dict:
 # [0, 360) and [360, 720)); path A's kernels, B2's feature-propagation
 # launches in the row form (x[5,180,320,128], 96 rows a rank)
 PATH_MH = (24, 720, 1280)
-PATH_MH_NEED = ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill")
+PATH_MH_NEED = ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill", "corr_pyramid")
 
 
 def feature_peak(pipe, peaks: list):
@@ -3239,6 +3304,9 @@ def main() -> int:
         res[("B6", key)], res[("B7", key)] = cw["B6"], cw["B7"]
         res[("PF", key)] = check_prop_fill(dt, gen)
         torch.cuda.empty_cache()
+        if dt == torch.bfloat16:  # float32 maps keep the eager build
+            res[("CP", key)] = check_corr_pyramid(gen)
+            torch.cuda.empty_cache()
     grads = path_t_grad_checks(gen)
     torch.cuda.empty_cache()
     conv_gemm = check_conv_gemm(gen, table=False)
@@ -3249,13 +3317,14 @@ def main() -> int:
     # one RAFT call (w8 = 80, 723.5 MB a direction), the map-dtype blend for
     # path A's (w8 = 160)
     main_run, main_img, main_md = node_run(
-        "main path 640x360", 360, 640, ("corr_lookup", "deform_conv", "window_attention", "prop_fill"),
+        "main path 640x360", 360, 640, ("corr_lookup", "deform_conv", "window_attention", "prop_fill", "corr_pyramid"),
         ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window",
          "conv_gemm"),
         profile_name="profile.txt",
     )
     path_a, _, _ = node_run(
-        "path A 1280x720", 720, 1280, ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
+        "path A 1280x720", 720, 1280,
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill", "corr_pyramid"),
         ("corr_lookup", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
         profile_name="profile_720p.txt",
     )
@@ -3263,7 +3332,8 @@ def main() -> int:
     require(path_a["raft_forms"] == {"raft_form/chunks": 1}, f"path A: RAFT forms {path_a['raft_forms']}")
     path_b, b_img, _ = node_run(
         "path B 640x360 halo+pallas", 360, 640, ("deform_conv", "window_attention_halo", "corr_window4", "prop_fill"),
-        ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window", "conv_gemm"),
+        ("corr_lookup", "corr_lookup_map", "window_attention", "window_attention_tiled", "corr_window", "conv_gemm",
+         "corr_pyramid"),
         switched=True, profile_name="profile_switches.txt",
     )
     inside = main_md != 0
@@ -3274,7 +3344,7 @@ def main() -> int:
     # the outpaint canvas: RAFT's gate at both of its edges (w8 = 96, the
     # lanes' widest; 976.8 MB of the 1 GiB a direction) still takes the lanes
     path_o = outpaint_run(
-        ("corr_lookup", "deform_conv", "window_attention", "prop_fill"),
+        ("corr_lookup", "deform_conv", "window_attention", "prop_fill", "corr_pyramid"),
         ("corr_lookup_map", "window_attention_tiled", "window_attention_halo", "corr_window4", "corr_window",
          "conv_gemm"),
     )
@@ -3283,14 +3353,14 @@ def main() -> int:
     # path S: RAFT at w8 = 160 takes the map blend; one window of 19 frames
     # a transformer call, B4 by the size estimate
     path_s = path_s_run(
-        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill", "corr_pyramid"),
         ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
     )
     # path H at 1920x1080: the forced forms first (also its warm-up); RAFT
     # (w8 = 240) takes the map blend, the windows B4
     forced = forced_forms()
     path_h = path_h_run(
-        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill"),
+        ("corr_lookup_map", "deform_conv", "window_attention_tiled", "prop_fill", "corr_pyramid"),
         ("corr_lookup", "window_attention", "window_attention_halo", "corr_window4", "corr_window", "conv_gemm"),
     )
     card_vs_host(False, outpaint=True)
@@ -3432,6 +3502,14 @@ def main() -> int:
                                  max_abs_err_fp32=pf32[tag]["max_abs_err"])
            for tag in PROP_FILL_CLIPS if tag != "path_o"},
         "launches_by_path": {p: v["launches"]["prop_fill"] for p, v in paths.items()},
+    })
+    cp_ = res[("CP", "bfloat16")]
+    kernels.append({  # replaces no TPU kernel: the eager build (the JAX package leaves it to XLA)
+        "name": "corr_pyramid", "route": "cuda", "source": f"{pkg}/csrc/corr_pyramid.cu", "replaces": None,
+        "launches": main_run["launches"]["corr_pyramid"], "dtype": "bf16", "call": cp_["main"]["call"],
+        **subset(cp_["main"], KEEP),
+        **{f"{tag}_call": subset(cp_[tag], ("call",) + KEEP) for tag in CORR_PYRAMID_CALLS if tag != "main"},
+        "launches_by_path": {p: v["launches"]["corr_pyramid"] for p, v in paths.items()},
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"conv_gemm": conv_gemm}))

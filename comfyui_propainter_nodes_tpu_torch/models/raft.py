@@ -3,9 +3,13 @@
 Port of the JAX package's `models/raft.py`: NHWC activations, upstream
 weights, the 20-step recurrent update as a Python loop over the
 (net, coords) state. The all-pairs correlation of each adjacent pair is
-computed once (the backward volume is its transpose) as one fp32
-`torch.matmul`, pooled into the pixel-major 4-level pyramids, and looked
-up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py),
+computed once (the backward volume is its transpose) into the
+pixel-major 4-level pyramids of both directions: from bf16 maps by one
+launch of the corr-pyramid kernel (ops/cuda/corr_pyramid.py: the product
+on the tensor cores, every level written from its tile, no float32
+volume), from float32 maps as one fp32 `torch.matmul` pooled eagerly
+(`corr_pyramids_plain`, also the CPU's build of bf16 maps). The pyramids
+are looked up every iteration by the corr-lookup kernel (ops/cuda/corr_lookup.py),
 both directions in one launch that writes the compute dtype, with the
 blend the caller names or, by default, the one the JAX dispatcher picks
 (`lookup_mode`). `raft_forward` is one direction (the JAX package's
@@ -29,7 +33,6 @@ upsampling, `_refine`).
 
 from __future__ import annotations
 
-import math
 import os
 from typing import Mapping
 
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import batch_norm_eval, instance_norm, pconv2d, pconv2d_many
 from ..ops.cuda.corr_lookup import corr_lookup
+from ..ops.cuda.corr_pyramid import all_pairs_corr, corr_pyramids, corr_pyramids_plain, pool_pyramid
 from ..ops.cuda.corr_window import corr_window_lookup4
 from ..ops.patches import unfold
 from ..ops.warp import coords_grid
@@ -94,48 +98,14 @@ def basic_encoder(p: Params, pre: str, x, norm: str):
 # ---------------------------------------------------------- corr pyramid
 
 
-def _all_pairs_corr(fmap1, fmap2):
-    """[N, H, W, C] x2 -> [N, H*W, H*W] correlation / sqrt(C), computed in
-    fp32 and stored in the compute dtype. The scale is applied in place:
-    one fp32 product is live, not two (3.9 GiB a pair at 1920x1080)."""
-    n, h, w, c = fmap1.shape
-    f1 = fmap1.reshape(n, h * w, c).float()
-    f2 = fmap2.reshape(n, h * w, c).float()
-    corr = torch.matmul(f1, f2.transpose(1, 2))
-    corr.div_(math.sqrt(c))
-    return corr.to(fmap1.dtype)
-
-
-def pool_pyramid(level0):
-    """[M, H, W] maps -> 4 levels of 2x2 average pools (odd tails dropped;
-    a level may be empty at tiny sizes, and then reads as zeros)."""
-    pyramid = [level0]
-    m = level0
-    for _ in range(CORR_LEVELS - 1):
-        h2, w2 = m.shape[1] // 2, m.shape[2] // 2
-        msum = m[:, 0 : 2 * h2 : 2] + m[:, 1 : 2 * h2 : 2]
-        m = msum[:, :, 0 : 2 * w2 : 2] * 0.25 + msum[:, :, 1 : 2 * w2 : 2] * 0.25
-        pyramid.append(m.contiguous())
-    return pyramid
-
-
-def build_corr_pyramids(fmap1, fmap2):
+def build_corr_pyramids(fmap1, fmap2, backward: bool = True):
     """(forward, backward) pixel-major pyramids from ONE all-pairs product:
-    forward maps are corr[n, p, :] over image-2 coords, backward maps are
-    its transpose over image-1 coords."""
-    n, h, w, _ = fmap1.shape
-    corr = _all_pairs_corr(fmap1, fmap2)
-    fwd = pool_pyramid(corr.reshape(n * h * w, h, w))
-    # at n = 1 the reshape of the transpose is a strided view, not a copy
-    bwd = pool_pyramid(corr.transpose(1, 2).reshape(n * h * w, h, w).contiguous())
-    return fwd, bwd
-
-
-def build_corr_pyramid(fmap1, fmap2):
-    """One direction's pixel-major pyramid: corr[n, p, :] over image-2
-    coords (the forward half of `build_corr_pyramids`)."""
-    n, h, w, _ = fmap1.shape
-    return pool_pyramid(_all_pairs_corr(fmap1, fmap2).reshape(n * h * w, h, w))
+    forward maps are corr[n, p, :] over image-2 coords, backward maps (None
+    without `backward`) its transpose over image-1 coords. bf16 maps take
+    `corr_pyramids` (one kernel launch on the card); other dtypes the
+    eager build."""
+    build = corr_pyramids if fmap1.dtype == torch.bfloat16 else corr_pyramids_plain
+    return build(fmap1, fmap2, backward)
 
 
 def build_padded_pyramid(fmap1, fmap2):
@@ -143,7 +113,7 @@ def build_padded_pyramid(fmap1, fmap2):
     `build_corr_pyramid(pad=True)`), laid out as `build_padded_pyramid_bi`
     lays out each half."""
     n, h, w, _ = fmap1.shape
-    corr = _all_pairs_corr(fmap1, fmap2)
+    corr = all_pairs_corr(fmap1, fmap2)
     level0 = corr.new_zeros((n * h * w, h + 2 * PAD, w + 2 * PAD))
     level0[:, PAD : PAD + h, PAD : PAD + w] = corr.view(n * h * w, h, w)
     del corr
@@ -158,7 +128,7 @@ def build_padded_pyramid_bi(fmap1, fmap2):
     its padded buffer, the backward half from the transposed product."""
     n, h, w, _ = fmap1.shape
     hw = h * w
-    corr = _all_pairs_corr(fmap1, fmap2)
+    corr = all_pairs_corr(fmap1, fmap2)
     level0 = corr.new_zeros((2, n, hw, h + 2 * PAD, w + 2 * PAD))
     level0[0, :, :, PAD : PAD + h, PAD : PAD + w] = corr.view(n, hw, h, w)
     level0[1, :, :, PAD : PAD + h, PAD : PAD + w] = corr.transpose(1, 2).view(n, hw, h, w)
@@ -234,7 +204,11 @@ def call_bytes(n: int, h8: int, w8: int, esz: int, mode: str, directions: int = 
     transpose; zero-padded by PAD on each side under "pallas"). At
     1920x1080 in bf16 a pair's product is 3.9 GiB of fp32; the encoders,
     the update loop and the flows it leaves out came to about 3 GiB more
-    for 2-pair calls there (the high-res plans' bring-up, CHANGES.md)."""
+    for 2-pair calls there (the high-res plans' bring-up, CHANGES.md).
+    A bf16 call on the card holds only the pyramids (the corr-pyramid
+    kernel writes no product), so there the estimate is high by the
+    product's share; it stays the eager build's, which the RAFT forms
+    were planned on and which the CPU and the "pallas" build still run."""
     hw = h8 * w8
     v = float(n) * hw * hw
     product = v * 4 + (v * esz if esz != 4 else 0)
@@ -325,10 +299,7 @@ def _lookup_fn(mode: str, fmap1, fmap2, bidirectional: bool):
     if mode == "pallas":
         pyr = build_padded_pyramid_bi(fmap1, fmap2) if bidirectional else build_padded_pyramid(fmap1, fmap2)
         return lambda c: lookup_padded(pyr, c)
-    if bidirectional:
-        pyr_f, pyr_b = build_corr_pyramids(fmap1, fmap2)
-    else:
-        pyr_f, pyr_b = build_corr_pyramid(fmap1, fmap2), None
+    pyr_f, pyr_b = build_corr_pyramids(fmap1, fmap2, backward=bidirectional)
     return lambda c: corr_lookup(pyr_f, c, pyr_b, blend=mode)
 
 

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "propainter_corr_window": [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P],
     "propainter_corr_window4": [_P] * 4 + [_I] * 8 + [_P] * 5 + [ctypes.c_longlong, _I, _P],
     "propainter_prop_fill": [_P] * 7 + [_I] * 9 + [_P],
+    "propainter_corr_pyramid": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
 

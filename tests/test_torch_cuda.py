@@ -11,6 +11,8 @@ for sums over hundreds of terms; bf16 3e-2 (the plain versions compute
 in fp32 and round once; the kernels round the output too, and B2 its
 samples, so a bf16 ulp or two of the result can separate them)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from comfyui_propainter_nodes_tpu_torch.models.raft import build_corr_pyramids
 from comfyui_propainter_nodes_tpu_torch.ops import conv
 from comfyui_propainter_nodes_tpu_torch.pipeline.stages import full_fp32
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_lookup as b1
+from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_pyramid as cpk
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import corr_window as b67
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import deform_conv as b2
 from comfyui_propainter_nodes_tpu_torch.ops.cuda import prop_fill as pf
@@ -1064,11 +1067,12 @@ def test_prop_fill_counts_46_a_node_clip(gen, cell):
 
 
 NODE_CLIP_LAUNCHES = {
-    # 6 RAFT calls (chunks of 4 frames) of 20 lookups in the map-dtype blend; B4 at the 60x108 token grid
-    "inpaint-720p.object": {"raft_form/chunks": 1, "corr_lookup_map": 120, "corr_lookup": 0,
+    # 6 RAFT calls (chunks of 4 frames), each one pyramid build and 20 lookups in the map-dtype blend;
+    # B4 at the 60x108 token grid
+    "inpaint-720p.object": {"raft_form/chunks": 1, "corr_pyramid": 6, "corr_lookup_map": 120, "corr_lookup": 0,
                             "window_attention_tiled": 8, "window_attention": 0, "prop_fill": 46},
-    # one RAFT call of 20 lookups in the lanes blend; B3 at the 30x54 token grid
-    "inpaint-360p.object": {"raft_form/one call": 1, "corr_lookup": 20, "corr_lookup_map": 0,
+    # one RAFT call: one pyramid build and 20 lookups in the lanes blend; B3 at the 30x54 token grid
+    "inpaint-360p.object": {"raft_form/one call": 1, "corr_pyramid": 1, "corr_lookup": 20, "corr_lookup_map": 0,
                             "window_attention": 8, "window_attention_tiled": 0, "prop_fill": 46},
 }
 
@@ -1091,3 +1095,116 @@ def test_node_clip_launches_by_resolution(gen, cell):
     expected = NODE_CLIP_LAUNCHES[cell]
     assert {k: since.get(k, 0) for k in expected} == expected
     assert sum(v for k, v in since.items() if k.startswith("raft_form/")) == 1
+
+
+# RAFT's correlation pyramids (corr_pyramid): (pairs, H8, W8, channels): the
+# cells' calls (one of 23 pairs at 640x360 and on the 768x360 canvas, 4 and 3
+# pairs at 1280x720) and odd or tiny grids (levels 2-3 empty at 3x5)
+CORR_PYRAMID_CASES = {
+    "inpaint_360p": (23, 45, 80, 256),
+    "outpaint_360p": (23, 45, 96, 256),
+    "720p_4": (4, 90, 160, 256),
+    "720p_3": (3, 90, 160, 256),
+    "odd": (2, 45, 81, 256),
+    "odd_small": (3, 9, 13, 64),
+    "tiny": (2, 3, 5, 16),
+}
+
+
+def _pyramid_maps(gen, case, integer=False):
+    n, h, w, c = CORR_PYRAMID_CASES[case]
+    if integer:  # every float32 sum exact, in any order
+        return [torch.randint(-3, 4, (n, h, w, c), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2)]
+    return [torch.randn(n, h, w, c, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2)]
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("case", list(CORR_PYRAMID_CASES))
+def test_corr_pyramid_matches_plain(gen, case):
+    """The kernel against the eager build on the card, one launch a call:
+    level 0 within one bf16 ulp of the plain value plus 2^-16 of the sum
+    of |f1 f2| / sqrt(C) (two float32 sums of C products in another order
+    differ by at most that before each rounds to bf16, and where the sum
+    cancels that term is the larger); the backward level 0 bit for bit the
+    transpose of the kernel's forward one; levels 1-3 of both directions
+    bit for bit `pool_pyramid` of the kernel's own level 0."""
+    n, h, w, c = CORR_PYRAMID_CASES[case]
+    f1, f2 = _pyramid_maps(gen, case)
+    before = launched("corr_pyramid")
+    fwd, bwd = cpk.corr_pyramids(f1, f2, backward=True)
+    assert launched("corr_pyramid") == before + 1
+    want_f, _ = cpk.corr_pyramids_plain(f1, f2, backward=False)
+    a1, a2 = (f.reshape(n, h * w, c).float().abs() for f in (f1, f2))
+    slack = torch.matmul(a1, a2.transpose(1, 2)).reshape(n * h * w, h, w) / math.sqrt(c) * 2.0**-16
+    err = (fwd[0].float() - want_f[0].float()).abs()
+    tol = _bf16_ulp(want_f[0]) + slack
+    assert bool((err <= tol).all()), f"{int((err > tol).sum())} values beyond, max err {float(err.max())}"
+    del want_f, a1, a2, slack, err, tol
+    f0 = fwd[0].reshape(n, h * w, h * w)
+    assert torch.equal(bwd[0].reshape(n, h * w, h * w), f0.transpose(1, 2))
+    for got in (fwd, bwd):
+        want = cpk.pool_pyramid(got[0])
+        for lvl in range(1, 4):
+            assert got[lvl].shape == want[lvl].shape and got[lvl].dtype == torch.bfloat16
+            assert torch.equal(got[lvl], want[lvl]), f"level {lvl}: {int((got[lvl] != want[lvl]).sum())} differ"
+
+
+@pytest.mark.parametrize("case", ["inpaint_360p", "720p_3", "odd", "odd_small", "tiny"])
+def test_corr_pyramid_integer_maps_bit_equal(gen, case):
+    """Integer-valued maps: every sum is exact, so both directions' four
+    levels equal the plain build bit for bit, and the forward-only call
+    the forward half of the two-direction one."""
+    f1, f2 = _pyramid_maps(gen, case, integer=True)
+    fwd, bwd = cpk.corr_pyramids(f1, f2, backward=True)
+    want_f, want_b = cpk.corr_pyramids_plain(f1, f2, backward=True)
+    for got, want in ((fwd, want_f), (bwd, want_b)):
+        for lvl in range(4):
+            assert torch.equal(got[lvl], want[lvl]), f"level {lvl}: {int((got[lvl] != want[lvl]).sum())} differ"
+    del want_f, want_b, bwd
+    only, none = cpk.corr_pyramids(f1, f2, backward=False)
+    assert none is None
+    for lvl in range(4):
+        assert torch.equal(only[lvl], fwd[lvl])
+
+
+def test_corr_pyramid_dtype_rule_on_the_card(gen):
+    """bf16 maps launch the kernel once a RAFT build; float32 maps on the
+    card take the eager build through models/raft.py and raise at the
+    wrapper; a call under grad with maps that require grad raises."""
+    f1, f2 = _pyramid_maps(gen, "odd_small")
+    before = launched("corr_pyramid")
+    traft.build_corr_pyramids(f1, f2)
+    traft.build_corr_pyramids(f1, f2, backward=False)
+    assert launched("corr_pyramid") == before + 2
+    traft.build_corr_pyramids(f1.float(), f2.float())
+    traft.build_corr_pyramids(f1.float(), f2.float(), backward=False)
+    assert launched("corr_pyramid") == before + 2
+    with pytest.raises(ValueError, match="must be bf16"):
+        cpk.corr_pyramids(f1.float(), f2.float())
+    with pytest.raises(ValueError, match="no backward"):
+        cpk.corr_pyramids(f1.float().requires_grad_().to(torch.bfloat16), f2)
+    with torch.no_grad():
+        cpk.corr_pyramids(f1.clone().requires_grad_(), f2)
+    assert launched("corr_pyramid") == before + 3
+
+
+@pytest.mark.parametrize("cell,launches", [("outpaint-360p.sides", 1), ("inpaint-360p-fp32.object", 0)])
+def test_corr_pyramid_counts_a_node_clip(gen, cell, launches):
+    """One node clip of each 360p cell's traffic: one pyramid build in bf16
+    (RAFT's one call), none in float32 (the eager build)."""
+    from benchmark.core import session, traffic
+    from comfyui_propainter_nodes_tpu_torch import nodes
+
+    spec = session.cell_spec(session.manifest(), cell)
+    widgets = session.widgets(spec)
+    kind = spec.mix["node"]
+    image, mask = traffic.inputs(spec.mix, widgets, 7, 0)
+    node = (nodes.ProPainterInpaint if kind == "inpaint" else nodes.ProPainterOutpaint)()
+    before = launched("corr_pyramid")
+    session.call_node(node, kind, image, mask, widgets)
+    assert launched("corr_pyramid") - before == launches
